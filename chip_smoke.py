@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (non-zero exit, no result line):
+
+1. device: print ``nvidia-smi``'s name and power limit; no CUDA → exit 1.
+2. build: compile every CUDA source of the port with nvcc (in parallel).
+3. kernels: each kernel against its plain PyTorch version on the card at
+   stablelm-3b's full-width shapes (bf16 and int8 pools, plus small GQA /
+   local / soft-cap cases), with kernel, plain and library times.
+4. serve: ``ServingEngine`` serves a 12-request shared-prefix trace at
+   stablelm-3b full width (random seeded weights), with prefix hits,
+   chunked suffix prefill and copy-on-write; both kernels' launch counts,
+   reset just before and read just after, must be > 0.
+5. reference: smoke-size prefill and decode logits on the card (kernels)
+   agree with the same model on the CPU (plain versions).
+
+The second-to-last line is the ``kernels`` JSON record; the last is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor rate
+# Kernel vs plain version: both accumulate in f32 from the same bf16/int8
+# inputs and differ only in summation order and exp rounding (~1e-6
+# relative); 2e-3 absolute and relative leaves room for int8 scores.
+ATOL = RTOL = 2e-3
+# Smoke-size f32 model, card (kernels, cuBLAS) vs CPU (plain versions).
+REF_ATOL = 1e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# Timed calls rotate over this many independent input sets, so that the
+# decode pools (42 MB each at full width) do not sit in the 50 MB L2 from
+# one call to the next: the serving path meets each layer's pool cold.
+ROTATE = 8
+
+
+def cuda_ms(fns, iters: int = 24, warmup: int = 3) -> float:
+    """Mean device time of one call, by CUDA events around ``iters`` calls
+    cycling over ``fns`` (one closure per input set)."""
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+
+def make_pool(gen, n_pages, bs, hkv, dh, int8, dev):
+    shape = (n_pages, bs, hkv, dh)
+    if int8:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        ks = torch.rand(shape[:3], generator=gen, device=dev) + 0.1
+        vs = torch.rand(shape[:3], generator=gen, device=dev) + 0.1
+        return kp, vp, dict(k_scale=ks, v_scale=vs)
+    kp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    return kp, vp, {}
+
+
+def decode_case(gen, dev, b, h, hkv, dh, bs, w, int8):
+    n_pages = b * w + 1
+    kp, vp, sc = make_pool(gen, n_pages, bs, hkv, dh, int8, dev)
+    q = torch.randn((b, h, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * w] + 1)
+    table = table.reshape(b, w).to(torch.int32)
+    pos = torch.randint(0, w * bs, (b,), generator=gen, device=dev, dtype=torch.int32)
+    pos[0] = w * bs - 1                       # one slot uses the whole table
+    nblk = (pos // bs + 1).clamp(max=w)
+    cols = torch.arange(w, device=dev)[None]
+    table = torch.where(cols < nblk[:, None], table, -1)  # unassigned ids past pos
+    table[1, 0] = -1                          # a live id < 0 reads page 0
+    return q, kp, vp, table.contiguous(), pos, sc
+
+
+def prefill_case(gen, dev, s, q0, h, hkv, dh, bs, w, int8):
+    n_pages = w + 2
+    kp, vp, sc = make_pool(gen, n_pages, bs, hkv, dh, int8, dev)
+    q = torch.randn((s, h, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:w] + 1).to(torch.int32)
+    return q, kp, vp, table.contiguous(), q0, sc
+
+
+def decode_bound(q, kp, table, pos, sc):
+    b, h, dh = q.shape
+    _, bs, hkv, _ = kp.shape
+    live = int((pos // bs + 1).clamp(max=table.shape[1]).sum()) * bs  # keys read
+    page_bytes = live * hkv * dh * kp.element_size() * 2
+    if sc:
+        page_bytes += live * hkv * 4 * 2
+    nbytes = page_bytes + q.numel() * q.element_size() + b * h * dh * 4 \
+        + table.numel() * 4 + pos.numel() * 4
+    keys = int((pos + 1).clamp(max=table.shape[1] * bs).sum())   # unmasked keys
+    flops = 4 * keys * h * dh
+    return bound_record(nbytes, flops)
+
+
+def prefill_bound(q, kp, table, q0, sc):
+    s, h, dh = q.shape
+    _, bs, hkv, _ = kp.shape
+    nblk = min(table.shape[0], (q0 + s - 1) // bs + 1)
+    live = nblk * bs
+    page_bytes = live * hkv * dh * kp.element_size() * 2
+    if sc:
+        page_bytes += live * hkv * 4 * 2
+    nbytes = page_bytes + q.numel() * q.element_size() + s * h * dh * 4 + table.numel() * 4
+    keys = sum(min(q0 + i + 1, live) for i in range(s))
+    flops = 4 * keys * h * dh
+    return bound_record(nbytes, flops)
+
+
+def bound_record(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes,
+        "flops": flops,
+    }
+
+
+def sdpa_decode(q, kp, vp, table, pos):
+    """Library yardstick: SDPA over the pre-gathered window (bf16 pools)."""
+    import torch.nn.functional as F
+
+    b, h, dh = q.shape
+    _, bs, hkv, _ = kp.shape
+    ids = table.long().clamp_min(0)
+    k = kp[ids].reshape(b, -1, hkv, dh).transpose(1, 2).contiguous()
+    v = vp[ids].reshape(b, -1, hkv, dh).transpose(1, 2).contiguous()
+    mask = torch.arange(k.shape[2], device=q.device)[None, :] <= pos[:, None].long()
+    qq = q[:, :, None, :]
+    m = mask[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=m, enable_gqa=hkv != h)
+
+
+def sdpa_prefill(q, kp, vp, table, q0):
+    import torch.nn.functional as F
+
+    s, h, dh = q.shape
+    _, bs, hkv, _ = kp.shape
+    ids = table.long().clamp_min(0)
+    k = kp[ids].reshape(-1, hkv, dh).transpose(0, 1)[None].contiguous()
+    v = vp[ids].reshape(-1, hkv, dh).transpose(0, 1)[None].contiguous()
+    qpos = q0 + torch.arange(s, device=q.device)[:, None]
+    mask = (torch.arange(k.shape[2], device=q.device)[None, :] <= qpos)[None, None]
+    qq = q.transpose(0, 1)[None].contiguous()
+    return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask, enable_gqa=hkv != h)
+
+
+def time_kernel(rec, cases, kernel, plain, library, label) -> dict:
+    """Kernel, plain and library times over rotating input sets."""
+    def bind(fn, c):
+        *args, sc = c
+        return lambda: fn(*args, **sc)
+
+    rec["ms"] = cuda_ms([bind(kernel, c) for c in cases])
+    rec["plain_ms"] = cuda_ms([bind(plain, c) for c in cases])
+    rec["library_ms"] = (
+        cuda_ms([library(*c[:-1]) for c in cases]) if library is not None else None
+    )
+    log(f"  {label}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"sdpa {rec['library_ms']} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+        f"{rec['bytes']} bytes, {rec['flops']} flops)")
+    return rec
+
+
+def check(name, got, want, errs):
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, atol=ATOL, rtol=RTOL)
+    log(f"  {name}: max|err| {err:.3e} (atol=rtol={ATOL}) {'ok' if ok else 'FAIL'}")
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    errs.append(err)
+
+
+def kernel_phase(dev) -> dict:
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"decode": [], "prefill": []}
+    timing = {}
+    # full width: stablelm-3b heads (H = Hkv = 32, Dh = 80), bs = 16
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        cases = [decode_case(gen, dev, 8, 32, 32, 80, 16, 32, int8) for _ in range(ROTATE)]
+        q, kp, vp, table, pos, sc = cases[0]
+        args = (q, kp, vp, table, pos)
+        check(f"decode {tag} B=8 W=32", PA.paged_attention_cuda(*args, **sc),
+              ref.paged_attention_ref(*args, **sc), errs["decode"])
+        timing[("decode", tag)] = time_kernel(
+            decode_bound(q, kp, table, pos, sc), cases,
+            PA.paged_attention_cuda, ref.paged_attention_ref,
+            None if int8 else sdpa_decode, f"decode {tag} B=8 W=32",
+        )
+        for q0 in (0, 128):
+            cases = [prefill_case(gen, dev, 128, q0, 32, 32, 80, 16, 16, int8)
+                     for _ in range(ROTATE if q0 else 1)]
+            q, kp, vp, table, _, sc = cases[0]
+            args = (q, kp, vp, table, q0)
+            check(f"prefill {tag} S=128 q0={q0}", PF.paged_prefill_attention_cuda(*args, **sc),
+                  ref.prefill_attention_ref(*args, **sc), errs["prefill"])
+        timing[("prefill", tag)] = time_kernel(
+            prefill_bound(q, kp, table, 128, sc), cases,
+            PF.paged_prefill_attention_cuda, ref.prefill_attention_ref,
+            None if int8 else sdpa_prefill, f"prefill {tag} S=128 q0=128",
+        )
+    # small cases: GQA, local windows, soft-capping, f32 queries on int8
+    for kind, lw, cap, hkv in (("global", 0, 30.0, 8), ("local", 37, 0.0, 4), ("local", 20, 50.0, 32)):
+        kw = dict(kind=kind, local_window=lw, softcap=cap)
+        for int8 in (False, True):
+            tag = f"{kind} lw={lw} cap={cap} Hkv={hkv} {'int8' if int8 else 'bf16'}"
+            q, kp, vp, table, pos, sc = decode_case(gen, dev, 3, 32, hkv, 80, 16, 8, int8)
+            if int8:
+                q = q.float()
+            args = (q, kp, vp, table, pos)
+            check(f"decode {tag}", PA.paged_attention_cuda(*args, **kw, **sc),
+                  ref.paged_attention_ref(*args, **kw, **sc), errs["decode"])
+            q, kp, vp, table, _, sc = prefill_case(gen, dev, 37, 45, 32, hkv, 80, 16, 6, int8)
+            args = (q, kp, vp, table, 45)
+            check(f"prefill {tag}", PF.paged_prefill_attention_cuda(*args, **kw, **sc),
+                  ref.prefill_attention_ref(*args, **kw, **sc), errs["prefill"])
+    torch.cuda.synchronize()
+    return {"errs": errs, "timing": timing}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serve stablelm-3b at full width.
+# ---------------------------------------------------------------------------
+
+
+def serve_trace(vocab: int) -> list[list[int]]:
+    """12 prompts of 16-300 tokens: four share a 128-token prefix (one cold,
+    three partial hits), a 120-token prompt repeats at once (full hit that
+    forks its unaligned boundary block copy-on-write), six are unrelated."""
+    rng = np.random.default_rng(0)
+    tok = lambda n: rng.integers(0, vocab, n).tolist()  # noqa: E731
+    prefix, y = tok(128), tok(120)
+    a = prefix + tok(72)
+    prompts = [y, y, a, prefix + tok(72)]
+    prompts += [tok(int(n)) for n in rng.integers(16, 301, 4)]
+    prompts += [prefix + tok(72), a]
+    prompts += [tok(int(n)) for n in rng.integers(16, 301, 2)]
+    return prompts
+
+
+def serve_phase(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = get_config("stablelm-3b")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  init stablelm-3b ({cfg.n_layers}L d{cfg.d_model} H{cfg.n_heads} Dh{cfg.head_dim} "
+        f"ff{cfg.d_ff} V{cfg.vocab} {cfg.dtype}) in {time.perf_counter() - t0:.1f} s")
+    scfg = ServeConfig(
+        max_batch=8, max_len=512, kv_block_size=16, prefill_chunk=128,
+        max_new_tokens=32, prefill_buckets=(32, 64, 120, 128, 200, 256, 320),
+    )
+    eng = ServingEngine(params, cfg, scfg, device=dev)
+    prompts = serve_trace(cfg.vocab)
+    for p in prompts:
+        eng.submit(p)
+    PA.launches = PF.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"decode": PA.launches, "prefill": PF.launches}
+    m = eng.metrics()
+    log(f"  served {m.completed} requests, {m.total_tokens} tokens in {wall:.2f} s: "
+        f"{m.tokens_per_s:.1f} tok/s, TTFT mean {m.ttft_mean * 1e3:.1f} ms p99 "
+        f"{m.ttft_p99 * 1e3:.1f} ms, decode step {m.decode_step_ms:.2f} ms over "
+        f"{m.decode_steps} steps, occupancy {m.occupancy_mean:.2f}")
+    log(f"  prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, cow forks "
+        f"{m.cow_forks}, prefill tokens {m.prefill_tokens} (saved {m.prefill_tokens_saved}), "
+        f"launches decode {launches['decode']} prefill {launches['prefill']} "
+        f"(per decode step {launches['decode'] / max(m.decode_steps, 1):.1f})")
+    assert sorted(outs) == list(range(len(prompts))), "requests lost"
+    assert all(len(o) == 32 and all(0 <= t < cfg.vocab for t in o) for o in outs.values())
+    assert m.evictions == {"length": len(prompts)}, m.evictions
+    assert m.prefix_hits >= 1 and m.prefix_partial_hits >= 2 and m.cow_forks >= 1
+    assert launches["decode"] > 0 and launches["prefill"] > 0, launches
+    profile_decode(eng, cfg.vocab)
+    return {"launches": launches, "metrics": dataclasses.asdict(m), "wall_s": wall}
+
+
+def profile_decode(eng, vocab: int, n_ticks: int = 5) -> None:
+    """Steady-state breakdown of full-batch decode ticks: host time per
+    tick, device busy share, and the kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1)
+    for _ in range(eng.cfg.max_batch):
+        eng.submit(rng.integers(0, vocab, 100).tolist(), max_new_tokens=n_ticks + 16)
+    while eng._job_fifo or eng.sched.queued():
+        eng.tick()
+    eng.tick()  # warm: every slot decoding
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    gpu = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
+    log(f"  profile: {n_ticks} full-batch decode ticks, {wall_ms / n_ticks:.2f} ms/tick host, "
+        f"device busy {busy_ms / n_ticks:.2f} ms/tick ({100 * busy_ms / wall_ms:.1f}% of wall), "
+        f"{sum(e.count for e in gpu) // n_ticks} kernels/tick")
+    for e in sorted(gpu, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3 / n_ticks:8.3f} ms/tick  "
+            f"{e.count // n_ticks:5d}x  {e.key[:90]}")
+    eng.run()
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: small input against the plain path on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def reference_phase(dev) -> None:
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TF
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), dtype="float32")
+    host = TF.init_lm(cfg, seed=1, device="cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (1, 40)).astype(np.int32))
+    row = torch.tensor([3, 7, 1, 9], dtype=torch.int32)
+    table = torch.tensor([[3, 7, 1, 9], [0, 0, 0, 0]], dtype=torch.int32)
+    logits = {}
+    for d in ("cpu", dev):
+        params = to(host, d)
+        cache = TF.init_paged_decode_cache(cfg, 2, 12, 16, device=d)
+        state = TF.init_prefill_state(cfg, d)
+        out = []
+        for lo, hi in ((0, 32), (32, 40)):
+            _, state, lg = TF.lm_prefill_chunk(
+                params, toks[:, lo:hi].to(d), cfg, cache, state, row.to(d), lo
+            )
+            out.append(lg)
+        cache["pos"] = torch.tensor([40, 5], dtype=torch.int32, device=d)
+        tok = torch.tensor([5, 9], dtype=torch.int32, device=d)
+        for _ in range(3):
+            cache, lg = TF.lm_decode_step(params, cache, tok, cfg, table.to(d))
+            out.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+        logits[str(d)] = [x.float().cpu() for x in out]
+    errs = [float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[str(dev)])]
+    log(f"  smoke f32 logits card vs CPU: max|err| {max(errs):.3e} (atol {REF_ATOL})")
+    if max(errs) > REF_ATOL:
+        raise AssertionError("card logits disagree with the CPU plain path")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    log("== device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    log("== build")
+    t0 = time.perf_counter()
+    logs = build.build_all(["paged_attention", "prefill_attention"])
+    log(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("== kernels vs plain versions")
+    kres = kernel_phase(dev)
+    log("== serve stablelm-3b")
+    sres = serve_phase(dev)
+    log("== small-input reference")
+    reference_phase(dev)
+
+    kernels = []
+    for key, name, src, replaces in (
+        ("decode", "paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:204"),
+        ("prefill", "paged_prefill_attention", "src/repro_torch/kernels/csrc/prefill_attention.cu",
+         "src/repro/kernels/prefill_attention.py:210"),
+    ):
+        t = kres["timing"][(key, "bf16")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sres["launches"][key], "max_abs_err": max(kres["errs"][key]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

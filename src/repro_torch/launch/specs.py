@@ -1,0 +1,117 @@
+"""The paged serving entry points the engine drives (``repro/launch/specs.py``).
+
+Each ``make_*`` returns a plain function on tensors.  The reference jits
+and donates; here the functions run eagerly and update the pool in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import ModelConfig
+from repro_torch.models import transformer as TF
+
+PAGE_POOL_LEAVES = TF.PAGE_POOL_LEAVES
+
+# Per-slot logit-sanity codes emitted by the paged serve step (the third
+# output).  0 is healthy; nonzero codes map to typed eviction reasons.
+SANE_OK = 0
+SANE_NAN = 1
+SANE_SATURATED = 2
+SANE_ENTROPY_COLLAPSE = 3
+SANITY_REASONS = {
+    SANE_NAN: "nan",
+    SANE_SATURATED: "saturated",
+    SANE_ENTROPY_COLLAPSE: "entropy_collapse",
+}
+
+
+def cache_batch_axis(leaf_name: str) -> int:
+    """Slot axis of a per-slot cache leaf (``pos`` is (B,))."""
+    if leaf_name == "pos":
+        return 0
+    raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm cache")
+
+
+def make_paged_suffix_prefill(cfg: ModelConfig):
+    """One suffix chunk of a resumable, chunked paged prefill:
+    (params, cache, state{B=1}, tokens (1, c), table_row (Wp,) int32, q0)
+    → (cache, state', last-token logits (1, V)).  Only the page-pool leaves
+    of ``cache`` are touched; the per-slot leaves ride along, so a prefill
+    in flight never disturbs the batched decode of the other slots (the
+    engine writes ``state`` at the slot once, on completion)."""
+
+    def suffix_chunk(params, cache: dict, state: dict, tokens, table_row, q0: int):
+        pool = {n: cache[n] for n in PAGE_POOL_LEAVES if n in cache}
+        _, new_state, logits = TF.lm_prefill_chunk(
+            params, tokens, cfg, pool, state, table_row, q0
+        )
+        return cache, new_state, logits
+
+    return suffix_chunk
+
+
+def make_paged_state_insert(cfg: ModelConfig):
+    """(cache, state_leaves{B=1}, slot) → cache: write a prefilled request's
+    per-slot leaves at ``slot`` (the pool is untouched)."""
+
+    def insert(cache: dict, state_leaves: dict, slot: int) -> dict:
+        for name, upd in state_leaves.items():
+            leaf = cache[name]
+            leaf.narrow(cache_batch_axis(name), slot, 1).copy_(upd.to(leaf.dtype))
+        return cache
+
+    return insert
+
+
+def make_page_copy(cfg: ModelConfig):
+    """(cache, src, dst) → cache: copy one pool page onto another across
+    every page-pool leaf (the device half of a copy-on-write fork)."""
+
+    def copy(cache: dict, src: int, dst: int) -> dict:
+        for name in PAGE_POOL_LEAVES:
+            if name in cache:
+                leaf = cache[name]  # (nu, n_attn, P, bs, ...)
+                leaf[:, :, dst] = leaf[:, :, src]
+        return cache
+
+    return copy
+
+
+def sample_tokens(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Greedy next-token selection: (B, V) → (B,) int32.  The WTA sampler
+    is not ported yet."""
+    if cfg.wta_head:
+        raise NotImplementedError("WTA sampling is not ported yet")
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_paged_serve_step(
+    cfg: ModelConfig, *, sat_threshold: float = 1e6, entropy_floor: float = 0.0
+):
+    """One decode step over a paged cache:
+    (params, cache, table (B, W), token (B,)) → (cache, token, sane).
+
+    ``sane`` is a (B,) int32 logit-sanity code per slot: ``SANE_NAN`` for
+    a non-finite row, ``SANE_SATURATED`` for max|logit| above
+    ``sat_threshold``, ``SANE_ENTROPY_COLLAPSE`` for softmax entropy below
+    ``entropy_floor`` (checked only when the floor is positive)."""
+
+    def serve_step(params, cache, table, token):
+        cache, logits = TF.lm_decode_step(params, cache, token, cfg, table)
+        zf = logits.float()
+        finite = torch.isfinite(zf).all(dim=-1)
+        sat = zf.abs().amax(dim=-1) > sat_threshold
+        sane = torch.where(
+            finite,
+            torch.where(sat, SANE_SATURATED, SANE_OK),
+            SANE_NAN,
+        ).to(torch.int32)
+        if entropy_floor > 0.0:
+            p = torch.softmax(zf, dim=-1)
+            ent = -(p * torch.log(p.clamp(1e-30, 1.0))).sum(dim=-1)
+            collapsed = finite & ~sat & (ent < entropy_floor)
+            sane = torch.where(collapsed, SANE_ENTROPY_COLLAPSE, sane).to(torch.int32)
+        return cache, sample_tokens(cfg, logits), sane
+
+    return serve_step

@@ -1,0 +1,155 @@
+"""Paged attention of the serving path (``repro/models/attention.py``).
+
+Unlike the reference, the KV pool is updated IN PLACE (``__setitem__`` on
+the pool tensor or on a view of it), where JAX built a new pool with
+``.at[].set``.  The collision-freedom argument carries over unchanged:
+every slot's current page is exclusively owned (the engine's host-side
+copy-on-write pass forks any still-shared page at ``pos // bs`` before
+the decode step runs), so the per-slot scatter never collides; shared
+pages are only ever read.  Slots whose table row is all trash (page 0)
+write into page 0, which no live request reads.
+
+Attention itself goes through ``kernels.ops``: the hand-written CUDA
+kernels for CUDA tensors, their plain PyTorch versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import analog as A
+from repro_torch.kernels import ops as KOPS
+from .config import ModelConfig
+from .layers import apply_rope, dtype_of, normal_init
+
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int] = ()) -> dict:
+    d, hd, h, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dt = dtype_of(cfg)
+    lead = tuple(lead)
+    return {
+        "wq": normal_init(gen, lead + (d, h * hd), d, dt),
+        "wk": normal_init(gen, lead + (d, hkv * hd), d, dt),
+        "wv": normal_init(gen, lead + (d, hkv * hd), d, dt),
+        "wo": normal_init(gen, lead + (h * hd, d), h * hd, dt),
+    }
+
+
+def _proj_cfg(cfg: ModelConfig) -> A.AnalogConfig:
+    a = cfg.analog
+    return a.with_mode("analog_linear") if a.mode == "analog_stochastic" else a
+
+
+def qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    acfg = _proj_cfg(cfg)
+    q = A.analog_matmul(acfg, x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = A.analog_matmul(acfg, x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = A.analog_matmul(acfg, x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def paged_write(
+    pages: torch.Tensor,  # (P, bs, ...) block pool, written in place
+    new: torch.Tensor,    # (B, 1, ...) this step's K/V rows
+    table: torch.Tensor,  # (B, W) int block table
+    pos: torch.Tensor,    # (B,) int logical write position per slot
+) -> None:
+    """Scatter one token's K/V row per slot into its current block.
+
+    ``pos // bs`` is clamped into the table width so evicted slots whose
+    ``pos`` keeps advancing stay in bounds; unassigned (-1) ids go to the
+    trash page 0."""
+    bs = pages.shape[1]
+    pos = pos.long()
+    blk = (pos // bs).clamp(0, table.shape[1] - 1)
+    page_ids = table.long().gather(1, blk[:, None])[:, 0].clamp_min(0)
+    pages[page_ids, pos % bs] = new[:, 0].to(pages.dtype)
+
+
+def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(P, bs, ...), (B, W) → (B, W·bs, ...) contiguous window."""
+    b, w = table.shape
+    bs = pages.shape[1]
+    return pages[table.long().clamp_min(0)].reshape((b, w * bs) + pages.shape[2:])
+
+
+def paged_write_chunk(
+    pages: torch.Tensor,      # (P, bs, ...) block pool, written in place
+    new: torch.Tensor,        # (nbc, bs, ...) block-shaped chunk rows
+    table_row: torch.Tensor,  # (Wp,) int one request's block-table row
+    b0: int,                  # first block index the chunk covers
+) -> None:
+    """Scatter a block-aligned suffix chunk's K/V into its own pages."""
+    nbc = new.shape[0]
+    ids = table_row[b0 : b0 + nbc].long().clamp_min(0)
+    pages[ids] = new.to(pages.dtype)
+
+
+def _chunk_to_blocks(x: torch.Tensor, bs: int) -> torch.Tensor:
+    """(1, c, ...) chunk rows → (nbc, bs, ...) zero-padded whole blocks."""
+    c = x.shape[1]
+    nbc = -(-c // bs)
+    out = x.new_zeros((nbc * bs,) + tuple(x.shape[2:]))
+    out[:c] = x[0]
+    return out.reshape((nbc, bs) + tuple(x.shape[2:]))
+
+
+def paged_prefill_self_attention(
+    p: dict,
+    x: torch.Tensor,          # (1, c, D) one request's suffix chunk
+    k_pages: torch.Tensor,    # (P, bs, Hkv, Dh) this layer's pool (in place)
+    v_pages: torch.Tensor,
+    table_row: torch.Tensor,  # (Wp,) int32 blocks covering the prompt bucket
+    q0: int,                  # absolute position of the chunk's start
+    cfg: ModelConfig,
+    kind: str = "global",
+) -> torch.Tensor:
+    """Write the chunk's K/V into its own pages, then let its queries attend
+    over the request's whole table row (shared prefix pages included) at
+    absolute positions.  Returns the (1, c, D) output after w_o."""
+    if k_pages.dtype == torch.int8:
+        raise NotImplementedError("int8 KV pools are not ported yet")
+    b, c, _ = x.shape
+    bs = k_pages.shape[1]
+    positions = (q0 + torch.arange(c, device=x.device))[None].expand(b, c)
+    q, k, v = qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    b0 = q0 // bs
+    paged_write_chunk(k_pages, _chunk_to_blocks(k, bs), table_row, b0)
+    paged_write_chunk(v_pages, _chunk_to_blocks(v, bs), table_row, b0)
+    out = KOPS.paged_prefill_attention(
+        q[0], k_pages, v_pages, table_row, q0,
+        kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,
+    ).to(x.dtype)                      # (c, H, Dh)
+    # w_o is a plain matmul here, as in the reference's prefill
+    return out.reshape(b, c, -1) @ p["wo"].to(x.dtype)
+
+
+def paged_decode_self_attention(
+    p: dict,
+    x: torch.Tensor,         # (B, 1, D)
+    k_pages: torch.Tensor,   # (P, bs, Hkv, Dh) this layer's pool (in place)
+    v_pages: torch.Tensor,
+    table: torch.Tensor,     # (B, W) int32 block table
+    pos: torch.Tensor,       # (B,) int32
+    cfg: ModelConfig,
+    kind: str = "global",
+) -> torch.Tensor:
+    """Write this step's K/V into each slot's current block, then attend
+    over the W table blocks only.  Returns the (B, 1, D) output after w_o."""
+    if k_pages.dtype == torch.int8:
+        raise NotImplementedError("int8 KV pools are not ported yet")
+    q, k, v = qkv(p, x, cfg)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    paged_write(k_pages, k, table, pos)
+    paged_write(v_pages, v, table, pos)
+    out = KOPS.paged_attention(
+        q[:, 0], k_pages, v_pages, table, pos,
+        kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,
+    ).reshape(x.shape[0], 1, -1)
+    return A.analog_matmul(_proj_cfg(cfg), out.to(x.dtype), p["wo"])

@@ -1,0 +1,601 @@
+"""Continuous-batching serving engine over the paged KV pool, greedy
+sampling (the greedy paged core of ``repro/serving/engine.py``).
+
+A slot-based scheduler admits queued requests into free slots of a live
+decode batch.  Admission reserves a request's whole block budget from the
+pool (prompt bucket + decode budget); prefill is a chunked, interleaved
+phase, at most ``ServeConfig.prefill_chunk`` tokens computed per tick
+between batched decode steps.  With prefix sharing on, an admission maps
+the deepest resident match of its padded prompt's block-hash chain into
+its block table: a full match skips prefill (first token from the stored
+last-token logits), a partial match prefills only the suffix, whose
+queries attend into the shared pages.  The first decode write into a
+still-shared block forks it (copy-on-write) onto a spare page reserved at
+admission.
+
+The engine runs on the card unless built with ``device="cpu"``; the KV
+pool, the parameters and every per-tick input live on that device, while
+the block table, allocator and prefix index stay on the host.  Knobs the
+reference has and this slice does not honour (dense layout, int8 pools,
+WTA sampling, preemption and deadlines, speculation, sharding, energy
+accounting, fault injection) are absent from :class:`ServeConfig`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.launch import specs as SP
+from repro_torch.models import ModelConfig
+from repro_torch.models import transformer as TF
+from repro_torch.serving.scheduler import (
+    BlockAllocator,
+    Request,
+    RequestState,
+    Scheduler,
+    left_pad,
+    prefix_block_hashes,
+)
+
+
+def _pctl(vals: Sequence[float], q: float) -> float:
+    """Percentile helper tolerant of empty samples (metrics views)."""
+    return float(np.percentile(np.asarray(vals), q)) if len(vals) else 0.0
+
+
+def _default_buckets(max_len: int) -> tuple[int, ...]:
+    out, b = [], 8
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8          # decode slots
+    max_new_tokens: int = 32    # default per-request budget
+    max_len: int = 512          # per-request capacity (prompt + generated)
+    eos_token: int = -1         # -1: never stop early
+    # prompt lengths are left-padded up to the next bucket
+    prefill_buckets: tuple[int, ...] = ()
+    kv_block_size: int = 16     # tokens per KV block
+    # total pool size in blocks; 0 → max_batch · ceil(max_len / block) + 1
+    # (one trash block); lower values back-pressure admission
+    num_kv_blocks: int = 0
+    # map resident prompt blocks into new requests' tables instead of
+    # re-prefilling them; the first write into a shared block forks it
+    enable_prefix_sharing: bool = True
+    # at most this many prefill tokens are computed per tick (a positive
+    # multiple of kv_block_size); 0 computes the whole bucket at once
+    prefill_chunk: int = 0
+
+    def buckets(self) -> tuple[int, ...]:
+        if not self.prefill_buckets:
+            return tuple(_default_buckets(self.max_len))
+        bs = tuple(sorted(set(self.prefill_buckets)))
+        if any(b < 1 for b in bs):
+            raise ValueError(f"prefill_buckets must be >= 1: {bs}")
+        kept = tuple(b for b in bs if b <= self.max_len)
+        if not kept:
+            raise ValueError(
+                f"every prefill bucket in {bs} exceeds max_len="
+                f"{self.max_len}; no prompt could ever be admitted"
+            )
+        return kept
+
+    def max_kv_blocks(self) -> int:
+        """Block-table width: blocks covering one request's max_len."""
+        return -(-self.max_len // self.kv_block_size)
+
+    def pool_blocks(self) -> int:
+        """Total pool pages (incl. the reserved trash page 0)."""
+        if self.num_kv_blocks:
+            return self.num_kv_blocks
+        return self.max_batch * self.max_kv_blocks() + 1
+
+    def validate(self) -> None:
+        """Loud, eager config validation."""
+        self.buckets()
+        if self.kv_block_size < 1:
+            raise ValueError(f"kv_block_size must be >= 1, got {self.kv_block_size}")
+        if not isinstance(self.enable_prefix_sharing, bool):
+            # a truthy string like "off" would silently ENABLE sharing
+            raise ValueError(
+                f"enable_prefix_sharing must be a bool, got "
+                f"{self.enable_prefix_sharing!r}"
+            )
+        if self.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
+        if self.prefill_chunk and self.prefill_chunk % self.kv_block_size:
+            # chunks scatter whole blocks and the resume grid is block-indexed
+            raise ValueError(
+                f"prefill_chunk={self.prefill_chunk} must be a multiple of "
+                f"kv_block_size={self.kv_block_size}"
+            )
+        # the smallest admissible request: shortest bucket + one token
+        need = -(-(min(self.buckets()) + 1) // self.kv_block_size)
+        cap = self.pool_blocks() - 1  # minus trash page
+        if cap < need:
+            raise ValueError(
+                f"num_kv_blocks={self.num_kv_blocks} leaves a pool of {cap} "
+                f"allocatable blocks, but even the smallest request (bucket "
+                f"{min(self.buckets())} + 1 token) needs {need}"
+            )
+
+
+@dataclasses.dataclass
+class ServingMetrics:
+    """Aggregate serving statistics (completed requests only)."""
+
+    completed: int = 0
+    total_tokens: int = 0
+    wall_time: float = 0.0
+    tokens_per_s: float = 0.0
+    ttft_mean: float = 0.0       # submit → first generated token, seconds
+    ttft_max: float = 0.0
+    decode_steps: int = 0
+    prefills: int = 0            # bucket prefills actually COMPUTED
+    occupancy_mean: float = 0.0  # mean busy-slot fraction per decode step
+    decode_time: float = 0.0     # seconds inside batched decode steps only
+    prefix_hits: int = 0         # admissions that skipped prefill entirely
+    cow_forks: int = 0           # shared blocks forked on first write
+    prefix_partial_hits: int = 0  # admissions that mapped SOME prompt blocks
+    prefill_tokens: int = 0       # prefill tokens actually computed
+    prefill_tokens_saved: int = 0  # prompt tokens skipped via the index
+    ttft_p50: float = 0.0
+    ttft_p99: float = 0.0
+    # done_reason -> count over every finished request
+    evictions: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def decode_step_ms(self) -> float:
+        return self.decode_time * 1e3 / max(self.decode_steps, 1)
+
+    def row(self) -> str:
+        out = (
+            f"tok_per_s={self.tokens_per_s:.1f} "
+            f"ttft_ms={self.ttft_mean * 1e3:.1f} "
+            f"ttft_p99_ms={self.ttft_p99 * 1e3:.1f} "
+            f"step_ms={self.decode_step_ms:.2f} "
+            f"occupancy={self.occupancy_mean:.2f}"
+        )
+        if self.evictions:
+            out += " evict=" + ",".join(
+                f"{k}:{v}" for k, v in sorted(self.evictions.items())
+            )
+        return out
+
+
+class ServingEngine:
+    """Continuous-batching engine over the paged pool (greedy sampling)."""
+
+    def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None):
+        if model_cfg.wta_head:
+            raise NotImplementedError("WTA sampling is not ported yet")
+        if model_cfg.kv_cache_dtype != "same":
+            raise NotImplementedError("int8 KV pools are not ported yet")
+        cfg.validate()
+        self.device = resolve_device(device)
+        if params["embed"]["embedding"].device.type != self.device.type:
+            raise ValueError(
+                f"params live on {params['embed']['embedding'].device}, "
+                f"the engine on {self.device}"
+            )
+        self.sharing = cfg.enable_prefix_sharing
+        self.params = params
+        self.mcfg = model_cfg
+        self.cfg = cfg
+        self.sched = Scheduler(cfg.max_batch)
+        b = cfg.max_batch
+        self._max_blocks = cfg.max_kv_blocks()
+        self.blocks = BlockAllocator(cfg.pool_blocks(), n_reserved=1)
+        # host-authoritative block table; row = trash page 0 when free
+        self._table = np.zeros((b, self._max_blocks), np.int32)
+        # host mirror of cache["pos"] (drives the decode window width)
+        self._host_pos = np.zeros((b,), np.int64)
+        self._serve_step = SP.make_paged_serve_step(model_cfg)
+        self._suffix_prefill = SP.make_paged_suffix_prefill(model_cfg)
+        self._state_insert = SP.make_paged_state_insert(model_cfg)
+        self._page_copy = SP.make_page_copy(model_cfg)
+        # rid -> admission plan built by the gate (block hashes, resume
+        # depth, full-hit flag); consumed by _admit_one
+        self._plans: dict[int, dict] = {}
+        # rid -> block hashes: a back-pressured queue head is re-gated
+        # every tick, so only the index lookups rerun per attempt
+        self._hash_memo: dict[int, list] = {}
+        # rid -> in-flight chunked-prefill job, processed FIFO (the order
+        # that guarantees a sharer's source pages are written before its
+        # first chunk runs)
+        self._jobs: dict[int, dict] = {}
+        self._job_fifo: list[int] = []
+        self._cache = None  # allocated lazily on first admission
+        self._tokens = np.zeros((b,), np.int32)   # last emitted, per slot
+        self._ticks = 0
+        self._occ_sum = 0.0
+        self._decode_steps = 0
+        self._prefills = 0
+        self._prefix_hits = 0
+        self._cow_forks = 0
+        self._prefix_partial_hits = 0
+        self._prefill_tokens = 0
+        self._prefill_tokens_saved = 0
+        self._total_tokens = 0
+        self._busy_time = 0.0
+        self._decode_time = 0.0
+
+    # -- request API --------------------------------------------------------
+
+    def submit(self, prompt_tokens: Sequence[int], max_new_tokens: Optional[int] = None) -> int:
+        """Queue a request; returns its request id."""
+        n = len(prompt_tokens)
+        if n == 0:
+            raise ValueError(
+                "empty prompt: at least one prompt token is required "
+                "(decoding seeds from the last prompt token's logits)"
+            )
+        if n > max(self.cfg.buckets()):
+            raise ValueError(
+                f"prompt length {n} exceeds largest prefill bucket "
+                f"{max(self.cfg.buckets())}"
+            )
+        budget = self.cfg.max_new_tokens if max_new_tokens is None else max_new_tokens
+        if budget < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {budget}")
+        need = self._bucket(n) + budget
+        if need > self.cfg.max_len:
+            raise ValueError(
+                f"prefill bucket {self._bucket(n)} + {budget} new tokens "
+                f"= {need} exceeds cache max_len={self.cfg.max_len}"
+            )
+        nb = self._blocks_needed(self._bucket(n), budget)
+        if nb > self.blocks.capacity:
+            raise ValueError(
+                f"request needs {nb} KV blocks but the pool only has "
+                f"{self.blocks.capacity}; raise num_kv_blocks"
+            )
+        return self.sched.submit(prompt_tokens, budget, now=time.perf_counter()).rid
+
+    def _bucket(self, n: int) -> int:
+        return next(b for b in self.cfg.buckets() if b >= n)
+
+    def _blocks_needed(self, bucket: int, budget: int) -> int:
+        """Whole-lifetime block budget: prefill window + decode tokens."""
+        return -(-(bucket + budget) // self.cfg.kv_block_size)
+
+    def _init_cache(self) -> dict:
+        return TF.init_paged_decode_cache(
+            self.mcfg, self.cfg.max_batch, self.cfg.pool_blocks(),
+            self.cfg.kv_block_size, device=self.device,
+        )
+
+    def _put(self, x: np.ndarray) -> torch.Tensor:
+        """Host → device copy of a per-tick input (never a view of host
+        state the engine later mutates, even on the CPU)."""
+        return torch.tensor(x, device=self.device)
+
+    def _chunk_tokens(self, bucket: int) -> int:
+        """The prefill chunk grid for ``bucket`` (0 → whole bucket)."""
+        return min(self.cfg.prefill_chunk or bucket, bucket)
+
+    def _try_reserve_blocks(self, req: Request) -> bool:
+        """Admission gate: reserve the request's whole block budget, or
+        refuse and leave the allocator untouched.
+
+        With prefix sharing the gate maps the deepest resident chain hit
+        into the request's table, reserves one spare COW page for a full
+        hit ending in a partial boundary block (the request WILL write
+        there at its first decode token), and registers the request's own
+        fresh prompt blocks at once so same-tick duplicates already share;
+        their content lands later, chunk by chunk, which is safe because
+        prefill jobs run FIFO."""
+        bucket = self._bucket(len(req.prompt))
+        nb_total = self._blocks_needed(bucket, req.max_new_tokens)
+        bs = self.cfg.kv_block_size
+        n_prompt = -(-bucket // bs)
+        plan: dict = {
+            "full_hit": False, "hashes": None, "n_prompt": n_prompt,
+            "n_shared": 0, "resume": 0, "bucket": bucket,
+        }
+        shared: list[int] = []
+        if self.sharing:
+            hashes = self._hash_memo.get(req.rid)
+            if hashes is None:
+                hashes = prefix_block_hashes(left_pad(req.prompt, bucket), bs)
+                self._hash_memo[req.rid] = hashes
+            plan["hashes"] = hashes
+            shared = self.blocks.longest_prefix_match([h for h, _ in hashes])
+        full = len(shared) == n_prompt
+        n_spare = 1 if (full and bucket % bs != 0) else 0
+        n_new = nb_total - len(shared)
+        if not self.blocks.can_alloc(n_new + n_spare):
+            return False
+        pages = self.blocks.reserve(req.rid, n_new, shared, n_spare)
+        if self.sharing:
+            for i in range(len(shared), n_prompt):
+                self.blocks.register(pages[i], plan["hashes"][i][0])
+            plan["full_hit"] = full
+            plan["n_shared"] = len(shared)
+            if not full:
+                # attention-only models resume at any matched block
+                plan["resume"] = len(shared) * bs
+        self._plans[req.rid] = plan
+        return True
+
+    def _release_if_done(self, req: Request) -> None:
+        """Reclaim an evicted request's blocks and point its slot's table
+        row at the trash page (the batched decode step keeps running)."""
+        if req.state is not RequestState.DONE:
+            return
+        self.blocks.free(req.rid)
+        self._table[req.done_slot, :] = 0
+
+    def _admit_one(self, req: Request) -> None:
+        """Enqueue a chunked-prefill job for an admitted request.  Its
+        table row stays on the trash page until the job completes, so the
+        batched decode steps of the other slots never touch it."""
+        plen = self._bucket(len(req.prompt))
+        if self._cache is None:
+            self._cache = self._init_cache()
+        plan = self._plans.pop(req.rid)
+        self._hash_memo.pop(req.rid, None)
+        pages = self.blocks.owned(req.rid)  # reserved by the gate
+        row = np.zeros((self._max_blocks,), np.int32)
+        row[: len(pages)] = pages
+        if plan["full_hit"]:
+            # stash the terminal payload now if it exists: the registrant
+            # may diverge its partial boundary block (dropping the entry
+            # and payload) before this job reaches the FIFO head.  A
+            # logits-less payload is a chunk-boundary snapshot of a longer
+            # prompt, not a terminal one.
+            payload = self.blocks.payload(plan["hashes"][-1][0])
+            plan["payload"] = (
+                payload if payload is not None and payload[0] is not None else None
+            )
+        elif plan["n_shared"] > 0:
+            self._prefix_partial_hits += 1
+            self._prefill_tokens_saved += plan["resume"]
+        self._jobs[req.rid] = {
+            "req": req,
+            "row": row,
+            "plan": plan,
+            "q0": plen if plan["full_hit"] else plan["resume"],
+            "bucket": plen,
+            "state": None,
+            "tokens": left_pad(req.prompt, plen),
+        }
+        self._job_fifo.append(req.rid)
+
+    def _finish_admission(self, req: Request, tok0: torch.Tensor) -> None:
+        """First token, decode start, bookkeeping."""
+        slot = req.slot
+        self.sched.start_decode(req)
+        t0 = int(tok0[0])  # waits for the prefill: TTFT stamps after it
+        self._tokens[slot] = t0
+        self._total_tokens += 1
+        self.sched.record_token(req, t0, self.cfg.eos_token, time.perf_counter())
+        self._release_if_done(req)  # budget=1 or instant EOS
+
+    def _complete_job(self, rid: int, job: dict, tok0: torch.Tensor) -> None:
+        """Publish the job's real table row, mirror its position, decode."""
+        req = job["req"]
+        self._table[req.slot] = job["row"]
+        self._host_pos[req.slot] = job["bucket"]
+        self._job_fifo.pop(0)
+        del self._jobs[rid]
+        self._finish_admission(req, tok0)
+
+    def _prefill_tick(self, emitted: list[tuple[int, int]]) -> None:
+        """Advance the chunked-prefill pipeline by at most one compute chunk
+        (≤ ``prefill_chunk`` tokens), completing any number of zero-compute
+        full hits along the way.  Jobs run strictly FIFO."""
+        computed = False
+        bs = self.cfg.kv_block_size
+        while self._job_fifo:
+            rid = self._job_fifo[0]
+            job = self._jobs[rid]
+            req, plan = job["req"], job["plan"]
+            bucket = job["bucket"]
+            if plan["full_hit"]:
+                payload = plan.get("payload") or self.blocks.payload(
+                    plan["hashes"][-1][0]
+                )
+                if payload is not None and payload[0] is not None:
+                    logits, state = payload
+                    self._cache = self._state_insert(self._cache, state, req.slot)
+                    tok0 = SP.sample_tokens(self.mcfg, logits)
+                    self._prefix_hits += 1
+                    self._prefill_tokens_saved += bucket
+                    self._complete_job(rid, job, tok0)
+                    emitted.append((rid, req.output[-1]))
+                    continue
+                # no usable terminal payload (the registrant diverged its
+                # boundary block while this job waited, or the hash only
+                # carried a longer prompt's chunk snapshot): demote to a
+                # minimal block-aligned suffix recompute
+                plan["full_hit"] = False
+                job["q0"] = ((bucket - 1) // bs) * bs
+                last = plan["n_prompt"] - 1
+                page = int(job["row"][last])
+                if (
+                    bucket % bs != 0
+                    and self.blocks.refcount(page) > 1
+                    and self.blocks.spare_count(rid) > 0
+                ):
+                    # the diverged boundary page carries the registrant's
+                    # live decode rows: fork onto the reserved spare.  No
+                    # copy is needed, the recompute rewrites every row.
+                    _, new = self.blocks.cow_fork(rid, last)
+                    job["row"][last] = new
+                    self._cow_forks += 1
+                self._prefix_partial_hits += 1
+                self._prefill_tokens_saved += job["q0"]
+            if computed:
+                break
+            q0 = job["q0"]
+            if job["state"] is None:
+                job["state"] = TF.init_prefill_state(self.mcfg, self.device)
+            grid = self._chunk_tokens(bucket)
+            c = min((q0 // grid + 1) * grid, bucket) - q0
+            b1 = -(-(q0 + c) // bs)
+            self._cache, job["state"], logits = self._suffix_prefill(
+                self.params,
+                self._cache,
+                job["state"],
+                torch.tensor([job["tokens"][q0 : q0 + c]], dtype=torch.int32, device=self.device),
+                self._put(job["row"][: plan["n_prompt"]]),
+                q0,
+            )
+            self._prefill_tokens += c
+            job["q0"] = q0 + c
+            computed = True
+            done = job["q0"] == bucket
+            if self.sharing:
+                # stash the boundary snapshot on the chunk's last block so
+                # later admissions can resume (or, with the final chunk's
+                # logits, skip) exactly here
+                h_last = plan["hashes"][b1 - 1][0]
+                if self.blocks.lookup(h_last) == int(job["row"][b1 - 1]):
+                    self.blocks.set_payload(
+                        h_last, (logits if done else None, job["state"])
+                    )
+            if not done:
+                break
+            self._cache = self._state_insert(self._cache, job["state"], req.slot)
+            tok0 = SP.sample_tokens(self.mcfg, logits)
+            self._prefills += 1
+            self._complete_job(rid, job, tok0)
+            emitted.append((rid, req.output[-1]))
+
+    def tick(self) -> list[tuple[int, int]]:
+        """One engine iteration: admit, advance the chunked prefill, then one
+        batched decode step for the decoding slots.  Returns the (rid,
+        token) pairs emitted during this tick."""
+        t_start = time.perf_counter()
+        emitted: list[tuple[int, int]] = []
+        self._ticks += 1
+        for req in self.sched.admit(self._try_reserve_blocks):
+            self._admit_one(req)
+        self._prefill_tick(emitted)
+        active = self.sched.active()
+        if active and self.sharing:
+            self._cow_pass(active)
+        if active:
+            t_dec = time.perf_counter()
+            w = self._window_blocks(active)
+            self._cache, nxt, sane = self._serve_step(
+                self.params, self._cache,
+                self._put(self._table[:, :w]), self._put(self._tokens),
+            )
+            # one device sync per step: decode_time is honest
+            nxt_np, sane_np = torch.stack([nxt, sane]).cpu().numpy()
+            self._host_pos += 1  # mirrors the step's pos+1, every slot
+            now = time.perf_counter()
+            self._decode_time += now - t_dec
+            self._occ_sum += len(active) / self.cfg.max_batch
+            self._decode_steps += 1
+            for req in active:
+                slot = req.slot
+                code = int(sane_np[slot])
+                if code:
+                    # logit-sanity trip: evict instead of publishing garbage
+                    self.sched.evict(req, SP.SANITY_REASONS.get(code, "nan"), now)
+                    self._release_if_done(req)
+                    continue
+                t = int(nxt_np[slot])
+                self._tokens[slot] = t
+                self._total_tokens += 1
+                self.sched.record_token(req, t, self.cfg.eos_token, now)
+                self._release_if_done(req)
+                emitted.append((req.rid, t))
+        self._busy_time += time.perf_counter() - t_start
+        return emitted
+
+    def _cow_pass(self, active: list[Request]) -> None:
+        """Resolve copy-on-write BEFORE the batched decode step: a slot
+        about to write into a still-shared block forks it onto its spare
+        page (device copy + table repoint); a sole owner writes in place,
+        after dropping the page's index entry (its content diverges)."""
+        bs = self.cfg.kv_block_size
+        for req in active:
+            wb = int(self._host_pos[req.slot]) // bs
+            if wb >= self._max_blocks:
+                continue
+            page = int(self._table[req.slot, wb])
+            if page < self.blocks.n_reserved:
+                continue  # trash row of an already-evicted slot
+            if self.blocks.refcount(page) > 1 and self.blocks.spare_count(req.rid) > 0:
+                _, new = self.blocks.cow_fork(req.rid, wb)
+                self._cache = self._page_copy(self._cache, page, new)
+                self._table[req.slot, wb] = new
+                self._cow_forks += 1
+            else:
+                self.blocks.deregister(page)  # no-op if unregistered
+
+    def _window_blocks(self, active: list[Request]) -> int:
+        """Decode window width in blocks: the smallest power of two that
+        covers every active slot's current position."""
+        bs = self.cfg.kv_block_size
+        need = max(int(self._host_pos[r.slot]) // bs + 1 for r in active)
+        w = 1
+        while w < need:
+            w *= 2
+        return min(w, self._max_blocks)
+
+    def run(self) -> dict[int, list[int]]:
+        """Drain queue + slots; returns {rid: generated tokens}."""
+        while self.sched.has_work():
+            self.tick()
+        return {
+            r.rid: r.output
+            for r in self.sched.all_requests()
+            if r.state is RequestState.DONE
+        }
+
+    def step(self) -> list[list[int]]:
+        """Drain and return newly completed outputs in submission order."""
+        before = {
+            r.rid for r in self.sched.all_requests() if r.state is RequestState.DONE
+        }
+        self.run()
+        return [
+            r.output
+            for r in self.sched.all_requests()
+            if r.state is RequestState.DONE and r.rid not in before
+        ]
+
+    def metrics(self) -> ServingMetrics:
+        done = [r for r in self.sched.all_requests() if r.state is RequestState.DONE]
+        ttfts = [r.ttft for r in done if r.ttft is not None]
+        evictions: dict[str, int] = {}
+        for r in done:
+            if r.done_reason:
+                evictions[r.done_reason] = evictions.get(r.done_reason, 0) + 1
+        wall = self._busy_time
+        return ServingMetrics(
+            completed=len(done),
+            total_tokens=self._total_tokens,
+            wall_time=wall,
+            tokens_per_s=self._total_tokens / max(wall, 1e-9),
+            ttft_mean=float(np.mean(ttfts)) if ttfts else 0.0,
+            ttft_max=float(np.max(ttfts)) if ttfts else 0.0,
+            decode_steps=self._decode_steps,
+            prefills=self._prefills,
+            occupancy_mean=self._occ_sum / max(self._decode_steps, 1),
+            decode_time=self._decode_time,
+            prefix_hits=self._prefix_hits,
+            cow_forks=self._cow_forks,
+            prefix_partial_hits=self._prefix_partial_hits,
+            prefill_tokens=self._prefill_tokens,
+            prefill_tokens_saved=self._prefill_tokens_saved,
+            ttft_p50=_pctl(ttfts, 50),
+            ttft_p99=_pctl(ttfts, 99),
+            evictions=evictions,
+        )
