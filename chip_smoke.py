@@ -8,14 +8,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. device: print ``nvidia-smi``'s name and power limit; no CUDA → exit 1.
 2. build: compile every CUDA source of the port with nvcc (in parallel).
 3. kernels: each kernel against its plain PyTorch version on the card at
-   stablelm-3b's full-width shapes (bf16 and int8 pools, plus small GQA /
-   local / soft-cap cases), with kernel, plain and library times.
+   the shapes the main paths give it: both attention kernels at
+   stablelm-3b's full width (bf16 and int8 pools, plus small GQA / local /
+   soft-cap cases), ``stoch_round`` bit-identical at the int8 decode write,
+   the int8 prefill chunk and the 2048² quantizer row, ``wta_counts``
+   within its agreement bound at the serving head's width; with kernel
+   times per call (CUDA events over back-to-back calls) and on the device
+   (the same, with the host's time hidden behind a spin kernel), plain and
+   library times, and each kernel's bound.
 4. serve: ``ServingEngine`` serves a 12-request shared-prefix trace at
-   stablelm-3b full width (random seeded weights), with prefix hits,
-   chunked suffix prefill and copy-on-write; both kernels' launch counts,
-   reset just before and read just after, must be > 0.
-5. reference: smoke-size prefill and decode logits on the card (kernels)
-   agree with the same model on the CPU (plain versions).
+   stablelm-3b full width (random seeded weights) twice, with a bf16 and
+   an int8 KV pool, with prefix hits, chunked suffix prefill and
+   copy-on-write; the launch counts of the kernels each run goes through,
+   reset just before and read just after, must be > 0.  Each run ends in
+   a profile of full-batch decode ticks.
+5. wta: the ``ops.wta_counts`` entry point at the serving head's
+   operating point (8 × 50304, 32 trials); its kernel's launches, reset
+   just before and read just after, must be > 0.
+6. reference: smoke-size prefill and decode logits on the card (kernels)
+   agree with the same model on the CPU (plain versions), for a float and
+   an int8 pool (whose written codes must agree too).
 
 The second-to-last line is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -37,12 +49,30 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor rate
+# H100 SXM special-function rate: 16 results per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz maximum boost clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # Kernel vs plain version: both accumulate in f32 from the same bf16/int8
 # inputs and differ only in summation order and exp rounding (~1e-6
 # relative); 2e-3 absolute and relative leaves room for int8 scores.
 ATOL = RTOL = 2e-3
 # Smoke-size f32 model, card (kernels, cuBLAS) vs CPU (plain versions).
 REF_ATOL = 1e-4
+# The same with an int8 pool.  Codes are bit-exact for equal f32 inputs,
+# but K/V rows differ between cuBLAS and the CPU at f32 rounding (~1e-7
+# relative), so an element within that distance of its rounding draw takes
+# the neighbouring code: ~1e-5 per element, ~0.1 flips expected in the
+# ~11k live codes.  Gate: at least 99.95% of the pool's codes equal, none
+# more than one level apart; logits within 2e-2, since one flipped live
+# code moved logits by up to ~3e-3 in a CPU trial at this size.
+REF_INT8_CODES = 0.9995
+REF_INT8_ATOL = 2e-2
+# wta_counts kernel vs plain version: Gaussians through logf/cosf on both
+# sides, so a trial can flip only where two voltages race within an ulp.
+# Gate: equal row sums, and sum|Δcounts| <= 2 x 1% of the B·T decisions.
+WTA_FLIP_FRACTION = 0.01
+WTA_VTH0, WTA_SIGMA = 1.702**2, 1.702   # the serving head's operating point
 
 
 def log(msg: str) -> None:
@@ -68,6 +98,33 @@ def cuda_ms(fns, iters: int = 24, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fns, iters: int = 24) -> float:
+    """Mean device time of one call with the host's time between launches
+    left out, which :func:`cuda_ms` includes and which dominates a call
+    whose kernel takes a few microseconds.  A spin kernel holds the stream
+    while all ``iters`` calls (cycling over ``fns``) are queued behind it,
+    so CUDA events around them time the calls' launches back to back.  The
+    start event must still be pending once the last call is queued, or the
+    spin ran out before the host was done; the spin then grows and the
+    window is timed again."""
+    fns[0]()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000                      # ~10 ms at the H100's 1.98 GHz
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(iters):
+            fns[i % len(fns)]()
+        end.record()
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise AssertionError("the host did not queue the timed calls within the spin")
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +196,9 @@ def prefill_bound(q, kp, table, q0, sc):
     return bound_record(nbytes, flops)
 
 
-def bound_record(nbytes, flops):
+def bound_record(nbytes, flops, ops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return {
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -180,19 +237,22 @@ def sdpa_prefill(q, kp, vp, table, q0):
 
 
 def time_kernel(rec, cases, kernel, plain, library, label) -> dict:
-    """Kernel, plain and library times over rotating input sets."""
+    """Kernel, plain and library times over rotating input sets; each case
+    is ``(*args, kwargs)``; ``library`` (or None, where no one PyTorch call
+    computes the function) takes the args and returns a closure."""
     def bind(fn, c):
         *args, sc = c
         return lambda: fn(*args, **sc)
 
     rec["ms"] = cuda_ms([bind(kernel, c) for c in cases])
+    rec["device_ms"] = device_ms([bind(kernel, c) for c in cases])
     rec["plain_ms"] = cuda_ms([bind(plain, c) for c in cases])
     rec["library_ms"] = (
         cuda_ms([library(*c[:-1]) for c in cases]) if library is not None else None
     )
-    log(f"  {label}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"sdpa {rec['library_ms']} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
-        f"{rec['bytes']} bytes, {rec['flops']} flops)")
+    log(f"  {label}: kernel {rec['ms']:.4f} ms per call ({rec['device_ms']:.4f} ms on the "
+        f"device), plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {rec['bytes']} bytes, {rec['flops']} ops)")
     return rec
 
 
@@ -254,7 +314,78 @@ def kernel_phase(dev) -> dict:
             check(f"prefill {tag}", PF.paged_prefill_attention_cuda(*args, **kw, **sc),
                   ref.prefill_attention_ref(*args, **kw, **sc), errs["prefill"])
     torch.cuda.synchronize()
+    timing["stoch_round"], errs["stoch_round"] = stoch_round_kernels(gen, dev)
+    timing["wta_counts"], errs["wta_counts"] = wta_kernels(gen, dev)
     return {"errs": errs, "timing": timing}
+
+
+def stoch_round_kernels(gen, dev):
+    """stoch_round vs its plain version, bit for bit, at the int8 decode
+    write (8 slots x 32 kv heads rows of Dh=80), the int8 prefill chunk (8
+    blocks of 16 x 32 rows, one seed each) and bench_kernels.py's 2048²
+    row on the 2/31 grid; times at each.  Returns (decode-shape record,
+    max|err| list)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stoch_round as SR
+
+    def kv_rows(rows):  # the quantizer's input: x / max|x| · 127 per row
+        x = torch.randn((rows, 80), generator=gen, device=dev)
+        return x / x.abs().amax(-1, keepdim=True).clamp_min(1e-6) * 127.0
+
+    def seeds(n):
+        return torch.randint(0, 2**32, (n,), generator=gen, device=dev, dtype=torch.int64)
+
+    cases = [
+        ("decode write (8*32, 80), 1 seed", kv_rows(8 * 32), seeds(1), 1.0, -127.0, 127.0),
+        ("prefill chunk 8 x (16*32, 80), 8 seeds", kv_rows(8 * 16 * 32), seeds(8), 1.0, -127.0, 127.0),
+        ("quantizer (2048, 2048) step 2/31", torch.randn((2048, 2048), generator=gen, device=dev),
+         seeds(1), 2.0 / 31, -1.0, 1.0),
+    ]
+    recs, errs = [], []
+    for label, x, sd, step, lo, hi in cases:
+        kw = dict(step=step, lo=lo, hi=hi)
+        got, want = SR.stoch_round_cuda(x, sd, **kw), ref.stoch_round_ref(x, sd, **kw)
+        same = torch.equal(got, want)
+        errs.append(float((got - want).abs().max()))
+        log(f"  stoch_round {label}: bit-identical {same}, max|err| {errs[-1]:.3e}")
+        if not same:
+            raise AssertionError(f"stoch_round {label}: kernel differs from its plain version")
+        recs.append(time_kernel(
+            bound_record(8 * x.numel(), 0), [(x.clone(), sd, kw) for _ in range(ROTATE)],
+            SR.stoch_round_cuda, ref.stoch_round_ref, None, f"stoch_round {label}",
+        ))
+    return recs[0], errs
+
+
+def wta_kernels(gen, dev):
+    """wta_counts vs its plain version at the serving head's width (8 x
+    50304, 32 trials) and at (256, 128) with 64 trials.  Returns
+    (head-shape record, max|err| list)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wta_counts as WTA
+
+    recs, errs = [], []
+    for b, c, n_trials in ((8, 50304, 32), (256, 128, 64)):
+        kw = dict(n_trials=n_trials, vth0=WTA_VTH0, sigma_z=WTA_SIGMA)
+        zs = [torch.randn((b, c), generator=gen, device=dev) * WTA_SIGMA for _ in range(ROTATE)]
+        seed = torch.randint(0, 2**32, (1,), generator=gen, device=dev, dtype=torch.int64)
+        got, want = WTA.wta_counts_cuda(zs[0], seed, **kw), ref.wta_counts_ref(zs[0], seed, **kw)
+        delta = float((got - want).abs().sum())
+        sums_equal = torch.equal(got.sum(-1), want.sum(-1))
+        errs.append(float((got - want).abs().max()))
+        log(f"  wta_counts ({b}, {c}) T={n_trials}: row sums equal {sums_equal}, "
+            f"sum|Δcounts| {delta:.0f} (bound {2 * WTA_FLIP_FRACTION * b * n_trials:.1f}), "
+            f"votes {int(got.sum())}")
+        if not sums_equal or delta > 2 * WTA_FLIP_FRACTION * b * n_trials:
+            raise AssertionError("wta_counts: kernel disagrees with its plain version")
+        # bound: z read and counts written once, or 3 transcendentals
+        # (log, sqrt, cos) per trial and element on the SFUs
+        recs.append(time_kernel(
+            bound_record(8 * b * c, 3 * b * c * n_trials, SFU_OPS_PER_S),
+            [(z, seed, kw) for z in zs], WTA.wta_counts_cuda, ref.wta_counts_ref, None,
+            f"wta_counts ({b}, {c}) T={n_trials}",
+        ))
+    return recs[0], errs
 
 
 # ---------------------------------------------------------------------------
@@ -278,11 +409,10 @@ def serve_trace(vocab: int) -> list[list[int]]:
 
 
 def serve_phase(dev) -> dict:
+    """The 12-request trace at full width with a bf16 pool, then with an
+    int8 pool, from the same weights."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.kernels import prefill_attention as PF
     from repro_torch.models.transformer import init_lm
-    from repro_torch.serving import ServeConfig, ServingEngine
 
     cfg = get_config("stablelm-3b")
     t0 = time.perf_counter()
@@ -290,36 +420,65 @@ def serve_phase(dev) -> dict:
     torch.cuda.synchronize()
     log(f"  init stablelm-3b ({cfg.n_layers}L d{cfg.d_model} H{cfg.n_heads} Dh{cfg.head_dim} "
         f"ff{cfg.d_ff} V{cfg.vocab} {cfg.dtype}) in {time.perf_counter() - t0:.1f} s")
+    prompts = serve_trace(cfg.vocab)
+    res = {}
+    for kv in ("same", "int8"):
+        res[kv] = serve_once(params, dataclasses.replace(cfg, kv_cache_dtype=kv), prompts, dev)
+    same, int8 = res["same"]["outs"], res["int8"]["outs"]
+    agree = sum(a == b for r in same for a, b in zip(same[r], int8[r]))
+    total = sum(len(o) for o in same.values())
+    log(f"  int8 vs bf16 pool greedy agreement: {agree}/{total} = {agree / total:.4f} "
+        f"(random weights; not gated)")
+    return res
+
+
+def serve_once(params, cfg, prompts, dev) -> dict:
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import stoch_round as SR
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    kv = cfg.kv_cache_dtype
+    log(f"  -- kv pool: {'int8 codes + f32 scales' if kv == 'int8' else cfg.dtype}")
     scfg = ServeConfig(
         max_batch=8, max_len=512, kv_block_size=16, prefill_chunk=128,
         max_new_tokens=32, prefill_buckets=(32, 64, 120, 128, 200, 256, 320),
     )
     eng = ServingEngine(params, cfg, scfg, device=dev)
-    prompts = serve_trace(cfg.vocab)
     for p in prompts:
         eng.submit(p)
-    PA.launches = PF.launches = 0
+    PA.launches = PF.launches = SR.launches = 0
     t0 = time.perf_counter()
     outs = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode": PA.launches, "prefill": PF.launches}
+    launches = {"decode": PA.launches, "prefill": PF.launches, "stoch_round": SR.launches}
     m = eng.metrics()
     log(f"  served {m.completed} requests, {m.total_tokens} tokens in {wall:.2f} s: "
         f"{m.tokens_per_s:.1f} tok/s, TTFT mean {m.ttft_mean * 1e3:.1f} ms p99 "
         f"{m.ttft_p99 * 1e3:.1f} ms, decode step {m.decode_step_ms:.2f} ms over "
         f"{m.decode_steps} steps, occupancy {m.occupancy_mean:.2f}")
+    chunks = launches["prefill"] // cfg.n_layers
     log(f"  prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, cow forks "
         f"{m.cow_forks}, prefill tokens {m.prefill_tokens} (saved {m.prefill_tokens_saved}), "
-        f"launches decode {launches['decode']} prefill {launches['prefill']} "
-        f"(per decode step {launches['decode'] / max(m.decode_steps, 1):.1f})")
+        f"launches decode {launches['decode']} prefill {launches['prefill']} stoch_round "
+        f"{launches['stoch_round']} (per decode step: attention "
+        f"{launches['decode'] / max(m.decode_steps, 1):.1f}; {chunks} prefill chunks)")
     assert sorted(outs) == list(range(len(prompts))), "requests lost"
     assert all(len(o) == 32 and all(0 <= t < cfg.vocab for t in o) for o in outs.values())
     assert m.evictions == {"length": len(prompts)}, m.evictions
     assert m.prefix_hits >= 1 and m.prefix_partial_hits >= 2 and m.cow_forks >= 1
     assert launches["decode"] > 0 and launches["prefill"] > 0, launches
+    if kv == "int8":
+        assert eng._cache["k_pages"].dtype == torch.int8
+        # one K and one V quantizer launch beside every attention launch
+        assert launches["stoch_round"] == 2 * (launches["decode"] + launches["prefill"]) > 0, launches
+    else:
+        assert launches["stoch_round"] == 0, launches
     profile_decode(eng, cfg.vocab)
-    return {"launches": launches, "metrics": dataclasses.asdict(m), "wall_s": wall}
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "metrics": dataclasses.asdict(m), "wall_s": wall, "outs": outs}
 
 
 def profile_decode(eng, vocab: int, n_ticks: int = 5) -> None:
@@ -357,41 +516,90 @@ def profile_decode(eng, vocab: int, n_ticks: int = 5) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the WTA vote-count entry point.
+# ---------------------------------------------------------------------------
+
+
+def wta_phase(dev) -> dict:
+    """``ops.wta_counts`` at the serving head's operating point: 8 rows of
+    50304 classes, 32 trials, vth0 = 1.702², σ = 1.702."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wta_counts as WTA
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z = torch.randn((8, 50304), generator=gen, device=dev) * WTA_SIGMA
+    WTA.launches = 0
+    counts = ops.wta_counts(z, 20241216, n_trials=32, vth0=WTA_VTH0, sigma_z=WTA_SIGMA)
+    torch.cuda.synchronize()
+    launches = WTA.launches
+    votes = counts.sum(-1)
+    top = counts.argmax(-1)
+    rank = (z > z.gather(1, top[:, None])).sum(-1)   # the most-voted class's rank in z
+    log(f"  wta_counts (8, 50304) T=32: launches {launches}, votes per row "
+        f"{votes.tolist()}, most-voted class's rank in z {rank.tolist()}")
+    assert launches > 0, "wta_counts entry point did not launch its kernel"
+    assert counts.shape == z.shape and torch.isfinite(counts).all()
+    assert torch.equal(counts, counts.round()) and bool((counts >= 0).all())
+    # ~11% of 50304 classes fire per trial, so every trial casts one vote
+    # (exact ties aside)
+    assert bool((votes == 32).all()), votes
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: small input against the plain path on the CPU.
+# ---------------------------------------------------------------------------
+
+
 def reference_phase(dev) -> None:
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as TF
 
-    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), dtype="float32")
-    host = TF.init_lm(cfg, seed=1, device="cpu")
-
     def to(tree, d):
         return {k: to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
 
-    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (1, 40)).astype(np.int32))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 40)).astype(np.int32))
     row = torch.tensor([3, 7, 1, 9], dtype=torch.int32)
     table = torch.tensor([[3, 7, 1, 9], [0, 0, 0, 0]], dtype=torch.int32)
-    logits = {}
-    for d in ("cpu", dev):
-        params = to(host, d)
-        cache = TF.init_paged_decode_cache(cfg, 2, 12, 16, device=d)
-        state = TF.init_prefill_state(cfg, d)
-        out = []
-        for lo, hi in ((0, 32), (32, 40)):
-            _, state, lg = TF.lm_prefill_chunk(
-                params, toks[:, lo:hi].to(d), cfg, cache, state, row.to(d), lo
-            )
-            out.append(lg)
-        cache["pos"] = torch.tensor([40, 5], dtype=torch.int32, device=d)
-        tok = torch.tensor([5, 9], dtype=torch.int32, device=d)
-        for _ in range(3):
-            cache, lg = TF.lm_decode_step(params, cache, tok, cfg, table.to(d))
-            out.append(lg)
-            tok = lg.argmax(-1).to(torch.int32)
-        logits[str(d)] = [x.float().cpu() for x in out]
-    errs = [float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[str(dev)])]
-    log(f"  smoke f32 logits card vs CPU: max|err| {max(errs):.3e} (atol {REF_ATOL})")
-    if max(errs) > REF_ATOL:
-        raise AssertionError("card logits disagree with the CPU plain path")
+    block_seeds = torch.tensor([11, 2**32 - 1, 2**31, 5], dtype=torch.int64)
+    for kv in ("same", "int8"):
+        cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), dtype="float32",
+                                  kv_cache_dtype=kv)
+        host = TF.init_lm(cfg, seed=1, device="cpu")
+        logits, pools = {}, {}
+        for d in ("cpu", dev):
+            params = to(host, d)
+            cache = TF.init_paged_decode_cache(cfg, 2, 12, 16, device=d)
+            state = TF.init_prefill_state(cfg, d)
+            out = []
+            for lo, hi in ((0, 32), (32, 40)):
+                seeds = block_seeds[lo // 16 : -(-hi // 16)].to(d) if kv == "int8" else None
+                _, state, lg = TF.lm_prefill_chunk(
+                    params, toks[:, lo:hi].to(d), cfg, cache, state, row.to(d), lo, seeds
+                )
+                out.append(lg)
+            cache["pos"] = torch.tensor([40, 5], dtype=torch.int32, device=d)
+            tok = torch.tensor([5, 9], dtype=torch.int32, device=d)
+            for _ in range(3):
+                cache, lg = TF.lm_decode_step(params, cache, tok, cfg, table.to(d))
+                out.append(lg)
+                tok = lg.argmax(-1).to(torch.int32)
+            logits[str(d)] = [x.float().cpu() for x in out]
+            pools[str(d)] = {k: v.cpu() for k, v in cache.items() if k.endswith("pages")}
+        err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[str(dev)]))
+        atol = REF_INT8_ATOL if kv == "int8" else REF_ATOL
+        log(f"  smoke f32 {kv} pool logits card vs CPU: max|err| {err:.3e} (atol {atol})")
+        if err > atol:
+            raise AssertionError(f"card logits disagree with the CPU plain path ({kv} pool)")
+        if kv == "int8":
+            for name in ("k_pages", "v_pages"):
+                a, b = pools["cpu"][name].int(), pools[str(dev)][name].int()
+                eq = float((a == b).float().mean())
+                log(f"  smoke int8 {name} card vs CPU: {eq:.6f} of codes equal, "
+                    f"max |Δ| {int((a - b).abs().max())} (gate {REF_INT8_CODES}, 1)")
+                if eq < REF_INT8_CODES or int((a - b).abs().max()) > 1:
+                    raise AssertionError(f"int8 {name} codes disagree card vs CPU")
 
 
 def main() -> int:
@@ -414,7 +622,7 @@ def main() -> int:
 
     log("== build")
     t0 = time.perf_counter()
-    logs = build.build_all(["paged_attention", "prefill_attention"])
+    logs = build.build_all(build.sources())
     log(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -423,24 +631,34 @@ def main() -> int:
 
     log("== kernels vs plain versions")
     kres = kernel_phase(dev)
-    log("== serve stablelm-3b")
+    log("== serve stablelm-3b (bf16 pool, then int8 pool)")
     sres = serve_phase(dev)
+    log("== wta_counts entry point")
+    wres = wta_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
 
+    launches = dict(sres["same"]["launches"])
+    launches["stoch_round"] = sres["int8"]["launches"]["stoch_round"]
+    launches["wta_counts"] = wres["launches"]
     kernels = []
-    for key, name, src, replaces in (
-        ("decode", "paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
-         "src/repro/kernels/paged_attention.py:204"),
-        ("prefill", "paged_prefill_attention", "src/repro_torch/kernels/csrc/prefill_attention.cu",
+    for key, tkey, name, src, replaces in (
+        ("decode", ("decode", "bf16"), "paged_attention",
+         "src/repro_torch/kernels/csrc/paged_attention.cu", "src/repro/kernels/paged_attention.py:204"),
+        ("prefill", ("prefill", "bf16"), "paged_prefill_attention",
+         "src/repro_torch/kernels/csrc/prefill_attention.cu",
          "src/repro/kernels/prefill_attention.py:210"),
+        ("stoch_round", "stoch_round", "stoch_round",
+         "src/repro_torch/kernels/csrc/stoch_round.cu", "src/repro/kernels/stoch_round.py:82"),
+        ("wta_counts", "wta_counts", "wta_counts",
+         "src/repro_torch/kernels/csrc/wta_counts.cu", "src/repro/kernels/wta_kernel.py:100"),
     ):
-        t = kres["timing"][(key, "bf16")]
+        t = kres["timing"][tkey]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sres["launches"][key], "max_abs_err": max(kres["errs"][key]),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "launches": launches[key], "max_abs_err": max(kres["errs"][key]),
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

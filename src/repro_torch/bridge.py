@@ -1,4 +1,4 @@
-"""Parameters from the JAX package, as nested dicts of numpy arrays.
+"""Parameters and paged caches from the JAX package, as numpy arrays.
 
 ``params_from_numpy`` takes ``repro``'s parameter tree (``init_lm``'s
 nested dicts, units stacked on a leading axis) with every leaf already a
@@ -8,6 +8,10 @@ imports no jax: the caller converts leaves with ``np.asarray``.  Because
 leaves over as float32; the bridge casts each weight back to
 ``cfg.dtype`` (bf16 → f32 → bf16 is lossless).  Norm scales stay f32,
 as in the reference.
+
+``paged_cache_from_numpy`` carries a paged decode cache across the same
+way (pages, an int8 pool's scale planes, ``pos`` and ``quant_step``), so
+tests can run both packages' layers on identical pools.
 """
 
 from __future__ import annotations
@@ -34,3 +38,26 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
         return t.to(device=dev, dtype=torch.float32 if name == "scale" else dt)
 
     return conv(tree, "")
+
+
+def paged_cache_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """``repro``'s ``init_paged_decode_cache`` dict, leaves already numpy,
+    as the port's cache on ``device``: int8 pages stay int8, float pages
+    become ``cfg.dtype`` (bf16 leaves handed over as float32, as for
+    params), scale planes f32, ``pos`` and ``quant_step`` int32."""
+    dev = resolve_device(device)
+    out = {}
+    for name, leaf in tree.items():
+        arr = np.asarray(leaf)
+        if name in ("pos", "quant_step"):
+            t = torch.from_numpy(np.array(arr, dtype=np.int32))
+        elif arr.dtype == np.int8:
+            t = torch.from_numpy(np.array(arr))
+        elif name.endswith("_scale_pages"):
+            t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        elif name in ("k_pages", "v_pages"):
+            t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtype_of(cfg))
+        else:
+            raise KeyError(f"no paged-cache leaf {name!r} in a decoder_lm cache")
+        out[name] = t.to(dev)
+    return out

@@ -40,6 +40,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def sources() -> list[str]:
+    """Every kernel source under ``csrc/``, by name."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the attention kernels (``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the kernels (``repro/kernels/ref.py``).
 
-Each function is the reference oracle's math over a gathered window: the
-table's pages are gathered into a contiguous ``W·bs`` key window, then a
-masked full-softmax attention runs in f32.  The CPU path of the port runs
-these; on the card they are what ``chip_smoke.py`` holds each CUDA kernel
-against.  Nothing on the main path calls them when a card is present.
+The attention functions are the reference oracle's math over a gathered
+window: the table's pages are gathered into a contiguous ``W·bs`` key
+window, then a masked full-softmax attention runs in f32.  The stochastic
+functions repeat the TPU kernels' counter layout element for element.  The
+CPU path of the port runs these; on the card they are what
+``chip_smoke.py`` holds each CUDA kernel against.  Nothing on the main
+path calls them when a card is present.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from . import prng
 
 NEG_INF = -2.0e38
 
@@ -116,3 +120,92 @@ def prefill_attention_ref(
         vs = (v_scale[pages].reshape(t, hkv).transpose(0, 1) / 127.0)[:, None, None, :]
     out = _masked_softmax_readout(sc, ok[None, None], vb, vs, "kgst,tkd->skgd")
     return out.reshape(s, h, dh)
+
+
+def _f32(v: float) -> torch.Tensor:
+    """A Python float rounded to f32, as ``jnp.float32(v)`` rounds it."""
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def stoch_round_ref(
+    x: torch.Tensor,       # (M, N) f32
+    seeds,                 # (G,) int64 uint32 seeds, G divides M (or one int)
+    *,
+    step: float,
+    lo: float,
+    hi: float,
+) -> torch.Tensor:
+    """Stochastic rounding onto ``{lo + k·step} ∩ [lo, hi]``: (M, N) f32.
+
+    The rows fall into G equal groups; group ``g`` is one call of the
+    reference's ``stoch_round_ref`` under ``seeds[g]`` on a (M/G, N) array
+    padded to ``n_padded`` = N rounded up to 512 columns (as
+    ``ops.stoch_round_serving`` pads), so its counter is
+    ``row_in_group · n_padded + col``."""
+    m, n = x.shape
+    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=x.device).reshape(-1)
+    groups = seeds.shape[0]
+    if m % groups:
+        raise ValueError(f"{groups} seeds do not split {m} rows evenly")
+    n_padded = -(-n // 512) * 512
+    rows = m // groups
+    idx = (
+        torch.arange(rows, device=x.device, dtype=torch.int64)[:, None] * n_padded
+        + torch.arange(n, device=x.device, dtype=torch.int64)[None]
+    ) & prng.MASK
+    lo_t, step_t = _f32(lo).to(x.device), _f32(step).to(x.device)
+    inv = _f32(1.0 / step).to(x.device)
+    out = []
+    for g in range(groups):
+        xg = torch.clamp(x[g * rows : (g + 1) * rows].float(), lo, hi)
+        t = (xg - lo_t) * inv
+        fl = torch.floor(t)
+        frac = t - fl
+        u = prng.uniform(idx, seeds[g])
+        q = fl + (u < frac).to(torch.float32)
+        out.append(q * step_t + lo_t)
+    return torch.cat(out)
+
+
+def wta_trial_stride(c_pad: int) -> int:
+    """Counter offset between trials, ``t · bm·c_pad·4096`` with the
+    reference wrapper's fixed ``bm = 128``, in its wrapping uint32
+    arithmetic (``wta_kernel.py:59``)."""
+    return (128 * c_pad * 4096) & prng.MASK
+
+
+def wta_counts_ref(
+    z: torch.Tensor,       # (B, C) f32, unpadded
+    seed,                  # int64 uint32 seed (tensor or int)
+    *,
+    n_trials: int,
+    vth0: float,
+    sigma_z: float,
+) -> torch.Tensor:
+    """Winner counts over ``n_trials`` WTA trials: (B, C) f32.
+
+    Per trial, ``v = z + σ·gaussian(row·c_pad + col + t·stride)``; the
+    neurons with ``v > vth0`` fire, and every fired neuron equal to the
+    row's fired maximum wins (exact ties split the vote).  ``c_pad`` = C
+    rounded up to 128 is the reference's padded class width; its padded
+    classes never fire, so they are not materialised."""
+    b, c = z.shape
+    c_pad = -(-c // 128) * 128
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=z.device)
+    zf = z.float()
+    base = (
+        torch.arange(b, device=z.device, dtype=torch.int64)[:, None] * c_pad
+        + torch.arange(c, device=z.device, dtype=torch.int64)[None]
+    )
+    stride = wta_trial_stride(c_pad)
+    sigma, vth = _f32(sigma_z).to(z.device), _f32(vth0).to(z.device)
+    neg = torch.finfo(torch.float32).min
+    counts = torch.zeros_like(zf)
+    for t in range(n_trials):
+        idx = (base + t * stride) & prng.MASK
+        v = zf + prng.gaussian(idx, seed) * sigma
+        fired = v > vth
+        vm = torch.where(fired, v, neg)
+        vmax = vm.amax(dim=-1, keepdim=True)
+        counts += ((vm == vmax) & fired.any(dim=-1, keepdim=True)).to(torch.float32)
+    return counts

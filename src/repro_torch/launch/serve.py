@@ -2,7 +2,8 @@
 randomly initialized model, greedy sampling.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
-        [--smoke] [--device cpu] [--requests 4] [--new-tokens 16]
+        [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\
+        [--kv-dtype int8]
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -10,6 +11,7 @@ Runs on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -41,11 +43,15 @@ def main() -> None:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="max prefill tokens computed per engine tick "
                          "(0 = whole bucket at once)")
+    ap.add_argument("--kv-dtype", choices=["same", "int8"], default="same",
+                    help="KV pool storage: the model dtype, or int8 codes "
+                         "with per-row scales written by stochastic rounding")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_dtype)
     params = init_lm(cfg, seed=args.seed, device=args.device)
     eng = ServingEngine(
         params, cfg,
@@ -75,7 +81,8 @@ def main() -> None:
         f"{m.ttft_mean * 1e3:.0f}ms p99 {m.ttft_p99 * 1e3:.0f}ms, "
         f"step {m.decode_step_ms:.2f}ms, occupancy {m.occupancy_mean:.2f}, "
         f"prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, "
-        f"prefill tokens saved {m.prefill_tokens_saved}, sampler=greedy)"
+        f"prefill tokens saved {m.prefill_tokens_saved}, kv={args.kv_dtype}, "
+        f"sampler=greedy)"
     )
     for o in outs:
         print("  ->", o)

@@ -35,16 +35,19 @@ def cache_batch_axis(leaf_name: str) -> int:
 
 def make_paged_suffix_prefill(cfg: ModelConfig):
     """One suffix chunk of a resumable, chunked paged prefill:
-    (params, cache, state{B=1}, tokens (1, c), table_row (Wp,) int32, q0)
-    → (cache, state', last-token logits (1, V)).  Only the page-pool leaves
-    of ``cache`` are touched; the per-slot leaves ride along, so a prefill
-    in flight never disturbs the batched decode of the other slots (the
-    engine writes ``state`` at the slot once, on completion)."""
+    (params, cache, state{B=1}, tokens (1, c), table_row (Wp,) int32, q0
+    [, quant_seeds (nbc,) int64]) → (cache, state', last-token logits
+    (1, V)).  Only the page-pool leaves of ``cache`` are touched; the
+    per-slot leaves ride along, so a prefill in flight never disturbs the
+    batched decode of the other slots (the engine writes ``state`` at the
+    slot once, on completion).  int8 pools need ``quant_seeds``: one
+    content-derived uint32 seed per block the chunk covers, on the device."""
 
-    def suffix_chunk(params, cache: dict, state: dict, tokens, table_row, q0: int):
+    def suffix_chunk(params, cache: dict, state: dict, tokens, table_row, q0: int,
+                     quant_seeds=None):
         pool = {n: cache[n] for n in PAGE_POOL_LEAVES if n in cache}
         _, new_state, logits = TF.lm_prefill_chunk(
-            params, tokens, cfg, pool, state, table_row, q0
+            params, tokens, cfg, pool, state, table_row, q0, quant_seeds
         )
         return cache, new_state, logits
 
@@ -66,7 +69,8 @@ def make_paged_state_insert(cfg: ModelConfig):
 
 def make_page_copy(cfg: ModelConfig):
     """(cache, src, dst) → cache: copy one pool page onto another across
-    every page-pool leaf (the device half of a copy-on-write fork)."""
+    every page-pool leaf, an int8 pool's scale planes included (the device
+    half of a copy-on-write fork)."""
 
     def copy(cache: dict, src: int, dst: int) -> dict:
         for name in PAGE_POOL_LEAVES:

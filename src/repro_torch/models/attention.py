@@ -9,13 +9,15 @@ the decode step runs), so the per-slot scatter never collides; shared
 pages are only ever read.  Slots whose table row is all trash (page 0)
 write into page 0, which no live request reads.
 
-Attention itself goes through ``kernels.ops``: the hand-written CUDA
-kernels for CUDA tensors, their plain PyTorch versions for CPU tensors.
+Attention and the int8 quantizer go through ``kernels.ops``: the
+hand-written CUDA kernels for CUDA tensors, their plain PyTorch versions
+for CPU tensors.  int8 pools carry per-(page, row, kv head) f32 scale
+planes beside the codes, written in place by the same scatters.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -57,7 +59,8 @@ def paged_write(
     table: torch.Tensor,  # (B, W) int block table
     pos: torch.Tensor,    # (B,) int logical write position per slot
 ) -> None:
-    """Scatter one token's K/V row per slot into its current block.
+    """Scatter one token's K/V row (or its scales) per slot into its
+    current block.
 
     ``pos // bs`` is clamped into the table width so evicted slots whose
     ``pos`` keeps advancing stay in bounds; unassigned (-1) ids go to the
@@ -106,12 +109,19 @@ def paged_prefill_self_attention(
     q0: int,                  # absolute position of the chunk's start
     cfg: ModelConfig,
     kind: str = "global",
+    k_scale_pages: Optional[torch.Tensor] = None,  # (P, bs, Hkv) f32, int8 pools
+    v_scale_pages: Optional[torch.Tensor] = None,
+    quant_seeds: Optional[torch.Tensor] = None,    # (nbc,) int64 uint32 seeds
 ) -> torch.Tensor:
     """Write the chunk's K/V into its own pages, then let its queries attend
     over the request's whole table row (shared prefix pages included) at
-    absolute positions.  Returns the (1, c, D) output after w_o."""
-    if k_pages.dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools are not ported yet")
+    absolute positions.  Returns the (1, c, D) output after w_o.
+
+    int8 pools quantize each chunk block under its own content-derived seed
+    (``quant_seeds[i]`` for the chunk's i-th block), so any writer of the
+    same block content writes bit-identical codes and scales; the scale
+    planes are written in place beside the codes."""
+    int8_pool = k_pages.dtype == torch.int8
     b, c, _ = x.shape
     bs = k_pages.shape[1]
     positions = (q0 + torch.arange(c, device=x.device))[None].expand(b, c)
@@ -119,11 +129,21 @@ def paged_prefill_self_attention(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     b0 = q0 // bs
-    paged_write_chunk(k_pages, _chunk_to_blocks(k, bs), table_row, b0)
-    paged_write_chunk(v_pages, _chunk_to_blocks(v, bs), table_row, b0)
+    kb = _chunk_to_blocks(k, bs)   # (nbc, bs, Hkv, Dh)
+    vb = _chunk_to_blocks(v, bs)
+    if int8_pool:
+        # one quantizer launch per K and V covers every block of the chunk:
+        # row group i (block i's bs·Hkv rows) draws under quant_seeds[i]
+        kb, ks, vb, vs = KOPS.quantize_kv_pair_int8(kb, vb, quant_seeds)
+        paged_write_chunk(k_scale_pages, ks, table_row, b0)
+        paged_write_chunk(v_scale_pages, vs, table_row, b0)
+    paged_write_chunk(k_pages, kb, table_row, b0)
+    paged_write_chunk(v_pages, vb, table_row, b0)
     out = KOPS.paged_prefill_attention(
         q[0], k_pages, v_pages, table_row, q0,
         kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,
+        k_scale=k_scale_pages if int8_pool else None,
+        v_scale=v_scale_pages if int8_pool else None,
     ).to(x.dtype)                      # (c, H, Dh)
     # w_o is a plain matmul here, as in the reference's prefill
     return out.reshape(b, c, -1) @ p["wo"].to(x.dtype)
@@ -138,18 +158,29 @@ def paged_decode_self_attention(
     pos: torch.Tensor,       # (B,) int32
     cfg: ModelConfig,
     kind: str = "global",
+    k_scale_pages: Optional[torch.Tensor] = None,  # (P, bs, Hkv) f32, int8 pools
+    v_scale_pages: Optional[torch.Tensor] = None,
+    quant_seed: Optional[torch.Tensor] = None,     # int64 uint32 seed (device)
 ) -> torch.Tensor:
     """Write this step's K/V into each slot's current block, then attend
-    over the W table blocks only.  Returns the (B, 1, D) output after w_o."""
-    if k_pages.dtype == torch.int8:
-        raise NotImplementedError("int8 KV pools are not ported yet")
+    over the W table blocks only.  Returns the (B, 1, D) output after w_o.
+
+    int8 pools quantize the step's K/V rows under ``quant_seed`` and write
+    codes and scales in place; attention folds the scales into its math."""
+    int8_pool = k_pages.dtype == torch.int8
     q, k, v = qkv(p, x, cfg)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    if int8_pool:
+        k, ks, v, vs = KOPS.quantize_kv_pair_int8(k, v, quant_seed)
+        paged_write(k_scale_pages, ks, table, pos)
+        paged_write(v_scale_pages, vs, table, pos)
     paged_write(k_pages, k, table, pos)
     paged_write(v_pages, v, table, pos)
     out = KOPS.paged_attention(
         q[:, 0], k_pages, v_pages, table, pos,
         kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,
+        k_scale=k_scale_pages if int8_pool else None,
+        v_scale=v_scale_pages if int8_pool else None,
     ).reshape(x.shape[0], 1, -1)
     return A.analog_matmul(_proj_cfg(cfg), out.to(x.dtype), p["wo"])

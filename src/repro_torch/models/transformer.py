@@ -10,6 +10,15 @@ leaves are views into the stacked tensors.
 The paged pool is updated in place: :func:`lm_decode_step` and
 :func:`lm_prefill_chunk` write K/V rows into the pool tensors they are
 given (see ``attention.py`` for why the writes never collide).
+
+With ``cfg.kv_cache_dtype == "int8"`` the pools hold stochastically
+rounded int8 codes plus f32 scale planes.  Every write's rounding seed is
+computed on the device from a device counter or from device seeds, so a
+step never waits on the host for it: decode seeds from ``quant_step``
+(+1 per decode step, never reset), prefill seeds from the engine's
+content-derived per-block seeds, each folded with the unit and sublayer
+index exactly as the reference folds them (wrapping uint32 arithmetic,
+held in int64).
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.prng import MASK, mul32
 from . import attention as ATT
 from .config import ModelConfig
 from .layers import (
@@ -98,17 +108,49 @@ def init_paged_decode_cache(
     plus the per-slot ``pos``.  Which pages a slot owns is the engine's
     host-side block table; a page may back several slots' tables at once
     (prefix sharing), and the engine forks a shared page before any slot
-    writes into it."""
+    writes into it.
+
+    int8 pools (``cfg.kv_cache_dtype == "int8"``) hold int8 codes, the
+    ``(nu, n_attn, P, bs, Hkv)`` f32 scale planes ``k_scale_pages`` /
+    ``v_scale_pages``, and ``quant_step``, the device decode-step counter
+    that seeds the decode writes' rounding."""
     _check_family(cfg)
-    if cfg.kv_cache_dtype != "same":
-        raise NotImplementedError("int8 KV pools are not ported yet")
+    if cfg.kv_cache_dtype not in ("same", "int8"):
+        raise ValueError(f"kv_cache_dtype must be 'same' or 'int8', got {cfg.kv_cache_dtype!r}")
     dev = resolve_device(device)
     n_attn = len(cfg.layer_pattern)
     shape = (cfg.n_units, n_attn, n_pages, block_size, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.kv_cache_dtype == "int8":
+        cache["k_pages"] = torch.zeros(shape, dtype=torch.int8, device=dev)
+        cache["v_pages"] = torch.zeros(shape, dtype=torch.int8, device=dev)
+        cache["k_scale_pages"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+        cache["v_scale_pages"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+        cache["quant_step"] = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        cache["k_pages"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
+        cache["v_pages"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
+    return cache
+
+
+def _layer_seeds(base: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``(base + u·40503 + i·1299721) mod 2**32`` for every unit ``u`` and
+    sublayer ``i``: (nu, n_layers, *base.shape) int64, built on base's
+    device in a few launches (the reference folds one layer at a time)."""
+    dev = base.device
+    off = (
+        torch.arange(cfg.n_units, device=dev, dtype=torch.int64)[:, None] * 40503
+        + torch.arange(len(cfg.layer_pattern), device=dev, dtype=torch.int64)[None] * 1299721
+    )
+    return (base.reshape((1, 1) + tuple(base.shape)) + off.reshape(off.shape + (1,) * base.dim())) & MASK
+
+
+def _int8_kw(pool: dict, u: int, i: int, seeds: torch.Tensor, name: str) -> dict:
+    """This layer's scale-plane views and rounding seed(s) for an int8 pool."""
     return {
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "k_pages": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
-        "v_pages": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
+        "k_scale_pages": pool["k_scale_pages"][u, i],
+        "v_scale_pages": pool["v_scale_pages"][u, i],
+        name: seeds[u, i],
     }
 
 
@@ -128,22 +170,31 @@ def lm_decode_step(
     """One decode step over the paged pool; returns (cache, logits (B, V)).
 
     The pool leaves are written in place and the returned cache is the same
-    dict with ``pos`` advanced by one."""
+    dict with ``pos`` (and an int8 pool's ``quant_step``) advanced by one.
+    An int8 write of unit ``u``, sublayer ``i`` rounds under
+    ``quant_step·2654435761 + u·40503 + i·1299721 mod 2**32``."""
     pos = cache["pos"]
+    int8_pool = "k_scale_pages" in cache
+    if int8_pool:
+        qstep = cache["quant_step"]
+        seeds = _layer_seeds(mul32(qstep.long() & MASK, 2654435761), cfg)
     x = embed(params["embed"], token[:, None], cfg)
     for u in range(cfg.n_units):
         up = unit_params(params["units"], u)
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
+            kw = _int8_kw(cache, u, i, seeds, "quant_seed") if int8_pool else {}
             a = ATT.paged_decode_self_attention(
                 sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps),
                 cache["k_pages"][u, i], cache["v_pages"][u, i],
-                table, pos, cfg, kind=kind,
+                table, pos, cfg, kind=kind, **kw,
             )
             x = _attn_block(sub, x, a, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)
     cache["pos"] = pos + 1
+    if int8_pool:
+        cache["quant_step"] = qstep + 1
     return cache, logits[:, 0, :]
 
 
@@ -161,22 +212,31 @@ def lm_prefill_chunk(
     state: dict,              # B=1 per-slot leaves incl. "pos"
     table_row: torch.Tensor,  # (Wp,) int32 blocks covering the prompt bucket
     q0: int,                  # absolute position of the chunk start
+    quant_seeds: torch.Tensor | None = None,  # (nbc,) int64, int8 pools only
 ) -> tuple[dict, dict, torch.Tensor]:
     """One chunk of a resumable paged prefill; returns (pool, state',
     last-token logits (1, V)).  Attention writes the chunk's K/V into the
     request's own pages and attends over the whole table row at absolute
     positions, so a suffix that starts mid-prompt sees exactly what a
-    whole-prompt prefill would."""
+    whole-prompt prefill would.  int8 pools round the chunk's i-th block
+    under ``quant_seeds[i] + u·40503 + i_layer·1299721 mod 2**32`` (the
+    engine's content-derived block seeds, on the device)."""
     b, c = tokens.shape
+    int8_pool = "k_scale_pages" in pool
+    if int8_pool:
+        if quant_seeds is None:
+            raise ValueError("an int8 pool's prefill needs quant_seeds")
+        seeds = _layer_seeds(quant_seeds.to(torch.int64), cfg)
     x = embed(params["embed"], tokens, cfg)
     for u in range(cfg.n_units):
         up = unit_params(params["units"], u)
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
+            kw = _int8_kw(pool, u, i, seeds, "quant_seeds") if int8_pool else {}
             o = ATT.paged_prefill_self_attention(
                 sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps),
                 pool["k_pages"][u, i], pool["v_pages"][u, i],
-                table_row, q0, cfg, kind=kind,
+                table_row, q0, cfg, kind=kind, **kw,
             )
             x = _attn_block(sub, x, o, cfg)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)

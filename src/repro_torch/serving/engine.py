@@ -13,12 +13,20 @@ queries attend into the shared pages.  The first decode write into a
 still-shared block forks it (copy-on-write) onto a spare page reserved at
 admission.
 
+With ``ModelConfig.kv_cache_dtype="int8"`` the pool holds stochastically
+rounded int8 codes plus f32 scale planes.  A prompt block's rounding seed
+derives from its content hash (``prefix_block_hashes``), so every writer
+of the same block content writes bit-identical codes and int8 blocks stay
+shareable; decode writes draw from the device step counter
+``quant_step``.  A ``num_kv_blocks`` budget counts native-dtype blocks,
+so an int8 pool holds twice the pages.
+
 The engine runs on the card unless built with ``device="cpu"``; the KV
 pool, the parameters and every per-tick input live on that device, while
 the block table, allocator and prefix index stay on the host.  Knobs the
-reference has and this slice does not honour (dense layout, int8 pools,
-WTA sampling, preemption and deadlines, speculation, sharding, energy
-accounting, fault injection) are absent from :class:`ServeConfig`.
+reference has and this slice does not honour (dense layout, WTA sampling,
+preemption and deadlines, speculation, sharding, energy accounting, fault
+injection) are absent from :class:`ServeConfig`.
 """
 
 from __future__ import annotations
@@ -95,14 +103,26 @@ class ServeConfig:
         """Block-table width: blocks covering one request's max_len."""
         return -(-self.max_len // self.kv_block_size)
 
-    def pool_blocks(self) -> int:
-        """Total pool pages (incl. the reserved trash page 0)."""
+    def pool_blocks(self, kv_cache_dtype: str = "same") -> int:
+        """Total pool pages (incl. the reserved trash page 0).
+
+        ``num_kv_blocks`` is a memory budget in native-dtype blocks: an
+        int8 page costs half the K/V bytes, so the same budget holds
+        ``2·num_kv_blocks − 1`` pages (the trash page counted once).  The
+        default (0) already fits every slot at ``max_len`` and is not
+        doubled."""
         if self.num_kv_blocks:
+            if kv_cache_dtype == "int8":
+                return 2 * self.num_kv_blocks - 1
             return self.num_kv_blocks
         return self.max_batch * self.max_kv_blocks() + 1
 
-    def validate(self) -> None:
+    def validate(self, kv_cache_dtype: str = "same") -> None:
         """Loud, eager config validation."""
+        if kv_cache_dtype not in ("same", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be 'same' or 'int8', got {kv_cache_dtype!r}"
+            )
         self.buckets()
         if self.kv_block_size < 1:
             raise ValueError(f"kv_block_size must be >= 1, got {self.kv_block_size}")
@@ -122,7 +142,7 @@ class ServeConfig:
             )
         # the smallest admissible request: shortest bucket + one token
         need = -(-(min(self.buckets()) + 1) // self.kv_block_size)
-        cap = self.pool_blocks() - 1  # minus trash page
+        cap = self.pool_blocks(kv_cache_dtype) - 1  # minus trash page
         if cap < need:
             raise ValueError(
                 f"num_kv_blocks={self.num_kv_blocks} leaves a pool of {cap} "
@@ -180,9 +200,7 @@ class ServingEngine:
     def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None):
         if model_cfg.wta_head:
             raise NotImplementedError("WTA sampling is not ported yet")
-        if model_cfg.kv_cache_dtype != "same":
-            raise NotImplementedError("int8 KV pools are not ported yet")
-        cfg.validate()
+        cfg.validate(model_cfg.kv_cache_dtype)
         self.device = resolve_device(device)
         if params["embed"]["embedding"].device.type != self.device.type:
             raise ValueError(
@@ -190,13 +208,16 @@ class ServingEngine:
                 f"the engine on {self.device}"
             )
         self.sharing = cfg.enable_prefix_sharing
+        self.int8 = model_cfg.kv_cache_dtype == "int8"
         self.params = params
         self.mcfg = model_cfg
         self.cfg = cfg
         self.sched = Scheduler(cfg.max_batch)
         b = cfg.max_batch
         self._max_blocks = cfg.max_kv_blocks()
-        self.blocks = BlockAllocator(cfg.pool_blocks(), n_reserved=1)
+        self.blocks = BlockAllocator(
+            cfg.pool_blocks(model_cfg.kv_cache_dtype), n_reserved=1
+        )
         # host-authoritative block table; row = trash page 0 when free
         self._table = np.zeros((b, self._max_blocks), np.int32)
         # host mirror of cache["pos"] (drives the decode window width)
@@ -208,8 +229,8 @@ class ServingEngine:
         # rid -> admission plan built by the gate (block hashes, resume
         # depth, full-hit flag); consumed by _admit_one
         self._plans: dict[int, dict] = {}
-        # rid -> block hashes: a back-pressured queue head is re-gated
-        # every tick, so only the index lookups rerun per attempt
+        # rid -> (block hashes, int8 block seeds): a back-pressured queue
+        # head is re-gated every tick, so only the index lookups rerun
         self._hash_memo: dict[int, list] = {}
         # rid -> in-flight chunked-prefill job, processed FIFO (the order
         # that guarantees a sharer's source pages are written before its
@@ -272,7 +293,7 @@ class ServingEngine:
 
     def _init_cache(self) -> dict:
         return TF.init_paged_decode_cache(
-            self.mcfg, self.cfg.max_batch, self.cfg.pool_blocks(),
+            self.mcfg, self.cfg.max_batch, self.cfg.pool_blocks(self.mcfg.kv_cache_dtype),
             self.cfg.kv_block_size, device=self.device,
         )
 
@@ -301,17 +322,21 @@ class ServingEngine:
         bs = self.cfg.kv_block_size
         n_prompt = -(-bucket // bs)
         plan: dict = {
-            "full_hit": False, "hashes": None, "n_prompt": n_prompt,
-            "n_shared": 0, "resume": 0, "bucket": bucket,
+            "full_hit": False, "hashes": None, "seeds": None,
+            "n_prompt": n_prompt, "n_shared": 0, "resume": 0, "bucket": bucket,
         }
         shared: list[int] = []
-        if self.sharing:
-            hashes = self._hash_memo.get(req.rid)
-            if hashes is None:
+        if self.sharing or self.int8:
+            memo = self._hash_memo.get(req.rid)
+            if memo is None:
                 hashes = prefix_block_hashes(left_pad(req.prompt, bucket), bs)
-                self._hash_memo[req.rid] = hashes
-            plan["hashes"] = hashes
-            shared = self.blocks.longest_prefix_match([h for h, _ in hashes])
+                # canonical int8 rounding seeds: content-derived per block,
+                # so identical prefixes re-quantize to identical codes
+                memo = (hashes, np.asarray([sd for _, sd in hashes], np.int64))
+                self._hash_memo[req.rid] = memo
+            plan["hashes"], plan["seeds"] = memo
+        if self.sharing:
+            shared = self.blocks.longest_prefix_match([h for h, _ in plan["hashes"]])
         full = len(shared) == n_prompt
         n_spare = 1 if (full and bucket % bs != 0) else 0
         n_new = nb_total - len(shared)
@@ -444,7 +469,7 @@ class ServingEngine:
                 job["state"] = TF.init_prefill_state(self.mcfg, self.device)
             grid = self._chunk_tokens(bucket)
             c = min((q0 // grid + 1) * grid, bucket) - q0
-            b1 = -(-(q0 + c) // bs)
+            b0, b1 = q0 // bs, -(-(q0 + c) // bs)
             self._cache, job["state"], logits = self._suffix_prefill(
                 self.params,
                 self._cache,
@@ -452,6 +477,7 @@ class ServingEngine:
                 torch.tensor([job["tokens"][q0 : q0 + c]], dtype=torch.int32, device=self.device),
                 self._put(job["row"][: plan["n_prompt"]]),
                 q0,
+                self._put(plan["seeds"][b0:b1]) if self.int8 else None,
             )
             self._prefill_tokens += c
             job["q0"] = q0 + c

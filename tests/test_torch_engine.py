@@ -120,12 +120,13 @@ def test_entry_points_refuse_to_run_silently_on_the_cpu():
 
 
 def test_unported_knobs_are_refused():
+    """WTA sampling is not ported: the engine refuses it (int8 pools are
+    served; ``tests/test_torch_int8.py``)."""
     cfg = get_smoke_config("stablelm-3b")
     params = init_lm(cfg, device="cpu")
-    for bad in (dict(wta_head=True), dict(kv_cache_dtype="int8")):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(params, dataclasses.replace(cfg, **bad),
-                          ServeConfig(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServingEngine(params, dataclasses.replace(cfg, wta_head=True),
+                      ServeConfig(), device="cpu")
     with pytest.raises(TypeError):
         ServeConfig(kv_layout="dense")
 

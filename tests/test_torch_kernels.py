@@ -5,8 +5,8 @@ hold it against ``repro.kernels.ref`` and against the Pallas kernels in
 interpret mode (as ``tests/test_kernels.py`` runs them), on the same numpy
 inputs.  Tolerance: 2e-5 absolute / 1e-5 relative, the reference suite's
 own kernel-vs-oracle bound (f32 throughout, only summation order and
-transcendental rounding differ).  The ``cuda``-marked tests hold the CUDA
-kernels against the plain versions on the card and skip without one.
+transcendental rounding differ).  ``tests/test_torch_cuda.py`` holds the
+CUDA kernels against the plain versions on the card.
 """
 
 import numpy as np
@@ -164,46 +164,3 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
         TOPS.paged_prefill_attention(t[0], t[1], t[2], t[3][0], 3),
         TREF.prefill_attention_ref(t[0], t[1], t[2], t[3][0], 3),
     )
-
-
-# ---------------------------------------------------------------------------
-# On the card: CUDA kernels against their plain versions.
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("kind,local_window,softcap,hkv", [
-    ("global", 0, 0.0, 4), ("local", 5, 30.0, 2),
-])
-def test_cuda_kernels_match_plain_versions(cuda_device, int8, kind, local_window, softcap, hkv):
-    """Both kernels vs their plain versions on the card, f32 inputs: only
-    summation order differs, so the CPU bound holds."""
-    kw = dict(kind=kind, local_window=local_window, softcap=softcap)
-    q, kp, vp, table, ks, vs = _decode_case(7, 3, 4, hkv, 80, 16, 4, int8)
-    table[2, 3] = -1
-    pos = torch.tensor([63, 20, 40], dtype=torch.int32, device=cuda_device)
-    dev = [torch.from_numpy(a).to(cuda_device) for a in (q, kp, vp, table)]
-    sc = {} if not int8 else dict(
-        k_scale=torch.from_numpy(ks).to(cuda_device),
-        v_scale=torch.from_numpy(vs).to(cuda_device),
-    )
-    y_k = TOPS.paged_attention(*dev, pos, **kw, **sc)
-    y_p = TREF.paged_attention_ref(*dev, pos, **kw, **sc)
-    torch.testing.assert_close(y_k, y_p, atol=ATOL, rtol=RTOL)
-    q, kp, vp, table, ks, vs = _prefill_case(8, 37, 4, hkv, 80, 16, 5, int8)
-    dev = [torch.from_numpy(a).to(cuda_device) for a in (q, kp, vp, table)]
-    sc = {} if not int8 else dict(
-        k_scale=torch.from_numpy(ks).to(cuda_device),
-        v_scale=torch.from_numpy(vs).to(cuda_device),
-    )
-    y_k = TOPS.paged_prefill_attention(*dev, 21, **kw, **sc)
-    y_p = TREF.prefill_attention_ref(*dev, 21, **kw, **sc)
-    torch.testing.assert_close(y_k, y_p, atol=ATOL, rtol=RTOL)
