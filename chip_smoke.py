@@ -15,7 +15,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    within its agreement bound at the serving head's width; with kernel
    times per call (CUDA events over back-to-back calls) and on the device
    (the same, with the host's time hidden behind a spin kernel), plain and
-   library times, and each kernel's bound.
+   library times, and each kernel's bound; ``crossbar_mac`` at the three
+   stablelm-3b training shapes and at odd, physical-noise and canary cases.
 4. serve: ``ServingEngine`` serves a 12-request shared-prefix trace at
    stablelm-3b full width (random seeded weights) twice, with a bf16 and
    an int8 KV pool, with prefix hits, chunked suffix prefill and
@@ -25,9 +26,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
 5. wta: the ``ops.wta_counts`` entry point at the serving head's
    operating point (8 × 50304, 32 trials); its kernel's launches, reset
    just before and read just after, must be > 0.
-6. reference: smoke-size prefill and decode logits on the card (kernels)
+6. train: RACA analog training (``--analog``) of stablelm-3b at full width
+   and depth, batch 8 x 128, 3 steps through ``make_train_step``: finite
+   losses, parameters changed, ``crossbar_mac`` launched 224 times per
+   step (reset just before, read just after); step time, tokens/s, peak
+   memory and a profiled step's split.
+7. reference: smoke-size prefill and decode logits on the card (kernels)
    agree with the same model on the CPU (plain versions), for a float and
-   an int8 pool (whose written codes must agree too).
+   an int8 pool (whose written codes must agree too); two smoke-size
+   analog training steps agree card vs CPU (losses, comparator decisions).
 
 The second-to-last line is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +80,26 @@ REF_INT8_ATOL = 2e-2
 # Gate: equal row sums, and sum|Δcounts| <= 2 x 1% of the B·T decisions.
 WTA_FLIP_FRACTION = 0.01
 WTA_VTH0, WTA_SIGMA = 1.702**2, 1.702   # the serving head's operating point
+# H100 SXM f32 FMA rate on the CUDA cores: 132 SMs x 128 lanes x 2 x 1.98 GHz
+F32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
+# crossbar_mac vs its plain version: the quantized weights and the noise are
+# bit-identical, the f32 products are summed in another order (the plain
+# version's is cuBLAS's).  Linear readout: |Δ| <= 2·sqrt(K)·2**-24 times
+# Σ_k |x_k·Wq_k| per element (twice the random-walk size of an f32 sum's
+# rounding), and, with the physical noise model (σ from ΣWq, summed in
+# another order too), 1e-5 of |out| besides.  Comparator readout: at least
+# 99.95% of the decisions equal (tests/test_kernels.py:57's agreement).
+CB_AGREEMENT = 0.9995
+# stablelm-3b analog training: 7 crossbar reads per layer and forward
+# (wq wk wv wo w_down linear, w_up w_gate binarized), none in the backward
+CB_PER_LAYER = 7
+TRAIN_STEPS = 3
+# Smoke-size analog training, card vs CPU: the comparator decisions may
+# flip where z + noise sits within f32 rounding of 0 (gate: >= 99.9% of the
+# binary activations equal); a flipped hidden unit moves one token's loss
+# by ~1e-2 at this size, so the mean loss gets 1e-3.
+REF_TRAIN_AGREEMENT = 0.999
+REF_TRAIN_LOSS_ATOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -316,6 +343,7 @@ def kernel_phase(dev) -> dict:
     torch.cuda.synchronize()
     timing["stoch_round"], errs["stoch_round"] = stoch_round_kernels(gen, dev)
     timing["wta_counts"], errs["wta_counts"] = wta_kernels(gen, dev)
+    timing["crossbar_mac"], errs["crossbar_mac"] = crossbar_kernels(gen, dev)
     return {"errs": errs, "timing": timing}
 
 
@@ -386,6 +414,101 @@ def wta_kernels(gen, dev):
             f"wta_counts ({b}, {c}) T={n_trials}",
         ))
     return recs[0], errs
+
+
+def crossbar_case(gen, dev, m, k, n, *, binarize, binary_x=False, quantize=True,
+                  physical=False, sigma=None):
+    """Inputs as the analog training path hands them to the kernel: x (M, K)
+    f32 (normed activations, or the binary product b_up·b_gate entering
+    w_down), W (K, N) a bf16 N(0, 1/K) weight cast to f32 and divided by its
+    range scale s (the physical path keeps W as it is), σ the calibrated
+    read's 1.702 / s (comparator) or 0.01 (linear) on the card."""
+    from repro_torch.core.physics import DeviceParams, calibrate_v_read
+    from repro_torch.kernels import ops
+
+    x = torch.randn((m, k), generator=gen, device=dev)
+    if binary_x:
+        x = (x > 0.5).float()
+    w = (torch.randn((k, n), generator=gen, device=dev) * k**-0.5).to(torch.bfloat16).float()
+    s = ops.range_scale(w)
+    if physical:
+        w = w / s * 1.2                 # a layer whose weights overrun the clip range
+    else:
+        w = w / s
+    if sigma is None:
+        sigma = (torch.tensor(1.702, device=dev) / s) if binarize else torch.full((), 0.01, device=dev)
+    dp = calibrate_v_read(DeviceParams(), k)
+    kw = dict(binarize=binarize, physical_noise=physical, noise_params=ops._noise_params(dp, k),
+              quantize=quantize, qstep=ops._qstep(dp), w_min=dp.w_min, w_max=dp.w_max)
+    seed = int(torch.randint(0, 2**32, (1,), generator=gen, device=dev, dtype=torch.int64))
+    return x, w.contiguous(), seed, sigma.reshape(()).float(), kw
+
+
+def check_crossbar(label, x, w, seed, sigma, kw, errs):
+    from repro_torch.kernels import crossbar_mac as CB
+    from repro_torch.kernels import ref
+
+    got = CB.crossbar_mac_cuda(x, w, seed, sigma, **kw)
+    want = ref.crossbar_mac_ref(x, w, seed, sigma, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"crossbar_mac {label}: non-finite output")
+    if kw["binarize"]:
+        agree = float((got == want).float().mean())
+        binary = bool(((got == 0) | (got == 1)).all())
+        errs.append(float((got - want).abs().max()))
+        log(f"  crossbar_mac {label}: {agree:.6f} of decisions equal (gate {CB_AGREEMENT})")
+        if agree < CB_AGREEMENT or not binary:
+            raise AssertionError(f"crossbar_mac {label}: kernel disagrees with its plain version")
+        return
+    wq = ref.crossbar_quantize(w, kw["qstep"], kw["w_min"], kw["w_max"]) if kw["quantize"] else w
+    tol = 2 * x.shape[1] ** 0.5 * 2.0**-24 * (x.abs() @ wq.abs())
+    if kw["physical_noise"]:
+        tol = tol + 1e-5 * want.abs()
+    err = (got - want).abs()
+    worst = float((err / tol.clamp_min(1e-30)).max())
+    errs.append(float(err.max()))
+    log(f"  crossbar_mac {label}: max|err| {float(err.max()):.3e}, worst err/tol {worst:.3f}")
+    if worst > 1.0:
+        raise AssertionError(f"crossbar_mac {label}: kernel disagrees with its plain version")
+
+
+def crossbar_kernels(gen, dev):
+    """crossbar_mac vs its plain version at stablelm-3b's training shapes
+    (M = 8 x 128 tokens): the 2560² linear reads (wq wk wv wo), the
+    2560→6912 comparator reads (w_up, w_gate) and the 6912→2560 linear
+    read of the binary hidden layer (w_down); then the odd shape 257 x 513
+    x 129 (valid K and the padded noise counter), the physical noise model
+    and the serving canary's unquantized (1, 128) x (128, 8) read.  Times
+    at the three training shapes.  Returns (2560² record, max|err| list)."""
+    from repro_torch.kernels import crossbar_mac as CB
+    from repro_torch.kernels import ref
+
+    errs, recs = [], {}
+    for label, (m, k, n), opts in (
+        ("(1024, 2560) x (2560, 2560) linear", (1024, 2560, 2560), dict(binarize=False)),
+        ("(1024, 2560) x (2560, 6912) comparator", (1024, 2560, 6912), dict(binarize=True)),
+        ("(1024, 6912) x (6912, 2560) linear", (1024, 6912, 2560),
+         dict(binarize=False, binary_x=True)),
+    ):
+        cases = [crossbar_case(gen, dev, m, k, n, **opts) for _ in range(ROTATE)]
+        check_crossbar(label, *cases[0], errs)
+        nbytes = 4 * (m * k + k * n + m * n)
+        rec = bound_record(nbytes, 2 * m * k * n, F32_FLOPS_PER_S)
+        recs[(m, k, n)] = time_kernel(
+            rec, [(x, w, sd, sg, kw) for x, w, sd, sg, kw in cases],
+            CB.crossbar_mac_cuda, ref.crossbar_mac_ref,
+            lambda x, w, sd, sg: (lambda: x @ w), f"crossbar_mac {label} (library: product only)",
+        )
+        del cases
+    for b in (False, True):
+        tag = "comparator" if b else "linear"
+        check_crossbar(f"odd 257 x 513 x 129 {tag}", *crossbar_case(gen, dev, 257, 513, 129, binarize=b), errs)
+        check_crossbar(f"physical noise 192 x 640 x 200 {tag}",
+                       *crossbar_case(gen, dev, 192, 640, 200, binarize=b, physical=True), errs)
+    check_crossbar("canary (1, 128) x (128, 8) unquantized linear",
+                   *crossbar_case(gen, dev, 1, 128, 8, binarize=False, quantize=False), errs)
+    return recs[(1024, 2560, 2560)], errs
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +671,123 @@ def wta_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: small input against the plain path on the CPU.
+# Phase 6: RACA analog training of stablelm-3b at full width.
+# ---------------------------------------------------------------------------
+
+
+def analog_cfg(cfg):
+    """``--analog``: analog-stochastic execution with V_r calibrated to the
+    model width, as ``launch/train.py`` configures it."""
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.physics import DeviceParams, calibrate_v_read
+
+    return dataclasses.replace(cfg, analog=AnalogConfig(
+        mode="analog_stochastic", device=calibrate_v_read(DeviceParams(), cfg.d_model)))
+
+
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+
+
+def train_phase(dev) -> dict:
+    """``make_train_step`` on stablelm-3b at full width and depth in analog
+    mode, the launcher's defaults (batch 8 x 128, lr 3e-4, warmup 100,
+    bf16 moments with stochastic rounding), TRAIN_STEPS steps, then one
+    profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import crossbar_mac as CB
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = analog_cfg(get_config("stablelm-3b"))
+    tcfg = TrainConfig(opt=AdamWConfig(lr=3e-4), total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    state = init_train_state(0, cfg, tcfg, device=dev)
+    step_fn = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    log(f"  init stablelm-3b ({cfg.n_layers}L d{cfg.d_model} ff{cfg.d_ff} V{cfg.vocab} "
+        f"{cfg.dtype}, {cfg.analog.mode}) and its AdamW state in {time.perf_counter() - t0:.1f} s")
+    probe = state.params["units"]["l0"]["ffn"]["w_up"]
+    before = probe[:, :64, :64].detach().clone()
+    batches = [lm_batch(cfg, batch=8, seq=128, step=i, device=dev) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CB.launches = 0
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[i])
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log(f"  step {i}: loss {loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, "
+            f"lr {metrics['lr']:.3e}, {times[-1]:.3f} s")
+    launches = CB.launches
+    peak = torch.cuda.max_memory_allocated()
+    changed = not torch.equal(before, probe[:, :64, :64])
+    steady = times[1:] or times
+    step_s = sum(steady) / len(steady)
+    log(f"  {TRAIN_STEPS} steps: crossbar_mac launches {launches} "
+        f"({launches / TRAIN_STEPS:.0f} per step = {CB_PER_LAYER} x {cfg.n_layers} layers), "
+        f"step {step_s:.3f} s (steps after the first), {8 * 128 / step_s:.1f} tokens/s, "
+        f"peak memory {peak / 2**30:.2f} GiB, parameters changed {changed}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not changed:
+        raise AssertionError("the training steps did not change the parameters")
+    if launches != CB_PER_LAYER * cfg.n_layers * TRAIN_STEPS:
+        raise AssertionError(f"crossbar_mac launched {launches} times, expected "
+                             f"{CB_PER_LAYER * cfg.n_layers * TRAIN_STEPS}")
+    profile = profile_train_step(step_fn, state, batches[TRAIN_STEPS])
+    return {"launches": launches, "losses": losses, "step_s": step_s, "peak": peak,
+            "profile": profile}
+
+
+def profile_train_step(step_fn, state, batch) -> dict:
+    """Device time of one training step, split into the crossbar kernel,
+    cuBLAS products (the STE backward's, and the digital logits and
+    attention einsums), the AdamW update with its rounding draws (the
+    kernels that start inside the device side of its ``train/adamw``
+    range) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == cuda]
+    ranges = [e.time_range for e in events if e.name == "train/adamw"]
+    kernels = [e for e in events if not e.name.startswith("train/")]
+
+    def ms(sel):
+        return sum(e.time_range.elapsed_us() for e in sel) / 1e3
+
+    def in_adamw(e):
+        return any(r.start <= e.time_range.start < r.end for r in ranges)
+
+    crossbar = [e for e in kernels if "crossbar_mac" in e.name]
+    gemm = [e for e in kernels if "crossbar_mac" not in e.name
+            and any(g in e.name.lower() for g in GEMM_NAMES) and not in_adamw(e)]
+    adamw = [e for e in kernels if in_adamw(e)]
+    total = ms(kernels)
+    split = {"wall_ms": wall_ms, "device_ms": total, "crossbar_mac_ms": ms(crossbar),
+             "gemm_ms": ms(gemm), "adamw_ms": ms(adamw), "kernels": len(kernels)}
+    split["rest_ms"] = total - split["crossbar_mac_ms"] - split["gemm_ms"] - split["adamw_ms"]
+    log(f"  profiled step: {wall_ms:.1f} ms host, device busy {total:.1f} ms "
+        f"({100 * total / wall_ms:.1f}%), {len(kernels)} kernels; crossbar_mac {split['crossbar_mac_ms']:.1f} ms "
+        f"({len(crossbar)} launches), cuBLAS {split['gemm_ms']:.1f} ms ({len(gemm)}), AdamW + rounding "
+        f"{split['adamw_ms']:.1f} ms ({len(adamw)}), rest {split['rest_ms']:.1f} ms")
+    rows = [e for e in prof.key_averages() if e.device_type == cuda and not e.key.startswith("train/")]
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return split
+
+# ---------------------------------------------------------------------------
+# Phase 7: small input against the plain path on the CPU.
 # ---------------------------------------------------------------------------
 
 
@@ -602,6 +841,62 @@ def reference_phase(dev) -> None:
                     raise AssertionError(f"int8 {name} codes disagree card vs CPU")
 
 
+def reference_train(dev) -> None:
+    """Two smoke-size analog training steps (f32, bf16 moments with
+    stochastic rounding) from one state, on the card (the crossbar kernel,
+    cuBLAS) and on the CPU (plain versions): losses within
+    REF_TRAIN_LOSS_ATOL, comparator decisions at least REF_TRAIN_AGREEMENT
+    equal.  The decisions are recorded by wrapping ``ops.crossbar_mac``
+    for the two runs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    def tree_to(tree, d, grad=False):
+        return {k: tree_to(v, d, grad) if isinstance(v, dict)
+                else v.detach().to(d).requires_grad_(grad) for k, v in tree.items()}
+
+    def state_to(state, d):
+        opt = state.opt._replace(m=tree_to(state.opt.m, d), v=tree_to(state.opt.v, d))
+        return state._replace(params=tree_to(state.params, d, grad=True), opt=opt)
+
+    cfg = analog_cfg(dataclasses.replace(get_smoke_config("stablelm-3b"), dtype="float32"))
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-2), warmup_steps=1, total_steps=10)
+    batches = [lm_batch(cfg, batch=4, seq=32, step=i, device="cpu") for i in range(2)]
+    seen = {}
+    inner = ops.crossbar_mac
+
+    def recording(x, w, key, c, binarize=True):
+        y = inner(x, w, key, c, binarize)
+        if binarize:
+            seen.setdefault(y.device.type, []).append(y.detach().cpu())
+        return y
+
+    ops.crossbar_mac = recording
+    try:
+        losses = {}
+        for d in ("cpu", dev):
+            state = state_to(init_train_state(1, cfg, tcfg, device="cpu"), d)
+            step = make_train_step(cfg, tcfg)
+            out = []
+            for b in batches:
+                state, m = step(state, {k: v.to(d) for k, v in b.items()})
+                out.append(float(m["loss"]))
+            losses[str(d)] = out
+    finally:
+        ops.crossbar_mac = inner
+    a, b = (torch.cat([t.reshape(-1) for t in seen[d]]) for d in ("cpu", "cuda"))
+    agree = float((a == b).float().mean())
+    err = max(abs(x - y) for x, y in zip(losses["cpu"], losses[str(dev)]))
+    log(f"  smoke analog training, 2 steps, card vs CPU: losses {losses[str(dev)]} vs {losses['cpu']} "
+        f"(max|Δ| {err:.3e}, atol {REF_TRAIN_LOSS_ATOL}); {agree:.6f} of {a.numel()} comparator "
+        f"decisions equal (gate {REF_TRAIN_AGREEMENT})")
+    if err > REF_TRAIN_LOSS_ATOL or agree < REF_TRAIN_AGREEMENT:
+        raise AssertionError("smoke analog training disagrees card vs CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -635,12 +930,16 @@ def main() -> int:
     sres = serve_phase(dev)
     log("== wta_counts entry point")
     wres = wta_phase(dev)
+    log("== analog training of stablelm-3b")
+    tres = train_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
+    reference_train(dev)
 
     launches = dict(sres["same"]["launches"])
     launches["stoch_round"] = sres["int8"]["launches"]["stoch_round"]
     launches["wta_counts"] = wres["launches"]
+    launches["crossbar_mac"] = tres["launches"]
     kernels = []
     for key, tkey, name, src, replaces in (
         ("decode", ("decode", "bf16"), "paged_attention",
@@ -652,6 +951,8 @@ def main() -> int:
          "src/repro_torch/kernels/csrc/stoch_round.cu", "src/repro/kernels/stoch_round.py:82"),
         ("wta_counts", "wta_counts", "wta_counts",
          "src/repro_torch/kernels/csrc/wta_counts.cu", "src/repro/kernels/wta_kernel.py:100"),
+        ("crossbar_mac", "crossbar_mac", "crossbar_mac",
+         "src/repro_torch/kernels/csrc/crossbar_mac.cu", "src/repro/kernels/crossbar_mac.py:154"),
     ):
         t = kres["timing"][tkey]
         kernels.append({

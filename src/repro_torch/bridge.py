@@ -12,6 +12,11 @@ as in the reference.
 ``paged_cache_from_numpy`` carries a paged decode cache across the same
 way (pages, an int8 pool's scale planes, ``pos`` and ``quant_step``), so
 tests can run both packages' layers on identical pools.
+
+``train_state_from_numpy`` carries a training state across: parameters
+(made trainable), AdamW's moments in the optimizer's state dtype, the
+step counters and the threefry key data, so both packages step from the
+same state.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.optim import AdamWState, tree_leaves
+from repro_torch.train import TrainState
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
@@ -61,3 +68,30 @@ def paged_cache_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
             raise KeyError(f"no paged-cache leaf {name!r} in a decoder_lm cache")
         out[name] = t.to(dev)
     return out
+
+
+def train_state_from_numpy(
+    params: dict, m: dict, v: dict, opt_step: int, step: int, rng,
+    cfg: ModelConfig, train_cfg, device=None,
+):
+    """The reference's ``TrainState`` (``params``, ``opt.m``, ``opt.v``,
+    ``opt.step``, ``step``, ``rng`` key data; leaves as numpy, bf16 ones
+    handed over as float32) as the port's ``TrainState`` on ``device``."""
+    dev = resolve_device(device)
+    p = params_from_numpy(params, cfg, dev)
+    for leaf in tree_leaves(p):
+        leaf.requires_grad_(True)
+    sdt = getattr(torch, train_cfg.opt.state_dtype)
+
+    def moments(tree):
+        return {
+            k: moments(x) if isinstance(x, dict)
+            else torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=sdt)
+            for k, x in tree.items()
+        }
+
+    key = np.asarray(rng, dtype=np.uint32).reshape(-1)
+    return TrainState(
+        params=p, opt=AdamWState(step=int(opt_step), m=moments(m), v=moments(v)),
+        compress=None, step=int(step), rng=(int(key[0]), int(key[1])),
+    )

@@ -1,23 +1,54 @@
-"""Analog-execution config and the matmul every projection routes through.
+"""Analog-execution config and the matmul every projection routes through
+(``repro/core/analog.py``).
 
-Counterpart of ``repro/core/analog.py``.  Only the ``digital`` mode is
-ported so far: it is ``ModelConfig.analog``'s default and the only mode
-the greedy serving path runs.  The ``analog_linear`` / ``analog_stochastic``
-crossbar modes come with the paper's slice of the port; until then
-:func:`analog_matmul` refuses them instead of silently computing the
-digital product.
+Three execution modes per matmul:
+
+* ``digital``           — plain matmul (the serving path's default).
+* ``analog_linear``     — crossbar MAC with conductance quantization and
+                          thermal noise, linear readout.
+* ``analog_stochastic`` — the full RACA path: crossbar MAC → thermal noise →
+                          comparator → binary stochastic activation {0, 1}.
+
+Both analog modes run ``kernels.ops.crossbar_mac``: the hand-written CUDA
+kernel for CUDA tensors, its plain PyTorch version for CPU tensors.  That
+is the reference's ``use_pallas="on"`` semantics (what its TPU runs).  The
+reference's off-TPU branch (quantize with a straight-through estimator,
+then threefry ``normal`` noise) is not ported; ``use_pallas`` is kept as a
+field so configs read the same, and is not consulted.
+
+A projection runs digitally when its key is ``None``, as in the reference:
+serving passes no keys, training passes one per projection.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+from repro_torch.kernels import ops as KOPS
+# the per-layer conductance-range scale s = max(max|W|, 1e-6) (the paper's
+# G0/V_r calibration knob): weights map to devices as W/s
+from repro_torch.kernels.ops import range_scale as dynamic_range  # noqa: F401
+from .physics import DeviceParams
 
 
 @dataclasses.dataclass(frozen=True)
 class AnalogConfig:
-    mode: str = "digital"  # digital (ported) | analog_linear | analog_stochastic
+    mode: str = "digital"  # digital | analog_linear | analog_stochastic
+    device: DeviceParams = dataclasses.field(default_factory=DeviceParams)
+    beta: float = 1.0          # logistic slope the SNR is calibrated to
+    hard: bool = True          # hard Bernoulli sample vs expectation (eval)
+    quantize: bool = True      # conductance-level quantization of weights
+    calibrated: bool = True    # calibrated P=sigmoid(beta z) vs physical ΣG
+    use_pallas: str = "auto"   # the reference's dispatch knob; not consulted
+    rows_per_tile: int = 256   # physical array height (cost model, kernels)
+    wta_trials: int = 32       # decision trials for WTA readout heads
+    wta_vth0: Optional[float] = None  # None => calibrated θ = σ² (temp 1)
+    # analog_linear reads at normal voltage (high SNR): input-referred noise
+    # std relative to the layer's dynamic range
+    linear_sigma: float = 0.01
 
     def with_mode(self, mode: str) -> "AnalogConfig":
         return dataclasses.replace(self, mode=mode)
@@ -26,10 +57,19 @@ class AnalogConfig:
 DIGITAL = AnalogConfig(mode="digital")
 
 
-def analog_matmul(cfg: AnalogConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Matmul under the configured execution mode.  x: (..., in), w: (in, out)."""
-    if cfg.mode != "digital":
-        raise NotImplementedError(
-            f"analog mode {cfg.mode!r} is not ported yet; only 'digital' runs"
-        )
-    return x @ w.to(x.dtype)
+def analog_matmul(
+    cfg: AnalogConfig, key, x: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """Matmul under the configured execution mode.  x: (..., in), w: (in,
+    out); ``key`` is a threefry key (``repro_torch.random``) or ``None``.
+
+    ``analog_stochastic`` returns binary activations sampled through the
+    straight-through estimator (trainable); every mode returns x.dtype."""
+    if cfg.mode == "digital" or key is None:
+        return x @ w.to(x.dtype)
+    if cfg.mode not in ("analog_linear", "analog_stochastic"):
+        raise ValueError(f"unknown analog mode: {cfg.mode!r}")
+    y = KOPS.crossbar_mac(
+        x.to(torch.float32), w, key, cfg, binarize=cfg.mode == "analog_stochastic"
+    )
+    return y.to(x.dtype)

@@ -1,5 +1,6 @@
-"""Kernel dispatch (``repro/kernels/ops.py``): attention (:386-512), WTA
-vote counts (:316-358) and the int8 KV quantizer (:581-642).
+"""Kernel dispatch (``repro/kernels/ops.py``): the crossbar read with its
+straight-through backward (:75-260), attention (:386-512), WTA vote
+counts (:316-358) and the int8 KV quantizer (:581-642).
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version, and nothing else happens in between: no fallback, no
@@ -14,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.physics import BOLTZMANN_K, PROBIT_SCALE
+from . import crossbar_mac as CB
 from . import paged_attention as PA
 from . import prefill_attention as PF
 from . import prng, ref
@@ -131,3 +134,126 @@ def wta_counts(
     fn = WTA.wta_counts_cuda if z.is_cuda else ref.wta_counts_ref
     out = fn(z2d, seed, n_trials=n_trials, vth0=vth0, sigma_z=sigma_z)
     return out.reshape(lead + (c,))
+
+
+# ---------------------------------------------------------------------------
+# crossbar_mac: the RACA crossbar read, with the QAT/STE backward.
+# ---------------------------------------------------------------------------
+
+
+def range_scale(w: torch.Tensor) -> torch.Tensor:
+    """Per-layer dynamic-range scale ``s = max(max|W|, 1e-6)``: a 0-d tensor
+    on ``w``'s device (read by the kernel there, never by the host)."""
+    return w.detach().abs().amax().clamp_min(1e-6)
+
+
+def _qstep(dp) -> float:
+    return (dp.w_max - dp.w_min) / max(dp.n_levels - 1, 1)
+
+
+def _noise_params(dp, k_rows: int) -> tuple:
+    return (
+        4.0 * BOLTZMANN_K * dp.temperature * dp.delta_f,
+        dp.g0, dp.g_ref, dp.v_read, float(k_rows),
+    )
+
+
+def _crossbar_forward(x2d, wf, seed: int, cfg, binarize: bool, fn) -> torch.Tensor:
+    """The reference's ``_crossbar_fwd_impl`` without its padding: with the
+    calibrated read, devices hold W/s and the comparator's noise absorbs s
+    (σ = 1.702 / (β·s) realizes P = sigmoid(β·z)); the linear readout is
+    scaled back by s."""
+    dp = cfg.device
+    dev = x2d.device
+    s = None
+    if cfg.calibrated:
+        s = range_scale(wf)
+        w_in = wf / s
+        if binarize:
+            sigma = torch.tensor(PROBIT_SCALE, dtype=torch.float32, device=dev) / (cfg.beta * s)
+        else:
+            sigma = torch.full((), cfg.linear_sigma, dtype=torch.float32, device=dev)
+    else:  # physical noise: σ comes from ΣWq, this one is not read
+        w_in = wf
+        sigma = torch.full((), PROBIT_SCALE / cfg.beta, dtype=torch.float32, device=dev)
+    out = fn(
+        x2d.contiguous(), w_in.contiguous(), seed, sigma,
+        binarize=binarize, physical_noise=not cfg.calibrated,
+        noise_params=_noise_params(dp, x2d.shape[1]), quantize=cfg.quantize,
+        qstep=_qstep(dp), w_min=dp.w_min, w_max=dp.w_max,
+    )
+    if s is not None and not binarize:
+        out = out * s
+    return out
+
+
+def _crossbar_backward(cfg, binarize: bool, x2d, w, g):
+    """The reference's ``_crossbar_bwd`` (``ops.py:140-177``).
+
+    binarize: y ~ Bern(sigmoid(β z)); the STE surrogate E[y] gives
+    dz = g·β·p(1−p), with p recomputed from z = x·Wq.  Linear: dz = g.  The
+    quantizer is straight-through; the physical path keeps the clip mask.
+    Both products are plain matmuls, as the reference leaves them to XLA."""
+    dp = cfg.device
+    wq = w
+    if cfg.quantize:
+        step = _qstep(dp)
+        if cfg.calibrated:
+            s = range_scale(w)
+            wq = s * ref.crossbar_quantize(w / s, step, dp.w_min, dp.w_max)
+        else:
+            wq = ref.crossbar_quantize(w, step, dp.w_min, dp.w_max)
+    if binarize:
+        p = torch.sigmoid(cfg.beta * (x2d @ wq))
+        dz = g * cfg.beta * p * (1.0 - p)
+    else:
+        dz = g
+    dx = dz @ wq.T
+    dw = x2d.T @ dz
+    if cfg.quantize and not cfg.calibrated:
+        dw = dw * ((w >= dp.w_min) & (w <= dp.w_max)).to(dw.dtype)
+    return dx, dw
+
+
+class _CrossbarMAC(torch.autograd.Function):
+    """Forward: the kernel (or its plain version on the CPU).  Backward: the
+    STE surrogate.  It saves W in its stored dtype (bf16 parameters) and
+    casts again in the backward: an f32 copy of every projection's weights
+    would hold ≈ 10 GB at stablelm-3b's full width."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, seed, cfg, binarize):
+        ctx.save_for_backward(x2d, w)
+        ctx.cfg, ctx.binarize = cfg, binarize
+        fn = CB.crossbar_mac_cuda if x2d.is_cuda else ref.crossbar_mac_ref
+        return _crossbar_forward(x2d, w.to(torch.float32), seed, cfg, binarize, fn)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w = ctx.saved_tensors
+        dx, dw = _crossbar_backward(ctx.cfg, ctx.binarize, x2d, w.to(torch.float32), g)
+        return dx, dw.to(w.dtype), None, None, None
+
+
+def crossbar_mac(x: torch.Tensor, w: torch.Tensor, key, cfg, binarize: bool = True) -> torch.Tensor:
+    """Fused RACA matmul: x (..., K) f32, w (K, N) → (..., N) f32, under the
+    threefry key ``key`` (folded into the kernel's uint32 seed as the
+    reference folds it).  Differentiable through the STE backward."""
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    y = _CrossbarMAC.apply(x2d, w, prng.key_to_seed(key), cfg, binarize)
+    return y.reshape(lead + (w.shape[1],))
+
+
+def crossbar_mac_reference(
+    x: torch.Tensor, w: torch.Tensor, key, cfg, binarize: bool = True
+) -> torch.Tensor:
+    """The same normalization and seed pipeline through the plain version,
+    on any device and without autograd: what ``chip_smoke.py`` holds
+    :func:`crossbar_mac` against on the card."""
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    y = _crossbar_forward(
+        x2d, w.to(torch.float32), prng.key_to_seed(key), cfg, binarize, ref.crossbar_mac_ref
+    )
+    return y.reshape(lead + (w.shape[1],))

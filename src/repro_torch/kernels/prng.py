@@ -62,3 +62,13 @@ def gaussian(idx: torch.Tensor, seed) -> torch.Tensor:
     u2 = uniform(idx, (seed + GOLDEN) & MASK)
     r = torch.sqrt(-2.0 * torch.log(u1))
     return r * torch.cos(TWO_PI_F32 * u2)
+
+
+def key_to_seed(key) -> int:
+    """Fold a threefry key (``repro_torch.random``'s pair of uint32 ints)
+    into a uint32 kernel seed: ``key[0]·golden + key[1] mod 2**32``, as
+    ``repro/kernels/prng.py``'s ``key_to_seed`` folds jax's key data."""
+    s = key[0]
+    for word in key[1:]:
+        s = (s * GOLDEN + word) & MASK
+    return s

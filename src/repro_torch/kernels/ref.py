@@ -209,3 +209,54 @@ def wta_counts_ref(
         vmax = vm.amax(dim=-1, keepdim=True)
         counts += ((vm == vmax) & fired.any(dim=-1, keepdim=True)).to(torch.float32)
     return counts
+
+
+# crossbar_mac's noise counter runs over the width the TPU kernel pads N to
+CROSSBAR_PAD_N = 128
+
+
+def crossbar_quantize(w: torch.Tensor, qstep: float, w_min: float, w_max: float) -> torch.Tensor:
+    """Round-to-nearest (half to even) onto the conductance grid
+    ``{w_min + k·qstep}``: ``round((clip(w) − w_min)·f32(1/qstep))·qstep +
+    w_min``, a multiply by the f32 reciprocal as the reference does it."""
+    w = torch.clamp(w, w_min, w_max)
+    return torch.round((w - w_min) * _f32(1.0 / qstep).to(w.device)) * qstep + w_min
+
+
+def crossbar_mac_ref(
+    x: torch.Tensor,        # (M, K) f32
+    w: torch.Tensor,        # (K, N) f32, already divided by the range scale
+    seed: int,              # uint32 noise seed
+    sigma: torch.Tensor,    # 0-d f32 noise std on x's device (unless physical)
+    *,
+    binarize: bool = True,
+    physical_noise: bool = False,
+    noise_params: tuple = (0.0, 1.0, 0.0, 1.0, 0),
+    quantize: bool = True,
+    qstep: float = 2.0 / 31,
+    w_min: float = -1.0,
+    w_max: float = 1.0,
+) -> torch.Tensor:
+    """RACA crossbar read: (M, N) f32 (``repro/kernels/ref.py:24``).
+
+    Quantize W onto the conductance grid, z = x·W_q, add thermal noise
+    ``σ·gaussian(row·n_padded + col, seed)`` with ``n_padded`` = N rounded
+    up to 128 (the TPU kernel's padded width), then read out linearly or
+    through the comparator ``(z + noise > 0)``.  σ is the device scalar,
+    or, with ``physical_noise``, the column's Johnson noise
+    ``sqrt(4kTΔf·(g0·ΣW_q + 2·k_rows·g_ref)) / (v_read·g0)``."""
+    m, _ = x.shape
+    n = w.shape[1]
+    wq = crossbar_quantize(w.float(), qstep, w_min, w_max) if quantize else w.float()
+    z = x.float() @ wq
+    if physical_noise:
+        four_ktdf, g0, g_ref, v_read, k_rows = noise_params
+        sum_g = g0 * wq.sum(dim=0, keepdim=True) + 2.0 * k_rows * g_ref
+        sigma = torch.sqrt(four_ktdf * sum_g) / (v_read * g0)
+    n_padded = -(-n // CROSSBAR_PAD_N) * CROSSBAR_PAD_N
+    gidx = (
+        torch.arange(m, device=x.device, dtype=torch.int64)[:, None] * n_padded
+        + torch.arange(n, device=x.device, dtype=torch.int64)[None]
+    ) & prng.MASK
+    v = z + prng.gaussian(gidx, seed) * sigma
+    return (v > 0.0).to(torch.float32) if binarize else v

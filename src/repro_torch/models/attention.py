@@ -1,4 +1,12 @@
-"""Paged attention of the serving path (``repro/models/attention.py``).
+"""Attention (``repro/models/attention.py``): the full-sequence
+self-attention of the training path, and the paged attention of the
+serving path.
+
+The training path's projections take threefry keys (``split`` of the
+layer's key, as the reference splits it) and run the crossbar in analog
+modes; its softmax is digital and plain PyTorch, as the reference's
+``attend_full`` is plain jnp.  The serving path passes no keys, so its
+projections stay digital.
 
 Unlike the reference, the KV pool is updated IN PLACE (``__setitem__`` on
 the pool tensor or on a view of it), where JAX built a new pool with
@@ -21,10 +29,13 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import random as R
 from repro_torch.core import analog as A
 from repro_torch.kernels import ops as KOPS
 from .config import ModelConfig
 from .layers import apply_rope, dtype_of, normal_init
+
+NEG_INF = -2.0e38
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int] = ()) -> dict:
@@ -44,13 +55,87 @@ def _proj_cfg(cfg: ModelConfig) -> A.AnalogConfig:
     return a.with_mode("analog_linear") if a.mode == "analog_stochastic" else a
 
 
-def qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None):
     b, s, _ = x.shape
     acfg = _proj_cfg(cfg)
-    q = A.analog_matmul(acfg, x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = A.analog_matmul(acfg, x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = A.analog_matmul(acfg, x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    keys = (None,) * 3 if key is None else R.split(key, 3)
+    q = A.analog_matmul(acfg, keys[0], x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = A.analog_matmul(acfg, keys[1], x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = A.analog_matmul(acfg, keys[2], x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def attend_full(
+    q: torch.Tensor,      # (B, S, H, Dh)
+    k: torch.Tensor,      # (B, T, Hkv, Dh)
+    v: torch.Tensor,
+    qpos: torch.Tensor,   # (S,) query positions
+    kpos: torch.Tensor,   # (T,) key positions
+    kind: str,            # global | local | none
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``cfg.attn_kv_chunk``
+    keys: (B, S, H, Dh) in q's dtype.  The mask is built per chunk from
+    positions; scores and probabilities in ``cfg.attn_probs_dtype``,
+    accumulation in f32, as the reference's ``attend_full``."""
+    if cfg.attn_pad_heads or cfg.gqa_repeat_kv:
+        raise NotImplementedError("attn_pad_heads / gqa_repeat_kv are not ported")
+    b, s, h, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    pdt = getattr(torch, cfg.attn_probs_dtype)
+    qg = q.reshape(b, s, hkv, g, dh).to(pdt) * torch.tensor(dh**-0.5, dtype=pdt)
+    nchunks = max(t // cfg.attn_kv_chunk, 1)
+    cs = t // nchunks
+    if t % cs:
+        raise ValueError(f"{t} keys do not split into chunks of {cs}")
+    m = torch.full((b, hkv, g, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, s, dh), dtype=torch.float32, device=q.device)
+    for c in range(nchunks):
+        kc = k[:, c * cs : (c + 1) * cs].to(pdt)
+        vc = v[:, c * cs : (c + 1) * cs].to(pdt)
+        sc = torch.einsum("bskgd,bckd->bkgsc", qg, kc).float()
+        if cfg.attn_softcap > 0.0:
+            sc = cfg.attn_softcap * torch.tanh(sc / cfg.attn_softcap)
+        d = qpos[:, None] - kpos[None, c * cs : (c + 1) * cs]
+        if kind == "none":
+            ok = torch.ones_like(d, dtype=torch.bool)
+        elif kind == "local":
+            ok = (d >= 0) & (d < cfg.local_window)
+        else:
+            ok = d >= 0
+        sc = sc + torch.where(ok, 0.0, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        scale = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None]).to(pdt)
+        l = l * scale + p.sum(dim=-1).float()
+        acc = acc * scale[..., None] + torch.einsum("bkgsc,bckd->bkgsd", p, vc).float()
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+def self_attention(
+    p: dict,
+    x: torch.Tensor,          # (B, S, D)
+    positions: torch.Tensor,  # (B, S)
+    cfg: ModelConfig,
+    kind: str = "global",
+    key=None,
+) -> torch.Tensor:
+    """Full-sequence causal self-attention with RoPE: (B, S, D).  Keys:
+    ``split(key)`` into the q/k/v projections' key and w_o's."""
+    b, s, _ = x.shape
+    kq = ko = None
+    if key is not None:
+        kq, ko = R.split(key)
+    q, k, v = qkv(p, x, cfg, kq)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    qpos = positions[0] if positions.dim() == 2 else positions
+    out = attend_full(q, k, v, qpos, qpos, kind, cfg).reshape(b, s, -1)
+    return A.analog_matmul(_proj_cfg(cfg), ko, out, p["wo"])
 
 
 def paged_write(
@@ -183,4 +268,4 @@ def paged_decode_self_attention(
         k_scale=k_scale_pages if int8_pool else None,
         v_scale=v_scale_pages if int8_pool else None,
     ).reshape(x.shape[0], 1, -1)
-    return A.analog_matmul(_proj_cfg(cfg), out.to(x.dtype), p["wo"])
+    return A.analog_matmul(_proj_cfg(cfg), None, out.to(x.dtype), p["wo"])

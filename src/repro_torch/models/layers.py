@@ -14,6 +14,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import random as R
 from repro_torch.core import analog as A
 from .config import ModelConfig
 
@@ -100,7 +101,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# MLP (digital branch).
+# MLP.
 # ---------------------------------------------------------------------------
 
 
@@ -125,12 +126,32 @@ def _activation(cfg: ModelConfig):
     return lambda v: F.gelu(v, approximate="tanh")  # geglu / gelu
 
 
-def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None) -> torch.Tensor:
+    """MLP, with RACA analog execution when ``key`` is given and the config
+    is analog (keys: ``split(key)`` for up and gate, ``fold_in(k2, 7)`` for
+    down, as the reference derives them).
+
+    ``analog_stochastic``: the up and gate crossbars' comparator banks emit
+    binary stochastic activations, so the comparator IS the activation and
+    the gate is a binary AND (b_up·b_gate); the down projection feeds the
+    residual stream through a linear readout.  ``analog_linear`` keeps the
+    activation and adds quantization and noise to every matmul."""
     acfg = cfg.analog
-    act = _activation(cfg)
-    up = A.analog_matmul(acfg, x, p["w_up"])
-    if "w_gate" in p:
-        h = act(A.analog_matmul(acfg, x, p["w_gate"])) * up
+    k1 = k2 = k3 = None
+    if key is not None and acfg.mode != "digital":
+        k1, k2 = R.split(key)
+        k3 = R.fold_in(k2, 7)
+    up = A.analog_matmul(acfg, k1, x, p["w_up"])
+    if acfg.mode == "analog_stochastic":
+        h = up
+        if "w_gate" in p:
+            h = h * A.analog_matmul(acfg, k2, x, p["w_gate"])
+        down_cfg = acfg.with_mode("analog_linear")
     else:
-        h = act(up)
-    return A.analog_matmul(acfg, h, p["w_down"])
+        act = _activation(cfg)
+        if "w_gate" in p:
+            h = act(A.analog_matmul(acfg, k2, x, p["w_gate"])) * up
+        else:
+            h = act(up)
+        down_cfg = acfg
+    return A.analog_matmul(down_cfg, k3, h, p["w_down"])

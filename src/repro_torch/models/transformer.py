@@ -1,4 +1,5 @@
-"""Decoder LM stack: init, paged decode step, chunked paged prefill
+"""Decoder LM stack: init, the full-sequence forward and loss of the
+training path, the paged decode step and chunked paged prefill
 (``repro/models/transformer.py``, ``decoder_lm`` family).
 
 Parameters keep the reference's tree: units stacked on a leading
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import random as R
 from repro_torch.device import resolve_device
 from repro_torch.kernels.prng import MASK, mul32
 from . import attention as ATT
@@ -88,12 +90,97 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return params
 
 
+def _unbind_units(units: dict) -> list[dict]:
+    """Every unit's parameter views, from one ``unbind`` per stacked leaf:
+    its backward stacks the units' gradients once, where per-unit indexing
+    would add a zero-filled full-size gradient per unit."""
+    if not isinstance(units, dict):
+        return units.unbind(0)
+    parts = {k: _unbind_units(v) for k, v in units.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[u] for k, p in parts.items()} for u in range(n)]
+
+
 def unit_params(units: dict, u: int) -> dict:
     """Unit ``u``'s parameter views out of the stacked tree."""
     return {
         k: unit_params(v, u) if isinstance(v, dict) else v[u]
         for k, v in units.items()
     }
+
+
+# ---------------------------------------------------------------------------
+# Forward (full sequence) and loss: the training path.
+# ---------------------------------------------------------------------------
+
+
+def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConfig, key):
+    """One unit of ``cfg.layer_pattern``; sublayer ``i`` draws under
+    ``fold_in(key, i)``, its attention under ``fold_in(·, 0)`` and its MLP
+    under ``fold_in(·, 1)``, as the reference folds them."""
+    for i, kind in enumerate(cfg.layer_pattern):
+        sub = up[f"l{i}"]
+        ki = None if key is None else R.fold_in(key, i)
+        a = ATT.self_attention(
+            sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps), positions, cfg,
+            kind=kind, key=None if ki is None else R.fold_in(ki, 0),
+        )
+        x = x + a
+        h = rmsnorm(sub["ln2"], x, cfg.norm_eps)
+        x = x + mlp_apply(sub["ffn"], h, cfg, key=None if ki is None else R.fold_in(ki, 1))
+    return x
+
+
+def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, key=None):
+    """All units, unit ``u`` under ``fold_in(key, u)``; returns (final-norm
+    hidden states, aux loss 0).  ``cfg.remat_policy`` is not honoured: every
+    unit's activations stay live for the backward (stablelm-3b at full
+    width and batch 8 × 128 fits the card so), so the crossbar kernel runs
+    once per projection and step, where the reference's rematerialized
+    backward runs it again.  It changes no number."""
+    for u, up in enumerate(_unbind_units(params["units"])):
+        ku = None if key is None else R.fold_in(key, u)
+        x = _unit_fwd(x, up, positions, cfg, ku)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, key=None):
+    """(logits (B, S, V), aux) for tokens (B, S)."""
+    _check_family(cfg)
+    x = embed(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x, aux = backbone(params, x, positions, cfg, key)
+    return logits_out(params["embed"], params.get("head"), x, cfg), aux
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask=None, z_loss: float = 1e-4
+) -> tuple[torch.Tensor, dict]:
+    """Mean token cross-entropy plus ``z_loss·lse²``, in f32."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(lf - m).sum(dim=-1))
+    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    per_tok = (lse - ll) + z_loss * lse.square()
+    if mask is not None:
+        w = mask.float()
+        loss = (per_tok * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    else:
+        loss = per_tok.mean()
+    return loss, {"nll": loss, "lse_mean": lse.mean()}
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig, key=None) -> tuple[torch.Tensor, dict]:
+    """(loss, metrics) for a batch {"tokens", "labels", optional "mask"};
+    analog projections draw under ``key`` (digital when ``None``)."""
+    logits, aux = lm_forward(params, batch["tokens"], cfg, key)
+    loss, metrics = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    total = loss + aux
+    metrics["aux"] = aux
+    metrics["loss"] = total
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

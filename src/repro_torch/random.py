@@ -1,0 +1,119 @@
+"""The subset of ``jax.random`` the training path draws from, bit for bit.
+
+jax's default PRNG is threefry2x32 with ``jax_threefry_partitionable``
+(the default since jax 0.5): a key is two uint32 words, and
+
+- ``PRNGKey(seed)`` is ``[0, seed]`` for a uint32 seed (jax's 32-bit mode);
+- ``fold_in(key, d)`` hashes the counter pair ``(0, d)``;
+- ``split(key, n)[i]`` hashes ``(hi(i), lo(i))``, the high and low words of
+  the flat index, and keeps both output words as the new key;
+- ``random_bits`` hashes ``(hi(i), lo(i))`` for every flat index ``i`` of
+  the shape and returns the xor of the two output words;
+- ``uniform`` puts the top 23 bits into the mantissa of a float in [1, 2)
+  and subtracts 1; ``randint`` over a power-of-two uint32 span up to 2**16
+  reduces to the low bits of ``random_bits(split(key)[1])`` (jax's
+  multiplier ``(2**16 % span)**2 % span`` is 0 there).
+
+Because every counter is a flat index, a draw can be made in slices of
+its flat range with identical bits (``start`` / ``count`` below), which
+keeps large draws' temporaries bounded.
+
+Keys are tuples of two Python ints.  :func:`threefry2x32` is written with
+``+ ^ << >> &`` only, so the same code hashes host ints (key derivation:
+no device work, no sync) and int64 tensors holding uint32 values (bulk
+draws on the device; PyTorch on the CPU has no ``>>`` for uint32).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+
+MASK = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Key = tuple[int, int]
+Word = Union[int, torch.Tensor]
+
+
+def _rotl(x: Word, r: int) -> Word:
+    return ((x << r) & MASK) | (x >> (32 - r))
+
+
+def threefry2x32(k1: int, k2: int, x1: Word, x2: Word) -> tuple[Word, Word]:
+    """The threefry2x32 block function (20 rounds) on uint32 words: Python
+    ints or int64 tensors with values in ``[0, 2**32)``."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK
+    x2 = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & MASK
+    return x1, x2
+
+
+def PRNGKey(seed: int) -> Key:  # noqa: N802  (jax's name)
+    """``jax.random.PRNGKey(seed)`` for ``0 <= seed < 2**32``."""
+    if not 0 <= seed <= MASK:
+        raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
+    return (0, seed)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)`` for a uint32 ``data``."""
+    return threefry2x32(key[0], key[1], 0, data & MASK)
+
+
+def split(key: Key, num: int = 2) -> list[Key]:
+    """``jax.random.split(key, num)`` as a list of keys."""
+    return [threefry2x32(key[0], key[1], i >> 32, i & MASK) for i in range(num)]
+
+
+def random_bits(
+    key: Key, shape: Sequence[int], device=None, *, start: int = 0, count: Optional[int] = None
+) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values.  With
+    ``count``, only the flat indices ``[start, start + count)`` of the draw,
+    flattened."""
+    n = math.prod(shape) if count is None else count
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK)
+    bits = b1 ^ b2
+    return bits.reshape(tuple(shape)) if count is None else bits
+
+
+def uniform(
+    key: Key, shape: Sequence[int], device=None, minval: float = 0.0, maxval: float = 1.0
+) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``.  XLA
+    fuses ``f·(maxval − minval) + minval`` into one FMA; the port forms it
+    in f64 (the f32 product is exact there) and rounds to f32, which equals
+    the FMA except where the f64 sum sits exactly between two f32 values."""
+    bits = random_bits(key, shape, device)
+    one = (bits >> 9) | 0x3F800000             # mantissa bits of a float in [1, 2)
+    f = one.to(torch.int32).view(torch.float32) - 1.0
+    lo = float(torch.tensor(minval, dtype=torch.float32))
+    span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
+    return torch.clamp_min((f.double() * span + lo).float(), lo)
+
+
+def randint(
+    key: Key, shape: Sequence[int], minval: int, maxval: int, device=None,
+    *, start: int = 0, count: Optional[int] = None,
+) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype=uint32)`` as
+    int64 values, for a span ``maxval - minval`` that is a power of two no
+    larger than 2**16 (where jax's draw is the low bits of the second
+    split key's bits).  ``start`` / ``count`` slice the flat range as in
+    :func:`random_bits`."""
+    span = maxval - minval
+    if span <= 0 or span & (span - 1) or span > 1 << 16:
+        raise NotImplementedError(f"randint is ported for power-of-two spans <= 2**16, got {span}")
+    lower = random_bits(split(key)[1], shape, device, start=start, count=count)
+    return (lower & (span - 1)) + minval

@@ -11,7 +11,12 @@ of their plain versions on f32 inputs (only summation order differs);
 ``stoch_round`` and the int8 quantizer bit-identical to their plain
 versions (integer hashing, exact f32 steps, no FMA contraction);
 ``wta_counts`` with equal row sums and at most 1% of its B·T decisions
-flipped, because its Gaussians pass through log and cos.
+flipped, because its Gaussians pass through log and cos; ``crossbar_mac``
+with at least 99.95% of its comparator decisions equal and its linear
+readout within 2e-5 / 1e-5 (its quantized weights and noise are
+bit-identical, its f32 sums run in another order); a smoke-size analog
+``lm_loss`` on the card within 1e-3 of the CPU's (a flipped comparator
+decision moves one token's loss), its gradients finite.
 """
 
 import numpy as np
@@ -154,3 +159,61 @@ def test_cuda_wta_counts_agree_with_plain(cuda_device, b, c, n_trials):
     assert torch.equal(got.sum(-1), want.sum(-1))
     assert float((got - want).abs().sum()) <= 2 * WTA_FLIP_FRACTION * b * n_trials
     assert torch.equal(TOPS.wta_counts(z, seed, **kw).cpu(), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binarize", [True, False])
+@pytest.mark.parametrize("physical", [False, True])
+def test_cuda_crossbar_mac_matches_plain(cuda_device, binarize, physical):
+    """The crossbar kernel at an odd shape (ragged K, N past the 128 pad)."""
+    from repro_torch.kernels import crossbar_mac as CB
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((37, 203)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy(rng.uniform(-1.1, 1.1, (203, 131)).astype(np.float32)).to(cuda_device)
+    sigma = torch.full((), 1.7 if binarize else 0.01, device=cuda_device)
+    kw = dict(binarize=binarize, physical_noise=physical,
+              noise_params=(1.6568e-11, 4.95e-05, 5.05e-05, 0.0109, 203.0))
+    before = CB.launches
+    got = CB.crossbar_mac_cuda(x, w, 2**32 - 7, sigma, **kw)
+    assert CB.launches == before + 1
+    want = TREF.crossbar_mac_ref(x, w, 2**32 - 7, sigma, **kw)
+    if binarize:
+        assert float((got == want).float().mean()) >= 0.9995
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_analog_lm_loss_with_backward(cuda_device):
+    """Smoke stablelm-3b in analog-stochastic mode: loss and gradients on
+    the card through the crossbar kernel, against the CPU's plain path."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.physics import DeviceParams, calibrate_v_read
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import crossbar_mac as CB
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import tree_leaves
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), dtype="float32", analog=AnalogConfig(
+        mode="analog_stochastic", device=calibrate_v_read(DeviceParams(), 64)))
+    batch = lm_batch(cfg, batch=4, seq=32, step=0, device="cpu")
+    out = {}
+    for d in ("cpu", cuda_device):
+        params = _tree_to(TF.init_lm(cfg, seed=2, device="cpu"), d)
+        leaves = tree_leaves(params)
+        before = CB.launches
+        loss, _ = TF.lm_loss(params, {k: v.to(d) for k, v in batch.items()}, cfg, (0, 5))
+        grads = torch.autograd.grad(loss, leaves)
+        out[str(d)] = (float(loss.detach()), CB.launches - before)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert out["cpu"][1] == 0 and out[str(cuda_device)][1] == 7 * cfg.n_layers
+    assert abs(out["cpu"][0] - out[str(cuda_device)][0]) <= 1e-3
+
+
+def _tree_to(tree, d):
+    return {k: _tree_to(v, d) if isinstance(v, dict) else v.to(d).requires_grad_(True)
+            for k, v in tree.items()}
