@@ -6,11 +6,14 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: print ``nvidia-smi``'s name and power limit; no CUDA → exit 1.
-2. build: compile every CUDA source of the port with nvcc (in parallel).
+2. build: compile every CUDA source of the port with nvcc (in parallel);
+   print each kernel's registers and spills as ptxas reports them.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it: both attention kernels at
-   stablelm-3b's full width (bf16 and int8 pools, plus small GQA / local /
-   soft-cap cases), ``stoch_round`` bit-identical at the int8 decode write,
+   stablelm-3b's full width (bf16 and int8 pools; decode at B=8 over
+   W=32, at B=1 over W=32 and at the serve profile's positions 100-130,
+   each also at every cluster size; plus small GQA / local / soft-cap
+   cases), ``stoch_round`` bit-identical at the int8 decode write,
    the int8 prefill chunk and the 2048² quantizer row, ``wta_counts``
    within its agreement bound at the serving head's width; with kernel
    times per call (CUDA events over back-to-back calls) and on the device
@@ -22,7 +25,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    an int8 KV pool, with prefix hits, chunked suffix prefill and
    copy-on-write; the launch counts of the kernels each run goes through,
    reset just before and read just after, must be > 0.  Each run ends in
-   a profile of full-batch decode ticks.
+   a profile of full-batch decode ticks with the decode attention
+   kernel's share of the device time.
 5. wta: the ``ops.wta_counts`` entry point at the serving head's
    operating point (8 × 50304, 32 trials); its kernel's launches, reset
    just before and read just after, must be > 0.
@@ -172,18 +176,24 @@ def make_pool(gen, n_pages, bs, hkv, dh, int8, dev):
     return kp, vp, {}
 
 
-def decode_case(gen, dev, b, h, hkv, dh, bs, w, int8):
+def decode_case(gen, dev, b, h, hkv, dh, bs, w, int8, pos_range=None):
+    """Random positions in [0, W·bs) with slot 0 at W·bs - 1, or, given
+    ``pos_range``, uniform in that closed range (the serve profile's)."""
     n_pages = b * w + 1
     kp, vp, sc = make_pool(gen, n_pages, bs, hkv, dh, int8, dev)
     q = torch.randn((b, h, dh), generator=gen, device=dev, dtype=torch.bfloat16)
     table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * w] + 1)
     table = table.reshape(b, w).to(torch.int32)
-    pos = torch.randint(0, w * bs, (b,), generator=gen, device=dev, dtype=torch.int32)
-    pos[0] = w * bs - 1                       # one slot uses the whole table
+    if pos_range is None:
+        pos = torch.randint(0, w * bs, (b,), generator=gen, device=dev, dtype=torch.int32)
+        pos[0] = w * bs - 1                   # one slot uses the whole table
+    else:
+        lo, hi = pos_range
+        pos = torch.randint(lo, hi + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
     nblk = (pos // bs + 1).clamp(max=w)
     cols = torch.arange(w, device=dev)[None]
     table = torch.where(cols < nblk[:, None], table, -1)  # unassigned ids past pos
-    table[1, 0] = -1                          # a live id < 0 reads page 0
+    table[min(1, b - 1), 0] = -1              # a live id < 0 reads page 0
     return q, kp, vp, table.contiguous(), pos, sc
 
 
@@ -283,6 +293,25 @@ def time_kernel(rec, cases, kernel, plain, library, label) -> dict:
     return rec
 
 
+CASE_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "split_device_ms")
+
+
+def split_sweep(cases, label) -> dict:
+    """Device time of the decode kernel at every cluster size, to hold
+    decode_geometry's pick against the others (the override is for this
+    measurement only)."""
+    from repro_torch.kernels import paged_attention as PA
+
+    def bind(c, ns):
+        *args, sc = c
+        return lambda: PA.paged_attention_cuda(*args, **sc, n_split=ns)
+
+    out = {ns: device_ms([bind(c, ns) for c in cases]) for ns in (1, 2, 4, 8)}
+    log(f"  {label}: device ms by n_split " + ", ".join(f"{k}: {v:.4f}" for k, v in out.items()))
+    return out
+
+
 def check(name, got, want, errs):
     err = float((got - want).abs().max())
     ok = torch.allclose(got, want, atol=ATOL, rtol=RTOL)
@@ -303,16 +332,31 @@ def kernel_phase(dev) -> dict:
     # full width: stablelm-3b heads (H = Hkv = 32, Dh = 80), bs = 16
     for int8 in (False, True):
         tag = "int8" if int8 else "bf16"
-        cases = [decode_case(gen, dev, 8, 32, 32, 80, 16, 32, int8) for _ in range(ROTATE)]
-        q, kp, vp, table, pos, sc = cases[0]
-        args = (q, kp, vp, table, pos)
-        check(f"decode {tag} B=8 W=32", PA.paged_attention_cuda(*args, **sc),
-              ref.paged_attention_ref(*args, **sc), errs["decode"])
-        timing[("decode", tag)] = time_kernel(
-            decode_bound(q, kp, table, pos, sc), cases,
-            PA.paged_attention_cuda, ref.paged_attention_ref,
-            None if int8 else sdpa_decode, f"decode {tag} B=8 W=32",
-        )
+        # B=8 over W=32 (random positions, one slot at the end: the main
+        # record), one slot over the whole window (the old grid used 32 of
+        # 132 SMs), and the serve profile's eight slots at positions
+        # 100-130 (W=16); each also timed at every cluster size
+        extra = []
+        for label, b, w, pr in (("B=8 W=32", 8, 32, None), ("B=1 W=32", 1, 32, None),
+                                ("B=8 W=16 pos 100-130", 8, 16, (100, 130))):
+            cases = [decode_case(gen, dev, b, 32, 32, 80, 16, w, int8, pr) for _ in range(ROTATE)]
+            q, kp, vp, table, pos, sc = cases[0]
+            args = (q, kp, vp, table, pos)
+            geo = PA.decode_geometry(b, 32, 32, 80, 16, w, kp.dtype)
+            check(f"decode {tag} {label}", PA.paged_attention_cuda(*args, **sc),
+                  ref.paged_attention_ref(*args, **sc), errs["decode"])
+            rec = time_kernel(
+                decode_bound(q, kp, table, pos, sc), cases,
+                PA.paged_attention_cuda, ref.paged_attention_ref,
+                None if int8 else sdpa_decode,
+                f"decode {tag} {label} (n_split {geo['n_split']}, grid {geo['grid']})",
+            )
+            rec["split_device_ms"] = split_sweep(cases, f"decode {tag} {label}")
+            if label == "B=8 W=32":
+                timing[("decode", tag)] = rec
+            else:
+                extra.append({"case": f"{tag} {label}", **{k: rec[k] for k in CASE_KEYS}})
+        timing[("decode", tag)]["cases"] = extra
         for q0 in (0, 128):
             cases = [prefill_case(gen, dev, 128, q0, 32, 32, 80, 16, 16, int8)
                      for _ in range(ROTATE if q0 else 1)]
@@ -625,9 +669,13 @@ def profile_decode(eng, vocab: int, n_ticks: int = 5) -> None:
     gpu = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
+    attn = [e for e in gpu if "paged_decode_kernel" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
     log(f"  profile: {n_ticks} full-batch decode ticks, {wall_ms / n_ticks:.2f} ms/tick host, "
         f"device busy {busy_ms / n_ticks:.2f} ms/tick ({100 * busy_ms / wall_ms:.1f}% of wall), "
-        f"{sum(e.count for e in gpu) // n_ticks} kernels/tick")
+        f"{sum(e.count for e in gpu) // n_ticks} kernels/tick; decode attention "
+        f"{attn_ms / n_ticks:.3f} ms/tick ({100 * attn_ms / max(busy_ms, 1e-9):.1f}% of device "
+        f"time, {sum(e.count for e in attn) / n_ticks:.1f} launches/tick)")
     for e in sorted(gpu, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3 / n_ticks:8.3f} ms/tick  "
             f"{e.count // n_ticks:5d}x  {e.key[:90]}")
@@ -897,6 +945,52 @@ def reference_train(dev) -> None:
         raise AssertionError("smoke analog training disagrees card vs CPU")
 
 
+def short_kernel_name(mangled: str) -> str:
+    """``_ZN4raca21paged_decode_kernel_8I13__nv_bfloat16S1_EEv...`` ->
+    ``paged_decode_kernel_8<bf16,bf16>`` (the types the kernels take)."""
+    import re
+
+    m = re.match(r"_ZN4raca(\d+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    name, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
+    args, rest = [], rest[1:] if rest.startswith("I") else ""
+    codes = (("13__nv_bfloat16", "bf16"), ("S1_", "bf16"), ("f", "f32"), ("a", "int8"))
+    while rest and not rest.startswith("E"):
+        lit = re.match(r"Li(\d+)E", rest)   # an int template argument
+        code = next((c for c in codes if rest.startswith(c[0])), None)
+        if lit:
+            args.append(lit.group(1))
+            rest = rest[lit.end():]
+        elif code is not None:
+            args.append(code[1])
+            rest = rest[len(code[0]):]
+        else:
+            break
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_entries(text: str):
+    """(kernel, "N registers, spills S/L bytes") per entry function of an
+    ``-Xptxas -v`` log, with the template arguments shortened."""
+    import re
+
+    entry, spill = None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = short_kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            yield entry, f"{m.group(1)} registers, {spill or 'no spill line'}"
+            entry, spill = None, ""
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -920,9 +1014,8 @@ def main() -> int:
     logs = build.build_all(build.sources())
     log(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for entry, info in ptxas_entries(text):
+            log(f"  {name}: {entry}: {info}")
 
     log("== kernels vs plain versions")
     kres = kernel_phase(dev)
@@ -961,6 +1054,8 @@ def main() -> int:
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+        if "cases" in t:
+            kernels[-1]["cases"] = t["cases"] + kres["timing"][(key, "int8")].get("cases", [])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,21 @@
-// Shared body of the paged decode and chunked-prefill attention kernels.
+// Shared pieces of the paged decode and chunked-prefill attention kernels.
 //
-// One thread block attends a tile of R query rows that all read the same
-// kv head, page by page through a block-table row.  The online-softmax
-// state (running max m, denominator l, accumulator acc) lives in shared
-// memory across the loop over pages, which on Hopper takes the place of
-// the TPU kernels' sequential grid axis carrying VMEM scratch.
-//
-// Pages are read in their stored type (f32, bf16, or int8 codes with f32
-// scale planes) and converted to f32 in shared memory; all arithmetic is
-// f32.  Masking follows the reference: key position w*bs+t is visible to a
+// Masking follows the reference: key position w*bs+t is visible to a
 // query at absolute position p iff t_abs <= p and, for a local window,
 // t_abs > p - local_window.  Masked scores are the finite NEG_INF of the
-// reference, so a row whose first visited page is fully masked carries
-// weight-1 garbage only until its first visible key, whose alpha of
-// exp(NEG_INF - m) = 0 wipes it (the reference's behaviour exactly).
+// reference (never -inf, which would make NaN of -inf - (-inf)), so a
+// softmax state whose visited keys are all masked carries weight-1 garbage
+// under m = NEG_INF until a visible key's alpha of exp(NEG_INF - m) = 0
+// wipes it (the reference's behaviour exactly).  The cluster and warp
+// merges of both kernels rely on the same wipe.
+//
+// attend_rows is the CUDA-core body that the f32-query prefill route
+// keeps: one thread block attends a tile of R query rows that all read
+// the same kv head, page by page, with the online-softmax state (m, l,
+// acc) in shared memory and pages converted to f32 as they are staged.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,6 +30,108 @@ enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+// Byte i of a word of int8 codes as f32, exactly, without an integer
+// conversion: the offset byte b ^ 0x80 = code + 128 becomes the low
+// mantissa bits of 2^23, and subtracting 2^23 + 128 leaves the code.
+__device__ __forceinline__ float i8_at(uint32_t w, int i) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte asynchronous copy global -> shared, for scale-plane entries;
+// groups are committed and waited on per thread, and a warp barrier after
+// the wait publishes the data.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers for TMA copies: the barrier's phase completes once its one
+// arrival (with the expected byte count) and all the bytes are in;
+// waiters spin on the phase's parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One box of a tensor map (TMA) global -> shared, 3-D coordinates
+// innermost first; the destination is 128-byte aligned.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A page pool (P, bs, Hkv, Dh) as the 3-D tensor (Dh, Hkv, P*bs), whose
+// box (Dh, 1, rows) at (0, kh, page*bs + t) is `rows` keys of one kv head.
+// The encoder is looked up through the runtime's entry-point query, so the
+// library links nothing beyond cudart.
+inline cudaError_t encode_pool_map(CUtensorMap* map, const void* pool, int elem_bytes,
+                                   int64_t n_rows, int hkv, int dh, int rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const CUtensorMapDataType type = elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(hkv),
+                              static_cast<cuuint64_t>(n_rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * elem_bytes,
+                                 static_cast<cuuint64_t>(hkv) * dh * elem_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(dh), 1u, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t estride[3] = {1u, 1u, 1u};
+  CUresult res = encode(map, type, 3, const_cast<void*>(pool), dims, strides, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Orders this thread's earlier generic-proxy accesses to shared memory
+// before later async-proxy (TMA) writes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // Shared-memory floats the tile needs for R rows.
 __host__ __device__ inline int smem_floats(int R, int bs, int dh) {

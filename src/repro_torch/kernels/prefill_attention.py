@@ -2,11 +2,14 @@
 
 Replaces ``paged_prefill_attention_pallas``
 (``repro/kernels/prefill_attention.py``).  The kernel
-(``csrc/prefill_attention.cu``) tiles the suffix chunk into 16-query tiles
-per head and loops over the request's pages up to each tile's last
-absolute position.  Its plain PyTorch version is
-:func:`prefill_attention_ref`; ``ops.paged_prefill_attention`` sends CPU
-tensors there and CUDA tensors here.  ``launches`` counts kernel launches.
+(``csrc/prefill_attention.cu``) takes one of two routes by query type:
+bf16 queries run tensor-core tiles of 16 queries of one head whose keys
+eight warps share, in 32-key chunks loaded by TMA; f32 queries run
+CUDA-core tiles of 16 queries.  Both walk the request's keys up to each
+tile's last absolute position.  :func:`prefill_geometry` is the launch's
+shape.  Its plain PyTorch version is :func:`prefill_attention_ref`;
+``ops.paged_prefill_attention`` sends CPU tensors there and CUDA tensors
+here.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -17,12 +20,19 @@ from typing import Optional
 import torch
 
 from . import build
-from .paged_attention import DTYPE_CODES, check_index, check_pool_args, data_ptr
+from .paged_attention import (
+    CHUNK, DTYPE_CODES, MAX_SMEM_BYTES, check_box_shape, check_index, check_pool_args,
+    chunk_stage_bytes, data_ptr,
+)
 from .ref import prefill_attention_ref  # noqa: F401  (the plain version)
 
 launches = 0
 
-QUERY_TILE = 16  # kQT in csrc/prefill_attention.cu
+TC_ROWS = 16      # query rows of a tensor-core CTA (csrc/prefill_attention.cu)
+TC_WARPS = 8      # kTcWarps: warps of a CTA, sharing its key chunks
+TC_HEAD_DIMS = range(16, 129, 16)  # the head dims the tile is compiled for
+PAD = 8           # kPad in csrc/attention_chunks.cuh: the int8 work tile's row padding
+F32_ROWS = 16     # kQT, the CUDA-core route's query tile
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -30,9 +40,36 @@ def _lib():
     lib = build.load("prefill_attention")
     fn = lib.paged_prefill_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 9 + [_F, _P]
+        fn.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P] + [_I] * 10 + [_F, _P]
         fn.restype = _I
     return fn
+
+
+def tc_warp_bytes(bs: int, dh: int, kv_dtype: torch.dtype) -> int:
+    """A tensor-core warp's shared memory (``tc_warp_bytes`` in
+    ``csrc/attention_chunks.cuh``): one stage and the int8 work tile, or
+    its f32 (O, m, l) if that is larger, in 128-byte units."""
+    ring = chunk_stage_bytes(bs, dh, kv_dtype)
+    if kv_dtype == torch.int8:
+        ring += CHUNK * (dh + PAD) * 2
+    return -(-max(ring, 16 * dh * 4 + 2 * 16 * 4) // 128) * 128
+
+
+def prefill_geometry(
+    s: int, h: int, hkv: int, dh: int, bs: int, q_dtype: torch.dtype, kv_dtype: torch.dtype
+) -> dict:
+    """Launch shape of the prefill kernel: its ``route`` ("tensor-core" for
+    bf16 queries, "cuda-core" for f32), ``grid`` (query tiles, H), the
+    query ``rows`` of a tile, ``threads`` and dynamic ``smem_bytes``
+    (``prefill_tc_smem_bytes`` / ``smem_floats`` in the sources)."""
+    if q_dtype == torch.bfloat16:
+        smem = 128 + TC_WARPS * (tc_warp_bytes(bs, dh, kv_dtype) + 8)
+        return {"route": "tensor-core", "grid": (-(-s // TC_ROWS), h), "rows": TC_ROWS,
+                "threads": 32 * TC_WARPS, "smem_bytes": smem}
+    r = F32_ROWS
+    smem = 4 * (2 * r * dh + bs * (2 * dh + 1) + r * bs + 3 * r + 2 * bs)
+    return {"route": "cuda-core", "grid": (-(-s // r), h), "rows": r, "threads": 128,
+            "smem_bytes": smem}
 
 
 def paged_prefill_attention_cuda(
@@ -52,8 +89,15 @@ def paged_prefill_attention_cuda(
     global launches
     s, h, dh = q.shape
     _, bs, hkv, _ = k_pages.shape
-    check_pool_args(q, k_pages, v_pages, k_scale, v_scale, kind, local_window, QUERY_TILE)
+    check_pool_args(q, k_pages, v_pages, k_scale, v_scale, kind, local_window)
     check_index(table, (table.shape[0],), q.device, "table")
+    geo = prefill_geometry(s, h, hkv, dh, bs, q.dtype, k_pages.dtype)
+    if geo["route"] == "tensor-core":
+        check_box_shape(dh, bs, k_pages.dtype)
+        if dh not in TC_HEAD_DIMS:
+            raise ValueError(f"bf16 queries need Dh in {list(TC_HEAD_DIMS)}, got {dh}")
+    if geo["smem_bytes"] > MAX_SMEM_BYTES:
+        raise ValueError(f"prefill tile needs {geo['smem_bytes']} bytes of shared memory")
     q0 = int(q0)
     if q0 < 0:
         raise ValueError(f"q0 must be >= 0, got {q0}")
@@ -62,7 +106,7 @@ def paged_prefill_attention_cuda(
     rc = _lib()(
         data_ptr(q), DTYPE_CODES[q.dtype], data_ptr(k_pages), data_ptr(v_pages),
         DTYPE_CODES[k_pages.dtype], data_ptr(k_scale), data_ptr(v_scale), data_ptr(table),
-        data_ptr(out), s, q0, h, hkv, dh, bs, table.shape[0],
+        data_ptr(out), k_pages.shape[0], s, q0, h, hkv, dh, bs, table.shape[0],
         int(kind == "local"), int(local_window), float(softcap), stream,
     )
     if rc != 0:

@@ -8,6 +8,9 @@ PyTorch and the CUDA toolkit:
 
 Tolerances: the attention kernels within 2e-5 absolute / 1e-5 relative
 of their plain versions on f32 inputs (only summation order differs);
+with bf16 queries (the decode kernel's split and warp paths, the prefill
+kernel's tensor-core path) within 2e-4 absolute and relative, derived in
+``test_cuda_bf16_attention_split_and_tensor_core_paths``;
 ``stoch_round`` and the int8 quantizer bit-identical to their plain
 versions (integer hashing, exact f32 steps, no FMA contraction);
 ``wta_counts`` with equal row sums and at most 1% of its B·T decisions
@@ -96,6 +99,90 @@ def test_cuda_kernels_match_plain_versions(cuda_device, int8, kind, local_window
     y_k = TOPS.paged_prefill_attention(*dev, 21, **kw, **sc)
     y_p = TREF.prefill_attention_ref(*dev, 21, **kw, **sc)
     torch.testing.assert_close(y_k, y_p, atol=ATOL, rtol=RTOL)
+
+
+BF16_TOL = 2e-4
+
+
+def _bf16_case(rng, n_pages, bs, hkv, dh, int8, dev):
+    """A pool on the card: bf16 values, or int8 codes with scale planes."""
+    kp, vp, ks, vs = _pool(rng, n_pages, bs, hkv, dh, int8)
+    to = lambda a, t=None: torch.from_numpy(a).to(dev, t)  # noqa: E731
+    if int8:
+        return to(kp), to(vp), dict(k_scale=to(ks), v_scale=to(vs))
+    return to(kp, torch.bfloat16), to(vp, torch.bfloat16), {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hkv", [32, 8, 4, 1])
+@pytest.mark.parametrize("kind,local_window,softcap", [
+    ("global", 0, 0.0), ("global", 0, 30.0), ("local", 20, 0.0), ("local", 1, 50.0),
+    ("local", 37, 30.0),
+])
+def test_cuda_bf16_attention_split_and_tensor_core_paths(
+    cuda_device, int8, hkv, kind, local_window, softcap
+):
+    """bf16 queries at stablelm-3b's head shape (H = 32, Dh = 80, bs = 16;
+    MHA, and GQA with G = 4, 8 and 32) on bf16 and int8 pools, against the
+    plain versions on the same card inputs.
+
+    Decode: W = 25 pages.  B = 1, one slot at pos = W*bs - 1, splits over
+    a cluster of 2 CTAs (25 is odd), and again at every cluster size;
+    B = 5 adds slots at pos < bs (one live page, empty CTAs),
+    mid-table with a live id < 0, and local windows that leave most CTAs
+    of a cluster without pages.  Prefill: S = 37 and 50 (not multiples of
+    the 16-row tile) at q0 = 0 and 45, with a live id < 0.
+
+    Tolerance.  The decode kernel computes in f32 like the plain version;
+    only summation order differs (~1e-6).  The prefill kernel's tensor
+    cores multiply bf16 x bf16 exactly into f32 sums; its P.V splits each
+    f32 weight into bf16 high and low parts, which keep ~16 bits, so each
+    weight is off by at most 2**-16 of itself and the output by at most
+    2**-16 * sum_t w_t |v_t| / l <= 1.5e-5 * max|v| (~4.5 for these bf16
+    normals, ~1 after int8's v_scale/127): 2e-4 absolute and relative
+    holds it with room for the f32 score and exp roundings."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+
+    rng = np.random.default_rng(hkv + 100 * int8)
+    kw = dict(kind=kind, local_window=local_window, softcap=softcap)
+    h, dh, bs, w = 32, 80, 16, 25
+    for b, pos in ((1, [w * bs - 1]), (5, [w * bs - 1, 9, 100, 150, 0])):
+        n_pages = b * w + 2
+        kp, vp, sc = _bf16_case(rng, n_pages, bs, hkv, dh, int8, cuda_device)
+        q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32))
+        q = q.to(cuda_device, torch.bfloat16)
+        table = (rng.permutation(n_pages - 1)[: b * w] + 1).reshape(b, w).astype(np.int32)
+        if b > 1:
+            table[2, 3] = -1
+        table = torch.from_numpy(table).to(cuda_device)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+        geo = PA.decode_geometry(b, h, hkv, dh, bs, w, kp.dtype)
+        if b == 1:
+            assert geo["n_split"] > 1 and w % geo["n_split"]
+        before = PA.launches
+        got = TOPS.paged_attention(q, kp, vp, table, pos_t, **kw, **sc)
+        assert PA.launches == before + 1
+        want = TREF.paged_attention_ref(q, kp, vp, table, pos_t, **kw, **sc)
+        torch.testing.assert_close(got, want, atol=BF16_TOL, rtol=BF16_TOL)
+        for ns in (1, 2, 4, 8):   # every cluster size gives the same rows
+            got = PA.paged_attention_cuda(q, kp, vp, table, pos_t, **kw, **sc, n_split=ns)
+            torch.testing.assert_close(got, want, atol=BF16_TOL, rtol=BF16_TOL)
+    for s_len, q0 in ((37, 0), (50, 0), (37, 45), (50, 45)):
+        n_pages = 8
+        kp, vp, sc = _bf16_case(rng, n_pages, bs, hkv, dh, int8, cuda_device)
+        q = torch.from_numpy(rng.standard_normal((s_len, h, dh)).astype(np.float32))
+        q = q.to(cuda_device, torch.bfloat16)
+        table = (rng.permutation(n_pages - 1)[:7] + 1).astype(np.int32)
+        table[1] = -1
+        table = torch.from_numpy(table).to(cuda_device)
+        assert PF.prefill_geometry(s_len, h, hkv, dh, bs, q.dtype, kp.dtype)["route"] == "tensor-core"
+        before = PF.launches
+        got = TOPS.paged_prefill_attention(q, kp, vp, table, q0, **kw, **sc)
+        assert PF.launches == before + 1
+        want = TREF.prefill_attention_ref(q, kp, vp, table, q0, **kw, **sc)
+        torch.testing.assert_close(got, want, atol=BF16_TOL, rtol=BF16_TOL)
 
 
 def _sr_input(shape, lo, hi):
