@@ -14,27 +14,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    W=32, at B=1 over W=32 and at the serve profile's positions 100-130,
    each also at every cluster size; plus small GQA / local / soft-cap
    cases), ``stoch_round`` bit-identical at the int8 decode write,
-   the int8 prefill chunk and the 2048² quantizer row, ``wta_counts``
-   within its agreement bound at the serving head's width; with kernel
-   times per call (CUDA events over back-to-back calls) and on the device
-   (the same, with the host's time hidden behind a spin kernel), plain and
-   library times, and each kernel's bound; ``crossbar_mac`` at the three
-   stablelm-3b training shapes and at odd, physical-noise and canary cases.
+   the int8 prefill chunk and the 2048² quantizer row, the fused int8 KV
+   write bit-identical (trash page 0 aside) at the decode write and a
+   128-token prefill chunk, ``wta_counts`` within its agreement bound at
+   the serving head's width; with kernel times per call (CUDA events
+   over back-to-back calls) and on the device (the same, with the host's
+   time hidden behind a spin kernel), plain and library times, and each
+   kernel's bound; ``crossbar_mac`` (prepass + tensor-core GEMM) at the
+   three stablelm-3b training shapes and at odd, physical-noise and
+   canary cases, its prepass's pieces, levels and column sums
+   bit-identical and row sums within f32 summation error, its GEMM held
+   to the read's gates and timed at every compiled tile width, and the
+   comparator decisions that one bf16 or TF32 pass of x, or two bf16
+   pieces, would keep.
 4. serve: ``ServingEngine`` serves a 12-request shared-prefix trace at
    stablelm-3b full width (random seeded weights) twice, with a bf16 and
    an int8 KV pool, with prefix hits, chunked suffix prefill and
    copy-on-write; the launch counts of the kernels each run goes through,
-   reset just before and read just after, must be > 0.  Each run ends in
-   a profile of full-batch decode ticks with the decode attention
-   kernel's share of the device time.
-5. wta: the ``ops.wta_counts`` entry point at the serving head's
-   operating point (8 × 50304, 32 trials); its kernel's launches, reset
-   just before and read just after, must be > 0.
+   reset just before and read just after, must be > 0 (the int8 run: one
+   fused write per attention launch).  Each run ends in a profile of
+   full-batch decode ticks with the decode attention kernel's share of
+   the device time.
+5. entry points: ``ops.stoch_round_serving`` on the 2048² quantizer row
+   and ``ops.wta_counts`` at the serving head's operating point (8 ×
+   50304, 32 trials); each kernel's launches, reset just before and read
+   just after, must be > 0.
 6. train: RACA analog training (``--analog``) of stablelm-3b at full width
    and depth, batch 8 x 128, 3 steps through ``make_train_step``: finite
-   losses, parameters changed, ``crossbar_mac`` launched 224 times per
-   step (reset just before, read just after); step time, tokens/s, peak
-   memory and a profiled step's split.
+   losses, parameters changed, ``crossbar_mac`` launched 224 reads and
+   224 prepasses per step (reset just before, read just after); step
+   time, tokens/s, peak memory and a profiled step's split.
 7. reference: smoke-size prefill and decode logits on the card (kernels)
    agree with the same model on the CPU (plain versions), for a float and
    an int8 pool (whose written codes must agree too); two smoke-size
@@ -387,16 +396,18 @@ def kernel_phase(dev) -> dict:
     torch.cuda.synchronize()
     timing["stoch_round"], errs["stoch_round"] = stoch_round_kernels(gen, dev)
     timing["wta_counts"], errs["wta_counts"] = wta_kernels(gen, dev)
-    timing["crossbar_mac"], errs["crossbar_mac"] = crossbar_kernels(gen, dev)
+    (timing["crossbar_mac"], timing["crossbar_prepass"], errs["crossbar_mac"],
+     errs["crossbar_prepass"]) = crossbar_kernels(gen, dev)
+    timing["write_kv_int8"], errs["write_kv_int8"] = write_kernels(gen, dev)
     return {"errs": errs, "timing": timing}
 
 
 def stoch_round_kernels(gen, dev):
     """stoch_round vs its plain version, bit for bit, at the int8 decode
-    write (8 slots x 32 kv heads rows of Dh=80), the int8 prefill chunk (8
-    blocks of 16 x 32 rows, one seed each) and bench_kernels.py's 2048²
-    row on the 2/31 grid; times at each.  Returns (decode-shape record,
-    max|err| list)."""
+    write's rows (8 slots x 32 kv heads of Dh=80), the int8 prefill
+    chunk's (8 blocks of 16 x 32 rows, one seed each) and bench_kernels.py's
+    2048² row on the 2/31 grid, the shape its entry point runs here; times
+    at each.  Returns (2048² record, max|err| list)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import stoch_round as SR
 
@@ -426,6 +437,65 @@ def stoch_round_kernels(gen, dev):
             bound_record(8 * x.numel(), 0), [(x.clone(), sd, kw) for _ in range(ROTATE)],
             SR.stoch_round_cuda, ref.stoch_round_ref, None, f"stoch_round {label}",
         ))
+    recs[2]["cases"] = [{"case": label, **{a: r[a] for a in CASE_KEYS if a in r}}
+                        for (label, *_), r in zip(cases[:2], recs[:2])]
+    return recs[2], errs
+
+
+def write_kernels(gen, dev):
+    """The fused int8 KV write vs its plain version, bit for bit outside
+    the trash page 0, at stablelm-3b's kv heads (Hkv 32, Dh 80, bs 16,
+    bf16 rows): the decode write of 8 slots (one on the trash page, one
+    past its table) and a 128-token prefill chunk of 8 blocks; times at
+    each.  Returns (decode record, max|err| list)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stoch_round as SR
+
+    hkv, dh, bs, n_pages = 32, 80, 16, 8 * 32 + 1
+
+    def pools():
+        return [torch.randint(-127, 128, (n_pages, bs, hkv, dh), generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2)] + \
+               [torch.rand((n_pages, bs, hkv), generator=gen, device=dev) + 0.5 for _ in range(2)]
+
+    def rows(shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 2).to(torch.bfloat16)
+
+    def seeds(n):
+        return torch.randint(0, 2**32, (n,), generator=gen, device=dev, dtype=torch.int64)
+
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:8 * 32] + 1)
+    table = table.reshape(8, 32).to(torch.int32)
+    pos = torch.randint(0, 32 * 16, (8,), generator=gen, device=dev, dtype=torch.int32)
+    pos[1], pos[2] = 40, 5000                       # the trash page; past the table
+    table[1, 40 // bs] = -1
+    row = table[0].contiguous()
+    cases = [
+        ("decode write, 8 slots", (8, 1, hkv, dh), 1, dict(table=table, pos=pos)),
+        ("prefill chunk, 128 tokens", (1, 128, hkv, dh), 8, dict(table_row=row, b0=8)),
+    ]
+    recs, errs = [], []
+    for label, shape, n_seeds, where in cases:
+        k, v, sd = rows(shape), rows(shape), seeds(n_seeds)
+        got = pools()
+        want = [t.clone() for t in got]
+        SR.write_kv_int8_cuda(k, v, *got, sd, **where)
+        ref.write_kv_int8_ref(k, v, *want, sd, **where)
+        same = all(torch.equal(g[1:], w_[1:]) for g, w_ in zip(got, want))
+        errs.append(max(float((g[1:].float() - w_[1:].float()).abs().max())
+                        for g, w_ in zip(got, want)))
+        log(f"  write_kv_int8 {label}: codes and scales bit-identical outside page 0 {same}")
+        if not same:
+            raise AssertionError(f"write_kv_int8 {label}: kernel differs from its plain version")
+        n_rows = k.numel() // dh if "table" in where else -(-shape[1] // bs) * bs * hkv
+        # rows read (bf16) once, codes and scales written once, K and V
+        nbytes = 2 * (k.numel() * 2 + n_rows * (dh + 4))
+        sets = [(rows(shape), rows(shape), *pools(), sd, where) for _ in range(ROTATE)]
+        recs.append(time_kernel(
+            bound_record(nbytes, 0), sets, SR.write_kv_int8_cuda, ref.write_kv_int8_ref, None,
+            f"write_kv_int8 {label}",
+        ))
+    recs[0]["cases"] = [{"case": cases[1][0], **{a: recs[1][a] for a in CASE_KEYS if a in recs[1]}}]
     return recs[0], errs
 
 
@@ -485,7 +555,7 @@ def crossbar_case(gen, dev, m, k, n, *, binarize, binary_x=False, quantize=True,
     kw = dict(binarize=binarize, physical_noise=physical, noise_params=ops._noise_params(dp, k),
               quantize=quantize, qstep=ops._qstep(dp), w_min=dp.w_min, w_max=dp.w_max)
     seed = int(torch.randint(0, 2**32, (1,), generator=gen, device=dev, dtype=torch.int64))
-    return x, w.contiguous(), seed, sigma.reshape(()).float(), kw
+    return x, w.contiguous(), seed, sigma.reshape(()).float(), kw, s
 
 
 def check_crossbar(label, x, w, seed, sigma, kw, errs):
@@ -493,7 +563,12 @@ def check_crossbar(label, x, w, seed, sigma, kw, errs):
     from repro_torch.kernels import ref
 
     got = CB.crossbar_mac_cuda(x, w, seed, sigma, **kw)
-    want = ref.crossbar_mac_ref(x, w, seed, sigma, **kw)
+    crossbar_gate(label, x, w, kw, got, ref.crossbar_mac_ref(x, w, seed, sigma, **kw), errs)
+
+
+def crossbar_gate(label, x, w, kw, got, want, errs):
+    """A read's output against its plain version's under the gates above;
+    appends max|Δ| to ``errs``."""
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"crossbar_mac {label}: non-finite output")
@@ -505,16 +580,84 @@ def check_crossbar(label, x, w, seed, sigma, kw, errs):
         if agree < CB_AGREEMENT or not binary:
             raise AssertionError(f"crossbar_mac {label}: kernel disagrees with its plain version")
         return
-    wq = ref.crossbar_quantize(w, kw["qstep"], kw["w_min"], kw["w_max"]) if kw["quantize"] else w
-    tol = 2 * x.shape[1] ** 0.5 * 2.0**-24 * (x.abs() @ wq.abs())
-    if kw["physical_noise"]:
-        tol = tol + 1e-5 * want.abs()
+    worst = linear_err_over_tol(x, w, kw, got, want)
     err = (got - want).abs()
-    worst = float((err / tol.clamp_min(1e-30)).max())
     errs.append(float(err.max()))
     log(f"  crossbar_mac {label}: max|err| {float(err.max()):.3e}, worst err/tol {worst:.3f}")
     if worst > 1.0:
         raise AssertionError(f"crossbar_mac {label}: kernel disagrees with its plain version")
+
+
+def check_prepass(label, x, w, kw, errs):
+    """The prepass against its plain version: x's pieces, the levels and
+    (physical noise model) the integer column sums bit-identical; the f32
+    row sums, summed in another order, within 2·sqrt(K)·2**-24·Σ|x|.
+    Appends max|Δ| over all four outputs to ``errs``."""
+    from repro_torch.kernels import crossbar_mac as CB
+    from repro_torch.kernels import ref
+
+    q = (kw["qstep"], kw["w_min"], kw["w_max"])
+    xs, rowsum, ct, colsum = CB.crossbar_prepass_cuda(x, w, *q, physical_noise=kw["physical_noise"])
+    xs_p, rowsum_p, ct_p, colsum_p = ref.crossbar_prepass_ref(x, w, *q)
+    torch.cuda.synchronize()
+    exact = max(float((xs.float() - xs_p).abs().max()), float((ct.float() - ct_p).abs().max()))
+    if kw["physical_noise"]:
+        exact = max(exact, float((colsum - colsum_p).abs().max()))
+    d_row = (rowsum - rowsum_p).abs()
+    worst = float((d_row / (2 * x.shape[1] ** 0.5 * 2.0**-24 * x.abs().sum(1)).clamp_min(1e-30)).max())
+    errs.append(max(exact, float(d_row.max())))
+    log(f"  crossbar prepass {label}: pieces, levels{', column sums' if kw['physical_noise'] else ''} "
+        f"max|err| {exact:.3e}; row sums max|err| {float(d_row.max()):.3e}, worst err/tol {worst:.3f}")
+    if exact != 0.0 or worst > 1.0 or not torch.isfinite(rowsum).all():
+        raise AssertionError(f"crossbar prepass {label}: prepass disagrees with its plain version")
+
+
+def crossbar_bound(m, k, n):
+    """The read's bound as the kernel now does it: three bf16 tensor-core
+    passes (3·2·M·K·N over the dense bf16 rate) against its bytes (x and
+    W read as f32, out written, once each); and the f32 bound of the same
+    product on the CUDA cores, kept beside it."""
+    nbytes = 4 * (m * k + k * n + m * n)
+    rec = bound_record(nbytes, 3 * 2 * m * k * n)
+    rec["f32_bound_ms"] = bound_record(nbytes, 2 * m * k * n, F32_FLOPS_PER_S)["bound_ms"]
+    return rec
+
+
+def one_pass_shares(x, w, seed, sigma_cmp, kw):
+    """What fewer passes of x keep: the share of comparator decisions (the
+    calibrated read's σ) that the level-domain read with x rounded once to
+    bf16 or TF32, or split into two bf16 pieces, shares with the plain
+    version; and, for a linear read, the worst error over the linear gate.
+    The kernel's own three-piece split is modelled beside them (plain
+    PyTorch, f32 sums)."""
+    from repro_torch.kernels import ref
+
+    cmp_kw = dict(kw, binarize=True)
+    want = ref.crossbar_mac_ref(x, w, seed, sigma_cmp, **cmp_kw)
+    out = {}
+    for label, pieces, fmt in (("bf16 x1", 1, "bf16"), ("tf32 x1", 1, "tf32"),
+                               ("bf16 x2", 2, "bf16"), ("bf16 x3", 3, "bf16")):
+        got = ref.crossbar_level_read(x, w, seed, sigma_cmp, pieces=pieces, fmt=fmt, **cmp_kw)
+        out[label] = {"decisions_kept": float((got == want).float().mean())}
+        if not kw["binarize"]:
+            sigma = torch.full((), 0.01, device=x.device)
+            lin = ref.crossbar_level_read(x, w, seed, sigma, pieces=pieces, fmt=fmt, **kw)
+            out[label]["linear_err_over_tol"] = linear_err_over_tol(
+                x, w, kw, lin, ref.crossbar_mac_ref(x, w, seed, sigma, **kw))
+        del got
+    return out
+
+
+def linear_err_over_tol(x, w, kw, got, want):
+    """Worst |got − want| over the linear gate 2·sqrt(K)·2**-24·Σ|x·Wq|
+    (+ 1e-5·|out| with the physical noise model)."""
+    from repro_torch.kernels import ref
+
+    wq = ref.crossbar_quantize(w, kw["qstep"], kw["w_min"], kw["w_max"]) if kw["quantize"] else w
+    tol = 2 * x.shape[1] ** 0.5 * 2.0**-24 * (x.abs() @ wq.abs())
+    if kw["physical_noise"]:
+        tol = tol + 1e-5 * want.abs()
+    return float(((got - want).abs() / tol.clamp_min(1e-30)).max())
 
 
 def crossbar_kernels(gen, dev):
@@ -523,12 +666,16 @@ def crossbar_kernels(gen, dev):
     2560→6912 comparator reads (w_up, w_gate) and the 6912→2560 linear
     read of the binary hidden layer (w_down); then the odd shape 257 x 513
     x 129 (valid K and the padded noise counter), the physical noise model
-    and the serving canary's unquantized (1, 128) x (128, 8) read.  Times
-    at the three training shapes.  Returns (2560² record, max|err| list)."""
+    and the serving canary's unquantized (1, 128) x (128, 8) read.  At the
+    three training shapes: the prepass against its plain version, the
+    GEMM at every compiled tile width held to the read's gates and timed,
+    the read's time (prepass + GEMM) and the prepass's alone, and the
+    decisions that fewer passes of x would keep.  Returns (2560² read
+    record, prepass record, the read's max|err| list, the prepass's)."""
     from repro_torch.kernels import crossbar_mac as CB
     from repro_torch.kernels import ref
 
-    errs, recs = [], {}
+    errs, prep_errs, recs, preps = [], [], {}, {}
     for label, (m, k, n), opts in (
         ("(1024, 2560) x (2560, 2560) linear", (1024, 2560, 2560), dict(binarize=False)),
         ("(1024, 2560) x (2560, 6912) comparator", (1024, 2560, 6912), dict(binarize=True)),
@@ -536,23 +683,71 @@ def crossbar_kernels(gen, dev):
          dict(binarize=False, binary_x=True)),
     ):
         cases = [crossbar_case(gen, dev, m, k, n, **opts) for _ in range(ROTATE)]
-        check_crossbar(label, *cases[0], errs)
-        nbytes = 4 * (m * k + k * n + m * n)
-        rec = bound_record(nbytes, 2 * m * k * n, F32_FLOPS_PER_S)
-        recs[(m, k, n)] = time_kernel(
-            rec, [(x, w, sd, sg, kw) for x, w, sd, sg, kw in cases],
+        x, w, seed, sigma, kw, scale = cases[0]
+        q = (kw["qstep"], kw["w_min"], kw["w_max"])
+        gkw = {a: b for a, b in kw.items() if a != "quantize"}
+        want = ref.crossbar_mac_ref(x, w, seed, sigma, **kw)
+        crossbar_gate(label, x, w, kw, CB.crossbar_mac_cuda(x, w, seed, sigma, **kw), want, errs)
+        check_prepass(label, x, w, kw, prep_errs)
+        parts = CB.crossbar_prepass_cuda(x, w, *q)
+        for tn in CB.TILE_NS:   # every width the sweep times, held to the gates first
+            crossbar_gate(f"{label}, GEMM at tile_n {tn}", x, w, kw,
+                          CB.crossbar_gemm_cuda(*parts, k, seed, sigma, **gkw, tile_n=tn),
+                          want, errs)
+        del parts, want
+        rec = time_kernel(
+            crossbar_bound(m, k, n), [c[:5] for c in cases],
             CB.crossbar_mac_cuda, ref.crossbar_mac_ref,
             lambda x, w, sd, sg: (lambda: x @ w), f"crossbar_mac {label} (library: product only)",
         )
+        prep_args = [(c[0], c[1], *q, {}) for c in cases]
+        nbytes = 4 * (m * k + k * n) + 2 * (3 * m + n) * (-(-k // 64) * 64) + 4 * m
+        preps[(m, k, n)] = time_kernel(
+            bound_record(nbytes, 0), prep_args, CB.crossbar_prepass_cuda,
+            ref.crossbar_prepass_ref, None, f"crossbar prepass {label}",
+        )
+        pre = [CB.crossbar_prepass_cuda(c[0], c[1], *q) + (k, c[2], c[3]) for c in cases]
+
+        def gemm_at(p, tn):
+            return lambda: CB.crossbar_gemm_cuda(*p, **gkw, tile_n=tn)
+
+        rec["tile_device_ms"] = {tn: device_ms([gemm_at(p, tn) for p in pre]) for tn in CB.TILE_NS}
+        rec["tile_n"] = CB.TILE_N
+        rec["gemm_device_ms"] = rec["tile_device_ms"][CB.TILE_N]
+        log(f"  crossbar GEMM {label}: device ms {rec['gemm_device_ms']:.4f} at tile_n "
+            f"{rec['tile_n']}; by tile_n " + ", ".join(
+                f"{tn}: {t:.4f}" for tn, t in rec["tile_device_ms"].items())
+            + f"; f32 bound {rec['f32_bound_ms']:.4f} ms")
+        del pre
+        sigma_cmp = torch.tensor(1.702, device=dev) / scale   # the calibrated comparator
+        rec["one_pass"] = one_pass_shares(x, w, seed, sigma_cmp, kw)
+        log(f"  crossbar one pass of x, {label}: " + "; ".join(
+            f"{name} " + ", ".join(f"{a} {b:.6f}" for a, b in v.items())
+            for name, v in rec["one_pass"].items()))
+        recs[(m, k, n)] = rec
         del cases
     for b in (False, True):
         tag = "comparator" if b else "linear"
-        check_crossbar(f"odd 257 x 513 x 129 {tag}", *crossbar_case(gen, dev, 257, 513, 129, binarize=b), errs)
-        check_crossbar(f"physical noise 192 x 640 x 200 {tag}",
-                       *crossbar_case(gen, dev, 192, 640, 200, binarize=b, physical=True), errs)
+        check_crossbar(f"odd 257 x 513 x 129 {tag}",
+                       *crossbar_case(gen, dev, 257, 513, 129, binarize=b)[:5], errs)
+        phys = crossbar_case(gen, dev, 192, 640, 200, binarize=b, physical=True)
+        check_crossbar(f"physical noise 192 x 640 x 200 {tag}", *phys[:5], errs)
+        check_prepass(f"physical noise 192 x 640 x 200 {tag}", phys[0], phys[1], phys[4], prep_errs)
     check_crossbar("canary (1, 128) x (128, 8) unquantized linear",
-                   *crossbar_case(gen, dev, 1, 128, 8, binarize=False, quantize=False), errs)
-    return recs[(1024, 2560, 2560)], errs
+                   *crossbar_case(gen, dev, 1, 128, 8, binarize=False, quantize=False)[:5], errs)
+    rec = recs[(1024, 2560, 2560)]
+    rec["cases"] = [
+        {"case": f"{m}x{k}x{n}", **{a: r[a] for a in CROSSBAR_KEYS}}
+        for (m, k, n), r in recs.items() if (m, k, n) != (1024, 2560, 2560)
+    ]
+    prep = preps[(1024, 2560, 2560)]
+    prep["cases"] = [{"case": f"{m}x{k}x{n}", **{a: r[a] for a in CASE_KEYS if a in r}}
+                     for (m, k, n), r in preps.items() if (m, k, n) != (1024, 2560, 2560)]
+    return rec, prep, errs, prep_errs
+
+
+CROSSBAR_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "f32_bound_ms", "gemm_device_ms", "tile_n", "tile_device_ms", "one_pass")
 
 
 # ---------------------------------------------------------------------------
@@ -614,12 +809,13 @@ def serve_once(params, cfg, prompts, dev) -> dict:
     eng = ServingEngine(params, cfg, scfg, device=dev)
     for p in prompts:
         eng.submit(p)
-    PA.launches = PF.launches = SR.launches = 0
+    PA.launches = PF.launches = SR.launches = SR.write_launches = 0
     t0 = time.perf_counter()
     outs = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode": PA.launches, "prefill": PF.launches, "stoch_round": SR.launches}
+    launches = {"decode": PA.launches, "prefill": PF.launches, "stoch_round": SR.launches,
+                "write_kv_int8": SR.write_launches}
     m = eng.metrics()
     log(f"  served {m.completed} requests, {m.total_tokens} tokens in {wall:.2f} s: "
         f"{m.tokens_per_s:.1f} tok/s, TTFT mean {m.ttft_mean * 1e3:.1f} ms p99 "
@@ -628,20 +824,21 @@ def serve_once(params, cfg, prompts, dev) -> dict:
     chunks = launches["prefill"] // cfg.n_layers
     log(f"  prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, cow forks "
         f"{m.cow_forks}, prefill tokens {m.prefill_tokens} (saved {m.prefill_tokens_saved}), "
-        f"launches decode {launches['decode']} prefill {launches['prefill']} stoch_round "
-        f"{launches['stoch_round']} (per decode step: attention "
+        f"launches decode {launches['decode']} prefill {launches['prefill']} write_kv_int8 "
+        f"{launches['write_kv_int8']} stoch_round {launches['stoch_round']} (per decode step: attention "
         f"{launches['decode'] / max(m.decode_steps, 1):.1f}; {chunks} prefill chunks)")
     assert sorted(outs) == list(range(len(prompts))), "requests lost"
     assert all(len(o) == 32 and all(0 <= t < cfg.vocab for t in o) for o in outs.values())
     assert m.evictions == {"length": len(prompts)}, m.evictions
     assert m.prefix_hits >= 1 and m.prefix_partial_hits >= 2 and m.cow_forks >= 1
     assert launches["decode"] > 0 and launches["prefill"] > 0, launches
+    assert launches["stoch_round"] == 0, launches   # the fused write does the rounding
     if kv == "int8":
         assert eng._cache["k_pages"].dtype == torch.int8
-        # one K and one V quantizer launch beside every attention launch
-        assert launches["stoch_round"] == 2 * (launches["decode"] + launches["prefill"]) > 0, launches
+        # one fused K/V write beside every attention launch
+        assert launches["write_kv_int8"] == launches["decode"] + launches["prefill"] > 0, launches
     else:
-        assert launches["stoch_round"] == 0, launches
+        assert launches["write_kv_int8"] == 0, launches
     profile_decode(eng, cfg.vocab)
     del eng
     torch.cuda.empty_cache()
@@ -683,13 +880,30 @@ def profile_decode(eng, vocab: int, n_ticks: int = 5) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: small input against the plain path on the CPU.
+# Phase 5: the stochastic-rounding and WTA vote-count entry points.
 # ---------------------------------------------------------------------------
 
 
-# ---------------------------------------------------------------------------
-# Phase 5: the WTA vote-count entry point.
-# ---------------------------------------------------------------------------
+def stoch_round_phase(dev) -> dict:
+    """``ops.stoch_round_serving`` on bench_kernels.py's quantizer row: a
+    (2048, 2048) array onto the 2/31 conductance grid in [-1, 1]."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stoch_round as SR
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((2048, 2048), generator=gen, device=dev)
+    SR.launches = 0
+    q = ops.stoch_round_serving(x, 20241216, step=2.0 / 31, lo=-1.0, hi=1.0)
+    torch.cuda.synchronize()
+    launches = SR.launches
+    levels = (q + 1.0) * (31 / 2.0)
+    on_grid = bool(((levels - levels.round()).abs() < 1e-4).all())
+    mean_err = float((q - x.clamp(-1.0, 1.0)).mean())
+    log(f"  stoch_round_serving (2048, 2048) step 2/31: launches {launches}, on the grid "
+        f"{on_grid}, mean rounding error {mean_err:.2e} (unbiased: ~0)")
+    assert launches > 0, "stoch_round_serving did not launch its kernel"
+    assert on_grid and abs(mean_err) < 1e-3, (on_grid, mean_err)
+    return {"launches": launches}
 
 
 def wta_phase(dev) -> dict:
@@ -760,7 +974,7 @@ def train_phase(dev) -> dict:
     batches = [lm_batch(cfg, batch=8, seq=128, step=i, device=dev) for i in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    CB.launches = 0
+    CB.launches = CB.prepass_launches = 0
     losses, times = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -771,25 +985,26 @@ def train_phase(dev) -> dict:
         losses.append(loss)
         log(f"  step {i}: loss {loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, "
             f"lr {metrics['lr']:.3e}, {times[-1]:.3f} s")
-    launches = CB.launches
+    launches, prepasses = CB.launches, CB.prepass_launches
     peak = torch.cuda.max_memory_allocated()
     changed = not torch.equal(before, probe[:, :64, :64])
     steady = times[1:] or times
     step_s = sum(steady) / len(steady)
     log(f"  {TRAIN_STEPS} steps: crossbar_mac launches {launches} "
         f"({launches / TRAIN_STEPS:.0f} per step = {CB_PER_LAYER} x {cfg.n_layers} layers), "
+        f"prepass launches {prepasses}, "
         f"step {step_s:.3f} s (steps after the first), {8 * 128 / step_s:.1f} tokens/s, "
         f"peak memory {peak / 2**30:.2f} GiB, parameters changed {changed}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not changed:
         raise AssertionError("the training steps did not change the parameters")
-    if launches != CB_PER_LAYER * cfg.n_layers * TRAIN_STEPS:
-        raise AssertionError(f"crossbar_mac launched {launches} times, expected "
-                             f"{CB_PER_LAYER * cfg.n_layers * TRAIN_STEPS}")
+    if launches != CB_PER_LAYER * cfg.n_layers * TRAIN_STEPS or prepasses != launches:
+        raise AssertionError(f"crossbar_mac launched {launches} reads and {prepasses} "
+                             f"prepasses, expected {CB_PER_LAYER * cfg.n_layers * TRAIN_STEPS} each")
     profile = profile_train_step(step_fn, state, batches[TRAIN_STEPS])
-    return {"launches": launches, "losses": losses, "step_s": step_s, "peak": peak,
-            "profile": profile}
+    return {"launches": launches, "prepass_launches": prepasses, "losses": losses,
+            "step_s": step_s, "peak": peak, "profile": profile}
 
 
 def profile_train_step(step_fn, state, batch) -> dict:
@@ -817,17 +1032,20 @@ def profile_train_step(step_fn, state, batch) -> dict:
     def in_adamw(e):
         return any(r.start <= e.time_range.start < r.end for r in ranges)
 
-    crossbar = [e for e in kernels if "crossbar_mac" in e.name]
-    gemm = [e for e in kernels if "crossbar_mac" not in e.name
+    crossbar = [e for e in kernels if "crossbar" in e.name]
+    prepass = [e for e in crossbar if "prepass" in e.name]
+    gemm = [e for e in kernels if "crossbar" not in e.name
             and any(g in e.name.lower() for g in GEMM_NAMES) and not in_adamw(e)]
     adamw = [e for e in kernels if in_adamw(e)]
     total = ms(kernels)
     split = {"wall_ms": wall_ms, "device_ms": total, "crossbar_mac_ms": ms(crossbar),
-             "gemm_ms": ms(gemm), "adamw_ms": ms(adamw), "kernels": len(kernels)}
+             "crossbar_prepass_ms": ms(prepass), "gemm_ms": ms(gemm), "adamw_ms": ms(adamw),
+             "kernels": len(kernels)}
     split["rest_ms"] = total - split["crossbar_mac_ms"] - split["gemm_ms"] - split["adamw_ms"]
     log(f"  profiled step: {wall_ms:.1f} ms host, device busy {total:.1f} ms "
         f"({100 * total / wall_ms:.1f}%), {len(kernels)} kernels; crossbar_mac {split['crossbar_mac_ms']:.1f} ms "
-        f"({len(crossbar)} launches), cuBLAS {split['gemm_ms']:.1f} ms ({len(gemm)}), AdamW + rounding "
+        f"({len(crossbar)} launches, of which the prepass {split['crossbar_prepass_ms']:.1f} ms in "
+        f"{len(prepass)}), cuBLAS {split['gemm_ms']:.1f} ms ({len(gemm)}), AdamW + rounding "
         f"{split['adamw_ms']:.1f} ms ({len(adamw)}), rest {split['rest_ms']:.1f} ms")
     rows = [e for e in prof.key_averages() if e.device_type == cuda and not e.key.startswith("train/")]
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
@@ -1021,7 +1239,8 @@ def main() -> int:
     kres = kernel_phase(dev)
     log("== serve stablelm-3b (bf16 pool, then int8 pool)")
     sres = serve_phase(dev)
-    log("== wta_counts entry point")
+    log("== stoch_round and wta_counts entry points")
+    srres = stoch_round_phase(dev)
     wres = wta_phase(dev)
     log("== analog training of stablelm-3b")
     tres = train_phase(dev)
@@ -1030,9 +1249,11 @@ def main() -> int:
     reference_train(dev)
 
     launches = dict(sres["same"]["launches"])
-    launches["stoch_round"] = sres["int8"]["launches"]["stoch_round"]
+    launches["write_kv_int8"] = sres["int8"]["launches"]["write_kv_int8"]
+    launches["stoch_round"] = srres["launches"]
     launches["wta_counts"] = wres["launches"]
     launches["crossbar_mac"] = tres["launches"]
+    launches["crossbar_prepass"] = tres["prepass_launches"]
     kernels = []
     for key, tkey, name, src, replaces in (
         ("decode", ("decode", "bf16"), "paged_attention",
@@ -1042,9 +1263,13 @@ def main() -> int:
          "src/repro/kernels/prefill_attention.py:210"),
         ("stoch_round", "stoch_round", "stoch_round",
          "src/repro_torch/kernels/csrc/stoch_round.cu", "src/repro/kernels/stoch_round.py:82"),
+        ("write_kv_int8", "write_kv_int8", "write_kv_int8",
+         "src/repro_torch/kernels/csrc/stoch_round.cu", "src/repro/kernels/stoch_round.py:82"),
         ("wta_counts", "wta_counts", "wta_counts",
          "src/repro_torch/kernels/csrc/wta_counts.cu", "src/repro/kernels/wta_kernel.py:100"),
         ("crossbar_mac", "crossbar_mac", "crossbar_mac",
+         "src/repro_torch/kernels/csrc/crossbar_mac.cu", "src/repro/kernels/crossbar_mac.py:154"),
+        ("crossbar_prepass", "crossbar_prepass", "crossbar_prepass",
          "src/repro_torch/kernels/csrc/crossbar_mac.cu", "src/repro/kernels/crossbar_mac.py:154"),
     ):
         t = kres["timing"][tkey]
@@ -1054,8 +1279,12 @@ def main() -> int:
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+        for extra in ("f32_bound_ms", "gemm_device_ms", "tile_n", "tile_device_ms", "one_pass"):
+            if extra in t:
+                kernels[-1][extra] = t[extra]
         if "cases" in t:
-            kernels[-1]["cases"] = t["cases"] + kres["timing"][(key, "int8")].get("cases", [])
+            kernels[-1]["cases"] = t["cases"] + (
+                kres["timing"][(key, "int8")].get("cases", []) if isinstance(tkey, tuple) else [])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

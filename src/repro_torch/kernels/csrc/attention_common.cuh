@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace raca {
 
 constexpr float NEG_INF = -2.0e38f;
@@ -38,10 +40,6 @@ __device__ __forceinline__ float i8_at(uint32_t w, int i) {
   return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 4-byte asynchronous copy global -> shared, for scale-plane entries;
 // groups are committed and waited on per thread, and a warp barrier after
 // the wait publishes the data.
@@ -56,62 +54,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// mbarriers for TMA copies: the barrier's phase completes once its one
-// arrival (with the expected byte count) and all the bytes are in;
-// waiters spin on the phase's parity.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@!P1 bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-// One box of a tensor map (TMA) global -> shared, 3-D coordinates
-// innermost first; the destination is 128-byte aligned.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
 // A page pool (P, bs, Hkv, Dh) as the 3-D tensor (Dh, Hkv, P*bs), whose
 // box (Dh, 1, rows) at (0, kh, page*bs + t) is `rows` keys of one kv head.
-// The encoder is looked up through the runtime's entry-point query, so the
-// library links nothing beyond cudart.
 inline cudaError_t encode_pool_map(CUtensorMap* map, const void* pool, int elem_bytes,
                                    int64_t n_rows, int hkv, int dh, int rows) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                              &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
-  }
   const CUtensorMapDataType type = elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                    : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
@@ -120,17 +66,7 @@ inline cudaError_t encode_pool_map(CUtensorMap* map, const void* pool, int elem_
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * elem_bytes,
                                  static_cast<cuuint64_t>(hkv) * dh * elem_bytes};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(dh), 1u, static_cast<cuuint32_t>(rows)};
-  const cuuint32_t estride[3] = {1u, 1u, 1u};
-  CUresult res = encode(map, type, 3, const_cast<void*>(pool), dims, strides, box, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// Orders this thread's earlier generic-proxy accesses to shared memory
-// before later async-proxy (TMA) writes.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  return encode_tiled(map, type, 3, pool, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // Shared-memory floats the tile needs for R rows.

@@ -19,9 +19,22 @@
 //
 // What bounds it on this card: bytes, 4 read and 4 written per element;
 // the hash is a dozen integer operations.  One thread per element,
-// neighbouring threads on neighbouring addresses.  The serving path then
-// casts to int8 and scatters in further launches; a fused
-// quantize-and-scatter kernel is later work.
+// neighbouring threads on neighbouring addresses.  It serves
+// ops.stoch_round_serving.
+//
+// write_kv_int8_kernel is the int8 KV pool's whole write of one layer in
+// one launch, in place of the reference's quantize_kv_pair_int8
+// (src/repro/kernels/ops.py) followed by four page scatters
+// (src/repro/models/attention.py, the decode write and the prefill
+// insert): per K or V row, scale = max(max|x|, 1e-6), t = x / scale * 127
+// (a divide, then a multiply), the same stochastic rounding onto the
+// integers of [-127, 127] with counter row_in_group * 512 + col, the int8
+// cast, and the scatter of the codes and the f32 scale into the pages.
+// V draws under its seed plus the golden-ratio constant.  What bounds it:
+// a launch; a decode write moves about 125 KB at stablelm-3b's width.
+// One warp per (token, kv head, K or V) row; seeds, table and positions
+// are read from device memory, so the host never waits.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -52,6 +65,85 @@ __global__ void __launch_bounds__(kSrThreads) stoch_round_kernel(
   out[i] = __fadd_rn(__fmul_rn(q, step), lo);
 }
 
+
+// One token's destination and seed: decode slots write row pos % bs of
+// table[b, clamp(pos // bs)] under seeds[0]; chunk rows j write row j % bs
+// of table[b0 + j / bs] under seeds[j / bs].  Ids < 0 go to page 0.
+struct WriteTarget {
+  int64_t row;         // page * bs + offset
+  uint32_t seed;
+  uint32_t row_in_group;  // of the token's first kv head
+};
+
+__device__ __forceinline__ WriteTarget write_target(int j, int decode, const int* table,
+                                                    const int* pos, int table_w, int b0,
+                                                    int bs, int hkv,
+                                                    const int64_t* seeds) {
+  int blk, off, group;
+  uint32_t first;
+  const int* trow = table;
+  if (decode) {
+    const int p = pos[j];
+    int q = p / bs;
+    if (p % bs != 0 && p < 0) --q;   // floor division, as the reference's //
+    off = p - q * bs;
+    blk = min(max(q, 0), table_w - 1);
+    trow = table + static_cast<int64_t>(j) * table_w;
+    group = 0;
+    first = static_cast<uint32_t>(j * hkv);
+  } else {
+    blk = b0 + j / bs;
+    off = j % bs;
+    group = j / bs;
+    first = static_cast<uint32_t>(off * hkv);
+  }
+  const int page = max(trow[blk], 0);
+  return {static_cast<int64_t>(page) * bs + off, static_cast<uint32_t>(seeds[group]), first};
+}
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+constexpr int kWriteWarps = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kWriteWarps * 32) write_kv_int8_kernel(
+    const T* __restrict__ k, const T* __restrict__ v, int8_t* __restrict__ k_pages,
+    int8_t* __restrict__ v_pages, float* __restrict__ k_scale, float* __restrict__ v_scale,
+    const int64_t* __restrict__ seeds, const int* __restrict__ table,
+    const int* __restrict__ pos, int decode, int n_tok, int n_valid, int table_w, int b0,
+    int bs, int hkv, int dh, uint32_t n_padded) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * kWriteWarps + (threadIdx.x >> 5);
+  if (gw >= static_cast<int64_t>(n_tok) * hkv * 2) return;
+  const int is_v = static_cast<int>(gw & 1);
+  const int rid = static_cast<int>(gw >> 1);
+  const int j = rid / hkv, h = rid - j * hkv;
+  const WriteTarget tg = write_target(j, decode, table, pos, table_w, b0, bs, hkv, seeds);
+  const uint32_t seed = is_v ? tg.seed + kGolden : tg.seed;
+  const uint32_t r = tg.row_in_group + static_cast<uint32_t>(h);
+  const bool valid = j < n_valid;
+  const T* src = (is_v ? v : k) + (static_cast<int64_t>(j) * hkv + h) * dh;
+  int8_t* dst = (is_v ? v_pages : k_pages) + (tg.row * hkv + h) * dh;
+
+  float m = 0.f;
+  for (int c = lane; c < dh; c += 32) m = fmaxf(m, valid ? fabsf(load_f32(src + c)) : 0.f);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float scale = fmaxf(m, 1e-6f);
+  for (int c = lane; c < dh; c += 32) {
+    const float x = valid ? load_f32(src + c) : 0.f;
+    const float t = __fmul_rn(__fdiv_rn(x, scale), 127.f);
+    const float xc = fminf(fmaxf(t, -127.f), 127.f);
+    const float tt = __fmul_rn(__fsub_rn(xc, -127.f), 1.f);
+    const float fl = floorf(tt);
+    const float u = uniform(r * n_padded + static_cast<uint32_t>(c), seed);
+    const float q = __fadd_rn(fl, u < __fsub_rn(tt, fl) ? 1.f : 0.f);
+    dst[c] = static_cast<int8_t>(__fadd_rn(__fmul_rn(q, 1.f), -127.f));
+  }
+  if (lane == 0) (is_v ? v_scale : k_scale)[tg.row * hkv + h] = scale;
+}
+
 }  // namespace raca
 
 // Plain C entry point for ctypes: x and out are (m, n) f32, contiguous;
@@ -69,5 +161,37 @@ extern "C" int stoch_round_launch(const float* x, const int64_t* seeds,
                        static_cast<cudaStream_t>(stream)>>>(
       x, seeds, out, total, n, static_cast<uint32_t>(n_padded), rows_per_seed,
       step, inv_step, lo, hi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// write_kv_int8_launch: k and v hold n_valid tokens of (hkv, dh) rows, f32
+// (is_bf16 = 0) or bf16, contiguous; the pools are (P, bs, hkv, dh) int8
+// and (P, bs, hkv) f32, written in place.  decode = 1: n_tok = n_valid
+// slots, table (n_tok, table_w) and pos (n_tok) int32, one seed.
+// decode = 0: a chunk padded to n_tok = nbc * bs tokens, table is the
+// request's table row, b0 the chunk's first block, seeds (nbc).  Returns
+// cudaGetLastError().
+extern "C" int write_kv_int8_launch(const void* k, const void* v, int8_t* k_pages,
+                                    int8_t* v_pages, float* k_scale, float* v_scale,
+                                    const int64_t* seeds, const int* table, const int* pos,
+                                    int is_bf16, int decode, int n_tok, int n_valid,
+                                    int table_w, int b0, int bs, int hkv, int dh,
+                                    int n_padded, void* stream) {
+  using namespace raca;
+  const int64_t warps = static_cast<int64_t>(n_tok) * hkv * 2;
+  if (warps == 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((warps + kWriteWarps - 1) / kWriteWarps);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t np = static_cast<uint32_t>(n_padded);
+  if (is_bf16) {
+    write_kv_int8_kernel<__nv_bfloat16><<<blocks, kWriteWarps * 32, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), k_pages,
+        v_pages, k_scale, v_scale, seeds, table, pos, decode, n_tok, n_valid, table_w, b0, bs,
+        hkv, dh, np);
+  } else {
+    write_kv_int8_kernel<float><<<blocks, kWriteWarps * 32, 0, s>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), k_pages, v_pages, k_scale,
+        v_scale, seeds, table, pos, decode, n_tok, n_valid, table_w, b0, bs, hkv, dh, np);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
 """Kernel dispatch (``repro/kernels/ops.py``): the crossbar read with its
 straight-through backward (:75-260), attention (:386-512), WTA vote
-counts (:316-358) and the int8 KV quantizer (:581-642).
+counts (:316-358), the int8 KV quantizer (:581-642) and the int8 KV
+pool's fused write (the quantizer and the page scatters of
+``repro/models/attention.py``).
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version, and nothing else happens in between: no fallback, no
@@ -113,6 +115,30 @@ def quantize_kv_pair_int8(k: torch.Tensor, v: torch.Tensor, seeds):
     k8, ks = quantize_kv_int8(k, seeds)
     v8, vs = quantize_kv_int8(v, (seeds + prng.GOLDEN) & prng.MASK)
     return k8, ks, v8, vs
+
+
+def write_kv_int8(
+    k: torch.Tensor,          # decode (B, 1, Hkv, Dh); chunk (1, c, Hkv, Dh)
+    v: torch.Tensor,
+    k_pages: torch.Tensor,    # (P, bs, Hkv, Dh) int8, written in place
+    v_pages: torch.Tensor,
+    k_scale: torch.Tensor,    # (P, bs, Hkv) f32, written in place
+    v_scale: torch.Tensor,
+    seeds,                    # decode: one seed; chunk: one per block
+    *,
+    table: Optional[torch.Tensor] = None,      # decode: (B, W) int32
+    pos: Optional[torch.Tensor] = None,        # decode: (B,) int32
+    table_row: Optional[torch.Tensor] = None,  # chunk: (Wp,) int32
+    b0: int = 0,                               # chunk: its first block
+) -> None:
+    """One layer's int8 KV write: :func:`quantize_kv_pair_int8` of the
+    rows, then the scatter of codes and scales into the pools, in place
+    (``ref.write_kv_int8_ref`` states the layout).  One kernel launch on
+    the card."""
+    seeds = _seed_tensor(seeds, k.device)
+    fn = SR.write_kv_int8_cuda if k.is_cuda else ref.write_kv_int8_ref
+    fn(k, v, k_pages, v_pages, k_scale, v_scale, seeds,
+       table=table, pos=pos, table_row=table_row, b0=b0)
 
 
 # ---------------------------------------------------------------------------

@@ -215,12 +215,39 @@ def wta_counts_ref(
 CROSSBAR_PAD_N = 128
 
 
+def crossbar_levels(w: torch.Tensor, qstep: float, w_min: float, w_max: float) -> torch.Tensor:
+    """Grid level of each weight, an integer-valued f32 in [0, levels):
+    ``round((clip(w) − w_min)·f32(1/qstep))`` (half to even), a multiply
+    by the f32 reciprocal as the reference does it."""
+    w = torch.clamp(w, w_min, w_max)
+    return torch.round((w - w_min) * _f32(1.0 / qstep).to(w.device))
+
+
 def crossbar_quantize(w: torch.Tensor, qstep: float, w_min: float, w_max: float) -> torch.Tensor:
     """Round-to-nearest (half to even) onto the conductance grid
-    ``{w_min + k·qstep}``: ``round((clip(w) − w_min)·f32(1/qstep))·qstep +
-    w_min``, a multiply by the f32 reciprocal as the reference does it."""
-    w = torch.clamp(w, w_min, w_max)
-    return torch.round((w - w_min) * _f32(1.0 / qstep).to(w.device)) * qstep + w_min
+    ``{w_min + k·qstep}``: ``level·qstep + w_min``."""
+    return crossbar_levels(w, qstep, w_min, w_max) * qstep + w_min
+
+
+def crossbar_physical_sigma(sum_wq: torch.Tensor, noise_params: tuple) -> torch.Tensor:
+    """Each column's Johnson noise from its ``ΣW_q``:
+    ``sqrt(4kTΔf·(g0·ΣW_q + 2·k_rows·g_ref)) / (v_read·g0)``."""
+    four_ktdf, g0, g_ref, v_read, k_rows = noise_params
+    return torch.sqrt(four_ktdf * (g0 * sum_wq + 2.0 * k_rows * g_ref)) / (v_read * g0)
+
+
+def crossbar_readout(z: torch.Tensor, seed: int, sigma: torch.Tensor, binarize: bool) -> torch.Tensor:
+    """Add the read noise ``σ·gaussian(row·n_padded + col, seed)``, with
+    ``n_padded`` = N rounded up to 128 (the TPU kernel's padded width),
+    then read out linearly or through the comparator ``(z + noise > 0)``."""
+    m, n = z.shape
+    n_padded = -(-n // CROSSBAR_PAD_N) * CROSSBAR_PAD_N
+    gidx = (
+        torch.arange(m, device=z.device, dtype=torch.int64)[:, None] * n_padded
+        + torch.arange(n, device=z.device, dtype=torch.int64)[None]
+    ) & prng.MASK
+    v = z + prng.gaussian(gidx, seed) * sigma
+    return (v > 0.0).to(torch.float32) if binarize else v
 
 
 def crossbar_mac_ref(
@@ -239,24 +266,207 @@ def crossbar_mac_ref(
 ) -> torch.Tensor:
     """RACA crossbar read: (M, N) f32 (``repro/kernels/ref.py:24``).
 
-    Quantize W onto the conductance grid, z = x·W_q, add thermal noise
-    ``σ·gaussian(row·n_padded + col, seed)`` with ``n_padded`` = N rounded
-    up to 128 (the TPU kernel's padded width), then read out linearly or
-    through the comparator ``(z + noise > 0)``.  σ is the device scalar,
-    or, with ``physical_noise``, the column's Johnson noise
-    ``sqrt(4kTΔf·(g0·ΣW_q + 2·k_rows·g_ref)) / (v_read·g0)``."""
-    m, _ = x.shape
-    n = w.shape[1]
+    Quantize W onto the conductance grid, z = x·W_q, then
+    :func:`crossbar_readout`.  σ is the device scalar, or, with
+    ``physical_noise``, each column's :func:`crossbar_physical_sigma`."""
     wq = crossbar_quantize(w.float(), qstep, w_min, w_max) if quantize else w.float()
     z = x.float() @ wq
     if physical_noise:
-        four_ktdf, g0, g_ref, v_read, k_rows = noise_params
-        sum_g = g0 * wq.sum(dim=0, keepdim=True) + 2.0 * k_rows * g_ref
-        sigma = torch.sqrt(four_ktdf * sum_g) / (v_read * g0)
-    n_padded = -(-n // CROSSBAR_PAD_N) * CROSSBAR_PAD_N
-    gidx = (
-        torch.arange(m, device=x.device, dtype=torch.int64)[:, None] * n_padded
-        + torch.arange(n, device=x.device, dtype=torch.int64)[None]
-    ) & prng.MASK
-    v = z + prng.gaussian(gidx, seed) * sigma
-    return (v > 0.0).to(torch.float32) if binarize else v
+        sigma = crossbar_physical_sigma(wq.sum(dim=0, keepdim=True), noise_params)
+    return crossbar_readout(z, seed, sigma, binarize)
+
+
+# The tensor-core read works in the level domain: Wq = qstep·(C + center)
+# + w_min with C = L − center, so z = qstep·(x @ C) + c0·Σ_k x with
+# c0 = w_min + center·qstep; x is split into bf16 pieces whose products
+# with the small integers C are exact.
+CROSSBAR_SLICE_K = 64       # the kernel's k-slice; K is padded to it
+MAX_LEVEL_CENTER = 256      # |C| <= 256 is exact in bf16
+
+
+def level_center(qstep: float, w_min: float, w_max: float) -> int:
+    """The level subtracted so that C = L − center is centered on 0:
+    (levels − 1) // 2.  Raises where |C| would not be exact in bf16."""
+    steps = round((w_max - w_min) / qstep)
+    center = steps // 2
+    if steps - center > MAX_LEVEL_CENTER:
+        raise ValueError(f"crossbar_mac takes at most {2 * MAX_LEVEL_CENTER + 1} levels, "
+                         f"got {steps + 1}")
+    return center
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 → the nearest TF32 value (10 mantissa bits, half to even)."""
+    b = x.float().contiguous().view(torch.int32).to(torch.int64)
+    b = (b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF
+    return b.to(torch.int32).view(torch.float32)
+
+
+def split_pieces(x: torch.Tensor, pieces: int = 3, fmt: str = "bf16") -> list[torch.Tensor]:
+    """x ≈ x1 + … + x_pieces, each piece the ``fmt`` ("bf16" or "tf32")
+    rounding of what the earlier pieces left (f32 values).  Three bf16
+    pieces hold every f32 exactly; one piece is a single pass."""
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if fmt == "bf16" else round_tf32
+    out, rest = [], x.float()
+    for _ in range(pieces):
+        out.append(rnd(rest))
+        rest = rest - out[-1]
+    return out
+
+
+def crossbar_prepass_ref(
+    x: torch.Tensor, w: torch.Tensor, qstep: float, w_min: float, w_max: float,
+    *, pieces: int = 3, fmt: str = "bf16",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The crossbar prepass: x (M, K), w (K, N) f32 → x's pieces (P, M,
+    Kp), its row sums (M,) f32, the centered levels transposed (N, Kp) and
+    their integer column sums (N,) int32; Kp is K rounded up to the
+    k-slice, and pieces and levels are zero past K.  The pieces and levels
+    are f32 tensors here, bf16 on the card (the values are equal)."""
+    m, k = x.shape
+    kp = -(-k // CROSSBAR_SLICE_K) * CROSSBAR_SLICE_K
+    center = level_center(qstep, w_min, w_max)
+    c = crossbar_levels(w.float(), qstep, w_min, w_max) - center
+    ct = torch.zeros((w.shape[1], kp), dtype=torch.float32, device=x.device)
+    ct[:, :k] = c.T
+    xs = torch.zeros((pieces, m, kp), dtype=torch.float32, device=x.device)
+    xs[:, :, :k] = torch.stack(split_pieces(x, pieces, fmt))
+    return xs, x.float().sum(dim=1), ct, c.sum(dim=0).to(torch.int32)
+
+
+def crossbar_gemm_ref(
+    xs: torch.Tensor, rowsum: torch.Tensor, ct: torch.Tensor, colsum: torch.Tensor,
+    k: int, seed: int, sigma: torch.Tensor, *,
+    binarize: bool = True, physical_noise: bool = False,
+    noise_params: tuple = (0.0, 1.0, 0.0, 1.0, 0),
+    qstep: float = 2.0 / 31, w_min: float = -1.0, w_max: float = 1.0,
+) -> torch.Tensor:
+    """The tensor-core read from the prepass's outputs: per k-slice, the
+    pieces' products with C summed (the kernel's tensor-core tile), slices
+    added in order in f32, then ``z = qstep·acc + c0·rowsum``,
+    ``ΣW_q = qstep·ΣC + c0·K`` and :func:`crossbar_readout`."""
+    center = level_center(qstep, w_min, w_max)
+    c0 = float(_f32(w_min + center * qstep))
+    q = float(_f32(qstep))
+    acc = torch.zeros((xs.shape[1], ct.shape[0]), dtype=torch.float32, device=xs.device)
+    for k0 in range(0, ct.shape[1], CROSSBAR_SLICE_K):
+        sl = slice(k0, k0 + CROSSBAR_SLICE_K)
+        acc = acc + sum(p[:, sl] @ ct[:, sl].T for p in xs)
+    z = q * acc + c0 * rowsum[:, None]
+    if physical_noise:
+        sum_wq = q * colsum.to(torch.float32) + c0 * float(k)
+        sigma = crossbar_physical_sigma(sum_wq[None], noise_params)
+    return crossbar_readout(z, seed, sigma, binarize)
+
+
+def crossbar_level_read(
+    x: torch.Tensor, w: torch.Tensor, seed: int, sigma: torch.Tensor, *,
+    pieces: int = 3, fmt: str = "bf16", **kw,
+) -> torch.Tensor:
+    """The kernel's arithmetic end to end (quantized reads): the prepass,
+    then the level-domain GEMM; ``pieces=1`` models one bf16 or TF32 pass
+    of x.  ``kw`` as :func:`crossbar_mac_ref` (``quantize`` excepted)."""
+    kw.pop("quantize", None)
+    xs, rowsum, ct, colsum = crossbar_prepass_ref(
+        x, w, kw.get("qstep", 2.0 / 31), kw.get("w_min", -1.0), kw.get("w_max", 1.0),
+        pieces=pieces, fmt=fmt,
+    )
+    return crossbar_gemm_ref(xs, rowsum, ct, colsum, x.shape[1], seed, sigma, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The int8 KV write: quantize K/V rows, scatter codes and scales into pages.
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv_int8_ref(x: torch.Tensor, seeds) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization with unbiased stochastic
+    rounding: ``x`` (..., Dh) → (codes int8 (..., Dh), scale f32 (...,)),
+    ``scale = max(max|x|, 1e-6)``, codes = SR(``x / scale · 127``) onto
+    the integers of [−127, 127].  ``seeds`` (G,) split the rows of
+    ``x.reshape(-1, Dh)`` into G groups, as :func:`stoch_round_ref`."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-6)
+    t = xf / scale[..., None] * 127.0   # a divide, then a multiply, as the reference
+    q = stoch_round_ref(t.reshape(-1, t.shape[-1]), seeds, step=1.0, lo=-127.0, hi=127.0)
+    return q.reshape(t.shape).to(torch.int8), scale
+
+
+def paged_write(
+    pages: torch.Tensor,  # (P, bs, ...) block pool, written in place
+    new: torch.Tensor,    # (B, 1, ...) this step's K/V rows
+    table: torch.Tensor,  # (B, W) int block table
+    pos: torch.Tensor,    # (B,) int logical write position per slot
+) -> None:
+    """Scatter one token's K/V row (or its scales) per slot into its
+    current block.
+
+    ``pos // bs`` is clamped into the table width so evicted slots whose
+    ``pos`` keeps advancing stay in bounds; unassigned (-1) ids go to the
+    trash page 0."""
+    bs = pages.shape[1]
+    pos = pos.long()
+    blk = (pos // bs).clamp(0, table.shape[1] - 1)
+    page_ids = table.long().gather(1, blk[:, None])[:, 0].clamp_min(0)
+    pages[page_ids, pos % bs] = new[:, 0].to(pages.dtype)
+
+
+def paged_write_chunk(
+    pages: torch.Tensor,      # (P, bs, ...) block pool, written in place
+    new: torch.Tensor,        # (nbc, bs, ...) block-shaped chunk rows
+    table_row: torch.Tensor,  # (Wp,) int one request's block-table row
+    b0: int,                  # first block index the chunk covers
+) -> None:
+    """Scatter a block-aligned suffix chunk's K/V into its own pages."""
+    nbc = new.shape[0]
+    ids = table_row[b0 : b0 + nbc].long().clamp_min(0)
+    pages[ids] = new.to(pages.dtype)
+
+
+def chunk_to_blocks(x: torch.Tensor, bs: int) -> torch.Tensor:
+    """(1, c, ...) chunk rows → (nbc, bs, ...) zero-padded whole blocks."""
+    c = x.shape[1]
+    nbc = -(-c // bs)
+    out = x.new_zeros((nbc * bs,) + tuple(x.shape[2:]))
+    out[:c] = x[0]
+    return out.reshape((nbc, bs) + tuple(x.shape[2:]))
+
+
+def write_kv_int8_ref(
+    k: torch.Tensor,          # decode (B, 1, Hkv, Dh); chunk (1, c, Hkv, Dh)
+    v: torch.Tensor,
+    k_pages: torch.Tensor,    # (P, bs, Hkv, Dh) int8, written in place
+    v_pages: torch.Tensor,
+    k_scale: torch.Tensor,    # (P, bs, Hkv) f32, written in place
+    v_scale: torch.Tensor,
+    seeds: torch.Tensor,      # decode (1,); chunk (nbc,) int64 uint32 seeds
+    *,
+    table: Optional[torch.Tensor] = None,   # decode: (B, W) int32 block table
+    pos: Optional[torch.Tensor] = None,     # decode: (B,) int32 write positions
+    table_row: Optional[torch.Tensor] = None,  # chunk: (Wp,) int32 table row
+    b0: int = 0,                            # chunk: its first block index
+) -> None:
+    """The whole int8 write of one layer: quantize K under ``seeds`` and V
+    under the seeds offset by the golden-ratio constant (so k and v never
+    share rounding draws), then scatter codes and scales in place.
+
+    Decode (``table``, ``pos``): one seed over the B·Hkv rows, each slot's
+    row to ``table[b, clamp(pos//bs)]`` (−1 → trash page 0) at ``pos %
+    bs``.  Chunk (``table_row``, ``b0``): the chunk is cut into whole
+    blocks (rows past c are zeros: scale 1e-6, codes 0), block i draws
+    under ``seeds[i]`` with its counter restarting at row 0, and lands in
+    page ``table_row[b0 + i]``."""
+    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=k.device).reshape(-1)
+    v_seeds = (seeds + prng.GOLDEN) & prng.MASK
+    if table is not None:
+        k8, ks = quantize_kv_int8_ref(k, seeds)
+        v8, vs = quantize_kv_int8_ref(v, v_seeds)
+        for pages, new in ((k_scale, ks), (v_scale, vs), (k_pages, k8), (v_pages, v8)):
+            paged_write(pages, new, table, pos)
+        return
+    bs = k_pages.shape[1]
+    kb, vb = chunk_to_blocks(k, bs), chunk_to_blocks(v, bs)
+    k8, ks = quantize_kv_int8_ref(kb, seeds)
+    v8, vs = quantize_kv_int8_ref(vb, v_seeds)
+    for pages, new in ((k_scale, ks), (v_scale, vs), (k_pages, k8), (v_pages, v8)):
+        paged_write_chunk(pages, new, table_row, b0)

@@ -17,10 +17,11 @@ the decode step runs), so the per-slot scatter never collides; shared
 pages are only ever read.  Slots whose table row is all trash (page 0)
 write into page 0, which no live request reads.
 
-Attention and the int8 quantizer go through ``kernels.ops``: the
+Attention and the int8 KV write go through ``kernels.ops``: the
 hand-written CUDA kernels for CUDA tensors, their plain PyTorch versions
 for CPU tensors.  int8 pools carry per-(page, row, kv head) f32 scale
-planes beside the codes, written in place by the same scatters.
+planes beside the codes; one fused write quantizes a layer's K/V rows and
+scatters codes and scales in place.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from repro_torch import random as R
 from repro_torch.core import analog as A
 from repro_torch.kernels import ops as KOPS
+from repro_torch.kernels.ref import chunk_to_blocks, paged_write, paged_write_chunk
 from .config import ModelConfig
 from .layers import apply_rope, dtype_of, normal_init
 
@@ -138,51 +140,11 @@ def self_attention(
     return A.analog_matmul(_proj_cfg(cfg), ko, out, p["wo"])
 
 
-def paged_write(
-    pages: torch.Tensor,  # (P, bs, ...) block pool, written in place
-    new: torch.Tensor,    # (B, 1, ...) this step's K/V rows
-    table: torch.Tensor,  # (B, W) int block table
-    pos: torch.Tensor,    # (B,) int logical write position per slot
-) -> None:
-    """Scatter one token's K/V row (or its scales) per slot into its
-    current block.
-
-    ``pos // bs`` is clamped into the table width so evicted slots whose
-    ``pos`` keeps advancing stay in bounds; unassigned (-1) ids go to the
-    trash page 0."""
-    bs = pages.shape[1]
-    pos = pos.long()
-    blk = (pos // bs).clamp(0, table.shape[1] - 1)
-    page_ids = table.long().gather(1, blk[:, None])[:, 0].clamp_min(0)
-    pages[page_ids, pos % bs] = new[:, 0].to(pages.dtype)
-
-
 def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(P, bs, ...), (B, W) → (B, W·bs, ...) contiguous window."""
     b, w = table.shape
     bs = pages.shape[1]
     return pages[table.long().clamp_min(0)].reshape((b, w * bs) + pages.shape[2:])
-
-
-def paged_write_chunk(
-    pages: torch.Tensor,      # (P, bs, ...) block pool, written in place
-    new: torch.Tensor,        # (nbc, bs, ...) block-shaped chunk rows
-    table_row: torch.Tensor,  # (Wp,) int one request's block-table row
-    b0: int,                  # first block index the chunk covers
-) -> None:
-    """Scatter a block-aligned suffix chunk's K/V into its own pages."""
-    nbc = new.shape[0]
-    ids = table_row[b0 : b0 + nbc].long().clamp_min(0)
-    pages[ids] = new.to(pages.dtype)
-
-
-def _chunk_to_blocks(x: torch.Tensor, bs: int) -> torch.Tensor:
-    """(1, c, ...) chunk rows → (nbc, bs, ...) zero-padded whole blocks."""
-    c = x.shape[1]
-    nbc = -(-c // bs)
-    out = x.new_zeros((nbc * bs,) + tuple(x.shape[2:]))
-    out[:c] = x[0]
-    return out.reshape((nbc, bs) + tuple(x.shape[2:]))
 
 
 def paged_prefill_self_attention(
@@ -214,16 +176,14 @@ def paged_prefill_self_attention(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     b0 = q0 // bs
-    kb = _chunk_to_blocks(k, bs)   # (nbc, bs, Hkv, Dh)
-    vb = _chunk_to_blocks(v, bs)
     if int8_pool:
-        # one quantizer launch per K and V covers every block of the chunk:
-        # row group i (block i's bs·Hkv rows) draws under quant_seeds[i]
-        kb, ks, vb, vs = KOPS.quantize_kv_pair_int8(kb, vb, quant_seeds)
-        paged_write_chunk(k_scale_pages, ks, table_row, b0)
-        paged_write_chunk(v_scale_pages, vs, table_row, b0)
-    paged_write_chunk(k_pages, kb, table_row, b0)
-    paged_write_chunk(v_pages, vb, table_row, b0)
+        # one fused launch writes every block of the chunk: block i (its
+        # bs·Hkv rows, zero-padded past c) draws under quant_seeds[i]
+        KOPS.write_kv_int8(k, v, k_pages, v_pages, k_scale_pages, v_scale_pages, quant_seeds,
+                           table_row=table_row, b0=b0)
+    else:
+        paged_write_chunk(k_pages, chunk_to_blocks(k, bs), table_row, b0)
+        paged_write_chunk(v_pages, chunk_to_blocks(v, bs), table_row, b0)
     out = KOPS.paged_prefill_attention(
         q[0], k_pages, v_pages, table_row, q0,
         kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,
@@ -257,11 +217,11 @@ def paged_decode_self_attention(
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     if int8_pool:
-        k, ks, v, vs = KOPS.quantize_kv_pair_int8(k, v, quant_seed)
-        paged_write(k_scale_pages, ks, table, pos)
-        paged_write(v_scale_pages, vs, table, pos)
-    paged_write(k_pages, k, table, pos)
-    paged_write(v_pages, v, table, pos)
+        KOPS.write_kv_int8(k, v, k_pages, v_pages, k_scale_pages, v_scale_pages, quant_seed,
+                           table=table, pos=pos)
+    else:
+        paged_write(k_pages, k, table, pos)
+        paged_write(v_pages, v, table, pos)
     out = KOPS.paged_attention(
         q[:, 0], k_pages, v_pages, table, pos,
         kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,

@@ -17,9 +17,14 @@ versions (integer hashing, exact f32 steps, no FMA contraction);
 flipped, because its Gaussians pass through log and cos; ``crossbar_mac``
 with at least 99.95% of its comparator decisions equal and its linear
 readout within 2e-5 / 1e-5 (its quantized weights and noise are
-bit-identical, its f32 sums run in another order); a smoke-size analog
-``lm_loss`` on the card within 1e-3 of the CPU's (a flipped comparator
-decision moves one token's loss), its gradients finite.
+bit-identical, its f32 sums run in another order), and, at stablelm-3b's
+training shapes, within ``chip_smoke.py``'s gates (linear error at most
+2·sqrt(K)·2**-24·Σ|x·Wq|, plus 1e-5 relative with the physical noise
+model); its prepass bit-identical to its plain version (exact splits and
+integer levels); the fused int8 KV write bit-identical to its plain
+version outside the trash page 0; a smoke-size analog ``lm_loss`` on the
+card within 1e-3 of the CPU's (a flipped comparator decision moves one
+token's loss), its gradients finite.
 """
 
 import numpy as np
@@ -269,6 +274,159 @@ def test_cuda_crossbar_mac_matches_plain(cuda_device, binarize, physical):
         assert float((got == want).float().mean()) >= 0.9995
     else:
         torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+
+
+CB_AGREEMENT = 0.9995
+
+
+def _crossbar_training_case(dev, m, k, n, binarize, *, binary_x=False, physical=False,
+                            quantize=True, seed=0):
+    """Inputs as the analog training path hands them to the kernel (the
+    same construction as ``chip_smoke.py``'s)."""
+    from repro_torch.core.physics import DeviceParams, calibrate_v_read
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev)
+    if binary_x:
+        x = (x > 0.5).float()
+    w = (torch.randn((k, n), generator=gen, device=dev) * k**-0.5).to(torch.bfloat16).float()
+    s = TOPS.range_scale(w)
+    w = (w / s * (1.2 if physical else 1.0)).contiguous()
+    sigma = (torch.tensor(1.702, device=dev) / s) if binarize else torch.full((), 0.01, device=dev)
+    dp = calibrate_v_read(DeviceParams(), k)
+    kw = dict(binarize=binarize, physical_noise=physical,
+              noise_params=TOPS._noise_params(dp, k), quantize=quantize,
+              qstep=TOPS._qstep(dp), w_min=dp.w_min, w_max=dp.w_max)
+    return x, w, 0xC0FFEE + seed, sigma.reshape(()).float(), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,binarize,binary_x,physical,quantize", [
+    (1024, 2560, 2560, False, False, False, True),   # wq wk wv wo
+    (1024, 2560, 6912, True, False, False, True),    # w_up, w_gate
+    (1024, 6912, 2560, False, True, False, True),    # w_down on the binary hidden layer
+    (257, 513, 129, False, False, False, True),
+    (257, 513, 129, True, False, False, True),
+    (192, 640, 200, False, False, True, True),
+    (192, 640, 200, True, False, True, True),
+    (1, 128, 8, False, False, False, False),         # the serving canary, unquantized
+])
+def test_cuda_crossbar_tensor_core_read_gates(cuda_device, m, k, n, binarize, binary_x,
+                                              physical, quantize):
+    """The tensor-core read (prepass + wgmma GEMM) at the training shapes
+    and the odd, physical and canary cases, under chip_smoke.py's gates;
+    one read launch each, and one prepass launch per quantized read."""
+    from repro_torch.kernels import crossbar_mac as CB
+
+    x, w, seed, sigma, kw = _crossbar_training_case(
+        cuda_device, m, k, n, binarize, binary_x=binary_x, physical=physical, quantize=quantize)
+    reads, preps = CB.launches, CB.prepass_launches
+    got = CB.crossbar_mac_cuda(x, w, seed, sigma, **kw)
+    assert (CB.launches - reads, CB.prepass_launches - preps) == (1, int(quantize))
+    _assert_crossbar_gates(x, w, kw, got, TREF.crossbar_mac_ref(x, w, seed, sigma, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n", [64, 96, 128])
+@pytest.mark.parametrize("m,k,n,binarize", [
+    (1024, 2560, 2560, False), (257, 513, 129, False), (257, 513, 129, True),
+])
+def test_cuda_crossbar_gemm_every_tile_width(cuda_device, m, k, n, binarize, tile_n):
+    """Every compiled tile width of the GEMM (the tile sweep times them
+    all) passes the read's gates, on its own register tiles and epilogue
+    indexing."""
+    from repro_torch.kernels import crossbar_mac as CB
+
+    x, w, seed, sigma, kw = _crossbar_training_case(cuda_device, m, k, n, binarize)
+    q = dict(qstep=kw["qstep"], w_min=kw["w_min"], w_max=kw["w_max"])
+    parts = CB.crossbar_prepass_cuda(x, w, *q.values())
+    got = CB.crossbar_gemm_cuda(*parts, k, seed, sigma, binarize=binarize,
+                                noise_params=kw["noise_params"], **q, tile_n=tile_n)
+    _assert_crossbar_gates(x, w, kw, got, TREF.crossbar_mac_ref(x, w, seed, sigma, **kw))
+
+
+def _assert_crossbar_gates(x, w, kw, got, want):
+    """chip_smoke.py's gates: comparator decisions >= 0.9995 equal; linear
+    error <= 2·sqrt(K)·2**-24·Σ|x·Wq| (+ 1e-5 relative, physical noise)."""
+    assert bool(torch.isfinite(got).all())
+    if kw["binarize"]:
+        assert float((got == want).float().mean()) >= CB_AGREEMENT
+        return
+    wq = TREF.crossbar_quantize(w, kw["qstep"], kw["w_min"], kw["w_max"]) if kw["quantize"] else w
+    tol = 2 * x.shape[1]**0.5 * 2.0**-24 * (x.abs() @ wq.abs())
+    if kw["physical_noise"]:
+        tol = tol + 1e-5 * want.abs()
+    assert float(((got - want).abs() / tol.clamp_min(1e-30)).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,physical", [(257, 513, 129, True), (1024, 2560, 2560, False)])
+def test_cuda_crossbar_prepass_bit_equal_to_plain(cuda_device, m, k, n, physical):
+    """The prepass writes x's three bf16 pieces and the centered levels
+    exactly (zero past K), and the integer column sums exactly; the row
+    sums differ from the plain version's only in f32 summation order."""
+    from repro_torch.kernels import crossbar_mac as CB
+
+    x, w, _, _, kw = _crossbar_training_case(cuda_device, m, k, n, False, physical=physical)
+    q = (kw["qstep"], kw["w_min"], kw["w_max"])
+    xs, rowsum, ct, colsum = CB.crossbar_prepass_cuda(x, w, *q, physical_noise=physical)
+    xs_p, rowsum_p, ct_p, colsum_p = TREF.crossbar_prepass_ref(x, w, *q)
+    assert torch.equal(xs.float(), xs_p) and torch.equal(ct.float(), ct_p)
+    assert torch.equal(xs.float().sum(0)[:, :k], x)      # the pieces sum to x exactly
+    if physical:
+        assert torch.equal(colsum, colsum_p)
+    tol = 2 * k**0.5 * 2.0**-24 * x.abs().sum(1)
+    assert bool(((rowsum - rowsum_p).abs() <= tol).all())
+
+
+def _int8_pools(rng, n_pages, bs, hkv, dh, dev):
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-127, 128, (n_pages, bs, hkv, dh)).astype(np.int8),
+        rng.integers(-127, 128, (n_pages, bs, hkv, dh)).astype(np.int8),
+        (rng.random((n_pages, bs, hkv)) + 0.5).astype(np.float32),
+        (rng.random((n_pages, bs, hkv)) + 0.5).astype(np.float32),
+    )]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_write_kv_int8_bit_equal_to_plain(cuda_device, dtype):
+    """The fused int8 write on the card against its plain version on the
+    card, both modes, at stablelm-3b's kv heads (Hkv 32, Dh 80, bs 16):
+    codes and scales bit for bit, page 0 (the trash page several evicted
+    slots may write at once) left out.  Decode: a slot on the trash page,
+    a slot past its table, seeds near 2**32.  Chunk: c = 37 (not a
+    multiple of bs) from block 2, one seed per block."""
+    from repro_torch.kernels import stoch_round as SR
+
+    rng = np.random.default_rng(21)
+    bs, hkv, dh, n_pages = 16, 32, 80, 40
+    table = torch.from_numpy(
+        (rng.permutation(n_pages - 1)[:24] + 1).reshape(6, 4).astype(np.int32)).to(cuda_device)
+    table[1, 2] = -1                                   # slot 1 writes the trash page
+    pos = torch.tensor([5, 40, 63, 64 + 7, 1000, 0], dtype=torch.int32, device=cuda_device)
+    row = torch.from_numpy((rng.permutation(n_pages - 1)[:6] + 1).astype(np.int32)).to(cuda_device)
+    for kind, shape, seeds, where in (
+        ("decode", (6, 1, hkv, dh), [2**32 - 1], dict(table=table, pos=pos)),
+        ("chunk", (1, 37, hkv, dh), [2**32 - 2, 7, 2**31], dict(table_row=row, b0=2)),
+    ):
+        k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3).to(cuda_device, dtype)
+        v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device, dtype)
+        sd = torch.tensor(seeds, dtype=torch.int64, device=cuda_device)
+        got = _int8_pools(np.random.default_rng(5), n_pages, bs, hkv, dh, cuda_device)
+        want = [t.clone() for t in got]
+        before = SR.write_launches
+        TOPS.write_kv_int8(k, v, *got, sd, **where)
+        assert SR.write_launches == before + 1, kind
+        TREF.write_kv_int8_ref(k, v, *want, sd, **where)
+        for g, w in zip(got, want):
+            assert torch.equal(g[1:], w[1:]), kind
+        # and the card's plain version is the CPU's
+        cpu = [t.cpu() for t in _int8_pools(np.random.default_rng(5), n_pages, bs, hkv, dh, "cpu")]
+        TREF.write_kv_int8_ref(k.cpu(), v.cpu(), *cpu, sd.cpu(),
+                               **{a: (b.cpu() if torch.is_tensor(b) else b) for a, b in where.items()})
+        for g, w in zip(got, cpu):
+            assert torch.equal(g[1:].cpu(), w[1:]), kind
 
 
 @pytest.mark.cuda

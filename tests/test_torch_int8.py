@@ -308,3 +308,83 @@ def test_page_copy_copies_scale_planes():
     SP.make_page_copy(cfg)(cache, 1, 3)
     for i, name in enumerate(SP.PAGE_POOL_LEAVES):
         assert (cache[name][:, :, 3] == i + 2).all(), name
+
+
+# ---------------------------------------------------------------------------
+# The fused write's plain version against the composition it replaces.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ops as TOPS  # noqa: E402
+from repro_torch.kernels import ref as TREF  # noqa: E402
+
+
+def _old_composition(k, v, pools, seeds, *, table=None, pos=None, table_row=None, b0=0):
+    """The int8 write as the port did it before the fused kernel: the pair
+    quantizer, then four scatters (``paged_write`` per decode slot,
+    ``paged_write_chunk`` of the zero-padded blocks per prefill chunk)."""
+    kp, vp, ks_p, vs_p = pools
+    if table is not None:
+        k8, ks, v8, vs = TOPS.quantize_kv_pair_int8(k, v, seeds)
+        for pages, new in ((ks_p, ks), (vs_p, vs), (kp, k8), (vp, v8)):
+            TREF.paged_write(pages, new, table, pos)
+        return
+    bs = kp.shape[1]
+    kb, vb = TREF.chunk_to_blocks(k, bs), TREF.chunk_to_blocks(v, bs)
+    k8, ks, v8, vs = TOPS.quantize_kv_pair_int8(kb, vb, seeds)
+    for pages, new in ((ks_p, ks), (vs_p, vs), (kp, k8), (vp, v8)):
+        TREF.paged_write_chunk(pages, new, table_row, b0)
+
+
+def _pools(seed, n_pages, bs, hkv, dh):
+    p = _random_int8_pool(np.random.default_rng(seed), n_pages, bs, hkv, dh)
+    return [torch.from_numpy(p[n]) for n in ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")]
+
+
+def _assert_same_outside_trash(got, want):
+    """Bit for bit on every page but the trash page 0, which several
+    evicted slots may write at once."""
+    for g, w in zip(got, want):
+        assert torch.equal(g[1:], w[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_write_plain_version_equals_old_composition_decode(dtype):
+    """Decode: slot 1's current block is unassigned (−1 → trash page 0),
+    slot 2's position is past its table (clamped into the last block),
+    slot 3 writes row 0 of a block, one seed near 2**32."""
+    rng = np.random.default_rng(8)
+    bs, hkv, dh, n_pages = 8, 4, 24, 20
+    table = torch.from_numpy((rng.permutation(n_pages - 1)[:16] + 1).reshape(4, 4).astype(np.int32))
+    table[1, 1] = -1
+    pos = torch.tensor([5, 12, 200, 24], dtype=torch.int32)
+    k = torch.from_numpy(rng.standard_normal((4, 1, hkv, dh)).astype(np.float32) * 3).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((4, 1, hkv, dh)).astype(np.float32)).to(dtype)
+    seed = torch.tensor(2**32 - 5)
+    got, want = _pools(1, n_pages, bs, hkv, dh), _pools(1, n_pages, bs, hkv, dh)
+    TOPS.write_kv_int8(k, v, *got, seed, table=table, pos=pos)
+    _old_composition(k, v, want, seed, table=table, pos=pos)
+    _assert_same_outside_trash(got, want)
+    # the rows landed where the table says: slot 2 in its last block, row 200 % 8
+    assert not torch.equal(got[0][table[2, 3]], _pools(1, n_pages, bs, hkv, dh)[0][table[2, 3]])
+
+
+@pytest.mark.parametrize("c,b0", [(13, 0), (8, 1), (21, 2), (1, 3)])
+def test_fused_write_plain_version_equals_old_composition_chunk(c, b0):
+    """Prefill chunk: c rows from block b0, c not a multiple of bs (bar
+    one case), one seed per block; padding rows get scale 1e-6 and code
+    0 in the chunk's own last page."""
+    rng = np.random.default_rng(c)
+    bs, hkv, dh, n_pages = 8, 4, 24, 20
+    row = torch.from_numpy((rng.permutation(n_pages - 1)[:6] + 1).astype(np.int32))
+    k = torch.from_numpy(rng.standard_normal((1, c, hkv, dh)).astype(np.float32) * 2)
+    v = torch.from_numpy(rng.standard_normal((1, c, hkv, dh)).astype(np.float32))
+    nbc = -(-c // bs)
+    seeds = torch.tensor([2**32 - 1, 77, 2**31, 5][:nbc], dtype=torch.int64)
+    got, want = _pools(2, n_pages, bs, hkv, dh), _pools(2, n_pages, bs, hkv, dh)
+    TOPS.write_kv_int8(k, v, *got, seeds, table_row=row, b0=b0)
+    _old_composition(k, v, want, seeds, table_row=row, b0=b0)
+    _assert_same_outside_trash(got, want)
+    last = int(row[b0 + nbc - 1])
+    tail = c - (nbc - 1) * bs
+    if tail < bs:
+        assert bool((got[2][last, tail:] == 1e-6).all()) and not got[0][last, tail:].any()
