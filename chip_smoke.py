@@ -2,22 +2,30 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab DIR   # wta_counts and stoch_round: DIR's vs these
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: print ``nvidia-smi``'s name and power limit; no CUDA → exit 1.
 2. build: compile every CUDA source of the port with nvcc (in parallel);
-   print each kernel's registers and spills as ptxas reports them.
+   print each kernel's registers, shared memory and spills as ptxas
+   reports them.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it: both attention kernels at
    stablelm-3b's full width (bf16 and int8 pools; decode at B=8 over
    W=32, at B=1 over W=32 and at the serve profile's positions 100-130,
    each also at every cluster size; plus small GQA / local / soft-cap
    cases), ``stoch_round`` bit-identical at the int8 decode write,
-   the int8 prefill chunk and the 2048² quantizer row, the fused int8 KV
-   write bit-identical (trash page 0 aside) at the decode write and a
-   128-token prefill chunk, ``wta_counts`` within its agreement bound at
-   the serving head's width; with kernel times per call (CUDA events
+   the int8 prefill chunk and the 2048² quantizer row (also one element
+   into its storage, off the 16-byte grid), the fused int8 KV write
+   bit-identical (trash page 0 aside) at the decode write and a 128-token
+   prefill chunk, ``wta_counts`` within its agreement bound at the serving
+   head's width and at (256, 128), and there exactly equal to the counts
+   of every column drawn in full, with its launch shape and the head's
+   device time at nine others, the premises of its pruning checked over
+   every value the draw's uniforms can take, and the issue estimate of
+   the plain Box-Muller path counted from the SASS of
+   ``wta_draw_probe_kernel`` beside its SFU bound; with kernel times per call (CUDA events
    over back-to-back calls) and on the device (the same, with the host's
    time hidden behind a spin kernel), plain and library times, and each
    kernel's bound; ``crossbar_mac`` (prepass + tensor-core GEMM) at the
@@ -50,7 +58,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    analog training steps agree card vs CPU (losses, comparator decisions).
 
 The second-to-last line is the ``kernels`` JSON record; the last is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  With ``--ab DIR`` only phases 1-2 run,
+then :func:`ab_phase` holds DIR's wta_counts and stoch_round kernels
+against this checkout's (outputs equal, device and per-call times in
+turns).
 """
 
 from __future__ import annotations
@@ -93,6 +104,10 @@ REF_INT8_ATOL = 2e-2
 # Gate: equal row sums, and sum|Δcounts| <= 2 x 1% of the B·T decisions.
 WTA_FLIP_FRACTION = 0.01
 WTA_VTH0, WTA_SIGMA = 1.702**2, 1.702   # the serving head's operating point
+# Issue estimate: one warp instruction per scheduler per clock, 132 SMs x
+# 4 schedulers x 1.98 GHz; a warp instruction holds the 16-lane ALU or FMA
+# heavy pipe 2 clocks and the 4-lane XU (MUFU, conversions) 8 clocks.
+ISSUE_PER_S = 132 * 4 * 1.98e9
 # H100 SXM f32 FMA rate on the CUDA cores: 132 SMs x 128 lanes x 2 x 1.98 GHz
 F32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
 # crossbar_mac vs its plain version: the quantized weights and the noise are
@@ -418,27 +433,40 @@ def stoch_round_kernels(gen, dev):
     def seeds(n):
         return torch.randint(0, 2**32, (n,), generator=gen, device=dev, dtype=torch.int64)
 
+    def offset_by_one(x):   # the same values one element into their storage
+        flat = torch.empty(x.numel() + 1, device=dev)
+        y = flat[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    log_ptxas("stoch_round_kernel")
     cases = [
         ("decode write (8*32, 80), 1 seed", kv_rows(8 * 32), seeds(1), 1.0, -127.0, 127.0),
         ("prefill chunk 8 x (16*32, 80), 8 seeds", kv_rows(8 * 16 * 32), seeds(8), 1.0, -127.0, 127.0),
         ("quantizer (2048, 2048) step 2/31", torch.randn((2048, 2048), generator=gen, device=dev),
          seeds(1), 2.0 / 31, -1.0, 1.0),
+        ("quantizer (2048, 2048) at storage offset 1",
+         offset_by_one(torch.randn((2048, 2048), generator=gen, device=dev)), seeds(2),
+         2.0 / 31, -1.0, 1.0),
     ]
     recs, errs = [], []
     for label, x, sd, step, lo, hi in cases:
         kw = dict(step=step, lo=lo, hi=hi)
+        geo = SR.stoch_round_geometry(*x.shape)
+        log(f"  stoch_round {label}: {geo.blocks} CTAs of {geo.ty} rows x {geo.tx} threads")
         got, want = SR.stoch_round_cuda(x, sd, **kw), ref.stoch_round_ref(x, sd, **kw)
         same = torch.equal(got, want)
         errs.append(float((got - want).abs().max()))
         log(f"  stoch_round {label}: bit-identical {same}, max|err| {errs[-1]:.3e}")
         if not same:
             raise AssertionError(f"stoch_round {label}: kernel differs from its plain version")
+        copy = offset_by_one if x.storage_offset() else torch.clone
         recs.append(time_kernel(
-            bound_record(8 * x.numel(), 0), [(x.clone(), sd, kw) for _ in range(ROTATE)],
+            bound_record(8 * x.numel(), 0), [(copy(x), sd, kw) for _ in range(ROTATE)],
             SR.stoch_round_cuda, ref.stoch_round_ref, None, f"stoch_round {label}",
         ))
     recs[2]["cases"] = [{"case": label, **{a: r[a] for a in CASE_KEYS if a in r}}
-                        for (label, *_), r in zip(cases[:2], recs[:2])]
+                        for (label, *_), r in zip(cases[:2] + cases[3:], recs[:2] + recs[3:])]
     return recs[2], errs
 
 
@@ -501,13 +529,28 @@ def write_kernels(gen, dev):
 
 def wta_kernels(gen, dev):
     """wta_counts vs its plain version at the serving head's width (8 x
-    50304, 32 trials) and at (256, 128) with 64 trials.  Returns
-    (head-shape record, max|err| list)."""
+    50304, 32 trials) and at (256, 128) with 64 trials, and exactly equal
+    there to the votes of a full draw (:func:`wta_counts.full_draw_counts`).
+    Returns (head-shape record, max|err| list)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import wta_counts as WTA
 
+    log_ptxas("wta_cluster_kernel", "wta_warp_kernel")
+    r_max, cos_max = WTA.draw_bounds(dev)
+    log(f"  wta draw over every uniform: largest radius {r_max!r}, largest |cos| {cos_max!r} "
+        f"(the kernel's bounds need <= 1)")
+    if not cos_max <= 1.0:
+        raise AssertionError("wta_counts: |cosf| exceeds 1, so the radius does not bound the noise")
+    issue = wta_issue_estimate(gen, dev)
     recs, errs = [], []
+    resident = WTA.resident_warps(dev)
     for b, c, n_trials in ((8, 50304, 32), (256, 128, 64)):
+        geo = WTA.wta_geometry(c, b * n_trials, resident)
+        log(f"  wta_counts ({b}, {c}) T={n_trials}: " + (
+            f"clusters of {geo.n_cta} CTAs of {geo.warps} warps x {geo.cols_per_cta} columns, "
+            f"{b * n_trials} clusters ({resident} resident warps)" if geo.n_cta else
+            f"one warp per (row, trial), every column drawn, "
+            f"{-(-b * n_trials // WTA.WARPS)} CTAs of {WTA.WARPS} warps"))
         kw = dict(n_trials=n_trials, vth0=WTA_VTH0, sigma_z=WTA_SIGMA)
         zs = [torch.randn((b, c), generator=gen, device=dev) * WTA_SIGMA for _ in range(ROTATE)]
         seed = torch.randint(0, 2**32, (1,), generator=gen, device=dev, dtype=torch.int64)
@@ -520,6 +563,13 @@ def wta_kernels(gen, dev):
             f"votes {int(got.sum())}")
         if not sums_equal or delta > 2 * WTA_FLIP_FRACTION * b * n_trials:
             raise AssertionError("wta_counts: kernel disagrees with its plain version")
+        # the pruning is exact: the counts of every column drawn in full
+        # (the probe, the kernel's own logf and cosf) are the kernel's
+        full = WTA.full_draw_counts(zs[0], seed, **kw)
+        log(f"  wta_counts ({b}, {c}) T={n_trials}: equal to the full draw's counts "
+            f"{torch.equal(got, full)} (sum|Δ| {float((got - full).abs().sum()):.0f})")
+        if not torch.equal(got, full):
+            raise AssertionError("wta_counts: the pruned kernel differs from a full draw")
         # bound: z read and counts written once, or 3 transcendentals
         # (log, sqrt, cos) per trial and element on the SFUs
         recs.append(time_kernel(
@@ -527,7 +577,72 @@ def wta_kernels(gen, dev):
             [(z, seed, kw) for z in zs], WTA.wta_counts_cuda, ref.wta_counts_ref, None,
             f"wta_counts ({b}, {c}) T={n_trials}",
         ))
+        elements = b * c * n_trials
+        recs[-1]["cluster"], recs[-1]["cta_warps"] = geo.n_cta, geo.warps
+        recs[-1]["issue_ms"] = issue["clocks"][issue["pipe"]] * elements / 32 / ISSUE_PER_S * 1e3
+        log(f"  wta_counts ({b}, {c}) T={n_trials}: issue estimate of the plain path "
+            f"{recs[-1]['issue_ms']:.4f} ms ({issue['instructions']} instructions a "
+            f"trial-element, bound by {issue['pipe']}) beside the SFU bound "
+            f"{recs[-1]['bound_ms']:.4f} ms")
+    recs[0]["issue_instructions"], recs[0]["issue_pipe"] = issue["instructions"], issue["pipe"]
+    recs[0]["geometry_device_ms"] = wta_sweep(gen, dev)
+    recs[0]["cases"] = [{"case": "(256, 128) T=64", **{a: recs[1][a] for a in
+                                                       CASE_KEYS + ("issue_ms", "cluster",
+                                                                    "cta_warps")
+                                                       if a in recs[1]}}]
     return recs[0], errs
+
+
+def wta_sweep(gen, dev) -> dict:
+    """Device time of the serving head's call (8 x 50304, 32 trials) at
+    other launch shapes (the override is for this measurement only), each
+    held to the same counts as wta_geometry's pick."""
+    from repro_torch.kernels import wta_counts as WTA
+
+    kw = dict(n_trials=32, vth0=WTA_VTH0, sigma_z=WTA_SIGMA)
+    zs = [torch.randn((8, 50304), generator=gen, device=dev) * WTA_SIGMA for _ in range(ROTATE)]
+    seed = torch.randint(0, 2**32, (1,), generator=gen, device=dev, dtype=torch.int64)
+    want = WTA.wta_counts_cuda(zs[0], seed, **kw)
+    out = {}
+    for n_cta, warps in ((8, 8), (8, 4), (8, 3), (4, 8), (4, 6), (4, 4), (2, 8), (2, 6), (1, 8)):
+        geo = WTA.WtaGeometry(n_cta, warps, -(-50304 // n_cta // 4) * 4)
+        if not torch.equal(WTA.wta_counts_cuda(zs[0], seed, **kw, geometry=geo), want):
+            raise AssertionError(f"wta_counts: launch shape {geo} changes the counts")
+        out[f"{n_cta}x{warps}"] = device_ms(
+            [lambda z=z: WTA.wta_counts_cuda(z, seed, **kw, geometry=geo) for z in zs])
+    log("  wta_counts (8, 50304) T=32: device ms by CTAs x warps a cluster, counts equal: "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def wta_issue_estimate(gen, dev) -> dict:
+    """The plain per-element path (one full Box-Muller draw, the voltage,
+    the comparator) as ``wta_draw_probe_kernel`` compiles it: its voltages
+    held against the plain version's, and its common path counted from
+    ``cuobjdump -sass`` (:func:`sass_common_path`, :func:`issue_estimate`)."""
+    import shutil
+
+    from repro_torch.kernels import build, prng
+    from repro_torch.kernels import wta_counts as WTA
+
+    n, seed = 1 << 20, 20241216
+    z = torch.randn((1, n), generator=gen, device=dev) * WTA_SIGMA
+    got = WTA.draw_probe(z, torch.tensor([seed], device=dev), n_trials=1, vth0=WTA_VTH0,
+                         sigma_z=WTA_SIGMA).reshape(1, n)
+    idx = torch.arange(n, device=dev, dtype=torch.int64)   # row 0, trial 0: counter = column
+    v = z + prng.gaussian(idx, seed) * torch.tensor(WTA_SIGMA, device=dev)
+    want = torch.where(v > WTA_VTH0, v, torch.full_like(v, -float("inf")))
+    equal = float((got == want).float().mean())
+    log(f"  wta draw probe ({n} elements): {equal:.6f} bit-equal to the plain version's voltages")
+    if equal < 1 - WTA_FLIP_FRACTION:
+        raise AssertionError("wta draw probe disagrees with the plain version")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path("wta_counts"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    est = issue_estimate(sass_common_path(sass, "_ZN4raca21wta_draw_probe_kernelEPKfPfijjjff"))
+    log(f"  wta draw probe SASS: {est['instructions']} instructions on the common path, "
+        f"clocks per warp {est['clocks']}, bound by {est['pipe']}")
+    return est
 
 
 def crossbar_case(gen, dev, m, k, n, *, binarize, binary_x=False, quantize=True,
@@ -1190,8 +1305,9 @@ def short_kernel_name(mangled: str) -> str:
 
 
 def ptxas_entries(text: str):
-    """(kernel, "N registers, spills S/L bytes") per entry function of an
-    ``-Xptxas -v`` log, with the template arguments shortened."""
+    """(kernel, "N registers, S bytes smem, spills S/L bytes") per entry
+    function of an ``-Xptxas -v`` log, with the template arguments
+    shortened."""
     import re
 
     entry, spill = None, ""
@@ -1205,8 +1321,130 @@ def ptxas_entries(text: str):
             spill = f"spills {m.group(1)}/{m.group(2)} bytes"
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            yield entry, f"{m.group(1)} registers, {spill or 'no spill line'}"
+            smem = re.search(r"(\d+) bytes smem", line)
+            yield entry, (f"{m.group(1)} registers, {smem.group(1) if smem else 0} bytes smem, "
+                          f"{spill or 'no spill line'}")
             entry, spill = None, ""
+
+
+# kernel -> its ptxas line, filled by the build phase (empty when cached)
+PTXAS: dict[str, str] = {}
+
+
+def log_ptxas(*kernels: str) -> None:
+    for k in kernels:
+        log(f"  ptxas {k}: {PTXAS.get(k, 'not rebuilt in this run')}")
+
+
+def sass_common_path(sass: str, kernel: str) -> list[str]:
+    """Opcodes on ``kernel``'s common path in ``cuobjdump -sass`` output:
+    from its entry to its first unpredicated EXIT, falling through every
+    predicated branch except a forward one that jumps over a loop or a
+    call (cosf's Payne-Hanek reduction for |x| >= 105615 and sqrtf's
+    special-case call, which the draw's arguments never reach)."""
+    import re
+
+    body = next(b for b in sass.split("Function : ")[1:] if b.startswith(kernel + "\n"))
+    ins = [(int(a, 16), bool(p), op, args) for a, p, op, args in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
+    at = {a: i for i, (a, *_rest) in enumerate(ins)}
+
+    def target(i):
+        return int(re.search(r"0x([0-9a-f]+)", ins[i][3]).group(1), 16)
+
+    def slow(i):   # a loop's back edge or a call
+        op = ins[i][2].split(".")[0]
+        return op == "CALL" or (op == "BRA" and target(i) <= ins[i][0])
+
+    path, i, seen = [], 0, set()
+    while True:
+        if i in seen:
+            raise AssertionError(f"{kernel}: the common path loops at {ins[i][0]:#x}")
+        seen.add(i)
+        addr, pred, op, _ = ins[i]
+        path.append(op)
+        base = op.split(".")[0]
+        if base == "EXIT" and not pred:
+            return path
+        if base == "BRA":
+            j = at[target(i)]
+            if not pred or (j > i and any(slow(k) for k in range(i + 1, j))):
+                i = j
+                continue
+        i += 1
+
+
+def issue_estimate(path: list[str]) -> dict:
+    """Clocks of one scheduler per warp of elements on ``path``: the issue
+    slot (every instruction), the ALU (integer logic, shifts, adds,
+    compares, selects, moves), the FMA pipes (f32 arithmetic on both
+    halves, IMAD on the heavy half only) and the XU (MUFU, conversions);
+    the pipe with the most clocks bounds it."""
+    alu = {"LOP3", "SHF", "IADD3", "VIADD", "ISETP", "FSETP", "FSEL", "SEL", "LEA", "MOV",
+           "I2FP", "PRMT", "FMNMX", "IMNMX", "PLOP3", "POPC", "FLO"}
+    fp = {"FFMA", "FMUL", "FADD", "HFMA2", "HADD2", "HMUL2"}
+    xu = {"MUFU", "F2I", "I2F", "F2F", "FRND"}
+    base = [op.split(".")[0] for op in path]
+    n_imad = sum(b == "IMAD" for b in base)
+    clocks = {
+        "issue": len(base),
+        "ALU": 2 * sum(b in alu for b in base),
+        "FMA": max(sum(b in fp for b in base) + n_imad, 2 * n_imad),
+        "XU": 8 * sum(b in xu for b in base),
+    }
+    return {"instructions": len(base), "clocks": clocks, "pipe": max(clocks, key=clocks.get)}
+
+
+def ab_phase(dev, parent: Path) -> None:
+    """``--ab DIR``: the wta_counts and stoch_round kernels of the checkout
+    at DIR (its package loaded as ``repro_torch_ab``, built into DIR's own
+    build directory) against this checkout's, on the same inputs in one
+    process: outputs compared (both are exact, so they must be equal) and
+    device times, then per-call times (host included, 200 back-to-back
+    calls), taken in turns, DIR, this, this, DIR."""
+    import importlib
+    import importlib.util
+
+    from repro_torch.kernels import stoch_round as SR
+    from repro_torch.kernels import wta_counts as WTA
+
+    pkg = parent / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        "repro_torch_ab", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    sys.modules["repro_torch_ab"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["repro_torch_ab"])
+    old_wta = importlib.import_module("repro_torch_ab.kernels.wta_counts")
+    old_sr = importlib.import_module("repro_torch_ab.kernels.stoch_round")
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def seeds(k):
+        return torch.randint(0, 2**32, (k,), generator=gen, device=dev, dtype=torch.int64)
+
+    cases = []
+    for b, c, t in ((8, 50304, 32), (256, 128, 64), (64, 10, 100)):
+        kw = dict(n_trials=t, vth0=WTA_VTH0, sigma_z=WTA_SIGMA)
+        sets = [(torch.randn((b, c), generator=gen, device=dev) * WTA_SIGMA, seeds(1), kw)
+                for _ in range(ROTATE)]
+        cases.append((f"wta_counts ({b}, {c}) T={t}", old_wta.wta_counts_cuda,
+                      WTA.wta_counts_cuda, sets))
+    for (m, n), g, step, lo, hi in (((2048, 2048), 1, 2.0 / 31, -1.0, 1.0),
+                                    ((256, 80), 1, 1.0, -127.0, 127.0),
+                                    ((4096, 80), 8, 1.0, -127.0, 127.0)):
+        kw = dict(step=step, lo=lo, hi=hi)
+        sets = [(torch.randn((m, n), generator=gen, device=dev) * 0.8 * hi, seeds(g), kw)
+                for _ in range(ROTATE)]
+        cases.append((f"stoch_round ({m}, {n}), {g} seeds", old_sr.stoch_round_cuda,
+                       SR.stoch_round_cuda, sets))
+    for label, old, new, sets in cases:
+        *args, kw = sets[0]
+        if not torch.equal(old(*args, **kw), new(*args, **kw)):
+            raise AssertionError(f"{label}: this checkout's kernel differs from {parent}'s")
+        fns = [[(lambda f=f, a=a: f(*a[:-1], **a[-1])) for a in sets] for f in (old, new)]
+        for what, timer in (("device", device_ms), ("per call", lambda f: cuda_ms(f, 200))):
+            t = [timer(fns[i]) for i in (0, 1, 1, 0)]
+            log(f"  A/B {label}: equal outputs; {what} ms {parent.name} {t[0]:.4f}, this "
+                f"{t[1]:.4f}, this {t[2]:.4f}, {parent.name} {t[3]:.4f}; ratio "
+                f"{(t[0] + t[3]) / (t[1] + t[2]):.2f}x")
 
 
 def main() -> int:
@@ -1233,7 +1471,14 @@ def main() -> int:
     log(f"  built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for entry, info in ptxas_entries(text):
+            PTXAS[entry] = info
             log(f"  {name}: {entry}: {info}")
+
+    if "--ab" in sys.argv:
+        parent = Path(sys.argv[sys.argv.index("--ab") + 1]).resolve()
+        log(f"== A/B against {parent}")
+        ab_phase(dev, parent)
+        return 0
 
     log("== kernels vs plain versions")
     kres = kernel_phase(dev)
@@ -1279,7 +1524,9 @@ def main() -> int:
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
-        for extra in ("f32_bound_ms", "gemm_device_ms", "tile_n", "tile_device_ms", "one_pass"):
+        for extra in ("f32_bound_ms", "gemm_device_ms", "tile_n", "tile_device_ms", "one_pass",
+                      "issue_ms", "issue_instructions", "issue_pipe", "cluster", "cta_warps",
+                      "geometry_device_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         if "cases" in t:

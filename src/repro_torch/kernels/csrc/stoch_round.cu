@@ -18,9 +18,17 @@
 // default FMA contraction cannot fuse q*step + lo.
 //
 // What bounds it on this card: bytes, 4 read and 4 written per element;
-// the hash is a dozen integer operations.  One thread per element,
-// neighbouring threads on neighbouring addresses.  It serves
-// ops.stoch_round_serving.
+// the hash is a dozen integer operations.  A CTA of (tx, ty) threads takes
+// ty rows, tx threads across each, so the group, the row within it and the
+// counter's row base are found once per row in 32 bits (no per-element
+// division).  Each thread keeps kSrUnroll 16-byte loads in flight and
+// streams its stores; the first round's loads (the row's seed, its head
+// and tail elements, the first vectors) are all issued before any is
+// waited on.  A row whose start is not 16-byte aligned (n % 4 != 0, or a
+// data pointer that is not) takes its first elements one by one up to the
+// next 16-byte boundary, and its last n % 4 past the vectors; where the
+// output row is aligned differently from the input row the vectors are
+// stored one element at a time.  It serves ops.stoch_round_serving.
 //
 // write_kv_int8_kernel is the int8 KV pool's whole write of one layer in
 // one launch, in place of the reference's quantize_kv_pair_int8
@@ -44,25 +52,76 @@
 namespace raca {
 
 constexpr int kSrThreads = 256;
+constexpr int kSrUnroll = 4;   // float4 loads in flight per thread
+
+struct SrGrid {
+  uint32_t seed, ctr0;     // the row's seed and counter base row_in_group * n_padded
+  float step, inv_step, lo, hi;
+
+  __device__ __forceinline__ float operator()(float x, uint32_t col) const {
+    const float xc = fminf(fmaxf(x, lo), hi);
+    const float t = __fmul_rn(__fsub_rn(xc, lo), inv_step);
+    const float fl = floorf(t);
+    const float frac = __fsub_rn(t, fl);
+    const float u = uniform(ctr0 + col, seed);
+    const float q = __fadd_rn(fl, u < frac ? 1.0f : 0.0f);
+    return __fadd_rn(__fmul_rn(q, step), lo);
+  }
+};
 
 __global__ void __launch_bounds__(kSrThreads) stoch_round_kernel(
     const float* __restrict__ x, const int64_t* __restrict__ seeds,
-    float* __restrict__ out, int64_t total, int n, uint32_t n_padded,
-    int rows_per_seed, float step, float inv_step, float lo, float hi) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSrThreads + threadIdx.x;
-  if (i >= total) return;
-  const int64_t row = i / n;
-  const int col = static_cast<int>(i - row * n);
-  const int64_t group = row / rows_per_seed;
-  const uint32_t r = static_cast<uint32_t>(row - group * rows_per_seed);
+    float* __restrict__ out, int m, int n, uint32_t n_padded, int rows_per_seed,
+    float step, float inv_step, float lo, float hi) {
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  if (row >= m) return;
+  const int group = row / rows_per_seed;
+  const float* xr = x + static_cast<int64_t>(row) * n;
+  float* orow = out + static_cast<int64_t>(row) * n;
+  const int tx = blockDim.x, lane = threadIdx.x;
+  // scalar head up to xr's next 16-byte boundary, float4 body, scalar tail
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(xr) & 15u;
+  const int head = min(n, static_cast<int>(((16u - mis) & 15u) >> 2));
+  const int nv = (n - head) >> 2;
+  const int tail0 = head + 4 * nv;
+  const float4* xv = reinterpret_cast<const float4*>(xr + head);
+  float4 a[kSrUnroll];
+  auto load = [&](int v0) {
+#pragma unroll
+    for (int u = 0; u < kSrUnroll; ++u)
+      if (v0 + u * tx < nv) a[u] = __ldcs(xv + v0 + u * tx);
+  };
+  // every load of the first round before anything waits on one: the seed,
+  // the head and tail elements and the first vectors are in flight together
   const uint32_t seed = static_cast<uint32_t>(seeds[group]);
-  const float xc = fminf(fmaxf(x[i], lo), hi);
-  const float t = __fmul_rn(__fsub_rn(xc, lo), inv_step);
-  const float fl = floorf(t);
-  const float frac = __fsub_rn(t, fl);
-  const float u = uniform(r * n_padded + static_cast<uint32_t>(col), seed);
-  const float q = __fadd_rn(fl, u < frac ? 1.0f : 0.0f);
-  out[i] = __fadd_rn(__fmul_rn(q, step), lo);
+  const float xh = lane < head ? __ldcs(xr + lane) : 0.0f;
+  const float xt = tail0 + lane < n ? __ldcs(xr + tail0 + lane) : 0.0f;
+  load(lane);
+  const SrGrid g{seed, static_cast<uint32_t>(row - group * rows_per_seed) * n_padded, step,
+                 inv_step, lo, hi};
+  if (lane < head) __stcs(orow + lane, g(xh, lane));
+  if (tail0 + lane < n) __stcs(orow + tail0 + lane, g(xt, tail0 + lane));
+  float* ob = orow + head;
+  const bool ovec = (reinterpret_cast<uintptr_t>(ob) & 15u) == 0;
+  for (int v0 = lane; v0 < nv; v0 += tx * kSrUnroll) {
+    if (v0 != lane) load(v0);
+#pragma unroll
+    for (int u = 0; u < kSrUnroll; ++u) {
+      const int v = v0 + u * tx;
+      if (v >= nv) break;
+      const uint32_t c = static_cast<uint32_t>(head + 4 * v);
+      const float4 r = make_float4(g(a[u].x, c), g(a[u].y, c + 1), g(a[u].z, c + 2),
+                                   g(a[u].w, c + 3));
+      if (ovec) {
+        __stcs(reinterpret_cast<float4*>(ob) + v, r);
+      } else {
+        __stcs(ob + 4 * v, r.x);
+        __stcs(ob + 4 * v + 1, r.y);
+        __stcs(ob + 4 * v + 2, r.z);
+        __stcs(ob + 4 * v + 3, r.w);
+      }
+    }
+  }
 }
 
 
@@ -147,20 +206,22 @@ __global__ void __launch_bounds__(kWriteWarps * 32) write_kv_int8_kernel(
 }  // namespace raca
 
 // Plain C entry point for ctypes: x and out are (m, n) f32, contiguous;
-// seeds holds m / rows_per_seed values.  Returns cudaGetLastError().
+// seeds holds m / rows_per_seed values; the CTA is (tx, ty) threads, ty
+// rows of tx (stoch_round.stoch_round_geometry).  Returns
+// cudaGetLastError().
 extern "C" int stoch_round_launch(const float* x, const int64_t* seeds,
                                   float* out, int m, int n, int n_padded,
                                   int rows_per_seed, float step,
-                                  float inv_step, float lo, float hi,
-                                  void* stream) {
+                                  float inv_step, float lo, float hi, int tx,
+                                  int ty, void* stream) {
   using namespace raca;
-  const int64_t total = static_cast<int64_t>(m) * n;
-  if (total == 0) return 0;
-  const int64_t blocks = (total + kSrThreads - 1) / kSrThreads;
-  stoch_round_kernel<<<static_cast<unsigned>(blocks), kSrThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, seeds, out, total, n, static_cast<uint32_t>(n_padded), rows_per_seed,
-      step, inv_step, lo, hi);
+  if (static_cast<int64_t>(m) * n == 0) return 0;
+  if (tx * ty > kSrThreads || tx % 32 != 0 || ty < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((m + ty - 1) / ty);
+  stoch_round_kernel<<<blocks, dim3(tx, ty), 0, static_cast<cudaStream_t>(stream)>>>(
+      x, seeds, out, m, n, static_cast<uint32_t>(n_padded), rows_per_seed, step, inv_step,
+      lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 

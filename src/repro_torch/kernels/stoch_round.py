@@ -4,8 +4,10 @@ Replaces ``stoch_round_pallas`` (``repro/kernels/stoch_round.py``), the
 paper's conductance-programming primitive (§II-B) that the int8 KV pool
 applies to every cache write.  Two kernels of ``csrc/stoch_round.cu``:
 
-- ``stoch_round``: one thread per element, seeds read from device memory
-  so a serving step never waits on the host for them; plain version
+- ``stoch_round``: a CTA of ``ty`` rows with ``tx`` threads across each
+  (:func:`stoch_round_geometry`), 16-byte loads and stores with scalar
+  heads and tails where a row is not aligned, seeds read from device
+  memory so a serving step never waits on the host for them; plain version
   :func:`stoch_round_ref`, reached through ``ops.stoch_round_serving``;
 - ``write_kv_int8``: a layer's whole int8 KV write (absmax, scale,
   stochastic rounding, int8 cast and the scatter of K and V codes and
@@ -19,7 +21,8 @@ else adds to them).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,11 +34,33 @@ write_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+THREADS = 256   # per CTA (csrc/stoch_round.cu: kSrThreads)
+UNROLL = 4      # float4 loads in flight per thread (kSrUnroll)
+
+
+class SrGeometry(NamedTuple):
+    tx: int       # threads across a row, a multiple of 32
+    ty: int       # rows per CTA
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)   # once per shape: small calls are launch-bound
+def stoch_round_geometry(m: int, n: int) -> SrGeometry:
+    """The launch shape for (m, n): enough threads across a row that each
+    keeps at most ``UNROLL`` of the row's ≈ n/4 vectors (32 to 256), and as
+    many rows per CTA as fill ``THREADS``: (2048, 2048) runs 1024 CTAs of
+    2 rows × 128 threads, (256, 80) 32 CTAs of 8 rows × 32."""
+    per_thread = -(-max(n // 4, 1) // UNROLL)
+    tx = min(THREADS, -(-per_thread // 32) * 32)
+    ty = THREADS // tx
+    return SrGeometry(tx, ty, -(-m // ty))
+
 
 def _lib():
     lib = build.load("stoch_round")
     if lib.stoch_round_launch.argtypes is None:
-        lib.stoch_round_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P]
+        lib.stoch_round_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+                                           _P]
         lib.write_kv_int8_launch.argtypes = [_P] * 9 + [_I] * 10 + [_P]
         lib.stoch_round_launch.restype = lib.write_kv_int8_launch.restype = _I
     return lib
@@ -66,12 +91,13 @@ def stoch_round_cuda(
     if m * n >= 2**31:
         raise ValueError(f"stoch_round takes fewer than 2**31 elements, got {m}x{n}")
     n_padded = -(-n // 512) * 512  # the counter's row stride, as the reference pads
+    geo = stoch_round_geometry(m, n)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     # 1/step rounds to f32 on the host, as jnp.float32(1.0 / step) does
     rc = _lib().stoch_round_launch(
         x.data_ptr(), seeds.data_ptr(), out.data_ptr(), m, n, n_padded,
-        m // seeds.shape[0], step, 1.0 / step, lo, hi, stream,
+        m // seeds.shape[0], step, 1.0 / step, lo, hi, geo.tx, geo.ty, stream,
     )
     if rc != 0:
         raise RuntimeError(f"stoch_round kernel launch failed: CUDA error {rc}")

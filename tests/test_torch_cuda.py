@@ -14,7 +14,10 @@ kernel's tensor-core path) within 2e-4 absolute and relative, derived in
 ``stoch_round`` and the int8 quantizer bit-identical to their plain
 versions (integer hashing, exact f32 steps, no FMA contraction);
 ``wta_counts`` with equal row sums and at most 1% of its B·T decisions
-flipped, because its Gaussians pass through log and cos; ``crossbar_mac``
+flipped, because its Gaussians pass through log and cos, and exactly
+equal where σ = 0 makes v = z (ties) or nothing can fire, and to the
+votes of every column drawn in full with the card's own log and cos
+(its pruning is exact); ``crossbar_mac``
 with at least 99.95% of its comparator decisions equal and its linear
 readout within 2e-5 / 1e-5 (its quantized weights and noise are
 bit-identical, its f32 sums run in another order), and, at stablelm-3b's
@@ -219,6 +222,32 @@ def test_cuda_stoch_round_bit_equal_to_plain(cuda_device, shape, step, lo, hi):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,step,lo,hi", [
+    ((33, 70), 2.0 / 31, -1.0, 1.0),
+    ((256, 80), 1.0, -127.0, 127.0),
+    ((5, 1030), 0.1, -1.0, 1.0),
+    ((64, 512), 2.0 / 31, -1.0, 1.0),
+    ((2048, 2048), 2.0 / 31, -1.0, 1.0),
+])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_stoch_round_views_and_sizes(cuda_device, shape, step, lo, hi, offset):
+    """A contiguous (m, n) view ``offset`` elements into its storage (1: a
+    data pointer off the 16-byte grid, so rows take scalar heads and the
+    output, aligned, takes scalar stores), at the quantizer's 2048² too."""
+    from repro_torch.kernels import stoch_round as SR
+
+    m, n = shape
+    flat = torch.empty(m * n + offset, device=cuda_device)
+    x = flat[offset:].view(m, n)
+    x.copy_(_sr_input(shape, lo, hi).to(cuda_device))
+    assert x.is_contiguous() and x.storage_offset() == offset
+    kw = dict(step=step, lo=lo, hi=hi)
+    seeds = torch.tensor([7, 2**32 - 1], device=cuda_device) if m % 2 == 0 else \
+        torch.tensor([7], device=cuda_device)
+    assert torch.equal(SR.stoch_round_cuda(x, seeds, **kw), TREF.stoch_round_ref(x, seeds, **kw))
+
+
+@pytest.mark.cuda
 def test_cuda_quantize_kv_pair_equals_cpu(cuda_device):
     """The int8 write path on the card (kernel) equals the CPU plain path on
     the same input, codes and scales, for the decode and prefill forms."""
@@ -251,6 +280,89 @@ def test_cuda_wta_counts_agree_with_plain(cuda_device, b, c, n_trials):
     assert torch.equal(got.sum(-1), want.sum(-1))
     assert float((got - want).abs().sum()) <= 2 * WTA_FLIP_FRACTION * b * n_trials
     assert torch.equal(TOPS.wta_counts(z, seed, **kw).cpu(), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,n_trials,case", [
+    (64, 10, 100, "noisy"),        # the paper's 10-class head: one warp per (row, trial)
+    (64, 10, 100, "ties"),
+    (6, 300, 8, "ties"),
+    (4, 8200, 5, "ties"),          # clusters of 2 CTAs
+    (2, 50304, 3, "ties"),         # the serving head: clusters of 8
+    (3, 300, 16, "below"),
+    (2, 50304, 4, "below"),
+])
+def test_cuda_wta_counts_ties_and_silence(cuda_device, b, c, n_trials, case):
+    """σ = 0 makes v = z: every column at a row's maximum (three of them,
+    or the whole row) gets all T votes, exactly as the plain version; rows
+    where nothing can pass vth0 get no vote."""
+    from repro_torch.kernels import wta_counts as WTA
+
+    z = torch.from_numpy(
+        np.random.default_rng(c + b).standard_normal((b, c)).astype(np.float32) * 1.702)
+    kw = dict(n_trials=n_trials, vth0=1.702**2, sigma_z=1.702)
+    if case == "ties":
+        z[0, [1, c // 2, c - 1]] = float(z.max()) + 1.0
+        z[1] = 3.0
+        kw["sigma_z"] = 0.0
+    elif case == "below":
+        z -= 100.0
+    seed = torch.tensor([12345], device=cuda_device)
+    got = WTA.wta_counts_cuda(z.to(cuda_device), seed, **kw).cpu()
+    want = TREF.wta_counts_ref(z, seed.cpu(), **kw)
+    if case == "noisy":
+        assert torch.equal(got.sum(-1), want.sum(-1))
+        assert float((got - want).abs().sum()) <= 2 * WTA_FLIP_FRACTION * b * n_trials
+    else:
+        assert torch.equal(got, want)
+    if case == "ties":
+        assert got[0, [1, c // 2, c - 1]].tolist() == [n_trials] * 3
+        assert bool((got[1] == n_trials).all())
+    if case == "below":
+        assert got.sum() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,n_trials", [
+    (64, 10, 100),      # one warp per (row, trial), every column drawn
+    (256, 128, 64),
+    (5, 700, 16),       # a cluster of 1 CTA of 1 warp, pruned
+    (4, 8201, 9),       # clusters of 2 CTAs, C not a multiple of 4
+    (8, 50304, 32),     # the serving head: clusters of 2 CTAs of 8 warps
+    (2, 50304, 3),      # clusters of 8 CTAs
+])
+def test_cuda_wta_counts_equal_full_draw(cuda_device, b, c, n_trials):
+    """Noisy inputs at the serving head's operating point: the pruned
+    kernel's counts equal, exactly, the votes of every column drawn in full
+    by the probe kernel with the same logf, sqrtf and cosf."""
+    from repro_torch.kernels import wta_counts as WTA
+
+    z = torch.from_numpy(
+        np.random.default_rng(c * b).standard_normal((b, c)).astype(np.float32) * 1.702
+    ).to(cuda_device)
+    seed = torch.tensor([2**31 + c], device=cuda_device)
+    kw = dict(n_trials=n_trials, vth0=1.702**2, sigma_z=1.702)
+    got = WTA.wta_counts_cuda(z, seed, **kw)
+    full = WTA.full_draw_counts(z, seed, **kw)
+    assert torch.equal(got, full)
+    assert int(full.sum()) >= b * n_trials // 2   # most trials have a winner
+
+
+@pytest.mark.cuda
+def test_cuda_wta_draw_bounds(cuda_device):
+    """The WTA kernel prunes on v <= z + r·|σ| <= z + R[bucket]·|σ|: over
+    every value its uniforms can take, this card's cosf keeps |cos| <= 1,
+    and its radius table equals the CPU's within an ulp or two (logf)."""
+    from repro_torch.kernels import wta_counts as WTA
+
+    r_max, cos_max = WTA.draw_bounds(cuda_device)
+    assert 5.88 < r_max < 5.89 and 0.999 < cos_max <= 1.0
+    from repro_torch.kernels import prng
+
+    k = torch.arange(0, 1 << 24, 1 << 13, dtype=torch.int64)   # each bucket's first u1
+    cpu = torch.sqrt(-2.0 * torch.log(prng.uniform01(k << 8)))
+    table = WTA.radius_table(cuda_device)[: WTA.RADIUS_BUCKETS].cpu()
+    torch.testing.assert_close(table, cpu, rtol=5e-7, atol=0)
 
 
 @pytest.mark.cuda
