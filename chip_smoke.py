@@ -34,15 +34,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bit-identical and row sums within f32 summation error, its GEMM held
    to the read's gates and timed at every compiled tile width, and the
    comparator decisions that one bf16 or TF32 pass of x, or two bf16
-   pieces, would keep.
+   pieces, would keep; ``wta_sample`` (the threefry WTA sampler) at the
+   serving head (8 x 50304 bf16 logits, 32 trials, per-slot keys and
+   steps, the three reads of R = 3), the first-token sample (1 x 50304)
+   and the 10-class head (64 x 10, 100 trials, one key), its counts and
+   decisions exactly equal to the plain version's (any difference
+   printed), its draw's bits, uniforms and normals bit-equal to
+   ``repro_torch.random`` across the counter's high word, and its time
+   beside the issue estimate of its own SASS (``wta_sample_issue``).
 4. serve: ``ServingEngine`` serves a 12-request shared-prefix trace at
-   stablelm-3b full width (random seeded weights) twice, with a bf16 and
-   an int8 KV pool, with prefix hits, chunked suffix prefill and
-   copy-on-write; the launch counts of the kernels each run goes through,
-   reset just before and read just after, must be > 0 (the int8 run: one
-   fused write per attention launch).  Each run ends in a profile of
-   full-batch decode ticks with the decode attention kernel's share of
-   the device time.
+   stablelm-3b full width (random seeded weights) four times, with a
+   bf16 and an int8 KV pool, then with WTA sampling (``wta_head``,
+   ``ServeConfig(seed=0)``) on the bf16 pool at one read and at three
+   redundant reads a token, with prefix hits, chunked
+   suffix prefill and copy-on-write; the launch counts of the kernels
+   each run goes through, reset just before and read just after, must be
+   > 0 (the int8 run: one fused write per attention launch; the WTA runs:
+   R ``wta_sample`` launches per decode step, one per first token).  Each run
+   ends in a profile of full-batch decode ticks with the decode attention
+   kernel's and the WTA sampler's shares of the device time.
 5. entry points: ``ops.stoch_round_serving`` on the 2048² quantizer row
    and ``ops.wta_counts`` at the serving head's operating point (8 ×
    50304, 32 trials); each kernel's launches, reset just before and read
@@ -55,7 +65,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. reference: smoke-size prefill and decode logits on the card (kernels)
    agree with the same model on the CPU (plain versions), for a float and
    an int8 pool (whose written codes must agree too); two smoke-size
-   analog training steps agree card vs CPU (losses, comparator decisions).
+   analog training steps agree card vs CPU (losses, comparator
+   decisions); a smoke-size WTA serve (R = 1 and 3) gives the same
+   streams on the card and on the CPU (a divergence is printed with both
+   sides' votes at it, and fails).
 
 The second-to-last line is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.  With ``--ab DIR`` only phases 1-2 run,
@@ -104,6 +117,10 @@ REF_INT8_ATOL = 2e-2
 # Gate: equal row sums, and sum|Δcounts| <= 2 x 1% of the B·T decisions.
 WTA_FLIP_FRACTION = 0.01
 WTA_VTH0, WTA_SIGMA = 1.702**2, 1.702   # the serving head's operating point
+# wta_sample kernel vs plain version on the card: both draw with CUDA's
+# log1pf and round every other step once, so the bits, uniforms, normals,
+# counts and decisions must be equal, as they were in every run.  Card vs
+# CPU smoke WTA serve: token streams equal.
 # Issue estimate: one warp instruction per scheduler per clock, 132 SMs x
 # 4 schedulers x 1.98 GHz; a warp instruction holds the 16-lane ALU or FMA
 # heavy pipe 2 clocks and the 4-lane XU (MUFU, conversions) 8 clocks.
@@ -414,6 +431,7 @@ def kernel_phase(dev) -> dict:
     (timing["crossbar_mac"], timing["crossbar_prepass"], errs["crossbar_mac"],
      errs["crossbar_prepass"]) = crossbar_kernels(gen, dev)
     timing["write_kv_int8"], errs["write_kv_int8"] = write_kernels(gen, dev)
+    timing["wta_sample"], errs["wta_sample"] = wta_sample_kernels(gen, dev)
     return {"errs": errs, "timing": timing}
 
 
@@ -615,14 +633,23 @@ def wta_sweep(gen, dev) -> dict:
     return out
 
 
+def sass_of(name: str) -> str:
+    """``cuobjdump -sass`` of the built ``csrc/<name>.cu``."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+
+
 def wta_issue_estimate(gen, dev) -> dict:
     """The plain per-element path (one full Box-Muller draw, the voltage,
     the comparator) as ``wta_draw_probe_kernel`` compiles it: its voltages
     held against the plain version's, and its common path counted from
     ``cuobjdump -sass`` (:func:`sass_common_path`, :func:`issue_estimate`)."""
-    import shutil
-
-    from repro_torch.kernels import build, prng
+    from repro_torch.kernels import prng
     from repro_torch.kernels import wta_counts as WTA
 
     n, seed = 1 << 20, 20241216
@@ -636,13 +663,182 @@ def wta_issue_estimate(gen, dev) -> dict:
     log(f"  wta draw probe ({n} elements): {equal:.6f} bit-equal to the plain version's voltages")
     if equal < 1 - WTA_FLIP_FRACTION:
         raise AssertionError("wta draw probe disagrees with the plain version")
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path("wta_counts"))],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    est = issue_estimate(sass_common_path(sass, "_ZN4raca21wta_draw_probe_kernelEPKfPfijjjff"))
+    est = issue_estimate(sass_common_path(sass_of("wta_counts"),
+                                          "_ZN4raca21wta_draw_probe_kernelEPKfPfijjjff"))
     log(f"  wta draw probe SASS: {est['instructions']} instructions on the common path, "
         f"clocks per warp {est['clocks']}, bound by {est['pipe']}")
     return est
+
+
+def wta_sample_case(gen, dev, n, c, dtype, *, layout, read=0, steps=True):
+    """Logits at the serving head's spread, per-slot keys fold_in(base,
+    rid) (or one key for the batch), and the fold words the sampler
+    passes: the step, after the read index for a redundant read."""
+    from repro_torch import random as R
+
+    z = (torch.randn((n, c), generator=gen, device=dev) * 2.5).to(dtype)
+    base = R.PRNGKey(int(torch.randint(0, 2**31, (1,), generator=gen, device=dev)))
+    if layout == "one key":
+        return z, torch.tensor([base] * n, dtype=torch.int64, device=dev), None, (n * c, c)
+    keys = torch.tensor([R.fold_in(base, i) for i in range(n)], dtype=torch.int64, device=dev)
+    words = [torch.full((n,), read, dtype=torch.int64, device=dev)] if read else []
+    if steps:
+        words.append(torch.randint(0, 64, (n,), generator=gen, device=dev, dtype=torch.int64))
+    folds = torch.stack(words, dim=1) if words else None
+    return z, keys, folds, (c, 0)
+
+
+def check_wta_sample(label, z, keys, folds, layout, n_trials, errs) -> None:
+    """The kernel against its plain version: counts and decisions exactly
+    equal.  Where they are not, the rows that differ are printed with
+    both sides' decisions and votes at them, and the check fails."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wta_sample as WS
+
+    kw = dict(n_trials=n_trials, vth0=WTA_VTH0, sigma_z=WTA_SIGMA, layout=layout)
+    got, got_dec = WS.wta_sample_cuda(z, keys, folds, **kw)
+    want, want_dec = ref.wta_trial_counts_ref(z, keys, folds, **kw)
+    exact = torch.equal(got, want) and torch.equal(got_dec, want_dec)
+    errs.append(float((got - want).abs().max()))
+    log(f"  wta_sample {label}: counts and decisions equal {exact}, votes {int(got.sum())} of "
+        f"{z.shape[0] * n_trials} trials")
+    if not exact:
+        rows = sorted({r for r, _ in (got != want).nonzero().tolist()}
+                      | set((got_dec != want_dec).nonzero().flatten().tolist()))
+        log(f"    rows that differ: {rows[:8]} of {len(rows)}; sum|Δcounts| "
+            f"{float((got - want).abs().sum()):.0f}, decisions kernel "
+            f"{got_dec[rows[:8]].tolist()} plain {want_dec[rows[:8]].tolist()}")
+        for r in rows[:2]:
+            cols = (got[r] != want[r]).nonzero().flatten()[:4].tolist()
+            log(f"    row {r}, columns {cols}: kernel votes {got[r, cols].tolist()}, plain "
+                f"{want[r, cols].tolist()}")
+        raise AssertionError(f"wta_sample {label}: kernel and plain version disagree")
+
+
+def wta_sample_kernels(gen, dev):
+    """wta_sample vs its plain version at the serving head (8 x 50304, 32
+    trials, bf16 logits, per-slot keys with steps, reads 0-2 of R = 3), the
+    first-token sample (1 x 50304, step 0) and wta_trials on the paper's
+    10-class head (64 x 10, 100 trials, one key); its draw bit-equal to
+    repro_torch.random (a slice printed); its time at the head beside the
+    plain version's and the issue estimate of its SASS.  Returns (head
+    record, max|err| list)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wta_sample as WS
+
+    log_ptxas("wta_sample_kernel<bf16>", "wta_sample_kernel<f32>", "wta_sample_probe_kernel")
+    wta_sample_draw(gen, dev)
+    errs = []
+    for read in range(3):
+        case = wta_sample_case(gen, dev, 8, 50304, torch.bfloat16, layout="per slot", read=read)
+        check_wta_sample(f"(8, 50304) T=32 per-slot keys, step, read {read} of R=3", *case, 32,
+                         errs)
+    check_wta_sample("(1, 50304) T=32 first token, step 0",
+                     *wta_sample_case(gen, dev, 1, 50304, torch.float32, layout="per slot"), 32,
+                     errs)
+    check_wta_sample("(64, 10) T=100 one key",
+                     *wta_sample_case(gen, dev, 64, 10, torch.float32, layout="one key"), 100,
+                     errs)
+    n, c, t = 8, 50304, 32
+    sets = []
+    for _ in range(ROTATE):
+        z, keys, folds, layout = wta_sample_case(gen, dev, n, c, torch.bfloat16, layout="per slot")
+        sets.append((z, keys, folds, dict(n_trials=t, vth0=WTA_VTH0, sigma_z=WTA_SIGMA,
+                                          layout=layout)))
+    # bytes: bf16 z read, keys and step words read, counts and decisions
+    # written; operations: the issue estimate of the timed kernel's SASS
+    nbytes = n * c * 2 + n * 3 * 8 + n * c * 4 + n * 4
+    issue = wta_sample_issue(sass_of("wta_sample"), "wta_sample_kernel<bf16>", n, c, t, n_folds=1)
+    rec = bound_record(nbytes, 0)
+    if issue["ms"] > rec["bound_ms"]:
+        rec.update(bound_ms=issue["ms"], bound_by="operations")
+    rec["flops"] = 32 * issue["instructions"]
+    rec = time_kernel(rec, sets, WS.wta_sample_cuda, ref.wta_trial_counts_ref, None,
+                      f"wta_sample ({n}, {c}) T={t} bf16")
+    rec["issue_ms"], rec["issue_pipe"] = issue["ms"], issue["pipe"]
+    rec["issue_instructions"] = issue["column"]
+    log(f"  wta_sample ({n}, {c}) T={t}: issue estimate {issue['ms']:.4f} ms (bound by "
+        f"{issue['pipe']}); kernel at {issue['ms'] / rec['device_ms']:.2f} of it")
+    return rec, errs
+
+
+def wta_sample_issue(sass: str, kernel: str, n: int, c: int, n_trials: int, *,
+                     n_folds: int) -> dict:
+    """Issue estimate of one ``wta_sample_kernel`` call from its own SASS:
+    per (row, trial) CTA, the scan loop's common path once per warp and
+    column stride (one z load, hash, uniform, erf_inv, voltage,
+    comparator, best update), each warp's path outside the loops (row
+    and counter set-up, warp arg-max, exit), ``n_folds`` passes of the
+    fold loop's body per warp, and warp 0's block arg-max and votes once.
+    ``kernel`` is the short name ``wta_sample_kernel<bf16>`` or ``<f32>``."""
+    from collections import Counter
+
+    mangled = {"wta_sample_kernel<bf16>":
+               "_ZN4raca17wta_sample_kernelI13__nv_bfloat16EEvPKT_PKlS6_iPfS7_iixxff",
+               "wta_sample_kernel<f32>": "_ZN4raca17wta_sample_kernelIfEEvPKT_PKlS5_iPfS6_iixxff"}
+    ins = sass_instructions(sass, mangled[kernel])
+    loops = sass_loops(ins)
+    has_ffma = [any(ins[k][2].startswith("FFMA") for k in range(h, e + 1)) for h, e in loops]
+    scan = [lp for lp, f in zip(loops, has_ffma) if f]
+    fold = [lp for lp, f in zip(loops, has_ffma) if not f]
+    if len(scan) != 1 or len(fold) != 1:
+        raise AssertionError(f"{kernel}: expected one scan loop and one fold loop, got "
+                             f"{[(ins[h][0], ins[e][0]) for h, e in loops]}")
+
+    def loads(path):
+        return sum(op.startswith("LDG") for op in path)
+
+    column = sass_walk(ins, scan[0][0], loop=scan[0])
+    fold_body = sass_walk(ins, fold[0][0], loop=fold[0])
+    if loads(column) != 1 or loads(fold_body) < 1:
+        raise AssertionError(f"{kernel}: {loads(column)} loads a column stride, "
+                             f"{loads(fold_body)} a fold pass")
+    warp = sass_walk(ins, 0, first_exit=True)
+    tail = sass_walk(ins, 0)[len(warp):]
+    threads = min(-(-c // 32) * 32, 1024)
+    strides = sum(max(0, -(-(c - 32 * w) // threads)) for w in range(threads // 32))
+    per_cta = Counter()
+    for path, k in ((column, strides), (warp, threads // 32),
+                    (fold_body, threads // 32 * n_folds / loads(fold_body)), (tail, 1)):
+        for op in path:
+            per_cta[op] += k
+    clocks = {p: n * n_trials * v for p, v in pipe_clocks(per_cta).items()}
+    pipe = max(clocks, key=clocks.get)
+    out = {"column": len(column), "warp": len(warp), "fold": len(fold_body) / loads(fold_body),
+           "tail": len(tail), "instructions": clocks["issue"], "clocks": clocks, "pipe": pipe,
+           "ms": clocks[pipe] / ISSUE_PER_S * 1e3}
+    log(f"  {kernel} SASS: {out['column']} instructions a column stride "
+        f"(clocks {pipe_clocks(Counter(column))}), {out['warp']} a warp outside the loops, "
+        f"{out['fold']:.0f} a fold, {out['tail']} for warp 0's block arg-max; ({n}, {c}) "
+        f"T={n_trials}, {n_folds} fold(s): {strides} column strides a CTA, bound by {pipe}, "
+        f"{out['ms']:.4f} ms")
+    return out
+
+
+def wta_sample_draw(gen, dev) -> None:
+    """The kernel's draw (``wta_sample_probe_kernel``) over 2**20 counters
+    across the high word, against ``repro_torch.random`` on the card: bits,
+    uniforms and normals bit-equal (a slice printed)."""
+    from repro_torch import random as R
+    from repro_torch.kernels import wta_sample as WS
+
+    k, start, key = 1 << 20, 2**32 - (1 << 19), R.fold_in(R.PRNGKey(20241216), 7)
+    z = torch.zeros(k, device=dev)
+    bits, u, v = WS.draw_probe(z, key, start, vth0=-float("inf"), sigma_z=1.0)
+    want_bits = R.random_bits(key, (2**33,), dev, start=start, count=k)
+    want_u = R.uniform_from_bits(want_bits, R.NORMAL_LO, 1.0)
+    want_n = R.erf_inv(want_u) * R.SQRT2_F32
+    same = [torch.equal(bits, want_bits), torch.equal(u, want_u), torch.equal(v, want_n)]
+    at = [0, 1, (1 << 19) - 1, 1 << 19]   # the last counter below 2**32, the first above
+    log(f"  wta_sample draw over counters [{start}, {start + k}): bits equal {same[0]}, "
+        f"uniforms equal {same[1]}, normals equal {same[2]} "
+        f"({float((v == want_n).float().mean()):.7f} of them, max|Δ| "
+        f"{float((v - want_n).abs().max()):.3e})")
+    log(f"    at {at}: bits {bits[at].tolist()} / {want_bits[at].tolist()}, uniforms "
+        f"{u[at].tolist()} / {want_u[at].tolist()}, normals {v[at].tolist()} / "
+        f"{want_n[at].tolist()} (kernel / plain)")
+    if not all(same):
+        raise AssertionError("wta_sample draw disagrees with repro_torch.random")
 
 
 def crossbar_case(gen, dev, m, k, n, *, binarize, binary_x=False, quantize=True,
@@ -887,7 +1083,9 @@ def serve_trace(vocab: int) -> list[list[int]]:
 
 def serve_phase(dev) -> dict:
     """The 12-request trace at full width with a bf16 pool, then with an
-    int8 pool, from the same weights."""
+    int8 pool, then with WTA sampling on the bf16 pool
+    (``ServeConfig(seed=0)``) at one read and at three redundant reads a
+    token, from the same weights."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_lm
 
@@ -901,36 +1099,118 @@ def serve_phase(dev) -> dict:
     res = {}
     for kv in ("same", "int8"):
         res[kv] = serve_once(params, dataclasses.replace(cfg, kv_cache_dtype=kv), prompts, dev)
+    res["wta"] = serve_once(params, dataclasses.replace(cfg, wta_head=True), prompts, dev)
+    res["wta_r3"] = serve_once(params, dataclasses.replace(cfg, wta_head=True), prompts, dev,
+                               reads=3)
     same, int8 = res["same"]["outs"], res["int8"]["outs"]
     agree = sum(a == b for r in same for a, b in zip(same[r], int8[r]))
     total = sum(len(o) for o in same.values())
     log(f"  int8 vs bf16 pool greedy agreement: {agree}/{total} = {agree / total:.4f} "
         f"(random weights; not gated)")
+    res["turns"] = tick_turns(params, cfg, dev)
+    wta = res["wta"]["outs"]
+    agree = sum(a == b for r in same for a, b in zip(same[r], wta[r]))
+    log(f"  WTA vs greedy tokens: {agree}/{total} equal (random weights, near-flat logits: "
+        f"WTA samples, so few should match)")
+    if agree == total:
+        raise AssertionError("the WTA serve emitted the greedy tokens: the sampler did not draw")
+    r3 = res["wta_r3"]["outs"]
+    agree = sum(a == b for r in wta for a, b in zip(wta[r], r3[r]))
+    log(f"  WTA R=3 vs R=1 tokens: {agree}/{total} equal (the majority of three reads, read 0 "
+        f"being R=1's; not gated)")
     return res
 
 
-def serve_once(params, cfg, prompts, dev) -> dict:
+def tick_turns(params, cfg, dev, n_ticks: int = 5, rounds: int = 10) -> dict:
+    """Host ms per full-batch decode tick, greedy against WTA sampling, in
+    turns within one process (greedy, WTA, WTA, greedy, ...; no
+    profiler): two engines on the same weights, 8 slots at positions ≈
+    100-130, each tick ending in the engine's own sync.  Host time moves
+    between calls and phases, so only turns compare the two.  Then the
+    sampler alone, ``specs.sample_tokens`` on the engine's (8, 50304) bf16
+    logits with per-slot keys and steps against its greedy argmax: ms per
+    call over 200 calls ending in one sync, in turns, and at three
+    redundant reads."""
+    from repro_torch.launch import specs as SP
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    rng = np.random.default_rng(2)
+    engines = {}
+    for name, c in (("greedy", cfg), ("wta", dataclasses.replace(cfg, wta_head=True))):
+        eng = ServingEngine(params, c, ServeConfig(max_batch=8, max_len=512, kv_block_size=16,
+                                                   prefill_chunk=128, seed=0), device=dev)
+        for _ in range(8):
+            eng.submit(rng.integers(0, cfg.vocab, 100).tolist(),
+                       max_new_tokens=2 * rounds * n_ticks + 4)
+        while eng._job_fifo or eng.sched.queued():
+            eng.tick()
+        eng.tick()
+        engines[name] = eng
+    torch.cuda.synchronize()
+    ms = {"greedy": [], "wta": []}
+    for r in range(rounds):
+        for name in (("greedy", "wta") if r % 2 == 0 else ("wta", "greedy")):
+            eng = engines[name]
+            t0 = time.perf_counter()
+            for _ in range(n_ticks):
+                eng.tick()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / n_ticks)
+    out = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"  host ms per full-batch tick in turns ({rounds} x {n_ticks} ticks each): greedy "
+        f"{[round(x, 2) for x in ms['greedy']]} (median {out['greedy']:.2f}), WTA "
+        f"{[round(x, 2) for x in ms['wta']]} (median {out['wta']:.2f})")
+    wcfg = engines["wta"].mcfg
+    for eng in engines.values():
+        eng.run()
+    del engines
+    torch.cuda.empty_cache()
+    logits = (torch.randn((8, cfg.vocab), device=dev) * 2.5).to(torch.bfloat16)
+    keys = torch.randint(0, 2**32, (8, 2), device=dev, dtype=torch.int64)
+    steps = torch.arange(8, device=dev, dtype=torch.int64)
+    calls = {"greedy": lambda: SP.sample_tokens(cfg, logits),
+             "wta": lambda: SP.sample_tokens(wcfg, logits, keys, steps),
+             "wta R=3": lambda: SP.sample_tokens(wcfg, logits, keys, steps, n_redundant=3)}
+    per_call = {"greedy": [], "wta": [], "wta R=3": []}
+    for name in ("greedy", "wta", "wta R=3", "wta R=3", "wta", "greedy"):
+        calls[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            calls[name]()
+        torch.cuda.synchronize()
+        per_call[name].append((time.perf_counter() - t0) * 1e3 / 200)
+    log(f"  sample_tokens (8, {cfg.vocab}) bf16, ms per call in turns (200 calls, one sync): "
+        f"greedy {[round(x, 4) for x in per_call['greedy']]}, WTA "
+        f"{[round(x, 4) for x in per_call['wta']]}, WTA R=3 "
+        f"{[round(x, 4) for x in per_call['wta R=3']]}")
+    return {"runs": ms, "median": out, "sample_tokens_ms": per_call}
+
+
+def serve_once(params, cfg, prompts, dev, reads: int = 1) -> dict:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import prefill_attention as PF
     from repro_torch.kernels import stoch_round as SR
+    from repro_torch.kernels import wta_sample as WS
     from repro_torch.serving import ServeConfig, ServingEngine
 
     kv = cfg.kv_cache_dtype
-    log(f"  -- kv pool: {'int8 codes + f32 scales' if kv == 'int8' else cfg.dtype}")
+    log(f"  -- kv pool: {'int8 codes + f32 scales' if kv == 'int8' else cfg.dtype}, "
+        f"{f'WTA (R={reads})' if cfg.wta_head else 'greedy'} sampling")
     scfg = ServeConfig(
         max_batch=8, max_len=512, kv_block_size=16, prefill_chunk=128,
-        max_new_tokens=32, prefill_buckets=(32, 64, 120, 128, 200, 256, 320),
+        max_new_tokens=32, prefill_buckets=(32, 64, 120, 128, 200, 256, 320), seed=0,
+        n_redundant_reads=reads,
     )
     eng = ServingEngine(params, cfg, scfg, device=dev)
     for p in prompts:
         eng.submit(p)
-    PA.launches = PF.launches = SR.launches = SR.write_launches = 0
+    PA.launches = PF.launches = SR.launches = SR.write_launches = WS.launches = 0
     t0 = time.perf_counter()
     outs = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"decode": PA.launches, "prefill": PF.launches, "stoch_round": SR.launches,
-                "write_kv_int8": SR.write_launches}
+                "write_kv_int8": SR.write_launches, "wta_sample": WS.launches}
     m = eng.metrics()
     log(f"  served {m.completed} requests, {m.total_tokens} tokens in {wall:.2f} s: "
         f"{m.tokens_per_s:.1f} tok/s, TTFT mean {m.ttft_mean * 1e3:.1f} ms p99 "
@@ -940,7 +1220,8 @@ def serve_once(params, cfg, prompts, dev) -> dict:
     log(f"  prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, cow forks "
         f"{m.cow_forks}, prefill tokens {m.prefill_tokens} (saved {m.prefill_tokens_saved}), "
         f"launches decode {launches['decode']} prefill {launches['prefill']} write_kv_int8 "
-        f"{launches['write_kv_int8']} stoch_round {launches['stoch_round']} (per decode step: attention "
+        f"{launches['write_kv_int8']} stoch_round {launches['stoch_round']} wta_sample "
+        f"{launches['wta_sample']} (per decode step: attention "
         f"{launches['decode'] / max(m.decode_steps, 1):.1f}; {chunks} prefill chunks)")
     assert sorted(outs) == list(range(len(prompts))), "requests lost"
     assert all(len(o) == 32 and all(0 <= t < cfg.vocab for t in o) for o in outs.values())
@@ -954,15 +1235,20 @@ def serve_once(params, cfg, prompts, dev) -> dict:
         assert launches["write_kv_int8"] == launches["decode"] + launches["prefill"] > 0, launches
     else:
         assert launches["write_kv_int8"] == 0, launches
-    profile_decode(eng, cfg.vocab)
+    # WTA: one launch per read and decode step, one per request's first token
+    want = reads * m.decode_steps + len(prompts) if cfg.wta_head else 0
+    assert launches["wta_sample"] == want, (launches, want)
+    prof = profile_decode(eng, cfg.vocab)
     del eng
     torch.cuda.empty_cache()
-    return {"launches": launches, "metrics": dataclasses.asdict(m), "wall_s": wall, "outs": outs}
+    return {"launches": launches, "metrics": dataclasses.asdict(m), "wall_s": wall, "outs": outs,
+            "profile": prof}
 
 
-def profile_decode(eng, vocab: int, n_ticks: int = 5) -> None:
+def profile_decode(eng, vocab: int, n_ticks: int = 5) -> dict:
     """Steady-state breakdown of full-batch decode ticks: host time per
-    tick, device busy share, and the kernels that take the device time."""
+    tick, device busy share, the kernels that take the device time, and
+    the WTA sampler's share where it runs."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(1)
@@ -983,15 +1269,23 @@ def profile_decode(eng, vocab: int, n_ticks: int = 5) -> None:
     busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
     attn = [e for e in gpu if "paged_decode_kernel" in e.key]
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
+    wta = [e for e in gpu if "wta_sample_kernel" in e.key]
+    wta_ms = sum(e.self_device_time_total for e in wta) / 1e3
+    out = {"host_ms": wall_ms / n_ticks, "device_ms": busy_ms / n_ticks,
+           "kernels": sum(e.count for e in gpu) / n_ticks, "attention_ms": attn_ms / n_ticks,
+           "wta_sample_ms": wta_ms / n_ticks, "wta_sample_launches": sum(e.count for e in wta) / n_ticks}
     log(f"  profile: {n_ticks} full-batch decode ticks, {wall_ms / n_ticks:.2f} ms/tick host, "
         f"device busy {busy_ms / n_ticks:.2f} ms/tick ({100 * busy_ms / wall_ms:.1f}% of wall), "
         f"{sum(e.count for e in gpu) // n_ticks} kernels/tick; decode attention "
         f"{attn_ms / n_ticks:.3f} ms/tick ({100 * attn_ms / max(busy_ms, 1e-9):.1f}% of device "
-        f"time, {sum(e.count for e in attn) / n_ticks:.1f} launches/tick)")
+        f"time, {sum(e.count for e in attn) / n_ticks:.1f} launches/tick); WTA sampler "
+        f"{out['wta_sample_ms']:.4f} ms/tick ({100 * wta_ms / max(busy_ms, 1e-9):.1f}% of device "
+        f"time, {out['wta_sample_launches']:.1f} launches/tick)")
     for e in sorted(gpu, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3 / n_ticks:8.3f} ms/tick  "
             f"{e.count // n_ticks:5d}x  {e.key[:90]}")
     eng.run()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1176,9 +1470,6 @@ def reference_phase(dev) -> None:
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as TF
 
-    def to(tree, d):
-        return {k: to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
-
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 40)).astype(np.int32))
     row = torch.tensor([3, 7, 1, 9], dtype=torch.int32)
     table = torch.tensor([[3, 7, 1, 9], [0, 0, 0, 0]], dtype=torch.int32)
@@ -1189,7 +1480,7 @@ def reference_phase(dev) -> None:
         host = TF.init_lm(cfg, seed=1, device="cpu")
         logits, pools = {}, {}
         for d in ("cpu", dev):
-            params = to(host, d)
+            params = _tree_to(host, d)
             cache = TF.init_paged_decode_cache(cfg, 2, 12, 16, device=d)
             state = TF.init_prefill_state(cfg, d)
             out = []
@@ -1220,6 +1511,67 @@ def reference_phase(dev) -> None:
                     f"max |Δ| {int((a - b).abs().max())} (gate {REF_INT8_CODES}, 1)")
                 if eq < REF_INT8_CODES or int((a - b).abs().max()) > 1:
                     raise AssertionError(f"int8 {name} codes disagree card vs CPU")
+
+
+def reference_wta(dev) -> None:
+    """A smoke-size f32 WTA serve (shared prefixes, a full hit, R = 1 and
+    R = 3) on the card (kernels) and on the CPU (plain versions) from the
+    same weights: token streams equal; where they are not, the first
+    divergence is printed with both sides' vote counts at it, and the
+    check fails."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), dtype="float32", wta_head=True)
+    host = TF.init_lm(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, cfg.vocab, 24).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab, 8).tolist(), prefix + [7] * 8,
+               rng.integers(0, cfg.vocab, 12).tolist(), prefix + [7] * 8,
+               rng.integers(0, cfg.vocab, 5).tolist()]
+    real = ops.wta_trial_counts
+    for reads in (1, 3):
+        outs, calls = {}, {}
+        for d in ("cpu", dev):
+            params = _tree_to(host, d)
+            eng = ServingEngine(params, cfg, ServeConfig(
+                max_batch=3, max_new_tokens=10, max_len=64, kv_block_size=8, prefill_chunk=16,
+                seed=9, n_redundant_reads=reads), device=d)
+            rec = calls[str(d)] = []
+
+            def recording(*args, **kw):
+                res = real(*args, **kw)
+                rec.append(res[0].cpu())
+                return res
+
+            ops.wta_trial_counts = recording
+            try:
+                for p in prompts:
+                    eng.submit(p)
+                outs[str(d)] = eng.run()
+            finally:
+                ops.wta_trial_counts = real
+        a, b = outs["cpu"], outs[str(dev)]
+        n_tok = sum(len(o) for o in a.values())
+        if a == b:
+            log(f"  smoke WTA serve R={reads}, card vs CPU: {len(a)} streams, {n_tok} tokens, "
+                f"equal ({len(calls['cpu'])} sampler calls)")
+            continue
+        k = next(i for i, (x, y) in enumerate(zip(calls["cpu"], calls[str(dev)]))
+                 if x.shape != y.shape or not torch.equal(x.argmax(-1), y.argmax(-1)))
+        x, y = calls["cpu"][k], calls[str(dev)][k]
+        row = int((x.argmax(-1) != y.argmax(-1)).nonzero()[0])
+        top_x, top_y = torch.topk(x[row], 2), torch.topk(y[row], 2)
+        log(f"  smoke WTA serve R={reads}, card vs CPU: streams differ; first at sampler call "
+            f"{k}, row {row}: CPU votes {top_x.values.tolist()} at {top_x.indices.tolist()}, "
+            f"card votes {top_y.values.tolist()} at {top_y.indices.tolist()}")
+        raise AssertionError(f"card and CPU WTA streams differ at R={reads}")
+
+
+def _tree_to(tree, d):
+    return {k: _tree_to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
 
 
 def reference_train(dev) -> None:
@@ -1336,63 +1688,101 @@ def log_ptxas(*kernels: str) -> None:
         log(f"  ptxas {k}: {PTXAS.get(k, 'not rebuilt in this run')}")
 
 
-def sass_common_path(sass: str, kernel: str) -> list[str]:
-    """Opcodes on ``kernel``'s common path in ``cuobjdump -sass`` output:
-    from its entry to its first unpredicated EXIT, falling through every
-    predicated branch except a forward one that jumps over a loop or a
-    call (cosf's Payne-Hanek reduction for |x| >= 105615 and sqrtf's
-    special-case call, which the draw's arguments never reach)."""
+def sass_instructions(sass: str, kernel: str) -> list[tuple[int, bool, str, str]]:
+    """(address, predicated, opcode, operands) of ``kernel``'s instructions
+    in ``cuobjdump -sass`` output."""
     import re
 
     body = next(b for b in sass.split("Function : ")[1:] if b.startswith(kernel + "\n"))
-    ins = [(int(a, 16), bool(p), op, args) for a, p, op, args in re.findall(
+    return [(int(a, 16), bool(p), op, args) for a, p, op, args in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", body)]
-    at = {a: i for i, (a, *_rest) in enumerate(ins)}
 
-    def target(i):
-        return int(re.search(r"0x([0-9a-f]+)", ins[i][3]).group(1), 16)
+
+def _branch_target(ins, i) -> int:
+    import re
+
+    return int(re.search(r"0x([0-9a-f]+)", ins[i][3]).group(1), 16)
+
+
+def sass_walk(ins, start: int = 0, *, loop: tuple[int, int] | None = None,
+              first_exit: bool = False) -> list[str]:
+    """Opcodes on the common path from ``ins[start]``, falling through every
+    predicated branch except a forward one that jumps over a loop or a
+    call (cosf's Payne-Hanek reduction, sqrtf's special-case call, a loop
+    the path does not enter), up to the first unpredicated EXIT (any EXIT
+    with ``first_exit``).  With ``loop = (head, back edge)`` the walk
+    stays inside that loop (a branch out of it falls through) and ends at
+    its back edge: one iteration."""
+    at = {a: i for i, (a, *_rest) in enumerate(ins)}
 
     def slow(i):   # a loop's back edge or a call
         op = ins[i][2].split(".")[0]
-        return op == "CALL" or (op == "BRA" and target(i) <= ins[i][0])
+        return op == "CALL" or (op == "BRA" and _branch_target(ins, i) <= ins[i][0])
 
-    path, i, seen = [], 0, set()
+    path, i, seen = [], start, set()
     while True:
         if i in seen:
-            raise AssertionError(f"{kernel}: the common path loops at {ins[i][0]:#x}")
+            raise AssertionError(f"the common path loops at {ins[i][0]:#x}")
         seen.add(i)
-        addr, pred, op, _ = ins[i]
+        _addr, pred, op, _ = ins[i]
         path.append(op)
         base = op.split(".")[0]
-        if base == "EXIT" and not pred:
+        if loop is not None and i == loop[1]:
+            return path
+        if base == "EXIT" and (first_exit or not pred):
             return path
         if base == "BRA":
-            j = at[target(i)]
-            if not pred or (j > i and any(slow(k) for k in range(i + 1, j))):
+            j = at[_branch_target(ins, i)]
+            inside = loop is None or loop[0] <= j <= loop[1]
+            if inside and (not pred or (j > i and any(slow(k) for k in range(i + 1, j)))):
                 i = j
                 continue
         i += 1
 
 
-def issue_estimate(path: list[str]) -> dict:
-    """Clocks of one scheduler per warp of elements on ``path``: the issue
-    slot (every instruction), the ALU (integer logic, shifts, adds,
-    compares, selects, moves), the FMA pipes (f32 arithmetic on both
-    halves, IMAD on the heavy half only) and the XU (MUFU, conversions);
-    the pipe with the most clocks bounds it."""
+def sass_common_path(sass: str, kernel: str) -> list[str]:
+    """Opcodes on ``kernel``'s common path from its entry to its first
+    unpredicated EXIT (:func:`sass_walk`)."""
+    return sass_walk(sass_instructions(sass, kernel))
+
+
+def sass_loops(ins) -> list[tuple[int, int]]:
+    """(head, back edge) index pairs of the loops: every branch to an
+    earlier address (not the ``BRA`` to itself that ends the code)."""
+    at = {a: i for i, (a, *_rest) in enumerate(ins)}
+    return [(at[_branch_target(ins, i)], i) for i, (a, _p, op, _) in enumerate(ins)
+            if op.split(".")[0] == "BRA" and _branch_target(ins, i) < a]
+
+
+def pipe_clocks(ops) -> dict:
+    """Clocks of one scheduler for warp instructions ``ops`` (opcode ->
+    count, the count may be fractional): the issue slot (every
+    instruction), the ALU (integer logic, shifts, adds, compares, selects,
+    moves), the FMA pipes (f32 arithmetic on both halves, IMAD on the
+    heavy half only) and the XU (MUFU, conversions)."""
     alu = {"LOP3", "SHF", "IADD3", "VIADD", "ISETP", "FSETP", "FSEL", "SEL", "LEA", "MOV",
            "I2FP", "PRMT", "FMNMX", "IMNMX", "PLOP3", "POPC", "FLO"}
     fp = {"FFMA", "FMUL", "FADD", "HFMA2", "HADD2", "HMUL2"}
     xu = {"MUFU", "F2I", "I2F", "F2F", "FRND"}
-    base = [op.split(".")[0] for op in path]
-    n_imad = sum(b == "IMAD" for b in base)
-    clocks = {
-        "issue": len(base),
-        "ALU": 2 * sum(b in alu for b in base),
-        "FMA": max(sum(b in fp for b in base) + n_imad, 2 * n_imad),
-        "XU": 8 * sum(b in xu for b in base),
+    count = {}
+    for op, k in ops.items():
+        count[op.split(".")[0]] = count.get(op.split(".")[0], 0) + k
+    n_imad = count.get("IMAD", 0)
+    return {
+        "issue": sum(count.values()),
+        "ALU": 2 * sum(k for b, k in count.items() if b in alu),
+        "FMA": max(sum(k for b, k in count.items() if b in fp) + n_imad, 2 * n_imad),
+        "XU": 8 * sum(k for b, k in count.items() if b in xu),
     }
-    return {"instructions": len(base), "clocks": clocks, "pipe": max(clocks, key=clocks.get)}
+
+
+def issue_estimate(path: list[str]) -> dict:
+    """Clocks of one scheduler per warp of elements on ``path``
+    (:func:`pipe_clocks`); the pipe with the most clocks bounds it."""
+    from collections import Counter
+
+    clocks = pipe_clocks(Counter(path))
+    return {"instructions": len(path), "clocks": clocks, "pipe": max(clocks, key=clocks.get)}
 
 
 def ab_phase(dev, parent: Path) -> None:
@@ -1482,7 +1872,8 @@ def main() -> int:
 
     log("== kernels vs plain versions")
     kres = kernel_phase(dev)
-    log("== serve stablelm-3b (bf16 pool, then int8 pool)")
+    log("== serve stablelm-3b (bf16 pool, int8 pool, then WTA sampling on the bf16 pool at "
+        "R = 1 and 3)")
     sres = serve_phase(dev)
     log("== stoch_round and wta_counts entry points")
     srres = stoch_round_phase(dev)
@@ -1491,6 +1882,7 @@ def main() -> int:
     tres = train_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
+    reference_wta(dev)
     reference_train(dev)
 
     launches = dict(sres["same"]["launches"])
@@ -1499,6 +1891,7 @@ def main() -> int:
     launches["wta_counts"] = wres["launches"]
     launches["crossbar_mac"] = tres["launches"]
     launches["crossbar_prepass"] = tres["prepass_launches"]
+    launches["wta_sample"] = sres["wta"]["launches"]["wta_sample"]
     kernels = []
     for key, tkey, name, src, replaces in (
         ("decode", ("decode", "bf16"), "paged_attention",
@@ -1516,6 +1909,9 @@ def main() -> int:
          "src/repro_torch/kernels/csrc/crossbar_mac.cu", "src/repro/kernels/crossbar_mac.py:154"),
         ("crossbar_prepass", "crossbar_prepass", "crossbar_prepass",
          "src/repro_torch/kernels/csrc/crossbar_mac.cu", "src/repro/kernels/crossbar_mac.py:154"),
+        # no Pallas kernel: the reference's wta_trials in jnp
+        ("wta_sample", "wta_sample", "wta_sample",
+         "src/repro_torch/kernels/csrc/wta_sample.cu", "src/repro/core/wta.py:50"),
     ):
         t = kres["timing"][tkey]
         kernels.append({
@@ -1532,6 +1928,8 @@ def main() -> int:
         if "cases" in t:
             kernels[-1]["cases"] = t["cases"] + (
                 kres["timing"][(key, "int8")].get("cases", []) if isinstance(tkey, tuple) else [])
+    # the R = 3 serve of the same trace: its own path, counted apart
+    kernels[-1]["launches_r3"] = sres["wta_r3"]["launches"]["wta_sample"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

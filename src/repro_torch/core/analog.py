@@ -17,7 +17,9 @@ then threefry ``normal`` noise) is not ported; ``use_pallas`` is kept as a
 field so configs read the same, and is not consulted.
 
 A projection runs digitally when its key is ``None``, as in the reference:
-serving passes no keys, training passes one per projection.
+serving passes no keys, training passes one per projection.  The WTA
+readouts (:func:`wta_head`, :func:`wta_router_topk`) draw from
+``core.wta``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from repro_torch.kernels import ops as KOPS
 # the per-layer conductance-range scale s = max(max|W|, 1e-6) (the paper's
 # G0/V_r calibration knob): weights map to devices as W/s
 from repro_torch.kernels.ops import range_scale as dynamic_range  # noqa: F401
+from . import wta
 from .physics import DeviceParams
 
 
@@ -53,6 +56,12 @@ class AnalogConfig:
     def with_mode(self, mode: str) -> "AnalogConfig":
         return dataclasses.replace(self, mode=mode)
 
+    @property
+    def vth0(self) -> float:
+        if self.wta_vth0 is not None:
+            return self.wta_vth0
+        return wta.calibrated_threshold(self.beta)
+
 
 DIGITAL = AnalogConfig(mode="digital")
 
@@ -73,3 +82,24 @@ def analog_matmul(
         x.to(torch.float32), w, key, cfg, binarize=cfg.mode == "analog_stochastic"
     )
     return y.to(x.dtype)
+
+
+def wta_head(cfg: AnalogConfig, key, z: torch.Tensor) -> wta.WTAResult:
+    """WTA stochastic SoftMax readout over logits ``z`` (classifier head)."""
+    if key is None:
+        raise ValueError("the WTA head requires a PRNG key")
+    return wta.wta_trials(
+        key, z.to(torch.float32), n_trials=cfg.wta_trials, vth0=cfg.vth0, beta=cfg.beta
+    )
+
+
+def wta_router_topk(
+    cfg: AnalogConfig, key, logits: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE router as a k-winner WTA circuit; digital top-k of the softmax
+    when ``key`` is None or the mode is not ``analog_stochastic``."""
+    if key is None or cfg.mode != "analog_stochastic":
+        return wta.top_k(torch.softmax(logits, dim=-1), k)
+    return wta.wta_topk(
+        key, logits.to(torch.float32), k, n_trials=cfg.wta_trials, vth0=cfg.vth0, beta=cfg.beta
+    )

@@ -9,14 +9,19 @@ Johnson-Nyquist thermal noise of the ReRAM devices is the entropy source
 from __future__ import annotations
 
 import dataclasses
-
-import torch
+import math
+import struct
 
 # Boltzmann constant [J/K].
 BOLTZMANN_K = 1.380649e-23
 
 # Probit->logit matching constant: logistic(z) ~= Phi(z / PROBIT_SCALE).
 PROBIT_SCALE = 1.702
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to the nearest f32, as a Python float."""
+    return struct.unpack("f", struct.pack("f", x))[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,12 +60,15 @@ def calibrate_v_read(
 ) -> DeviceParams:
     """V_r such that the comparator fires with probability logistic(beta·z):
     V_r = beta·sigma_col / (1.702·G0), with sigma_col from the expected
-    column conductance n_rows·2·G_ref (Eq. 13).  sigma_col is an f32
-    square root, as the reference takes it (``jnp.sqrt`` of a Python
-    float)."""
+    column conductance n_rows·2·G_ref (Eq. 13).  sigma_col is the
+    correctly rounded f32 square root of the f32-rounded argument, as the
+    reference's ``jnp.sqrt`` of a Python float gives it: the root is taken
+    in f64 by ``math.sqrt`` and rounded to f32, which is exact for a square
+    root (double rounding from f64 cannot differ), and not by
+    ``torch.sqrt``, whose f32 root on some CPUs is not correctly rounded."""
     e_g = dp.g_ref + mean_abs_w * 0.0  # E[G] = G_ref for zero-mean weights
     sum_g = n_rows * (e_g + dp.g_ref)
     arg = 4.0 * BOLTZMANN_K * dp.temperature * dp.delta_f * sum_g
-    sigma = float(torch.sqrt(torch.tensor(arg, dtype=torch.float32)))
+    sigma = f32(math.sqrt(f32(arg)))
     v_read = beta * sigma / (PROBIT_SCALE * dp.g0)
     return dp.replace(v_read=v_read)

@@ -1,8 +1,9 @@
 """Kernel dispatch (``repro/kernels/ops.py``): the crossbar read with its
 straight-through backward (:75-260), attention (:386-512), WTA vote
-counts (:316-358), the int8 KV quantizer (:581-642) and the int8 KV
+counts (:316-358), the int8 KV quantizer (:581-642), the int8 KV
 pool's fused write (the quantizer and the page scatters of
-``repro/models/attention.py``).
+``repro/models/attention.py``) and the threefry WTA trials of
+``repro/core/wta.py`` (:50-83), which the reference leaves to XLA.
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version, and nothing else happens in between: no fallback, no
@@ -24,6 +25,7 @@ from . import prefill_attention as PF
 from . import prng, ref
 from . import stoch_round as SR
 from . import wta_counts as WTA
+from . import wta_sample as WS
 
 
 def paged_attention(
@@ -160,6 +162,33 @@ def wta_counts(
     fn = WTA.wta_counts_cuda if z.is_cuda else ref.wta_counts_ref
     out = fn(z2d, seed, n_trials=n_trials, vth0=vth0, sigma_z=sigma_z)
     return out.reshape(lead + (c,))
+
+
+def wta_trial_counts(
+    z: torch.Tensor,
+    keys: torch.Tensor,
+    folds: Optional[torch.Tensor],
+    n_trials: int,
+    vth0: float,
+    sigma_z: float,
+    layout: tuple[int, int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """WTA trials under jax's threefry ``normal``: z (N, C) → (counts (N,
+    C) f32, n_decisions (N,) f32).  Row n draws under ``keys[n]`` (N, 2)
+    with the words of ``folds[n]`` (N, F ≤ 2, or None) folded in, at the
+    flat counter ``t·layout[0] + n·layout[1] + c``: ``(C, 0)`` is the
+    reference's ``vmap`` of per-slot keys over ``normal(k, (T, C))``, ``(N·C,
+    C)`` one key's ``normal(k, (T, N, C))``.  bf16 and f32 rows are read as
+    they are (the reference's ``z.astype(f32)``); keys and words are uint32
+    values in int64 tensors on z's device."""
+    if z.dtype not in (torch.float32, torch.bfloat16):
+        z = z.to(torch.float32)
+    z = z.contiguous()
+    keys = keys.to(device=z.device, dtype=torch.int64).contiguous()
+    if folds is not None:
+        folds = folds.to(device=z.device, dtype=torch.int64).contiguous()
+    fn = WS.wta_sample_cuda if z.is_cuda else ref.wta_trial_counts_ref
+    return fn(z, keys, folds, n_trials=n_trials, vth0=vth0, sigma_z=sigma_z, layout=layout)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import random as R
 from . import prng
 
 NEG_INF = -2.0e38
@@ -209,6 +210,65 @@ def wta_counts_ref(
         vmax = vm.amax(dim=-1, keepdim=True)
         counts += ((vm == vmax) & fired.any(dim=-1, keepdim=True)).to(torch.float32)
     return counts
+
+
+# draws per slice of the threefry sampler's plain version (bounds its
+# int64 temporaries at ~32 MB each)
+WTA_SAMPLE_SLICE = 1 << 22
+
+
+def _fold_keys(keys: torch.Tensor, folds: Optional[torch.Tensor]) -> tuple:
+    """Per-row threefry keys after ``fold_in`` of each column of ``folds``
+    in turn: (N, 2) int64 keys and (N, F) int64 words → two (N,) int64
+    tensors, the keys' words."""
+    k1, k2 = keys[:, 0], keys[:, 1]
+    for j in range(0 if folds is None else folds.shape[1]):
+        k1, k2 = R.threefry2x32(k1, k2, 0, folds[:, j] & R.MASK)
+    return k1, k2
+
+
+def wta_trial_counts_ref(
+    z: torch.Tensor,                 # (N, C) any float dtype
+    keys: torch.Tensor,              # (N, 2) int64 threefry keys (uint32 words)
+    folds: Optional[torch.Tensor],   # (N, F) int64, F <= 2, or None
+    *,
+    n_trials: int,
+    vth0: float,
+    sigma_z: float,
+    layout: tuple[int, int],         # (trial stride, row stride) of the counter
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """WTA winner counts under threefry noise (``repro/core/wta.py``'s
+    ``wta_trials``): (counts (N, C) f32, n_decisions (N,) f32).
+
+    Row n's key is ``keys[n]`` with ``folds[n]`` folded in, in order.
+    Trial t of row n draws ``normal`` at the flat counter ``t·layout[0] +
+    n·layout[1] + c`` for column c, ``v = z + σ·n``; the columns with ``v >
+    vth0`` fire (NaN never does), the largest fired ``v`` wins, the lowest
+    column on a tie, and a trial in which nothing fires casts no vote."""
+    n, c = z.shape
+    dev = z.device
+    zf = z.float()
+    k1, k2 = _fold_keys(keys, folds)
+    k1, k2 = k1[None, :, None], k2[None, :, None]
+    ts, rs = layout
+    base = (torch.arange(n, device=dev, dtype=torch.int64)[:, None] * rs
+            + torch.arange(c, device=dev, dtype=torch.int64)[None])
+    sigma, vth = _f32(sigma_z).to(dev), _f32(vth0).to(dev)
+    counts = torch.zeros_like(zf)
+    n_dec = torch.zeros(n, dtype=torch.float32, device=dev)
+    per = max(1, WTA_SAMPLE_SLICE // max(n * c, 1))
+    for t0 in range(0, n_trials, per):
+        t = torch.arange(t0, min(t0 + per, n_trials), device=dev, dtype=torch.int64)
+        idx = t[:, None, None] * ts + base[None]                   # (Tc, N, C)
+        b1, b2 = R.threefry2x32(k1, k2, idx >> 32, idx & R.MASK)
+        u = R.uniform_from_bits(b1 ^ b2, R.NORMAL_LO, 1.0)
+        v = zf + (R.erf_inv(u) * R.SQRT2_F32) * sigma
+        fired = v > vth
+        win = torch.where(fired, v, -torch.inf).argmax(dim=-1)     # (Tc, N)
+        hit = fired.any(dim=-1)
+        counts.scatter_add_(1, win.T, hit.T.to(torch.float32))
+        n_dec += hit.sum(dim=0, dtype=torch.float32)
+    return counts, n_dec
 
 
 # crossbar_mac's noise counter runs over the width the TPU kernel pads N to

@@ -1,9 +1,9 @@
 """Serving launcher: the paged continuous-batching engine against a
-randomly initialized model, greedy sampling.
+randomly initialized model, greedy or WTA sampling.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\
-        [--kv-dtype int8]
+        [--kv-dtype int8] [--wta [--n-redundant-reads 3]]
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -31,6 +31,11 @@ def main() -> None:
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--wta", action="store_true",
+                    help="WTA stochastic SoftMax sampling (the paper's head)")
+    ap.add_argument("--n-redundant-reads", type=int, default=1,
+                    help="comparator re-reads per WTA sample, majority-voted "
+                         "(1 = single read)")
     ap.add_argument("--slots", type=int, default=4,
                     help="decode slots (continuous-batching batch width)")
     ap.add_argument("--kv-block-size", type=int, default=16,
@@ -47,11 +52,12 @@ def main() -> None:
                     help="KV pool storage: the model dtype, or int8 codes "
                          "with per-row scales written by stochastic rounding")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and prompts")
+                    help="seed of the random weights, the prompts and the WTA "
+                         "sampler's base key")
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv_dtype)
+    cfg = dataclasses.replace(cfg, wta_head=args.wta, kv_cache_dtype=args.kv_dtype)
     params = init_lm(cfg, seed=args.seed, device=args.device)
     eng = ServingEngine(
         params, cfg,
@@ -63,6 +69,8 @@ def main() -> None:
             num_kv_blocks=args.kv_blocks,
             enable_prefix_sharing=not args.no_prefix_sharing,
             prefill_chunk=args.prefill_chunk,
+            seed=args.seed,
+            n_redundant_reads=args.n_redundant_reads,
         ),
         device=args.device,
     )
@@ -82,7 +90,7 @@ def main() -> None:
         f"step {m.decode_step_ms:.2f}ms, occupancy {m.occupancy_mean:.2f}, "
         f"prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, "
         f"prefill tokens saved {m.prefill_tokens_saved}, kv={args.kv_dtype}, "
-        f"sampler=greedy)"
+        f"sampler={f'wta R={args.n_redundant_reads}' if args.wta else 'greedy'})"
     )
     for o in outs:
         print("  ->", o)

@@ -10,9 +10,11 @@ jax's default PRNG is threefry2x32 with ``jax_threefry_partitionable``
 - ``random_bits`` hashes ``(hi(i), lo(i))`` for every flat index ``i`` of
   the shape and returns the xor of the two output words;
 - ``uniform`` puts the top 23 bits into the mantissa of a float in [1, 2)
-  and subtracts 1; ``randint`` over a power-of-two uint32 span up to 2**16
-  reduces to the low bits of ``random_bits(split(key)[1])`` (jax's
-  multiplier ``(2**16 % span)**2 % span`` is 0 there).
+  and subtracts 1; ``normal`` is ``√2 · erf_inv(u)`` for ``u`` uniform on
+  ``[nextafter(−1, 0), 1)``, with XLA's f32 ``erf_inv``; ``randint`` over
+  a power-of-two uint32 span up to 2**16 reduces to the low bits of
+  ``random_bits(split(key)[1])`` (jax's multiplier ``(2**16 % span)**2 %
+  span`` is 0 there).
 
 Because every counter is a flat index, a draw can be made in slices of
 its flat range with identical bits (``start`` / ``count`` below), which
@@ -95,7 +97,11 @@ def uniform(
     fuses ``f·(maxval − minval) + minval`` into one FMA; the port forms it
     in f64 (the f32 product is exact there) and rounds to f32, which equals
     the FMA except where the f64 sum sits exactly between two f32 values."""
-    bits = random_bits(key, shape, device)
+    return uniform_from_bits(random_bits(key, shape, device), minval, maxval)
+
+
+def uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """The f32 uniforms :func:`uniform` makes of ``random_bits``' values."""
     one = (bits >> 9) | 0x3F800000             # mantissa bits of a float in [1, 2)
     f = one.to(torch.int32).view(torch.float32) - 1.0
     lo = float(torch.tensor(minval, dtype=torch.float32))
@@ -117,3 +123,57 @@ def randint(
         raise NotImplementedError(f"randint is ported for power-of-two spans <= 2**16, got {span}")
     lower = random_bits(split(key)[1], shape, device, start=start, count=count)
     return (lower & (span - 1)) + minval
+
+
+# XLA's f32 erf_inv (Giles' single-precision approximation): with
+# w = −log1p(−x²), a polynomial in w − 2.5 where w < 5, else in √w − 3,
+# each written from the highest coefficient down.
+ERFINV_W_LT_5 = (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+    -0.00125372503, -0.00417768164, 0.246640727, 1.50140941,
+)
+ERFINV_W_GE_5 = (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+    -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
+)
+SQRT2_F32 = 1.4142135381698608   # f32(√2)
+NORMAL_LO = -0.9999999403953552  # nextafter(−1, 0) in f32
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` of f32 tensors rounded once to f32, as XLA's FMA, formed
+    in f64: the product is exact there, and the f64 sum rounds once more.
+    That double rounding can differ from the FMA's one rounding only where
+    the f64 sum falls exactly halfway between two f32 values after a
+    first rounding; on every value tested against jax it did not."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` on f32: XLA's formula, each Horner step one
+    rounding of ``c + p·w``, the square root correctly rounded (taken in
+    f64), ±inf at ±1 and NaN beyond.  It equals XLA's bit for bit where
+    ``log1p`` does: torch's and XLA's f32 ``log1p`` are both within an ulp
+    or two of the true value but can round differently (on about a fifth
+    of inputs in (−1, 1) for torch 2.13.0+cpu)."""
+    x = x.float()
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, w.double().sqrt().float() - 3.0)
+    lo = torch.tensor(ERFINV_W_LT_5, dtype=torch.float32, device=x.device)
+    hi = torch.tensor(ERFINV_W_GE_5, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(ERFINV_W_LT_5)):
+        p = _fma32(p, w, torch.where(lt, lo[i], hi[i]))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(
+    key: Key, shape: Sequence[int], device=None, *, start: int = 0, count: Optional[int] = None
+) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``√2 · erf_inv(u)``, with
+    ``u`` uniform on ``[nextafter(−1, 0), 1)``.  ``start`` / ``count`` slice
+    the flat range as in :func:`random_bits`."""
+    bits = random_bits(key, shape, device, start=start, count=count)
+    u = uniform_from_bits(bits, NORMAL_LO, 1.0)
+    return erf_inv(u) * SQRT2_F32

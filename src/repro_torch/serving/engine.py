@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine over the paged KV pool, greedy
-sampling (the greedy paged core of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine over the paged KV pool, with greedy
+or WTA sampling (the paged core of ``repro/serving/engine.py``).
 
 A slot-based scheduler admits queued requests into free slots of a live
 decode batch.  Admission reserves a request's whole block budget from the
@@ -21,12 +21,19 @@ shareable; decode writes draw from the device step counter
 ``quant_step``.  A ``num_kv_blocks`` budget counts native-dtype blocks,
 so an int8 pool holds twice the pages.
 
+With ``ModelConfig.wta_head`` the tokens are the paper's WTA vote
+(``specs.sample_tokens``), as in the reference: every request draws from
+its own key ``fold_in(PRNGKey(seed), rid)`` with its count of emitted
+tokens folded in, so its stream does not depend on which requests share
+its batch, or on whether its prefill was shared; ``n_redundant_reads``
+races the trial bank that many times per token and takes the majority.
+
 The engine runs on the card unless built with ``device="cpu"``; the KV
 pool, the parameters and every per-tick input live on that device, while
 the block table, allocator and prefix index stay on the host.  Knobs the
-reference has and this slice does not honour (dense layout, WTA sampling,
-preemption and deadlines, speculation, sharding, energy accounting, fault
-injection) are absent from :class:`ServeConfig`.
+reference has and this slice does not honour (dense layout, preemption
+and deadlines, speculation, sharding, energy accounting, fault
+injection, degradation) are absent from :class:`ServeConfig`.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import random as R
 from repro_torch.device import resolve_device
 from repro_torch.launch import specs as SP
 from repro_torch.models import ModelConfig
@@ -72,6 +80,7 @@ class ServeConfig:
     max_new_tokens: int = 32    # default per-request budget
     max_len: int = 512          # per-request capacity (prompt + generated)
     eos_token: int = -1         # -1: never stop early
+    seed: int = 0               # WTA sampling: the base key PRNGKey(seed)
     # prompt lengths are left-padded up to the next bucket
     prefill_buckets: tuple[int, ...] = ()
     kv_block_size: int = 16     # tokens per KV block
@@ -84,6 +93,9 @@ class ServeConfig:
     # at most this many prefill tokens are computed per tick (a positive
     # multiple of kv_block_size); 0 computes the whole bucket at once
     prefill_chunk: int = 0
+    # WTA comparator re-reads per sampled token (majority vote); 1 is the
+    # plain single-read path
+    n_redundant_reads: int = 1
 
     def buckets(self) -> tuple[int, ...]:
         if not self.prefill_buckets:
@@ -131,6 +143,10 @@ class ServeConfig:
             raise ValueError(
                 f"enable_prefix_sharing must be a bool, got "
                 f"{self.enable_prefix_sharing!r}"
+            )
+        if self.n_redundant_reads < 1:
+            raise ValueError(
+                f"n_redundant_reads must be >= 1, got {self.n_redundant_reads}"
             )
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
@@ -195,11 +211,10 @@ class ServingMetrics:
 
 
 class ServingEngine:
-    """Continuous-batching engine over the paged pool (greedy sampling)."""
+    """Continuous-batching engine over the paged pool (greedy or WTA
+    sampling)."""
 
     def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None):
-        if model_cfg.wta_head:
-            raise NotImplementedError("WTA sampling is not ported yet")
         cfg.validate(model_cfg.kv_cache_dtype)
         self.device = resolve_device(device)
         if params["embed"]["embedding"].device.type != self.device.type:
@@ -222,7 +237,9 @@ class ServingEngine:
         self._table = np.zeros((b, self._max_blocks), np.int32)
         # host mirror of cache["pos"] (drives the decode window width)
         self._host_pos = np.zeros((b,), np.int64)
-        self._serve_step = SP.make_paged_serve_step(model_cfg)
+        self._serve_step = SP.make_paged_serve_step(
+            model_cfg, n_redundant=cfg.n_redundant_reads
+        )
         self._suffix_prefill = SP.make_paged_suffix_prefill(model_cfg)
         self._state_insert = SP.make_paged_state_insert(model_cfg)
         self._page_copy = SP.make_page_copy(model_cfg)
@@ -239,6 +256,11 @@ class ServingEngine:
         self._job_fifo: list[int] = []
         self._cache = None  # allocated lazily on first admission
         self._tokens = np.zeros((b,), np.int32)   # last emitted, per slot
+        # WTA sampling: per-request keys fold_in(base, rid), set at
+        # admission, and tokens emitted per slot (folded into the key)
+        self._base_key = R.PRNGKey(cfg.seed)
+        self._req_keys = np.zeros((b, 2), np.int64)
+        self._steps = np.zeros((b,), np.int64)
         self._ticks = 0
         self._occ_sum = 0.0
         self._decode_steps = 0
@@ -367,6 +389,8 @@ class ServingEngine:
         table row stays on the trash page until the job completes, so the
         batched decode steps of the other slots never touch it."""
         plen = self._bucket(len(req.prompt))
+        rkey = R.fold_in(self._base_key, req.rid)
+        self._req_keys[req.slot] = rkey
         if self._cache is None:
             self._cache = self._init_cache()
         plan = self._plans.pop(req.rid)
@@ -395,6 +419,7 @@ class ServingEngine:
             "bucket": plen,
             "state": None,
             "tokens": left_pad(req.prompt, plen),
+            "rkey": rkey,
         }
         self._job_fifo.append(req.rid)
 
@@ -404,6 +429,7 @@ class ServingEngine:
         self.sched.start_decode(req)
         t0 = int(tok0[0])  # waits for the prefill: TTFT stamps after it
         self._tokens[slot] = t0
+        self._steps[slot] = 1
         self._total_tokens += 1
         self.sched.record_token(req, t0, self.cfg.eos_token, time.perf_counter())
         self._release_if_done(req)  # budget=1 or instant EOS
@@ -435,7 +461,7 @@ class ServingEngine:
                 if payload is not None and payload[0] is not None:
                     logits, state = payload
                     self._cache = self._state_insert(self._cache, state, req.slot)
-                    tok0 = SP.sample_tokens(self.mcfg, logits)
+                    tok0 = self._sample0(logits, job["rkey"])
                     self._prefix_hits += 1
                     self._prefill_tokens_saved += bucket
                     self._complete_job(rid, job, tok0)
@@ -495,10 +521,20 @@ class ServingEngine:
             if not done:
                 break
             self._cache = self._state_insert(self._cache, job["state"], req.slot)
-            tok0 = SP.sample_tokens(self.mcfg, logits)
+            tok0 = self._sample0(logits, job["rkey"])
             self._prefills += 1
             self._complete_job(rid, job, tok0)
             emitted.append((rid, req.output[-1]))
+
+    def _sample0(self, logits: torch.Tensor, rkey: R.Key) -> torch.Tensor:
+        """A request's first token from its last-token logits (1, V): its
+        own key, step 0, one read (the reference's ``_sample0``)."""
+        if not self.mcfg.wta_head:
+            return SP.sample_tokens(self.mcfg, logits)
+        return SP.sample_tokens(
+            self.mcfg, logits, self._put(np.asarray([rkey], np.int64)),
+            torch.zeros((1,), dtype=torch.int64, device=self.device),
+        )
 
     def tick(self) -> list[tuple[int, int]]:
         """One engine iteration: admit, advance the chunked prefill, then one
@@ -516,9 +552,10 @@ class ServingEngine:
         if active:
             t_dec = time.perf_counter()
             w = self._window_blocks(active)
+            wta = (self._put(self._req_keys), self._put(self._steps)) if self.mcfg.wta_head else ()
             self._cache, nxt, sane = self._serve_step(
                 self.params, self._cache,
-                self._put(self._table[:, :w]), self._put(self._tokens),
+                self._put(self._table[:, :w]), self._put(self._tokens), *wta,
             )
             # one device sync per step: decode_time is honest
             nxt_np, sane_np = torch.stack([nxt, sane]).cpu().numpy()
@@ -537,6 +574,7 @@ class ServingEngine:
                     continue
                 t = int(nxt_np[slot])
                 self._tokens[slot] = t
+                self._steps[slot] += 1
                 self._total_tokens += 1
                 self.sched.record_token(req, t, self.cfg.eos_token, now)
                 self._release_if_done(req)

@@ -17,7 +17,13 @@ versions (integer hashing, exact f32 steps, no FMA contraction);
 flipped, because its Gaussians pass through log and cos, and exactly
 equal where σ = 0 makes v = z (ties) or nothing can fire, and to the
 votes of every column drawn in full with the card's own log and cos
-(its pruning is exact); ``crossbar_mac``
+(its pruning is exact); ``wta_sample`` (the threefry WTA sampler) with
+its threefry bits, uniforms and normals bit-identical to
+``repro_torch.random`` on the card and its counts and decisions exactly
+equal to its plain version's (both draw with CUDA's ``log1pf`` and round
+every other step once), no vote in rows that are all NaN or all below
+the threshold, and no launch counted for an empty call;
+``crossbar_mac``
 with at least 99.95% of its comparator decisions equal and its linear
 readout within 2e-5 / 1e-5 (its quantized weights and noise are
 bit-identical, its f32 sums run in another order), and, at stablelm-3b's
@@ -363,6 +369,103 @@ def test_cuda_wta_draw_bounds(cuda_device):
     cpu = torch.sqrt(-2.0 * torch.log(prng.uniform01(k << 8)))
     table = WTA.radius_table(cuda_device)[: WTA.RADIUS_BUCKETS].cpu()
     torch.testing.assert_close(table, cpu, rtol=5e-7, atol=0)
+
+
+def _wta_sample_case(dev, n, c, reads, layout, dtype=torch.float32, seed=0):
+    """z (n, c) at the serving head's spread, per-row keys, and fold words:
+    none (one whole-batch key), the step, or a read index then the step."""
+    from repro_torch import random as R
+
+    rng = np.random.default_rng(seed + c)
+    z = torch.from_numpy((rng.standard_normal((n, c)) * 2.5).astype(np.float32)).to(dtype)
+    if layout == "one key":
+        keys = torch.tensor([R.fold_in(R.PRNGKey(seed), 3)] * n, dtype=torch.int64)
+        folds = None
+    else:
+        keys = torch.tensor([R.fold_in(R.PRNGKey(seed), i) for i in range(n)], dtype=torch.int64)
+        steps = torch.from_numpy(rng.integers(0, 2**31, n)).to(torch.int64)
+        folds = steps[:, None] if reads == 0 else torch.stack(
+            [torch.full((n,), reads, dtype=torch.int64), steps], dim=1)
+    return z.to(dev), keys.to(dev), None if folds is None else folds.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,t,read,layout,dtype", [
+    (8, 50304, 32, 0, "per slot", torch.bfloat16),   # the serving head, read 0
+    (8, 50304, 32, 2, "per slot", torch.bfloat16),   # a redundant read
+    (1, 50304, 32, 0, "per slot", torch.float32),    # the first token
+    (64, 10, 100, 0, "one key", torch.float32),      # wta_trials on the 10-class head
+    (5, 777, 20, 1, "per slot", torch.float32),      # an odd width
+    (3, 4097, 7, 0, "one key", torch.bfloat16),
+])
+def test_cuda_wta_sample_matches_plain(cuda_device, n, c, t, read, layout, dtype):
+    from repro_torch.kernels import wta_sample as WS
+
+    z, keys, folds = _wta_sample_case(cuda_device, n, c, read, layout, dtype)
+    lay = (c, 0) if layout == "per slot" else (n * c, c)
+    kw = dict(n_trials=t, vth0=2.897, sigma_z=1.702, layout=lay)
+    before = WS.launches
+    counts, n_dec = WS.wta_sample_cuda(z, keys, folds, **kw)
+    assert WS.launches == before + 1
+    want, want_dec = TREF.wta_trial_counts_ref(z, keys, folds, **kw)
+    print(f"wta_sample ({n}, {c}) T={t}: sum|Δcounts| {float((counts - want).abs().sum())}, "
+          f"rows with other decisions {(n_dec != want_dec).nonzero().flatten().tolist()}")
+    assert torch.equal(counts, want) and torch.equal(n_dec, want_dec)
+    assert torch.equal(counts.sum(-1), n_dec) and bool((n_dec <= t).all())
+    got, _ = TOPS.wta_trial_counts(z, keys, folds, t, 2.897, 1.702, lay)
+    assert torch.equal(got, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [10, 50304])
+def test_cuda_wta_sample_nan_and_silent_rows(cuda_device, c):
+    """Rows that are all NaN or all far below the threshold get no vote."""
+    from repro_torch.kernels import wta_sample as WS
+
+    z, keys, folds = _wta_sample_case(cuda_device, 4, c, 0, "per slot")
+    z[1] = float("nan")
+    z[2] = -100.0
+    z[3, ::2] = float("nan")
+    kw = dict(n_trials=16, vth0=2.897, sigma_z=1.702, layout=(c, 0))
+    counts, n_dec = WS.wta_sample_cuda(z, keys, folds, **kw)
+    want, want_dec = TREF.wta_trial_counts_ref(z, keys, folds, **kw)
+    assert counts[1:3].sum() == 0 and n_dec[1:3].sum() == 0
+    assert counts[3, ::2].sum() == 0
+    assert torch.equal(want, counts) and torch.equal(want_dec, n_dec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,t", [(0, 50304, 32), (8, 0, 32), (8, 50304, 0)])
+def test_cuda_wta_sample_empty_call_counts_no_launch(cuda_device, n, c, t):
+    """An empty call returns zeros without a launch, so ``launches`` counts
+    only kernels that ran."""
+    from repro_torch.kernels import wta_sample as WS
+
+    z = torch.zeros((n, c), device=cuda_device)
+    keys = torch.zeros((n, 2), dtype=torch.int64, device=cuda_device)
+    before = WS.launches
+    counts, n_dec = WS.wta_sample_cuda(z, keys, None, n_trials=t, vth0=2.897, sigma_z=1.702,
+                                       layout=(c, 0))
+    assert WS.launches == before
+    assert counts.shape == (n, c) and n_dec.shape == (n,)
+    assert not counts.any() and not n_dec.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [0, 2**32 - 4096])
+def test_cuda_wta_sample_draw_bit_equal(cuda_device, start):
+    """The kernel's threefry bits, uniforms and normals are the port's on
+    the card, bit for bit, across the counter's high word."""
+    from repro_torch import random as R
+    from repro_torch.kernels import wta_sample as WS
+
+    key, k = R.fold_in(R.PRNGKey(7), 11), 1 << 16
+    z = torch.zeros(k, device=cuda_device)
+    bits, u, v = WS.draw_probe(z, key, start, vth0=-float("inf"), sigma_z=1.0)
+    want_bits = R.random_bits(key, (2**33,), cuda_device, start=start, count=k)
+    assert torch.equal(bits, want_bits)
+    assert torch.equal(u, R.uniform_from_bits(want_bits, R.NORMAL_LO, 1.0))
+    assert torch.equal(v, R.erf_inv(u) * R.SQRT2_F32)
 
 
 @pytest.mark.cuda

@@ -120,15 +120,20 @@ def test_entry_points_refuse_to_run_silently_on_the_cpu():
 
 
 def test_unported_knobs_are_refused():
-    """WTA sampling is not ported: the engine refuses it (int8 pools are
-    served; ``tests/test_torch_int8.py``)."""
+    """Knobs the reference has and the port does not (the dense layout,
+    degradation) are not fields of ``ServeConfig``; WTA sampling and int8
+    pools are served (``tests/test_torch_wta.py``,
+    ``tests/test_torch_int8.py``)."""
     cfg = get_smoke_config("stablelm-3b")
     params = init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(params, dataclasses.replace(cfg, wta_head=True),
-                      ServeConfig(), device="cpu")
+    eng = ServingEngine(params, dataclasses.replace(cfg, wta_head=True),
+                        ServeConfig(max_len=32), device="cpu")
+    rid = eng.submit([1, 2, 3], 2)
+    assert len(eng.run()[rid]) == 2
     with pytest.raises(TypeError):
         ServeConfig(kv_layout="dense")
+    with pytest.raises(TypeError):
+        ServeConfig(degradation=None)
 
 
 def test_serve_step_sanity_codes():

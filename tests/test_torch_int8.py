@@ -9,7 +9,23 @@ take the neighbouring code.  Tolerances, and why:
 
 - codes written by a layer: at least 99.9% equal, and any difference is one
   level (expected flip rate ~1e-5 per element);
-- scale planes: 1e-6 relative (the row max carries the rows' rounding);
+- scale planes: 1e-6 relative (the row max carries the rows' rounding)
+  where a layer gets identical inputs; 5e-6 relative where the K/V rows
+  went through the whole smoke model (``MODEL_SCALE_RTOL``).  That budget:
+  the two packages compute the same function, and their K rows before
+  quantization differ by rounding alone, at the ulp level and growing
+  with depth.  ``tests/torch_cpu_rounding.py`` compares them unit by unit
+  on this test's first chunk (torch 2.13.0+cpu): unit 0's rows are 37%
+  bit-equal, worst |Δk| 3.0e-7 of the row's max |k| and row max 2.8e-7
+  apart (about two f32 ulps: the matmuls' summation order, and the CPU
+  build's f32 ``rsqrt``, which disagrees with jax's on 29% of inputs);
+  unit 1's 4% bit-equal, 2.0e-6 and 1.09e-6.  The latter is the worst
+  relative difference of a first-chunk scale, as the quantizers are
+  bit-exact on equal rows.  With the port's ``rsqrt`` replaced by
+  ``1 / sqrt`` (the same model under other rounding) the scales' worst
+  is 6.5e-7.  5e-6 is 1.09e-6 with a margin of 4.6x.
+  The codes' agreement and their one-level bound are what catch a wrong
+  rounding, and they keep their bounds;
 - prefill layer outputs and logits: 1e-4 absolute (observed ~1e-6 with no
   flipped code);
 - decode: the reference's CPU path (``attend_one_token``) rounds q and the
@@ -44,6 +60,7 @@ from repro_torch.serving import RequestState, ServeConfig, ServingEngine
 
 CODE_AGREEMENT = 0.999
 SCALE_RTOL = 1e-6
+MODEL_SCALE_RTOL = 5e-6
 OUT_ATOL = 1e-4
 DECODE_ATOL = 2e-2
 DECODE_CODE_AGREEMENT = 0.98
@@ -157,7 +174,9 @@ def test_bridge_carries_an_int8_paged_cache():
 
 def test_int8_prefill_chunks_and_decode_steps_match_reference():
     """The slice as a whole: a two-chunk int8 prefill and three decode steps
-    through both models from the same pool, seeds and quant_step."""
+    through both models from the same pool, seeds and quant_step; the
+    prefill's scale planes are held to ``MODEL_SCALE_RTOL`` (the budget in
+    the module docstring)."""
     jcfg, jp, tcfg, tp = _bridged()
     bs, n_pages = 8, 12
     toks = np.random.default_rng(3).integers(0, 256, (1, 28)).astype(np.int32)
@@ -179,7 +198,7 @@ def test_int8_prefill_chunks_and_decode_steps_match_reference():
             torch.from_numpy(sd.astype(np.int64)),
         )
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=OUT_ATOL)
-    _assert_pools_agree(tc, jpool)
+    _assert_pools_agree(tc, jpool, scale_rtol=MODEL_SCALE_RTOL)
     table = np.asarray([[3, 7, 1, 9], [0, 0, 0, 0]], np.int32)
     jcache = dict(jc, **jpool, pos=jnp.asarray([28, 5], jnp.int32))
     tc["pos"] = torch.tensor([28, 5], dtype=torch.int32)
@@ -233,9 +252,9 @@ def _record_margins(eng, monkeypatch) -> list:
     margins, last = [], {}
     sample = SP.sample_tokens
 
-    def sample_and_keep(cfg, logits):
+    def sample_and_keep(cfg, logits, *args, **kw):
         last["logits"] = logits
-        return sample(cfg, logits)
+        return sample(cfg, logits, *args, **kw)
 
     record = eng.sched.record_token
 
