@@ -41,7 +41,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    decisions exactly equal to the plain version's (any difference
    printed), its draw's bits, uniforms and normals bit-equal to
    ``repro_torch.random`` across the counter's high word, and its time
-   beside the issue estimate of its own SASS (``wta_sample_issue``).
+   beside the issue estimate of its own SASS (``wta_sample_issue``), and
+   at the FCNN's head (1024 x 10, one trial, one key); ``sigmoid_sample``
+   (the FCNN's stochastic Sigmoid neurons) at the hidden layers' shapes
+   ((1024, 500), (1024, 300), (128, 500), (128, 300)), an odd shape and
+   nonzero counter offsets, its bits, uniforms, p and decisions exactly
+   equal to the plain version's (any difference printed with u and p),
+   timed beside its byte bound and the issue estimate of its own SASS
+   (``sigmoid_sample_issue``).
 4. serve: ``ServingEngine`` serves a 12-request shared-prefix trace at
    stablelm-3b full width (random seeded weights) four times, with a
    bf16 and an int8 KV pool, then with WTA sampling (``wta_head``,
@@ -62,13 +69,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    losses, parameters changed, ``crossbar_mac`` launched 224 reads and
    224 prepasses per step (reset just before, read just after); step
    time, tokens/s, peak memory and a profiled step's split.
+6b. FCNN: fcnn-mnist [784, 500, 300, 10] trained at full width through
+   ``make_train_step`` (300 steps of batch 128, lr 3e-3, f32 moments,
+   seed 0), then Fig. 6's protocol on 1024 images: digital accuracy and
+   RACA accuracy at 1 / 4 / 16 / 64 votes beside the reference's CPU
+   numbers; ``sigmoid_sample`` and ``wta_sample`` launched exactly 2 and 1
+   times a vote (reset just before, read just after); accuracy gates of
+   ``tests/test_system.py``; a profiled training step and 64-vote
+   prediction.
 7. reference: smoke-size prefill and decode logits on the card (kernels)
    agree with the same model on the CPU (plain versions), for a float and
    an int8 pool (whose written codes must agree too); two smoke-size
    analog training steps agree card vs CPU (losses, comparator
    decisions); a smoke-size WTA serve (R = 1 and 3) gives the same
    streams on the card and on the CPU (a divergence is printed with both
-   sides' votes at it, and fails).
+   sides' votes at it, and fails); five smoke FCNN training steps and its
+   predictions agree card vs CPU.
 
 The second-to-last line is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.  With ``--ab DIR`` only phases 1-2 run,
@@ -145,6 +161,22 @@ TRAIN_STEPS = 3
 # by ~1e-2 at this size, so the mean loss gets 1e-3.
 REF_TRAIN_AGREEMENT = 0.999
 REF_TRAIN_LOSS_ATOL = 1e-3
+# The paper's FCNN (fcnn-mnist [784, 500, 300, 10]), examples/
+# train_mnist_raca.py's protocol: 300 steps of batch 128, lr 3e-3, f32
+# moments without stochastic rounding, seed 0; Fig. 6's test set of 1024
+# images, RACA votes under PRNGKey(7).  The reference's numbers for that
+# protocol, run through repro on a CPU (examples/train_mnist_raca.py's
+# log): loss 2.5568 at step 0 and 0.1208 at step 280, digital 0.9512,
+# RACA 0.7754 / 0.8828 / 0.9365 / 0.9424 at 1 / 4 / 16 / 64 votes.
+FCNN_STEPS, FCNN_BATCH, FCNN_LR, FCNN_TEST = 300, 128, 3e-3, 1024
+FCNN_VOTES = (1, 4, 16, 64)
+FCNN_REFERENCE_CPU = {"loss": {0: 2.5568, 280: 0.1208}, "digital": 0.9512,
+                      "raca": {1: 0.7754, 4: 0.8828, 16: 0.9365, 64: 0.9424}}
+# Smoke-size FCNN, card vs CPU: expectation-mode training is f32 products
+# in another order (losses within 1e-5); hard votes can flip where u sits
+# within ulps of p, so predictions agree on at least 98%.
+REF_FCNN_LOSS_ATOL = 1e-5
+REF_FCNN_AGREEMENT = 0.98
 
 
 def log(msg: str) -> None:
@@ -432,6 +464,7 @@ def kernel_phase(dev) -> dict:
      errs["crossbar_prepass"]) = crossbar_kernels(gen, dev)
     timing["write_kv_int8"], errs["write_kv_int8"] = write_kernels(gen, dev)
     timing["wta_sample"], errs["wta_sample"] = wta_sample_kernels(gen, dev)
+    timing["sigmoid_sample"], errs["sigmoid_sample"] = sigmoid_sample_kernels(gen, dev)
     return {"errs": errs, "timing": timing}
 
 
@@ -759,7 +792,139 @@ def wta_sample_kernels(gen, dev):
     rec["issue_instructions"] = issue["column"]
     log(f"  wta_sample ({n}, {c}) T={t}: issue estimate {issue['ms']:.4f} ms (bound by "
         f"{issue['pipe']}); kernel at {issue['ms'] / rec['device_ms']:.2f} of it")
+    rec["fcnn_head"] = wta_sample_fcnn_head(gen, dev, errs)
     return rec, errs
+
+
+def wta_sample_fcnn_head(gen, dev, errs) -> dict:
+    """wta_sample at the FCNN's head as ``fcnn_predict_raca`` calls it a
+    vote: (1024, 10) f32 drives, one trial, one key (the (N·C, C) layout);
+    counts exactly equal to the plain version's, then timed beside its
+    byte bound and its SASS issue estimate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wta_sample as WS
+
+    n, c = FCNN_TEST, 10
+    check_wta_sample(f"({n}, {c}) T=1 one key (FCNN head)",
+                     *wta_sample_case(gen, dev, n, c, torch.float32, layout="one key"), 1, errs)
+    sets = []
+    for _ in range(ROTATE):
+        z, keys, folds, layout = wta_sample_case(gen, dev, n, c, torch.float32, layout="one key")
+        sets.append((z, keys, folds, dict(n_trials=1, vth0=WTA_VTH0, sigma_z=WTA_SIGMA,
+                                          layout=layout)))
+    # bytes: f32 z and the keys read, counts and decisions written
+    rec = bound_record(n * c * 4 + n * 16 + n * c * 4 + n * 4, 0)
+    issue = wta_sample_issue(sass_of("wta_sample"), "wta_sample_kernel<f32>", n, c, 1, n_folds=0)
+    if issue["ms"] > rec["bound_ms"]:
+        rec.update(bound_ms=issue["ms"], bound_by="operations")
+    rec["flops"] = 32 * issue["instructions"]
+    rec = time_kernel(rec, sets, WS.wta_sample_cuda, ref.wta_trial_counts_ref, None,
+                      f"wta_sample ({n}, {c}) T=1 one key (FCNN head)")
+    rec["issue_ms"] = issue["ms"]
+    return {k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "issue_ms")}
+
+
+def sigmoid_sample_check(label, acc, bias, beta, key, offset, errs) -> None:
+    """The kernel against its plain version: decisions exactly equal, and
+    its draw (the probe: bits, uniforms, p) equal to repro_torch.random's
+    and torch.sigmoid's.  Differences are printed with their u and p, and
+    fail."""
+    from repro_torch import random as R
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sigmoid_sample as SS
+
+    m, n = acc.shape
+    y = SS.sigmoid_sample_cuda(acc, bias, beta=beta, key=key, offset=offset)
+    want = ref.sigmoid_sample_ref(acc, bias, beta=beta, key=key, offset=offset)
+    bits, u, p, _ = SS.draw_probe(acc, bias, beta=beta, key=key, offset=offset)
+    want_bits = R.random_bits(key, (m, n), acc.device, start=offset, count=m * n).reshape(m, n)
+    want_u = R.uniform_from_bits(want_bits, 0.0, 1.0)
+    want_p = torch.sigmoid(beta * (acc if bias is None else acc + bias))
+    same = [torch.equal(bits, want_bits), torch.equal(u, want_u), torch.equal(p, want_p),
+            torch.equal(y, want)]
+    errs.append(float((y - want).abs().max()) if y.numel() else 0.0)
+    log(f"  sigmoid_sample {label}: bits equal {same[0]}, uniforms {same[1]}, p {same[2]}, "
+        f"decisions {same[3]}; {float(y.mean()) if y.numel() else 0:.4f} fire")
+    if not all(same):
+        for name, a, b in (("decision", y, want), ("p", p, want_p), ("u", u, want_u)):
+            at = (a != b).nonzero()[:4].tolist()
+            if at:
+                log(f"    {name} differs at {at} of {int((a != b).sum())}: kernel "
+                    f"{[float(a[i, j]) for i, j in at]}, plain {[float(b[i, j]) for i, j in at]}, "
+                    f"u {[float(want_u[i, j]) for i, j in at]}, p {[float(want_p[i, j]) for i, j in at]}")
+        raise AssertionError(f"sigmoid_sample {label}: kernel and plain version disagree")
+
+
+def sigmoid_sample_kernels(gen, dev):
+    """sigmoid_sample vs its plain version at the FCNN's hidden layers
+    (Fig. 6's (1024, 500) and (1024, 300), the training batch's (128, 500)
+    and (128, 300)), an odd (7, 33) and nonzero counter offsets (one across
+    the high word), β = 1 and 0.7, with and without a bias; then its time
+    at (1024, 500) and (1024, 300) beside its byte bound and the issue
+    estimate of its own SASS.  Returns ((1024, 500) record, max|err| list)."""
+    from repro_torch import random as R
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sigmoid_sample as SS
+
+    log_ptxas("sigmoid_sample_kernel", "sigmoid_sample_probe_kernel")
+    errs = []
+
+    def case(m, n, seed):
+        acc = torch.randn((m, n), generator=gen, device=dev) * 4
+        return acc, torch.randn((n,), generator=gen, device=dev), R.fold_in(R.PRNGKey(seed), n)
+
+    for m, n, offset in ((1024, 500, 0), (1024, 300, 0), (128, 500, 0), (128, 300, 0),
+                         (7, 33, 0), (7, 33, 2**32 - 100), (300, 17, 12345)):
+        acc, bias, key = case(m, n, m + offset)
+        for beta, b in ((1.0, bias), (0.7, bias), (1.0, None)):
+            sigmoid_sample_check(f"({m}, {n}) offset {offset} beta {beta}"
+                                 f"{'' if b is not None else ' no bias'}",
+                                 acc, b, beta, key, offset, errs)
+    sass = sass_of("sigmoid_sample")
+    recs = {}
+    for m, n in ((FCNN_TEST, 500), (FCNN_TEST, 300)):
+        sets = [(*case(m, n, i)[:2], dict(beta=1.0, key=R.fold_in(R.PRNGKey(5), i), offset=0))
+                for i in range(ROTATE)]
+        # bytes: acc read, the bias read, y written (f32)
+        rec = bound_record(m * n * 4 + n * 4 + m * n * 4, 0)
+        issue = sigmoid_sample_issue(sass, m, n)
+        if issue["ms"] > rec["bound_ms"]:
+            rec.update(bound_ms=issue["ms"], bound_by="operations")
+        rec["flops"] = 32 * issue["instructions"]
+        rec = time_kernel(rec, sets, SS.sigmoid_sample_cuda, ref.sigmoid_sample_ref, None,
+                          f"sigmoid_sample ({m}, {n})")
+        rec["issue_ms"], rec["issue_pipe"] = issue["ms"], issue["pipe"]
+        rec["issue_instructions"] = issue["path"]
+        rec["byte_bound_ms"] = (m * n * 8 + n * 4) / HBM_BYTES_PER_S * 1e3
+        log(f"  sigmoid_sample ({m}, {n}): issue estimate {issue['ms']:.4f} ms ({issue['path']} "
+            f"SASS instructions a warp, bound by {issue['pipe']}), bytes "
+            f"{rec['byte_bound_ms']:.4f} ms; kernel at {rec['bound_ms'] / rec['device_ms']:.2f} "
+            f"of its bound")
+        recs[(m, n)] = rec
+    rec = recs[(FCNN_TEST, 500)]
+    other = recs[(FCNN_TEST, 300)]
+    rec["cases"] = [{"case": f"({FCNN_TEST}, 300)", **{k: other[k] for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "issue_ms")}}]
+    return rec, errs
+
+
+def sigmoid_sample_issue(sass: str, m: int, n: int) -> dict:
+    """Issue estimate of one ``sigmoid_sample_kernel`` launch from its own
+    SASS: its common path (one element a thread: index, bias, sigmoid,
+    hash, uniform, comparator, store) once per warp of the grid."""
+    import re
+
+    name = re.search(r"Function : (_ZN4raca21sigmoid_sample_kernel\S*)", sass).group(1)
+    path = sass_common_path(sass, name)
+    warps = -(-m * n // 256) * 8
+    per_warp = issue_estimate(path)
+    clocks = {k: warps * v for k, v in per_warp["clocks"].items()}
+    pipe = max(clocks, key=clocks.get)
+    log(f"  sigmoid_sample_kernel SASS: {len(path)} instructions on the common path "
+        f"(clocks a warp {per_warp['clocks']}); ({m}, {n}): {warps} warps, bound by {pipe}")
+    return {"path": len(path), "instructions": clocks["issue"], "clocks": clocks, "pipe": pipe,
+            "ms": clocks[pipe] / ISSUE_PER_S * 1e3}
 
 
 def wta_sample_issue(sass: str, kernel: str, n: int, c: int, n_trials: int, *,
@@ -1462,6 +1627,185 @@ def profile_train_step(step_fn, state, batch) -> dict:
     return split
 
 # ---------------------------------------------------------------------------
+# Phase 6b: the paper's FCNN at full width, training and RACA inference.
+# ---------------------------------------------------------------------------
+
+
+def fcnn_cfgs():
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+
+    return get_config("fcnn-mnist"), TrainConfig(
+        opt=AdamWConfig(lr=FCNN_LR, state_dtype="float32", stochastic_rounding=False),
+        total_steps=FCNN_STEPS)
+
+
+def fcnn_phase(dev) -> dict:
+    """Train fcnn-mnist [784, 500, 300, 10] at full width (FCNN_STEPS steps
+    through ``make_train_step``), then the Fig. 6 protocol on 1024 test
+    images: the digital baseline and RACA inference at 1, 4, 16 and 64
+    votes.  The launches of the two kernels of the inference path, reset
+    just before the four predictions and read just after, must be 2 and 1
+    a vote (170 and 85).  Gates: tests/test_system.py's relations."""
+    from repro_torch import random as R
+    from repro_torch.data import mnist_batch, mnist_dataset
+    from repro_torch.kernels import sigmoid_sample as SS
+    from repro_torch.kernels import wta_sample as WS
+    from repro_torch.models.fcnn import fcnn_predict_digital, fcnn_predict_raca
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg, tcfg = fcnn_cfgs()
+    state = init_train_state(tcfg.seed, cfg, tcfg, device=dev)
+    step_fn = make_train_step(cfg, tcfg)
+    t0 = time.perf_counter()
+    batches = [mnist_batch(batch=FCNN_BATCH, step=i, device=dev) for i in range(FCNN_STEPS)]
+    torch.cuda.synchronize()
+    log(f"  {FCNN_STEPS} batches of {FCNN_BATCH} made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    SS.launches = 0
+    losses, times = [], []
+    for i in range(FCNN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[i])
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i % 50 == 0 or i == FCNN_STEPS - 1:
+            log(f"  step {i}: loss {losses[-1]:.4f}, {times[-1] * 1e3:.2f} ms")
+    step_ms = sum(times[1:]) / len(times[1:]) * 1e3
+    ref = FCNN_REFERENCE_CPU
+    at = {k: losses[k] for k in ref["loss"] if k < len(losses)}
+    log(f"  {FCNN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, at steps "
+        f"{ {k: round(v, 4) for k, v in at.items()} } (reference on a CPU {ref['loss']}), step "
+        f"{step_ms:.3f} ms (host clock, steps after the first, each ending in a sync); "
+        f"sigmoid_sample launches in training {SS.launches} (the training forward takes the "
+        f"expectation)")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"FCNN training did not bring the loss down: {losses[0]} -> {losses[-1]}")
+    test = mnist_dataset(FCNN_TEST, device=dev)
+    y = test["label"].long()
+    digital = float((fcnn_predict_digital(state.params, test["image"], cfg) == y).float().mean())
+    torch.cuda.synchronize()
+    raca, walls = {}, {}
+    SS.launches = WS.launches = 0
+    for votes in FCNN_VOTES:
+        t0 = time.perf_counter()
+        pred = fcnn_predict_raca(state.params, test["image"], cfg, R.PRNGKey(7), votes)
+        raca[votes] = float((pred == y).float().mean())
+        walls[votes] = time.perf_counter() - t0
+    launches = {"sigmoid_sample": SS.launches, "wta_sample": WS.launches}
+    n_votes = sum(FCNN_VOTES)
+    log(f"  digital accuracy {digital:.4f} (reference on a CPU {ref['digital']})")
+    for votes in FCNN_VOTES:
+        log(f"  RACA {votes:2d} votes: accuracy {raca[votes]:.4f} (reference on a CPU "
+            f"{ref['raca'][votes]}), {walls[votes] * 1e3:.1f} ms wall")
+    log(f"  launches over the {n_votes} votes: sigmoid_sample {launches['sigmoid_sample']} "
+        f"(expected {2 * n_votes}), wta_sample {launches['wta_sample']} (expected {n_votes})")
+    if launches != {"sigmoid_sample": 2 * n_votes, "wta_sample": n_votes}:
+        raise AssertionError(f"FCNN inference launches {launches}, expected {2 * n_votes} and "
+                             f"{n_votes}")
+    if not (digital > 0.85 and raca[64] >= raca[1] and raca[64] >= digital - 0.05):
+        raise AssertionError(f"Fig. 6 relations fail: digital {digital}, RACA {raca}")
+    profile = profile_fcnn(step_fn, state, batches[0], test["image"], cfg)
+    return {"launches": launches, "losses": (losses[0], losses[-1]), "step_ms": step_ms,
+            "digital": digital, "raca": raca, "walls": walls, "profile": profile}
+
+
+def profile_fcnn(step_fn, state, batch, x, cfg) -> dict:
+    """Device time of one FCNN training step and of one 64-vote RACA
+    prediction, by kernel: ``sigmoid_sample``, ``wta_sample``, cuBLAS
+    products and the rest, beside the host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import random as R
+    from repro_torch.models.fcnn import fcnn_predict_raca
+
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for label, fn in (("train step", lambda: step_fn(state, batch)),
+                      ("64-vote prediction",
+                       lambda: fcnn_predict_raca(state.params, x, cfg, R.PRNGKey(7), 64))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # the step's record_function ranges show on the device timeline too
+        kernels = [e for e in prof.events()
+                   if e.device_type == cuda and not e.name.startswith("train/")]
+
+        def ms(sel):
+            return sum(e.time_range.elapsed_us() for e in sel) / 1e3
+
+        sig = [e for e in kernels if "sigmoid_sample" in e.name]
+        wta = [e for e in kernels if "wta_sample" in e.name]
+        gemm = [e for e in kernels if any(g in e.name.lower() for g in GEMM_NAMES)]
+        total = ms(kernels)
+        rec = {"wall_ms": wall_ms, "device_ms": total, "kernels": len(kernels),
+               "sigmoid_sample_ms": ms(sig), "wta_sample_ms": ms(wta), "gemm_ms": ms(gemm)}
+        rec["rest_ms"] = total - rec["sigmoid_sample_ms"] - rec["wta_sample_ms"] - rec["gemm_ms"]
+        log(f"  profiled {label}: {wall_ms:.2f} ms host, device busy {total:.3f} ms "
+            f"({100 * total / wall_ms:.1f}%), {len(kernels)} kernels; sigmoid_sample "
+            f"{rec['sigmoid_sample_ms']:.3f} ms ({len(sig)}), wta_sample {rec['wta_sample_ms']:.3f} "
+            f"ms ({len(wta)}), cuBLAS {rec['gemm_ms']:.3f} ms ({len(gemm)}), rest "
+            f"{rec['rest_ms']:.3f} ms")
+        rows = [e for e in prof.key_averages()
+                if e.device_type == cuda and not e.key.startswith("train/")]
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+        out[label] = rec
+    return out
+
+
+def reference_fcnn(dev) -> None:
+    """The smoke FCNN (64, 32, 16, 10; the first 64 pixels) trained 5 steps
+    from one state on the card (kernels, cuBLAS) and on the CPU (plain
+    versions) on the same batches: losses within REF_FCNN_LOSS_ATOL; its
+    digital predictions equal and its 8-vote RACA predictions at least
+    REF_FCNN_AGREEMENT equal on 256 test images."""
+    import dataclasses as dc
+
+    from repro_torch import random as R
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import mnist_batch, mnist_dataset
+    from repro_torch.models.fcnn import fcnn_predict_digital, fcnn_predict_raca
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_smoke_config("fcnn-mnist")
+    _, tcfg = fcnn_cfgs()
+    tcfg = dc.replace(tcfg, warmup_steps=1, total_steps=10)
+    width = cfg.fcnn_layers[0]
+
+    def cut(b):
+        return {"image": b["image"][:, :width].contiguous(), "label": b["label"]}
+
+    batches = [cut(mnist_batch(batch=64, step=i, device="cpu")) for i in range(5)]
+    test = cut(mnist_dataset(256, device="cpu"))
+    out = {}
+    for d in ("cpu", dev):
+        state = init_train_state(0, cfg, tcfg, device=d)
+        step = make_train_step(cfg, tcfg)
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: v.to(d) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        x = test["image"].to(d)
+        out[str(d)] = (losses, fcnn_predict_digital(state.params, x, cfg).cpu(),
+                       fcnn_predict_raca(state.params, x, cfg, R.PRNGKey(7), 8).cpu())
+    (lc, dc_, rc), (lg, dg, rg) = out["cpu"], out[str(dev)]
+    err = max(abs(a - b) for a, b in zip(lc, lg))
+    agree = float((rc == rg).float().mean())
+    log(f"  smoke FCNN, 5 steps, card vs CPU: losses {lg} vs {lc} (max|Δ| {err:.3e}, atol "
+        f"{REF_FCNN_LOSS_ATOL}); digital predictions equal {torch.equal(dc_, dg)}; 8-vote RACA "
+        f"predictions {agree:.4f} equal (gate {REF_FCNN_AGREEMENT})")
+    if err > REF_FCNN_LOSS_ATOL or not torch.equal(dc_, dg) or agree < REF_FCNN_AGREEMENT:
+        raise AssertionError("the smoke FCNN disagrees card vs CPU")
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: small input against the plain path on the CPU.
 # ---------------------------------------------------------------------------
 
@@ -1880,10 +2224,13 @@ def main() -> int:
     wres = wta_phase(dev)
     log("== analog training of stablelm-3b")
     tres = train_phase(dev)
+    log("== the paper's FCNN: fcnn-mnist [784, 500, 300, 10] training and RACA inference")
+    fres = fcnn_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
     reference_wta(dev)
     reference_train(dev)
+    reference_fcnn(dev)
 
     launches = dict(sres["same"]["launches"])
     launches["write_kv_int8"] = sres["int8"]["launches"]["write_kv_int8"]
@@ -1892,6 +2239,7 @@ def main() -> int:
     launches["crossbar_mac"] = tres["launches"]
     launches["crossbar_prepass"] = tres["prepass_launches"]
     launches["wta_sample"] = sres["wta"]["launches"]["wta_sample"]
+    launches["sigmoid_sample"] = fres["launches"]["sigmoid_sample"]
     kernels = []
     for key, tkey, name, src, replaces in (
         ("decode", ("decode", "bf16"), "paged_attention",
@@ -1912,6 +2260,9 @@ def main() -> int:
         # no Pallas kernel: the reference's wta_trials in jnp
         ("wta_sample", "wta_sample", "wta_sample",
          "src/repro_torch/kernels/csrc/wta_sample.cu", "src/repro/core/wta.py:50"),
+        # no Pallas kernel: the reference's stochastic Sigmoid neurons in jnp
+        ("sigmoid_sample", "sigmoid_sample", "sigmoid_sample",
+         "src/repro_torch/kernels/csrc/sigmoid_sample.cu", "src/repro/core/neurons.py:77"),
     ):
         t = kres["timing"][tkey]
         kernels.append({
@@ -1922,14 +2273,17 @@ def main() -> int:
         })
         for extra in ("f32_bound_ms", "gemm_device_ms", "tile_n", "tile_device_ms", "one_pass",
                       "issue_ms", "issue_instructions", "issue_pipe", "cluster", "cta_warps",
-                      "geometry_device_ms"):
+                      "geometry_device_ms", "byte_bound_ms", "fcnn_head"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         if "cases" in t:
             kernels[-1]["cases"] = t["cases"] + (
                 kres["timing"][(key, "int8")].get("cases", []) if isinstance(tkey, tuple) else [])
-    # the R = 3 serve of the same trace: its own path, counted apart
-    kernels[-1]["launches_r3"] = sres["wta_r3"]["launches"]["wta_sample"]
+    # the R = 3 serve of the same trace and the FCNN's head: their own
+    # paths, counted apart
+    wta_rec = next(k for k in kernels if k["name"] == "wta_sample")
+    wta_rec["launches_r3"] = sres["wta_r3"]["launches"]["wta_sample"]
+    wta_rec["launches_fcnn_head"] = fres["launches"]["wta_sample"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

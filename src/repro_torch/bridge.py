@@ -1,8 +1,10 @@
 """Parameters and paged caches from the JAX package, as numpy arrays.
 
 ``params_from_numpy`` takes ``repro``'s parameter tree (``init_lm``'s
-nested dicts, units stacked on a leading axis) with every leaf already a
-numpy array, and returns the port's tree of tensors on ``device``.  It
+nested dicts, units stacked on a leading axis, or ``init_fcnn``'s flat
+``{"w0", "b0", ...}``, f32 by the FCNN config's dtype) with every leaf
+already a numpy array, and returns the port's tree of tensors on
+``device``.  It
 imports no jax: the caller converts leaves with ``np.asarray``.  Because
 ``torch.from_numpy`` cannot take ``ml_dtypes.bfloat16``, callers hand bf16
 leaves over as float32; the bridge casts each weight back to
@@ -13,10 +15,10 @@ as in the reference.
 way (pages, an int8 pool's scale planes, ``pos`` and ``quant_step``), so
 tests can run both packages' layers on identical pools.
 
-``train_state_from_numpy`` carries a training state across: parameters
-(made trainable), AdamW's moments in the optimizer's state dtype, the
-step counters and the threefry key data, so both packages step from the
-same state.
+``train_state_from_numpy`` carries a training state across, of either
+family: parameters (made trainable), AdamW's moments in the optimizer's
+state dtype, the step counters and the threefry key data, so both
+packages step from the same state.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
-"""Per-architecture configs ported so far (``stablelm-3b`` only)."""
+"""Per-architecture configs ported so far: ``stablelm-3b`` and the paper's
+``fcnn-mnist``."""
 
 from importlib import import_module
 
 _MODULES = {
     "stablelm-3b": "stablelm_3b",
+    "fcnn-mnist": "fcnn_mnist",
 }
 
 

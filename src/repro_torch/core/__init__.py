@@ -1,1 +1,2 @@
-"""Core analog-execution primitives (digital branch only in this slice)."""
+"""Core RACA primitives (``repro/core``): device physics, the crossbar, the
+stochastic Sigmoid neurons, the WTA neurons and the analog execution modes."""

@@ -9,12 +9,19 @@ Three execution modes per matmul:
 * ``analog_stochastic`` — the full RACA path: crossbar MAC → thermal noise →
                           comparator → binary stochastic activation {0, 1}.
 
-Both analog modes run ``kernels.ops.crossbar_mac``: the hand-written CUDA
-kernel for CUDA tensors, its plain PyTorch version for CPU tensors.  That
-is the reference's ``use_pallas="on"`` semantics (what its TPU runs).  The
-reference's off-TPU branch (quantize with a straight-through estimator,
-then threefry ``normal`` noise) is not ported; ``use_pallas`` is kept as a
-field so configs read the same, and is not consulted.
+Both analog modes of :func:`analog_matmul` run ``kernels.ops.crossbar_mac``:
+the hand-written CUDA kernel for CUDA tensors, its plain PyTorch version
+for CPU tensors.  That is the reference's ``use_pallas="on"`` semantics
+(what its TPU runs).  The reference's off-TPU branch (quantize with a
+straight-through estimator, then threefry ``normal`` noise) is not
+ported; ``use_pallas`` is kept as a field so configs read the same, and
+is not consulted.
+
+:func:`analog_dense` with a bias and a key in ``analog_stochastic`` mode
+takes the reference's bias-folded branch, which never reaches the
+crossbar kernel on either package: :func:`quantize_normalized`, ``z = x @
+Wq + b``, then ``neurons.sigmoid_neuron_calibrated`` (the paper's FCNN
+hidden layers; the hard draw is ``ops.sigmoid_sample``).
 
 A projection runs digitally when its key is ``None``, as in the reference:
 serving passes no keys, training passes one per projection.  The WTA
@@ -29,11 +36,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch import random as R
 from repro_torch.kernels import ops as KOPS
 # the per-layer conductance-range scale s = max(max|W|, 1e-6) (the paper's
 # G0/V_r calibration knob): weights map to devices as W/s
 from repro_torch.kernels.ops import range_scale as dynamic_range  # noqa: F401
-from . import wta
+from . import crossbar, neurons, wta
 from .physics import DeviceParams
 
 
@@ -82,6 +90,39 @@ def analog_matmul(
         x.to(torch.float32), w, key, cfg, binarize=cfg.mode == "analog_stochastic"
     )
     return y.to(x.dtype)
+
+
+def quantize_normalized(w: torch.Tensor, cfg: AnalogConfig) -> torch.Tensor:
+    """s · quantize(w / s), with s = max(max|W|, 1e-6) the layer's dynamic
+    range, and a straight-through gradient: ``w + (wq − w).detach()``, as
+    the reference's ``w + stop_gradient(wq − w)``.  XLA fuses ``s·q − w``
+    into one FMA on the CPU, so the difference is rounded once here too
+    (the forward then equals the reference's jitted one bit for bit)."""
+    if not cfg.quantize:
+        return w
+    with torch.no_grad():
+        s = dynamic_range(w)
+        diff = R.fma32(s, crossbar.quantize_weights(w / s, cfg.device), -w)
+    return w + diff
+
+
+def analog_dense(cfg: AnalogConfig, key, x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense layer; the bias is realized digitally (a bias row in hardware).
+    In ``analog_stochastic`` mode with a bias and a key the bias is folded
+    into the pre-activation before the comparator (an always-on bias
+    wordline): y = neuron(x @ quantize_normalized(W) + b)."""
+    if cfg.mode == "analog_stochastic" and b is not None and key is not None:
+        wq = quantize_normalized(w.to(torch.float32), cfg)
+        y = neurons.sigmoid_neuron_calibrated(
+            key, x.to(torch.float32) @ wq, beta=cfg.beta, hard=cfg.hard,
+            bias=b.to(torch.float32),
+        )
+        return y.to(x.dtype)
+    y = analog_matmul(cfg, key, x, w)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
 
 
 def wta_head(cfg: AnalogConfig, key, z: torch.Tensor) -> wta.WTAResult:

@@ -1,9 +1,14 @@
-"""Device physics of the RACA accelerator (``repro/core/physics.py``), the
-part the analog crossbar path reads: the constants, the ReRAM device
-parameters and the read-voltage calibration.  Plain Python floats.
+"""Device physics of the RACA accelerator (``repro/core/physics.py``): the
+constants, the ReRAM device parameters, the read-voltage calibration and
+the tensor functions of Eq. 1-5 and 11-13.
 
 Johnson-Nyquist thermal noise of the ReRAM devices is the entropy source
-(paper §II, Eq. 1-3): i_RMS = sqrt(4 k T G Δf).
+(paper §II, Eq. 1-3): i_RMS = sqrt(4 k T G Δf).  Device parameters are
+Python floats; a tensor function multiplies its f32 tensor by them as the
+reference does (a Python float times an f32 array is an f32 product of
+the float rounded to f32).  A host-side scalar that must carry the
+reference's f32 bits is computed with ``math`` in f64 and rounded through
+:func:`f32`.
 """
 
 from __future__ import annotations
@@ -11,6 +16,11 @@ from __future__ import annotations
 import dataclasses
 import math
 import struct
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch import random as R
 
 # Boltzmann constant [J/K].
 BOLTZMANN_K = 1.380649e-23
@@ -72,3 +82,60 @@ def calibrate_v_read(
     sigma = f32(math.sqrt(f32(arg)))
     v_read = beta * sigma / (PROBIT_SCALE * dp.g0)
     return dp.replace(v_read=v_read)
+
+
+def weight_to_conductance(w: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
+    """Map algorithmic weights onto device conductances (Eq. 4-5):
+    G = G0·W + G_ref."""
+    return dp.g0 * w + dp.g_ref
+
+
+def weight_from_conductance(g: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
+    """Inverse of Eq. 4-5: W = (G - G_ref) / G0."""
+    return (g - dp.g_ref) / dp.g0
+
+
+def thermal_noise_rms(g: torch.Tensor, dp: DeviceParams) -> torch.Tensor:
+    """RMS thermal-noise current of a device with conductance ``g`` (Eq. 1)."""
+    return torch.sqrt(4.0 * BOLTZMANN_K * dp.temperature * g * dp.delta_f)
+
+
+def column_noise_sigma(sum_g, dp: DeviceParams) -> torch.Tensor:
+    """Std-dev of the summed column noise current: sigma² = 4 k T Δf · Σ_i
+    G_i (Eq. 11, the denominator of Eq. 13); ``sum_g`` holds every device
+    on the summing node, signal and reference columns."""
+    return torch.sqrt(4.0 * BOLTZMANN_K * dp.temperature * dp.delta_f * sum_g)
+
+
+def snr_db(p_signal: torch.Tensor, p_noise: torch.Tensor) -> torch.Tensor:
+    """Signal-to-noise ratio in dB (Eq. 2)."""
+    return 10.0 * torch.log10(p_signal / p_noise)
+
+
+def column_snr_db(
+    z: torch.Tensor, sum_g: torch.Tensor, dp: DeviceParams, r_load: float = 1.0
+) -> torch.Tensor:
+    """SNR of a column readout at pre-activation ``z`` (Eq. 2-3, 12): the
+    signal current V_r·G0·z against the column noise, both into R."""
+    i_sig = dp.v_read * dp.g0 * z
+    p_signal = torch.square(i_sig) * r_load
+    p_noise = torch.square(column_noise_sigma(sum_g, dp)) * r_load
+    return snr_db(p_signal, p_noise)
+
+
+def effective_beta(dp: DeviceParams, n_rows: int) -> float:
+    """Inverse of :func:`calibrate_v_read`: the logistic slope realized by
+    ``dp`` over ``n_rows`` rows (sigma_col the f32 root, as there)."""
+    sum_g = n_rows * 2.0 * dp.g_ref
+    sigma = f32(math.sqrt(f32(4.0 * BOLTZMANN_K * dp.temperature * dp.delta_f * sum_g)))
+    return dp.v_read * dp.g0 * PROBIT_SCALE / sigma
+
+
+def sample_noise_current(
+    key, sum_g: torch.Tensor, dp: DeviceParams, shape: Optional[Sequence[int]] = None
+) -> torch.Tensor:
+    """Summed Gaussian thermal-noise current of columns (Eq. 11): jax's
+    threefry ``normal(key, shape)`` times the columns' sigma."""
+    sigma = column_noise_sigma(sum_g, dp)
+    shape = tuple(sigma.shape) if shape is None else tuple(shape)
+    return R.normal(key, shape, sigma.device) * sigma

@@ -52,12 +52,16 @@ def wta_trials(
 ) -> WTAResult:
     """T WTA decision trials on pre-activations ``z`` (..., C): the noise is
     ``normal(key, (T,) + z.shape)``, so trial t of row n (of ``z`` as (N,
-    C)) draws at the flat index ``t·N·C + n·C + c``."""
+    C)) draws at the flat index ``t·N·C + n·C + c``.  ``key`` is a key of
+    Python ints, or its two words in an int64 tensor already on z's device
+    (which spares a host-to-device copy, and its sync, a call)."""
     if sigma_z is None:
         sigma_z = wta_sigma_z(beta)
     lead, c = z.shape[:-1], z.shape[-1]
     n = math.prod(lead)
-    keys = torch.tensor([key], dtype=torch.int64, device=z.device).expand(n, 2)
+    if not isinstance(key, torch.Tensor):
+        key = torch.tensor(key, dtype=torch.int64, device=z.device)
+    keys = key.reshape(1, 2).expand(n, 2)
     counts, n_dec = KOPS.wta_trial_counts(
         z.reshape(n, c).to(torch.float32), keys, None, n_trials, vth0, sigma_z, (n * c, c)
     )

@@ -1,4 +1,4 @@
-// jax's threefry2x32 PRNG and its f32 normal draw (device side).
+// jax's threefry2x32 PRNG and its f32 uniform and normal draws (device side).
 //
 // Counterpart of src/repro_torch/random.py, bit for bit on the bits and the
 // uniforms: jax's default PRNG with jax_threefry_partitionable, where a
@@ -56,6 +56,12 @@ __device__ __forceinline__ uint32_t threefry_bits(uint2 key, uint64_t idx) {
   const uint2 b = threefry2x32(key.x, key.y, static_cast<uint32_t>(idx >> 32),
                                static_cast<uint32_t>(idx));
   return b.x ^ b.y;
+}
+
+// jax.random.uniform(key, shape) in f32 (minval 0, maxval 1) of one draw's
+// bits: the top 23 bits as a float in [1, 2), minus 1 (exact).
+__device__ __forceinline__ float uniform_unit(uint32_t bits) {
+  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
 }
 
 // f32(nextafter(-1, 0)) and f32(sqrt(2))

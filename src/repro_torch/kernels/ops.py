@@ -2,8 +2,9 @@
 straight-through backward (:75-260), attention (:386-512), WTA vote
 counts (:316-358), the int8 KV quantizer (:581-642), the int8 KV
 pool's fused write (the quantizer and the page scatters of
-``repro/models/attention.py``) and the threefry WTA trials of
-``repro/core/wta.py`` (:50-83), which the reference leaves to XLA.
+``repro/models/attention.py``), and two threefry draws the reference
+leaves to XLA: the WTA trials of ``repro/core/wta.py`` (:50-83) and the
+stochastic Sigmoid neurons of ``repro/core/neurons.py`` (:52-84).
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version, and nothing else happens in between: no fallback, no
@@ -23,6 +24,7 @@ from . import crossbar_mac as CB
 from . import paged_attention as PA
 from . import prefill_attention as PF
 from . import prng, ref
+from . import sigmoid_sample as SS
 from . import stoch_round as SR
 from . import wta_counts as WTA
 from . import wta_sample as WS
@@ -189,6 +191,22 @@ def wta_trial_counts(
         folds = folds.to(device=z.device, dtype=torch.int64).contiguous()
     fn = WS.wta_sample_cuda if z.is_cuda else ref.wta_trial_counts_ref
     return fn(z, keys, folds, n_trials=n_trials, vth0=vth0, sigma_z=sigma_z, layout=layout)
+
+
+def sigmoid_sample(
+    acc: torch.Tensor, bias: Optional[torch.Tensor], beta: float, key, offset: int = 0
+) -> torch.Tensor:
+    """Binary stochastic Sigmoid neurons: ``acc`` (..., N) → y f32 of its
+    shape, 1 where jax's threefry ``uniform(key, acc.shape)`` (from the
+    flat counter ``offset``) lies below ``sigmoid(β·(acc + bias))``.
+    ``bias`` is (N,) or None; ``key`` a threefry key of Python ints.
+    Forward only: the straight-through backward is ``core.neurons``'."""
+    n = acc.shape[-1]
+    a2d = acc.reshape(-1, n).to(torch.float32).contiguous()
+    if bias is not None:
+        bias = bias.to(device=acc.device, dtype=torch.float32).contiguous()
+    fn = SS.sigmoid_sample_cuda if a2d.is_cuda else ref.sigmoid_sample_ref
+    return fn(a2d, bias, beta=beta, key=key, offset=offset).reshape(acc.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -271,6 +271,26 @@ def wta_trial_counts_ref(
     return counts, n_dec
 
 
+def sigmoid_sample_ref(
+    acc: torch.Tensor,               # (M, N) f32
+    bias: Optional[torch.Tensor],    # (N,) f32 or None
+    *,
+    beta: float,
+    key: tuple[int, int],
+    offset: int = 0,
+) -> torch.Tensor:
+    """Binary stochastic Sigmoid neurons (``repro/core/neurons.py:52-84``):
+    y (M, N) f32 in {0, 1}, 1 where ``u < sigmoid(β·(acc + bias))``, with
+    ``u`` jax's threefry ``uniform`` at the flat counter ``offset + m·N +
+    n`` under ``key`` (``uniform(key, (M, N))`` for offset 0)."""
+    m, n = acc.shape
+    z = acc if bias is None else acc + bias
+    p = torch.sigmoid(beta * z)
+    bits = R.random_bits(key, (m, n), acc.device, start=offset, count=m * n)
+    u = R.uniform_from_bits(bits, 0.0, 1.0).reshape(m, n)
+    return (u < p).to(torch.float32)
+
+
 # crossbar_mac's noise counter runs over the width the TPU kernel pads N to
 CROSSBAR_PAD_N = 128
 

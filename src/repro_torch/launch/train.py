@@ -1,17 +1,25 @@
-"""Training launcher: the training step looped over synthetic LM batches.
+"""Training launcher: the training step looped over synthetic batches (LM
+tokens, or MNIST-surrogate images for ``fcnn-mnist``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
         [--smoke] [--analog] [--device cpu] [--steps 100] [--batch 8] \\
         [--seq 128] [--lr 3e-4] [--microbatches 1]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch fcnn-mnist \\
+        [--smoke] [--device cpu] [--steps 100] [--batch 8]
 
 Takes the reference's flags (``repro/launch/train.py``) and adds
 ``--device``; runs on the card unless ``--device cpu`` is given.
-``--analog`` trains in RACA analog-stochastic mode (noise-aware QAT): every
-projection goes through the crossbar kernel.  The weights are the port's
-random init from ``TrainConfig.seed`` (0), which also seeds the step keys.  The reference's fault-tolerant loop (checkpoints,
-auto-resume, straggler monitor), gradient compression and model
-parallelism are not ported: ``--ckpt-dir``, ``--compress`` and
-``--model-par`` other than 1 are refused.
+``--analog`` trains an LM in RACA analog-stochastic mode (noise-aware
+QAT): every projection goes through the crossbar kernel; ``fcnn-mnist``'s
+config is analog already (``--analog`` is refused there).  An LM's
+weights are the port's random init from ``TrainConfig.seed`` (0), an
+FCNN's the reference's ``init_fcnn(PRNGKey(0))``; the seed also seeds the
+step keys.  ``fcnn-mnist --smoke`` (64 inputs) trains on the first 64
+pixels of each image, as the reference's tests feed that config.  The
+reference's fault-tolerant loop (checkpoints, auto-resume, straggler
+monitor), gradient compression and model parallelism are not ported:
+``--ckpt-dir``, ``--compress`` and ``--model-par`` other than 1 are
+refused.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import time
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.physics import DeviceParams, calibrate_v_read
-from repro_torch.data import lm_batch
+from repro_torch.data import lm_batch, mnist_batch
 from repro_torch.device import resolve_device
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
@@ -58,6 +66,9 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    fcnn = cfg.family == "fcnn"
+    if args.analog and fcnn:
+        ap.error("--analog: the fcnn config runs in analog-stochastic mode already")
     if args.analog:
         cfg = dataclasses.replace(cfg, analog=AnalogConfig(
             mode="analog_stochastic",
@@ -72,7 +83,11 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     while state.step < args.steps:
         step = state.step
-        batch = lm_batch(cfg, batch=args.batch, seq=args.seq, step=step, device=dev)
+        if fcnn:
+            batch = mnist_batch(batch=args.batch, step=step, device=dev)
+            batch["image"] = batch["image"][:, : cfg.fcnn_layers[0]]
+        else:
+            batch = lm_batch(cfg, batch=args.batch, seq=args.seq, step=step, device=dev)
         state, metrics = step_fn(state, batch)
         losses.append((step, float(metrics["loss"])))
         if step % 10 == 0:

@@ -1,7 +1,8 @@
 """Unified model configuration, copied field for field from
 ``repro/models/config.py`` so a config built for one package reads the
 same in the other.  Family-specific fields default to inert values; the
-port so far serves the ``decoder_lm`` family only.
+port so far runs two families: ``decoder_lm`` (serving and training) and
+``fcnn``, the paper's network (training and RACA inference).
 """
 
 from __future__ import annotations

@@ -11,10 +11,12 @@ jax's default PRNG is threefry2x32 with ``jax_threefry_partitionable``
   the shape and returns the xor of the two output words;
 - ``uniform`` puts the top 23 bits into the mantissa of a float in [1, 2)
   and subtracts 1; ``normal`` is ``√2 · erf_inv(u)`` for ``u`` uniform on
-  ``[nextafter(−1, 0), 1)``, with XLA's f32 ``erf_inv``; ``randint`` over
-  a power-of-two uint32 span up to 2**16 reduces to the low bits of
-  ``random_bits(split(key)[1])`` (jax's multiplier ``(2**16 % span)**2 %
-  span`` is 0 there).
+  ``[nextafter(−1, 0), 1)``, with XLA's f32 ``erf_inv``; ``randint``
+  over a 32-bit span up to 2**16 draws two words a value, ``hi`` under
+  ``split(key)[0]`` and ``lo`` under ``split(key)[1]``, and reduces
+  ``((hi % span)·mult + lo % span) % span`` with ``mult = (2**16 %
+  span)**2 % span``; for a power-of-two span ``mult`` is 0 and only
+  ``lo``'s low bits count.
 
 Because every counter is a flat index, a draw can be made in slices of
 its flat range with identical bits (``start`` / ``count`` below), which
@@ -113,16 +115,22 @@ def randint(
     key: Key, shape: Sequence[int], minval: int, maxval: int, device=None,
     *, start: int = 0, count: Optional[int] = None,
 ) -> torch.Tensor:
-    """``jax.random.randint(key, shape, minval, maxval, dtype=uint32)`` as
-    int64 values, for a span ``maxval - minval`` that is a power of two no
-    larger than 2**16 (where jax's draw is the low bits of the second
-    split key's bits).  ``start`` / ``count`` slice the flat range as in
-    :func:`random_bits`."""
+    """``jax.random.randint(key, shape, minval, maxval)`` for a 32-bit
+    integer dtype (uint32 or int32: the same draw) as int64 values, for a
+    span ``maxval - minval`` in ``[1, 2**16]``, where no product of jax's
+    uint32 arithmetic wraps.  A power-of-two span draws only ``lo``.
+    ``start`` / ``count`` slice the flat range as in :func:`random_bits`."""
     span = maxval - minval
-    if span <= 0 or span & (span - 1) or span > 1 << 16:
-        raise NotImplementedError(f"randint is ported for power-of-two spans <= 2**16, got {span}")
-    lower = random_bits(split(key)[1], shape, device, start=start, count=count)
-    return (lower & (span - 1)) + minval
+    if not 0 < span <= 1 << 16:
+        raise NotImplementedError(f"randint is ported for spans in [1, 2**16], got {span}")
+    k1, k2 = split(key)
+    lo = random_bits(k2, shape, device, start=start, count=count)
+    if span & (span - 1) == 0:
+        return (lo & (span - 1)) + minval
+    hi = random_bits(k1, shape, device, start=start, count=count)
+    mult = (1 << 16) % span
+    mult = mult * mult % span
+    return ((hi % span) * mult + lo % span) % span + minval
 
 
 # XLA's f32 erf_inv (Giles' single-precision approximation): with
@@ -140,13 +148,18 @@ SQRT2_F32 = 1.4142135381698608   # f32(√2)
 NORMAL_LO = -0.9999999403953552  # nextafter(−1, 0) in f32
 
 
-def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a·b + c`` of f32 tensors rounded once to f32, as XLA's FMA, formed
-    in f64: the product is exact there, and the f64 sum rounds once more.
-    That double rounding can differ from the FMA's one rounding only where
-    the f64 sum falls exactly halfway between two f32 values after a
-    first rounding; on every value tested against jax it did not."""
-    return (a.double() * b.double() + c.double()).float()
+def fma32(a: torch.Tensor, b: Union[torch.Tensor, float],
+          c: Union[torch.Tensor, float]) -> torch.Tensor:
+    """``a·b + c`` of f32 values (tensors, or f32-valued Python floats for
+    ``b`` and ``c``) rounded once to f32, as XLA's FMA, formed in f64: the
+    product is exact there, and the f64 sum rounds once more.  That double
+    rounding can differ from the FMA's one rounding only where the f64 sum
+    falls exactly halfway between two f32 values after a first rounding;
+    on every value tested against jax it did not."""
+    def f64(v):
+        return v.double() if isinstance(v, torch.Tensor) else v
+
+    return (a.double() * f64(b) + f64(c)).float()
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -164,7 +177,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     hi = torch.tensor(ERFINV_W_GE_5, dtype=torch.float32, device=x.device)
     p = torch.where(lt, lo[0], hi[0])
     for i in range(1, len(ERFINV_W_LT_5)):
-        p = _fma32(p, w, torch.where(lt, lo[i], hi[i]))
+        p = fma32(p, w, torch.where(lt, lo[i], hi[i]))
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 

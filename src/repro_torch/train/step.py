@@ -4,8 +4,9 @@
 Keys follow the reference exactly (``repro_torch.random`` is its
 threefry): the step draws under ``fold_in(state.rng, step)``, microbatch
 ``i`` under ``fold_in(step_key, i)``, AdamW's rounding under
-``fold_in(step_key, 7)``.  Analog projections run the crossbar kernel on
-the card.  Parameters and moments are updated in place (the reference
+``fold_in(step_key, 7)``.  The model's init and loss come from
+``models.get_model_fns``: the ``decoder_lm`` family (analog projections
+run the crossbar kernel on the card) and the paper's ``fcnn``.  Parameters and moments are updated in place (the reference
 donates its state to the jitted step): pass each state to the step once.
 Gradient compression (``optim/compress.py``) is not ported.
 """
@@ -18,8 +19,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch import random as R
-from repro_torch.models import ModelConfig
-from repro_torch.models.transformer import init_lm, lm_loss
+from repro_torch.models import ModelConfig, get_model_fns
 from repro_torch.optim import (
     AdamWConfig,
     AdamWState,
@@ -54,11 +54,12 @@ def _check(train_cfg: TrainConfig) -> None:
 
 
 def init_train_state(seed: int, model_cfg: ModelConfig, train_cfg: TrainConfig, device=None) -> TrainState:
-    """Seeded random parameters (the port's init, not jax's) on ``device``,
-    zero moments, step 0 and the reference's ``rng = fold_in(PRNGKey(seed),
+    """Seeded random parameters on ``device`` (an LM: the port's own init,
+    not jax's; an FCNN: the reference's ``init_fcnn(PRNGKey(seed))``), zero
+    moments, step 0 and the reference's ``rng = fold_in(PRNGKey(seed),
     1)``."""
     _check(train_cfg)
-    params = init_lm(model_cfg, seed=seed, device=device)
+    params = get_model_fns(model_cfg).init(seed, model_cfg, device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     return TrainState(
@@ -77,14 +78,16 @@ def _unflatten_like(tree: dict, leaves: list) -> dict:
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
-    """``train_step(state, batch) -> (state, metrics)``; ``batch`` holds
-    (B, S) int tokens and labels on the parameters' device."""
+    """``train_step(state, batch) -> (state, metrics)``; ``batch`` is the
+    family's (an LM's (B, S) int tokens and labels, an FCNN's images and
+    labels) on the parameters' device."""
     _check(train_cfg)
+    loss_fn = get_model_fns(model_cfg).loss
     needs_key = model_cfg.analog.mode != "digital"
 
     def loss_and_grads(params: dict, batch: dict, key):
         leaves = tree_leaves(params)
-        loss, metrics = lm_loss(params, batch, model_cfg, key if needs_key else None)
+        loss, metrics = loss_fn(params, batch, model_cfg, key if needs_key else None)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), metrics, _unflatten_like(params, list(grads))
 
@@ -97,7 +100,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
             grads, loss = None, torch.zeros((), dtype=torch.float32)
-            b = batch["tokens"].shape[0]
+            b = next(iter(batch.values())).shape[0]
             if b % nmb:
                 raise ValueError(f"batch {b} does not split into {nmb} microbatches")
             bm = b // nmb

@@ -22,7 +22,11 @@ its threefry bits, uniforms and normals bit-identical to
 ``repro_torch.random`` on the card and its counts and decisions exactly
 equal to its plain version's (both draw with CUDA's ``log1pf`` and round
 every other step once), no vote in rows that are all NaN or all below
-the threshold, and no launch counted for an empty call;
+the threshold, and no launch counted for an empty call; ``sigmoid_sample``
+(the FCNN's stochastic Sigmoid neurons) with its bits and uniforms equal
+to ``repro_torch.random``'s, its p to ``torch.sigmoid``'s on the card
+(the kernel takes torch's CUDA form, ``1 / (1 + expf(-x))``) and its
+decisions to its plain version's, exactly;
 ``crossbar_mac``
 with at least 99.95% of its comparator decisions equal and its linear
 readout within 2e-5 / 1e-5 (its quantized weights and noise are
@@ -677,3 +681,96 @@ def test_cuda_analog_lm_loss_with_backward(cuda_device):
 def _tree_to(tree, d):
     return {k: _tree_to(v, d) if isinstance(v, dict) else v.to(d).requires_grad_(True)
             for k, v in tree.items()}
+
+
+# the FCNN's hidden layers at Fig. 6's batch and at the training batch, an
+# odd shape, and draws from a counter offset across the high word
+SIGMOID_SHAPES = [(1024, 500, 0), (1024, 300, 0), (128, 500, 0), (128, 300, 0), (7, 33, 0),
+                  (7, 33, 2**32 - 100), (300, 17, 12345)]
+
+
+def _sigmoid_case(dev, m, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    acc = torch.randn((m, n), generator=g, device=dev) * 4
+    bias = torch.randn((n,), generator=g, device=dev)
+    return acc, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,offset", SIGMOID_SHAPES)
+@pytest.mark.parametrize("beta", [1.0, 0.7])
+def test_cuda_sigmoid_sample_matches_plain(cuda_device, m, n, offset, beta):
+    """Decisions equal to the plain version's, with and without a bias;
+    the draw's bits, uniforms and p equal to repro_torch.random's and
+    torch.sigmoid's; one launch counted a call."""
+    from repro_torch import random as R
+    from repro_torch.kernels import sigmoid_sample as SS
+
+    acc, bias = _sigmoid_case(cuda_device, m, n, m * n + offset)
+    key = R.fold_in(R.PRNGKey(m), n)
+    for b in (bias, None):
+        before = SS.launches
+        y = SS.sigmoid_sample_cuda(acc, b, beta=beta, key=key, offset=offset)
+        assert SS.launches == before + 1
+        want = TREF.sigmoid_sample_ref(acc, b, beta=beta, key=key, offset=offset)
+        print(f"sigmoid_sample ({m}, {n}) offset {offset}: {int((y != want).sum())} decisions "
+              f"differ, {float(y.mean()):.4f} fire")
+        assert torch.equal(y, want)
+        assert torch.equal(TOPS.sigmoid_sample(acc, b, beta, key, offset), y)
+    bits, u, p, y2 = SS.draw_probe(acc, bias, beta=beta, key=key, offset=offset)
+    want_bits = R.random_bits(key, (m, n), cuda_device, start=offset, count=m * n).reshape(m, n)
+    assert torch.equal(bits, want_bits)
+    assert torch.equal(u, R.uniform_from_bits(want_bits, 0.0, 1.0))
+    assert torch.equal(p, torch.sigmoid(beta * (acc + bias)))
+    assert torch.equal(y2, (u < p).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(0, 500), (128, 0)])
+def test_cuda_sigmoid_sample_empty_counts_no_launch(cuda_device, m, n):
+    from repro_torch.kernels import sigmoid_sample as SS
+
+    acc = torch.zeros((m, n), device=cuda_device)
+    before = SS.launches
+    y = SS.sigmoid_sample_cuda(acc, torch.zeros((n,), device=cuda_device), beta=1.0, key=(0, 1))
+    assert SS.launches == before and y.shape == (m, n)
+
+
+@pytest.mark.cuda
+def test_cuda_sigmoid_sample_refuses(cuda_device):
+    """Wrong dtype, layout or bias shape raise, and count no launch."""
+    from repro_torch.kernels import sigmoid_sample as SS
+
+    acc = torch.zeros((8, 16), device=cuda_device)
+    before = SS.launches
+    for bad, b in ((acc.double(), None), (acc.t(), None), (acc.cpu(), None),
+                   (acc, torch.zeros((15,), device=cuda_device))):
+        with pytest.raises(ValueError):
+            SS.sigmoid_sample_cuda(bad, b, beta=1.0, key=(0, 1))
+    assert SS.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_fcnn_predict_raca_matches_cpu(cuda_device):
+    """A small FCNN's RACA prediction on the card (both kernels) equals the
+    CPU's (plain versions) on the same weights and images, and launches
+    two sigmoid_sample and one wta_sample a vote."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.configs.fcnn_mnist import CONFIG
+    from repro_torch.data import mnist_batch
+    from repro_torch.kernels import sigmoid_sample as SS
+    from repro_torch.kernels import wta_sample as WS
+    from repro_torch.models import fcnn as FC
+
+    cfg = dataclasses.replace(CONFIG, fcnn_layers=(784, 64, 32, 10))
+    params = FC.init_fcnn(R.PRNGKey(2), cfg, "cpu")
+    x = mnist_batch(batch=64, step=0, device="cpu")["image"]
+    want = FC.fcnn_predict_raca(params, x, cfg, R.PRNGKey(7), 6)
+    SS.launches = WS.launches = 0
+    got = FC.fcnn_predict_raca({k: v.to(cuda_device) for k, v in params.items()},
+                               x.to(cuda_device), cfg, R.PRNGKey(7), 6)
+    torch.cuda.synchronize()
+    assert (SS.launches, WS.launches) == (12, 6)
+    assert float((got.cpu() == want).float().mean()) >= 0.98

@@ -124,8 +124,8 @@ def test_randint_u16(seed, shape):
     n = int(np.prod(shape))
     part = R.randint(_pair(key), shape, 0, 1 << 16, start=n // 3, count=n - n // 3).numpy()
     assert np.array_equal(part.astype(np.uint32), want.reshape(-1)[n // 3 :])
-    with pytest.raises(NotImplementedError):
-        R.randint(_pair(key), shape, 0, 1000)
+    with pytest.raises(NotImplementedError):   # jax's uint32 products would wrap
+        R.randint(_pair(key), shape, 0, (1 << 16) + 1)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
