@@ -54,12 +54,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bf16 and an int8 KV pool, then with WTA sampling (``wta_head``,
    ``ServeConfig(seed=0)``) on the bf16 pool at one read and at three
    redundant reads a token, with prefix hits, chunked
-   suffix prefill and copy-on-write; the launch counts of the kernels
-   each run goes through, reset just before and read just after, must be
-   > 0 (the int8 run: one fused write per attention launch; the WTA runs:
-   R ``wta_sample`` launches per decode step, one per first token).  Each run
-   ends in a profile of full-batch decode ticks with the decode attention
-   kernel's and the WTA sampler's shares of the device time.
+   suffix prefill and copy-on-write, each through the compiled engine
+   (the decode step captured as one CUDA graph per window width and
+   replayed) and then eagerly (``graphs=False``): streams equal token for
+   token (a divergence printed with both sides' tokens at it), launch
+   counts equal; each run prints its captures, each capture's ms,
+   ``compile_counts()`` (one ``serve_step`` per window width, fewer than
+   decode steps), its widest graph's nodes by type, and the device
+   memory its engine held, which must all be freed once it is dropped
+   (under 32 MiB left).  The launch counts of the kernels each run goes
+   through, reset just before and read just after (the counters add
+   each graph's captured counts on every replay), must be > 0 (attention: one launch
+   per layer and decode step; the int8 run: one fused write per
+   attention launch; the WTA runs: R ``wta_sample`` launches per decode
+   step, one per first token).  Each run ends in a profile of full-batch
+   decode ticks (replays, for the compiled engine) with kernels per tick,
+   the device busy share and the decode attention kernel's and the WTA
+   sampler's shares of the device time.  Then host ms a full-batch tick
+   in turns in one process: greedy and WTA, each compiled and eager.
 5. entry points: ``ops.stoch_round_serving`` on the 2048² quantizer row
    and ``ops.wta_counts`` at the serving head's operating point (8 ×
    50304, 32 trials); each kernel's launches, reset just before and read
@@ -81,9 +93,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    agree with the same model on the CPU (plain versions), for a float and
    an int8 pool (whose written codes must agree too); two smoke-size
    analog training steps agree card vs CPU (losses, comparator
-   decisions); a smoke-size WTA serve (R = 1 and 3) gives the same
-   streams on the card and on the CPU (a divergence is printed with both
-   sides' votes at it, and fails); five smoke FCNN training steps and its
+   decisions); a smoke-size WTA serve (R = 1 and 3; eager on the card,
+   so that its sampler calls can be recorded) gives the same streams on
+   the card and on the CPU (a divergence is printed with both sides'
+   votes at it, and fails); five smoke FCNN training steps and its
    predictions agree card vs CPU.
 
 The second-to-last line is the ``kernels`` JSON record; the last is
@@ -1261,6 +1274,7 @@ def serve_phase(dev) -> dict:
     log(f"  init stablelm-3b ({cfg.n_layers}L d{cfg.d_model} H{cfg.n_heads} Dh{cfg.head_dim} "
         f"ff{cfg.d_ff} V{cfg.vocab} {cfg.dtype}) in {time.perf_counter() - t0:.1f} s")
     prompts = serve_trace(cfg.vocab)
+    serve_warm_up(params, cfg, prompts, dev)
     res = {}
     for kv in ("same", "int8"):
         res[kv] = serve_once(params, dataclasses.replace(cfg, kv_cache_dtype=kv), prompts, dev)
@@ -1286,24 +1300,47 @@ def serve_phase(dev) -> dict:
     return res
 
 
+def serve_warm_up(params, cfg, prompts, dev) -> None:
+    """Two requests through a compiled and an eager engine, untimed: the
+    process's first model run pays one-time costs (cuBLAS handles and
+    heuristics, lazy module loads, the first capture) that would
+    otherwise land on the first measured run, the compiled bf16 one."""
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    for graphs in (True, False):
+        eng = ServingEngine(params, cfg, ServeConfig(max_batch=8, max_len=512, kv_block_size=16,
+                                                     prefill_chunk=128, max_new_tokens=8),
+                            device=dev, graphs=graphs)
+        for p in prompts[:2]:
+            eng.submit(p)
+        eng.run()
+        del eng
+    torch.cuda.empty_cache()
+    log(f"  warm-up (2 requests, compiled and eager) in {time.perf_counter() - t0:.2f} s")
+
+
 def tick_turns(params, cfg, dev, n_ticks: int = 5, rounds: int = 10) -> dict:
-    """Host ms per full-batch decode tick, greedy against WTA sampling, in
-    turns within one process (greedy, WTA, WTA, greedy, ...; no
-    profiler): two engines on the same weights, 8 slots at positions ≈
-    100-130, each tick ending in the engine's own sync.  Host time moves
-    between calls and phases, so only turns compare the two.  Then the
-    sampler alone, ``specs.sample_tokens`` on the engine's (8, 50304) bf16
-    logits with per-slot keys and steps against its greedy argmax: ms per
-    call over 200 calls ending in one sync, in turns, and at three
-    redundant reads."""
+    """Host ms per full-batch decode tick in turns within one process (no
+    profiler): four engines on the same weights, greedy and WTA sampling,
+    each with the compiled step (CUDA graphs) and eagerly, taking turns in
+    an order that rotates every round; 8 slots at positions ≈ 128-230, each
+    tick ending in the engine's own sync.  Host time moves between calls
+    and phases, so only turns compare them.  Then the sampler alone,
+    ``specs.sample_tokens`` on the engine's (8, 50304) bf16 logits with
+    per-slot keys and steps against its greedy argmax: ms per call over 200
+    calls ending in one sync, in turns, and at three redundant reads."""
     from repro_torch.launch import specs as SP
     from repro_torch.serving import ServeConfig, ServingEngine
 
     rng = np.random.default_rng(2)
     engines = {}
-    for name, c in (("greedy", cfg), ("wta", dataclasses.replace(cfg, wta_head=True))):
+    for name, c, graphs in (("greedy", cfg, True), ("wta", dataclasses.replace(cfg, wta_head=True), True),
+                            ("greedy eager", cfg, False),
+                            ("wta eager", dataclasses.replace(cfg, wta_head=True), False)):
         eng = ServingEngine(params, c, ServeConfig(max_batch=8, max_len=512, kv_block_size=16,
-                                                   prefill_chunk=128, seed=0), device=dev)
+                                                   prefill_chunk=128, seed=0), device=dev,
+                            graphs=graphs)
         for _ in range(8):
             eng.submit(rng.integers(0, cfg.vocab, 100).tolist(),
                        max_new_tokens=2 * rounds * n_ticks + 4)
@@ -1312,21 +1349,22 @@ def tick_turns(params, cfg, dev, n_ticks: int = 5, rounds: int = 10) -> dict:
         eng.tick()
         engines[name] = eng
     torch.cuda.synchronize()
-    ms = {"greedy": [], "wta": []}
+    names = list(engines)
+    ms = {k: [] for k in names}
     for r in range(rounds):
-        for name in (("greedy", "wta") if r % 2 == 0 else ("wta", "greedy")):
+        for name in names[r % 4:] + names[: r % 4]:
             eng = engines[name]
             t0 = time.perf_counter()
             for _ in range(n_ticks):
                 eng.tick()
             ms[name].append((time.perf_counter() - t0) * 1e3 / n_ticks)
     out = {k: float(np.median(v)) for k, v in ms.items()}
-    log(f"  host ms per full-batch tick in turns ({rounds} x {n_ticks} ticks each): greedy "
-        f"{[round(x, 2) for x in ms['greedy']]} (median {out['greedy']:.2f}), WTA "
-        f"{[round(x, 2) for x in ms['wta']]} (median {out['wta']:.2f})")
+    for name in names:
+        log(f"  host ms per full-batch tick in turns ({rounds} x {n_ticks} ticks), {name}: "
+            f"{[round(x, 2) for x in ms[name]]} (median {out[name]:.2f})")
+    for name in ("greedy", "wta"):
+        assert engines[name].compile_counts()["serve_step"] == 1, engines[name].compile_counts()
     wcfg = engines["wta"].mcfg
-    for eng in engines.values():
-        eng.run()
     del engines
     torch.cuda.empty_cache()
     logits = (torch.randn((8, cfg.vocab), device=dev) * 2.5).to(torch.bfloat16)
@@ -1352,23 +1390,60 @@ def tick_turns(params, cfg, dev, n_ticks: int = 5, rounds: int = 10) -> dict:
 
 
 def serve_once(params, cfg, prompts, dev, reads: int = 1) -> dict:
+    """The trace through the compiled engine (CUDA graphs, the default on
+    the card), its launch counts, captures and ``compile_counts()``, a
+    profile of its decode ticks; then the same trace eagerly
+    (``graphs=False``), whose streams and launch counts must be the
+    same, and its profile."""
+    kv = cfg.kv_cache_dtype
+    log(f"  -- kv pool: {'int8 codes + f32 scales' if kv == 'int8' else cfg.dtype}, "
+        f"{f'WTA (R={reads})' if cfg.wta_head else 'greedy'} sampling")
+    runs = {mode: serve_run(params, cfg, prompts, dev, reads, graphs=mode == "graphs")
+            for mode in ("graphs", "eager")}
+    g, e = runs["graphs"], runs["eager"]
+    diverged = [(r, next((i for i, (a, b) in enumerate(zip(g["outs"][r], e["outs"][r])) if a != b),
+                         min(len(g["outs"][r]), len(e["outs"][r]))))
+                for r in sorted(g["outs"]) if g["outs"][r] != e["outs"].get(r)]
+    for r, i in diverged:
+        log(f"  request {r}: graph and eager streams differ at token {i}: graphs "
+            f"{g['outs'][r][max(i - 2, 0):i + 3]}, eager {e['outs'][r][max(i - 2, 0):i + 3]}")
+    if diverged or sorted(g["outs"]) != sorted(e["outs"]):
+        raise AssertionError(f"graph and eager streams differ in {len(diverged)} requests")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"replay-aware launch counts {g['launches']} differ from eager "
+                             f"mode's {e['launches']}")
+    n_tok = sum(len(o) for o in g["outs"].values())
+    log(f"  graphs = eager: {len(g['outs'])} streams, {n_tok} tokens equal, launch counts equal; "
+        f"tok/s {g['metrics']['tokens_per_s']:.1f} vs {e['metrics']['tokens_per_s']:.1f}, "
+        f"decode step ms {g['decode_step_ms']:.2f} vs {e['decode_step_ms']:.2f}, TTFT mean ms "
+        f"{g['metrics']['ttft_mean'] * 1e3:.1f} vs {e['metrics']['ttft_mean'] * 1e3:.1f}; "
+        f"profiled tick host ms {g['profile']['host_ms']:.2f} vs {e['profile']['host_ms']:.2f}, "
+        f"kernels {g['profile']['kernels']:.0f} vs {e['profile']['kernels']:.0f}, device busy "
+        f"{g['profile']['busy']:.1%} vs {e['profile']['busy']:.1%}")
+    out = dict(g)
+    out["eager"] = {k: e[k] for k in ("metrics", "wall_s", "decode_step_ms", "profile")}
+    return out
+
+
+def serve_run(params, cfg, prompts, dev, reads: int, graphs: bool) -> dict:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import prefill_attention as PF
     from repro_torch.kernels import stoch_round as SR
     from repro_torch.kernels import wta_sample as WS
     from repro_torch.serving import ServeConfig, ServingEngine
 
-    kv = cfg.kv_cache_dtype
-    log(f"  -- kv pool: {'int8 codes + f32 scales' if kv == 'int8' else cfg.dtype}, "
-        f"{f'WTA (R={reads})' if cfg.wta_head else 'greedy'} sampling")
     scfg = ServeConfig(
         max_batch=8, max_len=512, kv_block_size=16, prefill_chunk=128,
         max_new_tokens=32, prefill_buckets=(32, 64, 120, 128, 200, 256, 320), seed=0,
         n_redundant_reads=reads,
     )
-    eng = ServingEngine(params, cfg, scfg, device=dev)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng = ServingEngine(params, cfg, scfg, device=dev, graphs=graphs)
     for p in prompts:
         eng.submit(p)
+    # the counters count graph replays too (each entry adds what its
+    # capture counted, ops.add_launches)
     PA.launches = PF.launches = SR.launches = SR.write_launches = WS.launches = 0
     t0 = time.perf_counter()
     outs = eng.run()
@@ -1377,24 +1452,29 @@ def serve_once(params, cfg, prompts, dev, reads: int = 1) -> dict:
     launches = {"decode": PA.launches, "prefill": PF.launches, "stoch_round": SR.launches,
                 "write_kv_int8": SR.write_launches, "wta_sample": WS.launches}
     m = eng.metrics()
-    log(f"  served {m.completed} requests, {m.total_tokens} tokens in {wall:.2f} s: "
+    mode = "graphs" if graphs else "eager"
+    log(f"  [{mode}] served {m.completed} requests, {m.total_tokens} tokens in {wall:.2f} s: "
         f"{m.tokens_per_s:.1f} tok/s, TTFT mean {m.ttft_mean * 1e3:.1f} ms p99 "
         f"{m.ttft_p99 * 1e3:.1f} ms, decode step {m.decode_step_ms:.2f} ms over "
         f"{m.decode_steps} steps, occupancy {m.occupancy_mean:.2f}")
     chunks = launches["prefill"] // cfg.n_layers
-    log(f"  prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, cow forks "
+    log(f"  [{mode}] prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, cow forks "
         f"{m.cow_forks}, prefill tokens {m.prefill_tokens} (saved {m.prefill_tokens_saved}), "
         f"launches decode {launches['decode']} prefill {launches['prefill']} write_kv_int8 "
         f"{launches['write_kv_int8']} stoch_round {launches['stoch_round']} wta_sample "
         f"{launches['wta_sample']} (per decode step: attention "
         f"{launches['decode'] / max(m.decode_steps, 1):.1f}; {chunks} prefill chunks)")
+    counts = eng.compile_counts()
+    captures = eng._decode.captures()
+    log(f"  [{mode}] compile_counts {counts}; captures {len(captures)}: "
+        + ", ".join(f"(W={w}, R={r}) {ms:.1f} ms" for (w, r), ms in captures))
     assert sorted(outs) == list(range(len(prompts))), "requests lost"
     assert all(len(o) == 32 and all(0 <= t < cfg.vocab for t in o) for o in outs.values())
     assert m.evictions == {"length": len(prompts)}, m.evictions
     assert m.prefix_hits >= 1 and m.prefix_partial_hits >= 2 and m.cow_forks >= 1
     assert launches["decode"] > 0 and launches["prefill"] > 0, launches
     assert launches["stoch_round"] == 0, launches   # the fused write does the rounding
-    if kv == "int8":
+    if cfg.kv_cache_dtype == "int8":
         assert eng._cache["k_pages"].dtype == torch.int8
         # one fused K/V write beside every attention launch
         assert launches["write_kv_int8"] == launches["decode"] + launches["prefill"] > 0, launches
@@ -1403,17 +1483,77 @@ def serve_once(params, cfg, prompts, dev, reads: int = 1) -> dict:
     # WTA: one launch per read and decode step, one per request's first token
     want = reads * m.decode_steps + len(prompts) if cfg.wta_head else 0
     assert launches["wta_sample"] == want, (launches, want)
-    prof = profile_decode(eng, cfg.vocab)
+    assert launches["decode"] == cfg.n_layers * m.decode_steps, launches
+    # one entry per (window width, R), captured on the card, none per tick
+    assert len(captures) == (counts["serve_step"] if graphs else 0), (captures, counts)
+    assert all(r == reads for _, r in eng._decode.entries)
+    assert m.decode_steps > counts["serve_step"], counts
+    prof = profile_decode(eng, cfg.vocab, mode)
+    if graphs:
+        prof["graph_nodes"] = graph_nodes(eng)
+    torch.cuda.synchronize()
+    mem = {"serving_gib": (torch.cuda.memory_allocated() - mem0) / 2**30,
+           "pool_gib": sum(t.numel() * t.element_size() for t in eng._cache.values()) / 2**30}
     del eng
     torch.cuda.empty_cache()
+    mem["left_mib"] = (torch.cuda.memory_allocated() - mem0) / 2**20
+    log(f"  [{mode}] device memory: {mem['serving_gib']:.3f} GiB held by the engine after the "
+        f"run and profile (its KV pool {mem['pool_gib']:.3f} GiB), {mem['left_mib']:.1f} MiB "
+        f"left once it is dropped")
+    # a dropped engine leaves nothing behind (no reference cycle, no
+    # per-capture stream whose cuBLAS workspace would outlive it)
+    assert mem["left_mib"] < 32, mem
     return {"launches": launches, "metrics": dataclasses.asdict(m), "wall_s": wall, "outs": outs,
-            "profile": prof}
+            "profile": prof, "decode_step_ms": m.decode_step_ms, "compile_counts": counts,
+            "memory": mem,
+            "captures": [[list(k), ms] for k, ms in captures]}
 
 
-def profile_decode(eng, vocab: int, n_ticks: int = 5) -> dict:
+# CUgraphNodeType values (cuda.h) of the nodes a decode step captures
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_nodes(eng) -> dict:
+    """Nodes of the engine's compiled step by type, for the widest window
+    it captured: the step captured once more into a graph that keeps its
+    ``cudaGraph_t`` (a capture runs nothing, so the engine's state does
+    not move; the launch counters the capture moved are put back),
+    counted with ``cuGraphGetNodes`` and ``cuGraphNodeGetType`` of
+    ``libcuda``."""
+    import ctypes
+
+    from repro_torch.kernels import ops as KOPS
+    from repro_torch.launch import specs as SP
+
+    (w, r), entry = max(eng._decode.entries.items())
+    before = KOPS.launch_counts()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=SP.capture_stream(eng._decode.device.index)):
+        eng._decode._run(entry.inputs)
+    after = KOPS.launch_counts()
+    KOPS.add_launches({k: before[k] - after[k] for k in after})
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kinds: dict[str, int] = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        kind = NODE_TYPES.get(t.value, f"type {t.value}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    del g
+    log(f"  graph of (W={w}, R={r}): {n.value} nodes {kinds}")
+    return {"window": w, "reads": r, "nodes": n.value, "by_type": kinds}
+
+
+def profile_decode(eng, vocab: int, mode: str, n_ticks: int = 5) -> dict:
     """Steady-state breakdown of full-batch decode ticks: host time per
     tick, device busy share, the kernels that take the device time, and
-    the WTA sampler's share where it runs."""
+    the WTA sampler's share where it runs.  With the compiled step every
+    profiled tick is a replay: its first tick at the profile's window
+    width comes before the profiler starts."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(1)
@@ -1423,12 +1563,14 @@ def profile_decode(eng, vocab: int, n_ticks: int = 5) -> dict:
         eng.tick()
     eng.tick()  # warm: every slot decoding
     torch.cuda.synchronize()
+    captured = len(eng._decode.captures())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_ticks):
             eng.tick()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    assert len(eng._decode.captures()) == captured, "a profiled tick captured a graph"
     gpu = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
@@ -1437,11 +1579,12 @@ def profile_decode(eng, vocab: int, n_ticks: int = 5) -> dict:
     wta = [e for e in gpu if "wta_sample_kernel" in e.key]
     wta_ms = sum(e.self_device_time_total for e in wta) / 1e3
     out = {"host_ms": wall_ms / n_ticks, "device_ms": busy_ms / n_ticks,
+           "busy": busy_ms / wall_ms,
            "kernels": sum(e.count for e in gpu) / n_ticks, "attention_ms": attn_ms / n_ticks,
            "wta_sample_ms": wta_ms / n_ticks, "wta_sample_launches": sum(e.count for e in wta) / n_ticks}
-    log(f"  profile: {n_ticks} full-batch decode ticks, {wall_ms / n_ticks:.2f} ms/tick host, "
-        f"device busy {busy_ms / n_ticks:.2f} ms/tick ({100 * busy_ms / wall_ms:.1f}% of wall), "
-        f"{sum(e.count for e in gpu) // n_ticks} kernels/tick; decode attention "
+    log(f"  [{mode}] profile: {n_ticks} full-batch decode ticks, {wall_ms / n_ticks:.2f} ms/tick "
+        f"host, device busy {busy_ms / n_ticks:.2f} ms/tick ({100 * busy_ms / wall_ms:.1f}% of "
+        f"wall), {sum(e.count for e in gpu) // n_ticks} kernels/tick; decode attention "
         f"{attn_ms / n_ticks:.3f} ms/tick ({100 * attn_ms / max(busy_ms, 1e-9):.1f}% of device "
         f"time, {sum(e.count for e in attn) / n_ticks:.1f} launches/tick); WTA sampler "
         f"{out['wta_sample_ms']:.4f} ms/tick ({100 * wta_ms / max(busy_ms, 1e-9):.1f}% of device "
@@ -1880,9 +2023,11 @@ def reference_wta(dev) -> None:
         outs, calls = {}, {}
         for d in ("cpu", dev):
             params = _tree_to(host, d)
+            # eager on the card too: the recording below reads every
+            # sampler call, which a graph replay does not make
             eng = ServingEngine(params, cfg, ServeConfig(
                 max_batch=3, max_new_tokens=10, max_len=64, kv_block_size=8, prefill_chunk=16,
-                seed=9, n_redundant_reads=reads), device=d)
+                seed=9, n_redundant_reads=reads), device=d, graphs=False)
             rec = calls[str(d)] = []
 
             def recording(*args, **kw):

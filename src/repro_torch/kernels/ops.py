@@ -30,6 +30,35 @@ from . import wta_counts as WTA
 from . import wta_sample as WS
 
 
+# every kernel wrapper's launch counter: name -> (module, attribute)
+_COUNTERS = {
+    "paged_attention": (PA, "launches"),
+    "paged_prefill_attention": (PF, "launches"),
+    "stoch_round": (SR, "launches"),
+    "write_kv_int8": (SR, "write_launches"),
+    "wta_counts": (WTA, "launches"),
+    "wta_sample": (WS, "launches"),
+    "sigmoid_sample": (SS, "launches"),
+    "crossbar_mac": (CB, "launches"),
+    "crossbar_prepass": (CB, "prepass_launches"),
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta`` to the wrappers' launch counts.  A wrapper counts when
+    its Python runs; a CUDA graph runs none, so a replay adds what its
+    capture counted, and the capture itself, which launches nothing,
+    takes its count back."""
+    for name, n in delta.items():
+        mod, attr = _COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
 def paged_attention(
     q: torch.Tensor,         # (B, H, Dh)
     k_pages: torch.Tensor,   # (P, bs, Hkv, Dh) cache dtype or int8 codes

@@ -5,7 +5,10 @@ randomly initialized model, greedy or WTA sampling.
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\
         [--kv-dtype int8] [--wta [--n-redundant-reads 3]]
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  On the card the
+engine's decode step is compiled: one CUDA graph per decode window width,
+captured on first use and replayed (the last line prints
+``compile_counts()``); on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -94,6 +97,7 @@ def main() -> None:
     )
     for o in outs:
         print("  ->", o)
+    print(f"compile counts {eng.compile_counts()}")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,23 @@
 """The paged serving entry points the engine drives (``repro/launch/specs.py``).
 
-Each ``make_*`` returns a plain function on tensors.  The reference jits
-and donates; here the functions run eagerly and update the pool in place.
+Each ``make_*`` returns a plain function on tensors that updates the pool
+in place, where the reference jits and donates.  The decode step is the
+one that is compiled: :class:`DecodeGraphs` captures it as a CUDA graph
+per (window width, redundant reads) on the card and replays it, the
+counterpart of the reference's jitted step cached per window bucket; on
+the CPU it runs eagerly on the same static buffers.  The other entry
+points run eagerly; :class:`EagerEntry` records the argument signatures
+they are called with, which is what a ``jax.jit`` compile is keyed on.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import wta as W
@@ -148,6 +158,21 @@ def sample_tokens(
     return torch.argmax(tally, dim=-1).to(torch.int32)
 
 
+def make_sample0(cfg: ModelConfig):
+    """(last-token logits (1, V), the request's key pair) → its first
+    token (1,) int32: its own key, step 0, one read (the reference's
+    ``_sample0``); the argmax without ``wta_head``."""
+
+    def sample0(logits: torch.Tensor, key) -> torch.Tensor:
+        if not cfg.wta_head:
+            return sample_tokens(cfg, logits)
+        dev = logits.device
+        return sample_tokens(cfg, logits, torch.tensor([key], dtype=torch.int64, device=dev),
+                             torch.zeros((1,), dtype=torch.int64, device=dev))
+
+    return sample0
+
+
 def make_paged_serve_step(
     cfg: ModelConfig, *, sat_threshold: float = 1e6, entropy_floor: float = 0.0,
     n_redundant: int = 1,
@@ -181,3 +206,152 @@ def make_paged_serve_step(
         return cache, tok, sane
 
     return serve_step
+
+
+def _signature(x):
+    """What ``jax.jit`` keys a compile on: shapes and dtypes of tensors
+    (inside dicts, tuples and lists too), the type of a Python number
+    (traced, not its value)."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in sorted(x.items()))
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(v) for v in x)
+    return None if x is None else type(x).__name__
+
+
+class EagerEntry:
+    """An eager entry point that records the distinct argument signatures
+    it is called with (:func:`_signature`, plus the values of the keyword
+    arguments named in ``static``, which key the signature as a jitted
+    function's static arguments key its compile, and are not passed on)."""
+
+    def __init__(self, fn, static: tuple[str, ...] = ()):
+        self.fn, self.static = fn, static
+        self.signatures: set = set()
+
+    def __call__(self, *args, **kw):
+        statics = tuple((k, kw.pop(k)) for k in self.static)
+        self.signatures.add((_signature(args), _signature(kw), statics))
+        return self.fn(*args, **kw)
+
+
+@functools.cache
+def capture_stream(index: int) -> "torch.cuda.Stream":
+    """The side stream that every warm-up and capture on card ``index``
+    runs on.  cuBLAS keeps a workspace (32 MiB on the H100) for each
+    stream it has run on, for the life of the process: a new stream per
+    capture would leave one behind with every engine."""
+    return torch.cuda.Stream(index)
+
+
+# the dtypes of a decode step's inputs: table, tokens[, keys, steps]
+_INPUT_DTYPES = (torch.int32, torch.int32, torch.int64, torch.int64)
+
+
+@dataclasses.dataclass
+class _Entry:
+    inputs: tuple                # static table, tokens[, keys, steps] on the device
+    stage: tuple                 # their pinned host staging buffers
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    out: tuple = ()              # the graph's static (tok, sane)
+    launches: dict = dataclasses.field(default_factory=dict)  # a replay's, by kernel
+    capture_ms: float = 0.0
+
+
+class DecodeGraphs:
+    """The compiled decode step of one engine: :func:`make_paged_serve_step`
+    over its parameters and cache, one entry per (window width W,
+    redundant reads R).
+
+    An entry owns its static inputs: the (B, W) int32 table, the (B,)
+    int32 tokens and, under ``wta_head``, the (B, 2) int64 keys and (B,)
+    int64 steps.  Each call copies the host's arrays into them through
+    pinned staging buffers.  With ``capture`` (the card) an entry's first
+    call runs the step eagerly on a side stream, the warm-up PyTorch
+    requires before a capture, and returns its tokens; it then captures
+    the step as a CUDA graph, and every later call replays the graph.  All
+    entries share one memory pool, so a call's outputs hold only until the
+    next call: the caller reads them first, and that read, a sync, is also
+    what lets the next call refill the staging buffers.  A capture that
+    fails raises; nothing falls back to eager mode.  Without ``capture``
+    (the CPU, or an eager run on the card) every call runs the step
+    eagerly on the same static buffers.
+
+    The graph holds the addresses of the parameters, the cache's tensors
+    (the pool, ``pos``, ``quant_step``) and the static inputs, so all of
+    them are written in place and never rebound.  Kernel wrappers count
+    launches in Python, which a replay does not run: each entry keeps the
+    counts its capture made (``launches``) and adds them on every replay."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, cache: dict, *, n_redundant: int = 1,
+                 capture: bool):
+        self.params, self.cache = params, cache
+        self.reads = n_redundant
+        self.capture = capture
+        self.device = cache["pos"].device
+        self._step = make_paged_serve_step(cfg, n_redundant=n_redundant)
+        self.entries: dict[tuple[int, int], _Entry] = {}
+        self._pool = torch.cuda.graph_pool_handle() if capture else None
+
+    def __call__(self, table: np.ndarray, tokens: np.ndarray, *wta: np.ndarray):
+        """One decode step: table (B, W), tokens (B,)[, keys (B, 2), steps
+        (B,)] host arrays → (tok, sane) (B,) int32 on the device."""
+        srcs = (table, tokens, *wta)
+        key = (table.shape[1], self.reads)
+        entry = self.entries.get(key)
+        if entry is None:
+            pin = self.device.type == "cuda"
+            entry = self.entries[key] = _Entry(
+                inputs=tuple(torch.empty(a.shape, dtype=dt, device=self.device)
+                             for a, dt in zip(srcs, _INPUT_DTYPES)),
+                stage=tuple(torch.empty(a.shape, dtype=dt, pin_memory=pin)
+                            for a, dt in zip(srcs, _INPUT_DTYPES)),
+            )
+        for dst, stage, src in zip(entry.inputs, entry.stage, srcs):
+            stage.numpy()[...] = src
+            dst.copy_(stage, non_blocking=True)
+        if not self.capture:
+            return self._run(entry.inputs)
+        if entry.graph is None:
+            return self._warm_up_and_capture(entry)
+        entry.graph.replay()
+        KOPS.add_launches(entry.launches)
+        return entry.out
+
+    def _run(self, inputs: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        _, tok, sane = self._step(self.params, self.cache, *inputs)
+        return tok, sane
+
+    def _warm_up_and_capture(self, entry: _Entry) -> tuple[torch.Tensor, torch.Tensor]:
+        cur = torch.cuda.current_stream(self.device)
+        side = capture_stream(self.device.index)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self._run(entry.inputs)   # this call's step, and the warm-up
+        cur.wait_stream(side)
+        for t in out:
+            t.record_stream(cur)
+        before = KOPS.launch_counts()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            # a synchronizing call (a pageable copy, a read of a device
+            # value) cannot be captured: make it raise where it is made
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                entry.out = self._run(entry.inputs)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        entry.capture_ms = (time.perf_counter() - t0) * 1e3
+        after = KOPS.launch_counts()
+        entry.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        KOPS.add_launches({k: -n for k, n in entry.launches.items()})
+        entry.graph = graph
+        return out
+
+    def captures(self) -> list[tuple[tuple[int, int], float]]:
+        """((W, R), capture ms) of every captured entry."""
+        return [(k, e.capture_ms) for k, e in self.entries.items() if e.graph is not None]

@@ -83,10 +83,27 @@ def init_lm_head(gen: torch.Generator, d: int, vocab: int, dtype) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# (head_dim, theta, device) -> the frequencies, computed once per process
+_ROPE_FREQS: dict = {}
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    """``theta ** (-i / (head_dim/2))`` in f32, computed once per
+    (head_dim, theta, device).  The base is a 0-dim CPU tensor, which a
+    CUDA kernel takes by value: nothing is copied to the device, so the
+    decode step can be captured as a CUDA graph.  A call made while a
+    graph is being captured is not kept, since its result would exist
+    only in the graph's replays."""
+    dev = torch.device("cpu" if device is None else device)
+    key = (head_dim, float(theta), dev)
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        half = head_dim // 2
+        exps = -torch.arange(0, half, dtype=torch.float32, device=dev) / half
+        freqs = torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+        if dev.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+            _ROPE_FREQS[key] = freqs
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

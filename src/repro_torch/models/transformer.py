@@ -256,9 +256,11 @@ def lm_decode_step(
 ) -> tuple[dict, torch.Tensor]:
     """One decode step over the paged pool; returns (cache, logits (B, V)).
 
-    The pool leaves are written in place and the returned cache is the same
-    dict with ``pos`` (and an int8 pool's ``quant_step``) advanced by one.
-    An int8 write of unit ``u``, sublayer ``i`` rounds under
+    Everything is updated in place: the pool leaves are written, and
+    ``pos`` (and an int8 pool's ``quant_step``) advance by one in their own
+    storage after their last read, so a captured step (``specs.DecodeGraphs``)
+    reads the values the engine writes there between steps.  The returned
+    cache is the same dict.  An int8 write of unit ``u``, sublayer ``i`` rounds under
     ``quant_step·2654435761 + u·40503 + i·1299721 mod 2**32``."""
     pos = cache["pos"]
     int8_pool = "k_scale_pages" in cache
@@ -279,9 +281,9 @@ def lm_decode_step(
             x = _attn_block(sub, x, a, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)
-    cache["pos"] = pos + 1
+    pos.add_(1)
     if int8_pool:
-        cache["quant_step"] = qstep + 1
+        qstep.add_(1)
     return cache, logits[:, 0, :]
 
 

@@ -30,10 +30,15 @@ races the trial bank that many times per token and takes the majority.
 
 The engine runs on the card unless built with ``device="cpu"``; the KV
 pool, the parameters and every per-tick input live on that device, while
-the block table, allocator and prefix index stay on the host.  Knobs the
-reference has and this slice does not honour (dense layout, preemption
-and deadlines, speculation, sharding, energy accounting, fault
-injection, degradation) are absent from :class:`ServeConfig`.
+the block table, allocator and prefix index stay on the host.  On the
+card the decode step is compiled: one CUDA graph per (window width,
+redundant reads), captured on first use and replayed on every later tick
+(``specs.DecodeGraphs``), as the reference jits one step per window
+bucket; :meth:`ServingEngine.compile_counts` is the reference's guard on
+them.  On the CPU the same step runs eagerly on the same static buffers.
+Knobs the reference has and this slice does not honour (dense layout,
+preemption and deadlines, speculation, sharding, energy accounting,
+fault injection, degradation) are absent from :class:`ServeConfig`.
 """
 
 from __future__ import annotations
@@ -214,9 +219,16 @@ class ServingEngine:
     """Continuous-batching engine over the paged pool (greedy or WTA
     sampling)."""
 
-    def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None):
+    def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None, *,
+                 graphs: Optional[bool] = None):
+        """``graphs``: capture the decode step as CUDA graphs; ``None`` means
+        on when the device is CUDA, ``False`` runs it eagerly there."""
         cfg.validate(model_cfg.kv_cache_dtype)
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        elif graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, the engine is on {self.device}")
         if params["embed"]["embedding"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed']['embedding'].device}, "
@@ -237,12 +249,18 @@ class ServingEngine:
         self._table = np.zeros((b, self._max_blocks), np.int32)
         # host mirror of cache["pos"] (drives the decode window width)
         self._host_pos = np.zeros((b,), np.int64)
-        self._serve_step = SP.make_paged_serve_step(
-            model_cfg, n_redundant=cfg.n_redundant_reads
+        # the pool exists before the decode step is first captured, and
+        # never moves: the graphs hold its addresses
+        self._cache = self._init_cache()
+        self._decode = SP.DecodeGraphs(
+            model_cfg, params, self._cache, n_redundant=cfg.n_redundant_reads, capture=graphs
         )
-        self._suffix_prefill = SP.make_paged_suffix_prefill(model_cfg)
-        self._state_insert = SP.make_paged_state_insert(model_cfg)
-        self._page_copy = SP.make_page_copy(model_cfg)
+        self._suffix_prefill = SP.EagerEntry(
+            SP.make_paged_suffix_prefill(model_cfg), static=("bucket",)
+        )
+        self._state_insert = SP.EagerEntry(SP.make_paged_state_insert(model_cfg))
+        self._page_copy = SP.EagerEntry(SP.make_page_copy(model_cfg))
+        self._sample0 = SP.EagerEntry(SP.make_sample0(model_cfg))
         # rid -> admission plan built by the gate (block hashes, resume
         # depth, full-hit flag); consumed by _admit_one
         self._plans: dict[int, dict] = {}
@@ -254,7 +272,6 @@ class ServingEngine:
         # first chunk runs)
         self._jobs: dict[int, dict] = {}
         self._job_fifo: list[int] = []
-        self._cache = None  # allocated lazily on first admission
         self._tokens = np.zeros((b,), np.int32)   # last emitted, per slot
         # WTA sampling: per-request keys fold_in(base, rid), set at
         # admission, and tokens emitted per slot (folded into the key)
@@ -391,8 +408,6 @@ class ServingEngine:
         plen = self._bucket(len(req.prompt))
         rkey = R.fold_in(self._base_key, req.rid)
         self._req_keys[req.slot] = rkey
-        if self._cache is None:
-            self._cache = self._init_cache()
         plan = self._plans.pop(req.rid)
         self._hash_memo.pop(req.rid, None)
         pages = self.blocks.owned(req.rid)  # reserved by the gate
@@ -504,6 +519,7 @@ class ServingEngine:
                 self._put(job["row"][: plan["n_prompt"]]),
                 q0,
                 self._put(plan["seeds"][b0:b1]) if self.int8 else None,
+                bucket=bucket,
             )
             self._prefill_tokens += c
             job["q0"] = q0 + c
@@ -526,16 +542,6 @@ class ServingEngine:
             self._complete_job(rid, job, tok0)
             emitted.append((rid, req.output[-1]))
 
-    def _sample0(self, logits: torch.Tensor, rkey: R.Key) -> torch.Tensor:
-        """A request's first token from its last-token logits (1, V): its
-        own key, step 0, one read (the reference's ``_sample0``)."""
-        if not self.mcfg.wta_head:
-            return SP.sample_tokens(self.mcfg, logits)
-        return SP.sample_tokens(
-            self.mcfg, logits, self._put(np.asarray([rkey], np.int64)),
-            torch.zeros((1,), dtype=torch.int64, device=self.device),
-        )
-
     def tick(self) -> list[tuple[int, int]]:
         """One engine iteration: admit, advance the chunked prefill, then one
         batched decode step for the decoding slots.  Returns the (rid,
@@ -552,12 +558,10 @@ class ServingEngine:
         if active:
             t_dec = time.perf_counter()
             w = self._window_blocks(active)
-            wta = (self._put(self._req_keys), self._put(self._steps)) if self.mcfg.wta_head else ()
-            self._cache, nxt, sane = self._serve_step(
-                self.params, self._cache,
-                self._put(self._table[:, :w]), self._put(self._tokens), *wta,
-            )
-            # one device sync per step: decode_time is honest
+            wta = (self._req_keys, self._steps) if self.mcfg.wta_head else ()
+            nxt, sane = self._decode(self._table[:, :w], self._tokens, *wta)
+            # one device sync per step: decode_time is honest, and the
+            # outputs are read before the next step can reuse them
             nxt_np, sane_np = torch.stack([nxt, sane]).cpu().numpy()
             self._host_pos += 1  # mirrors the step's pos+1, every slot
             now = time.perf_counter()
@@ -612,6 +616,20 @@ class ServingEngine:
         while w < need:
             w *= 2
         return min(w, self._max_blocks)
+
+    def compile_counts(self) -> dict[str, int]:
+        """Compiled-step counts per entry point, the reference's recompile
+        guard.  ``serve_step``: one per (window width, redundant reads)
+        seen, as captured graphs on the card and as prepared entries of
+        static buffers on the CPU, never one per tick, slot or page set.
+        The eager entry points count the distinct argument signatures they
+        were called with, what a ``jax.jit`` compile is keyed on:
+        ``suffix_prefill`` one per (bucket, chunk shape), the others at
+        most one over the engine's life."""
+        counts = {"serve_step": len(self._decode.entries)}
+        for name in ("suffix_prefill", "state_insert", "page_copy", "sample0"):
+            counts[name] = len(getattr(self, f"_{name}").signatures)
+        return counts
 
     def run(self) -> dict[int, list[int]]:
         """Drain queue + slots; returns {rid: generated tokens}."""

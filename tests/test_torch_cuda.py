@@ -774,3 +774,118 @@ def test_cuda_fcnn_predict_raca_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     assert (SS.launches, WS.launches) == (12, 6)
     assert float((got.cpu() == want).float().mean()) >= 0.98
+
+
+# ---------------------------------------------------------------------------
+# The compiled decode step: CUDA graphs per (window width, reads), replayed.
+# ---------------------------------------------------------------------------
+
+
+def _graph_trace():
+    """Shared prefixes, a same-tick full hit, prompts of several buckets:
+    decode windows of 2, 4 and 8 blocks."""
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, 256, 24).tolist()
+    y = rng.integers(0, 256, 12).tolist()
+    return [y, y, prefix + rng.integers(0, 256, 12).tolist(), rng.integers(0, 256, 40).tolist(),
+            prefix + rng.integers(0, 256, 12).tolist(), rng.integers(0, 256, 5).tolist(),
+            rng.integers(0, 256, 60).tolist()]
+
+
+def _graph_serve(device, kv, wta, reads, graphs, engine=None):
+    """Serve ``_graph_trace`` at smoke size (bf16); returns (engine,
+    streams, the launch counts it added)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    if engine is None:
+        cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), kv_cache_dtype=kv,
+                                  wta_head=wta)
+        engine = ServingEngine(
+            init_lm(cfg, seed=4, device=device), cfg,
+            ServeConfig(max_batch=4, max_new_tokens=12, max_len=128, kv_block_size=8,
+                        prefill_chunk=16, seed=3, n_redundant_reads=reads),
+            device=device, graphs=graphs)
+    before = TOPS.launch_counts()
+    for p in _graph_trace():
+        engine.submit(p)
+    outs = engine.run()
+    torch.cuda.synchronize()
+    after = TOPS.launch_counts()
+    return engine, outs, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,wta,reads", [("same", False, 1), ("int8", False, 1),
+                                          ("same", True, 1), ("same", True, 3)],
+                         ids=["greedy", "int8", "wta", "wta_r3"])
+def test_cuda_graph_replays_equal_eager(cuda_device, kv, wta, reads):
+    """The engine's replayed decode steps give the eager engine's streams,
+    pool (outside the trash page 0), positions and int8 step counter, bit
+    for bit, and the launch counters count the replays: the same counts
+    as eager mode.  One graph per window width, each replayed."""
+    g_eng, g_out, g_launch = _graph_serve(cuda_device, kv, wta, reads, None)
+    e_eng, e_out, e_launch = _graph_serve(cuda_device, kv, wta, reads, False)
+    assert g_eng._decode.capture and not e_eng._decode.capture
+    assert g_out == e_out
+    assert g_launch == e_launch
+    assert g_launch["paged_attention"] == 2 * g_eng.metrics().decode_steps
+    if kv == "int8":
+        assert g_launch["write_kv_int8"] == (g_launch["paged_attention"]
+                                             + g_launch["paged_prefill_attention"])
+    want_wta = reads * g_eng.metrics().decode_steps + len(_graph_trace()) if wta else 0
+    assert g_launch["wta_sample"] == want_wta
+    for name, leaf in g_eng._cache.items():
+        other = e_eng._cache[name]
+        if name.endswith("pages"):
+            leaf, other = leaf[:, :, 1:], other[:, :, 1:]
+        assert torch.equal(leaf, other), name
+    counts = g_eng.compile_counts()
+    widths = {w for w, _ in g_eng._decode.entries}
+    assert counts["serve_step"] == len(widths) == len(g_eng._decode.captures()) >= 2
+    assert g_eng.metrics().decode_steps > counts["serve_step"]
+    assert counts == e_eng.compile_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_graph_repeat_trace_captures_nothing_new(cuda_device):
+    """A second identical trace through the same engine replays the
+    graphs it has: no new capture, no new signature."""
+    eng, _, _ = _graph_serve(cuda_device, "same", True, 1, None)
+    counts, graphs = eng.compile_counts(), {k: e.graph for k, e in eng._decode.entries.items()}
+    eng, _, launch = _graph_serve(cuda_device, "same", True, 1, None, engine=eng)
+    assert eng.compile_counts() == counts
+    assert {k: e.graph for k, e in eng._decode.entries.items()} == graphs
+    assert launch["paged_attention"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,theta", [(80, 10000.0), (16, 10000.0), (64, 1e6)])
+def test_cuda_rope_freqs_bit_identical_to_the_host_tensor_form(cuda_device, head_dim, theta):
+    from repro_torch.models.layers import rope_freqs
+
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=cuda_device) / half
+    old = torch.pow(torch.tensor(theta, dtype=torch.float32, device=cuda_device), exps)
+    assert torch.equal(rope_freqs(head_dim, theta, cuda_device).view(torch.int32),
+                       old.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_failed_capture_raises(cuda_device, monkeypatch):
+    """A step that cannot be captured (here a pageable host-to-device copy
+    inside it) makes the tick raise: the engine does not go on eagerly."""
+    from repro_torch.launch import specs as SP
+
+    real = SP.sample_tokens
+
+    def with_a_host_copy(cfg, logits, *args, **kw):
+        torch.tensor(1.0, device=logits.device)
+        return real(cfg, logits, *args, **kw)
+
+    monkeypatch.setattr(SP, "sample_tokens", with_a_host_copy)
+    with pytest.raises(RuntimeError):
+        _graph_serve(cuda_device, "same", False, 1, None)
