@@ -70,12 +70,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step, one per first token).  Each run ends in a profile of full-batch
    decode ticks (replays, for the compiled engine) with kernels per tick,
    the device busy share and the decode attention kernel's and the WTA
-   sampler's shares of the device time.  Then host ms a full-batch tick
-   in turns in one process: greedy and WTA, each compiled and eager.
+   sampler's shares of the device time.  Then the degraded serve
+   (:func:`degraded_phase`): the WTA trace through the compiled engine on
+   the ``sim_faulty`` backend with every knob at zero (the ``sim`` WTA
+   stream token for token, analog counts = tokens computed x per-token
+   counts exactly, = the ``sim`` run's), and again under the ladder
+   (canary every tick, comparator offset 3 injected at tick 4 and taken
+   back at tick 16, idle ticks until level 0): the ladder reaches level 2
+   (R = 3 captured) and returns, its transitions printed, the canary's
+   ``crossbar_mac`` launches equal its probes (reset just before, read
+   just after), re-reads priced, every request ends with a typed reason,
+   the tokens before tick 4 equal the zero-knob run's, the graph rebuilds
+   and each recapture's ms printed, device memory after each rebuild
+   within 32 MiB of before, under 32 MiB left once the engine is dropped;
+   both print the Table I model's pJ per published token and TOPS/W (a
+   model, not a measurement).  Then host ms a full-batch tick in turns in
+   one process: greedy and WTA, each compiled and eager, and WTA compiled
+   on ``sim_faulty`` with the canary off and on every tick.
 5. entry points: ``ops.stoch_round_serving`` on the 2048² quantizer row
    and ``ops.wta_counts`` at the serving head's operating point (8 ×
    50304, 32 trials); each kernel's launches, reset just before and read
-   just after, must be > 0.
+   just after, must be > 0.  Then through ``use_backend(FaultySimBackend)``
+   (:func:`faulty_phase`): ``ops.crossbar_mac`` at the (1024, 2560) x
+   (2560, 2560) training read with 0.1% stuck cells and drift at clock
+   100 (the faulty weights equal the plain-torch transform on the card
+   bit for bit, the CPU's within an ulp budget, the read within the
+   linear gate of its plain version on them), and
+   ``ops.wta_counts`` at the serving head with a comparator offset and
+   read-noise inflation (within its agreement bound of the plain version
+   at the shifted operating point).
 6. train: RACA analog training (``--analog``) of stablelm-3b at full width
    and depth, batch 8 x 128, 3 steps through ``make_train_step``: finite
    losses, parameters changed, ``crossbar_mac`` launched 224 reads and
@@ -1281,6 +1304,8 @@ def serve_phase(dev) -> dict:
     res["wta"] = serve_once(params, dataclasses.replace(cfg, wta_head=True), prompts, dev)
     res["wta_r3"] = serve_once(params, dataclasses.replace(cfg, wta_head=True), prompts, dev,
                                reads=3)
+    res["degraded"] = degraded_phase(params, dataclasses.replace(cfg, wta_head=True), prompts,
+                                     dev, res["wta"])
     same, int8 = res["same"]["outs"], res["int8"]["outs"]
     agree = sum(a == b for r in same for a, b in zip(same[r], int8[r]))
     total = sum(len(o) for o in same.values())
@@ -1322,10 +1347,11 @@ def serve_warm_up(params, cfg, prompts, dev) -> None:
 
 def tick_turns(params, cfg, dev, n_ticks: int = 5, rounds: int = 10) -> dict:
     """Host ms per full-batch decode tick in turns within one process (no
-    profiler): four engines on the same weights, greedy and WTA sampling,
-    each with the compiled step (CUDA graphs) and eagerly, taking turns in
-    an order that rotates every round; 8 slots at positions ≈ 128-230, each
-    tick ending in the engine's own sync.  Host time moves between calls
+    profiler): six engines on the same weights, greedy and WTA sampling,
+    each with the compiled step (CUDA graphs) and eagerly, and WTA compiled
+    on the zero-knob ``sim_faulty`` backend with the canary off and on
+    every tick, taking turns in an order that rotates every round; 8 slots
+    at positions ≈ 128-230, each tick ending in the engine's own sync.  Host time moves between calls
     and phases, so only turns compare them.  Then the sampler alone,
     ``specs.sample_tokens`` on the engine's (8, 50304) bf16 logits with
     per-slot keys and steps against its greedy argmax: ms per call over 200
@@ -1335,12 +1361,16 @@ def tick_turns(params, cfg, dev, n_ticks: int = 5, rounds: int = 10) -> dict:
 
     rng = np.random.default_rng(2)
     engines = {}
-    for name, c, graphs in (("greedy", cfg, True), ("wta", dataclasses.replace(cfg, wta_head=True), True),
-                            ("greedy eager", cfg, False),
-                            ("wta eager", dataclasses.replace(cfg, wta_head=True), False)):
+    wcfg = dataclasses.replace(cfg, wta_head=True)
+    faulty = dict(device_backend="sim_faulty")
+    for name, c, graphs, extra in (
+            ("greedy", cfg, True, {}), ("wta", wcfg, True, {}),
+            ("greedy eager", cfg, False, {}), ("wta eager", wcfg, False, {}),
+            ("wta faulty", wcfg, True, faulty),
+            ("wta faulty canary", wcfg, True, dict(faulty, canary_interval=1))):
         eng = ServingEngine(params, c, ServeConfig(max_batch=8, max_len=512, kv_block_size=16,
-                                                   prefill_chunk=128, seed=0), device=dev,
-                            graphs=graphs)
+                                                   prefill_chunk=128, seed=0, **extra),
+                            device=dev, graphs=graphs)
         for _ in range(8):
             eng.submit(rng.integers(0, cfg.vocab, 100).tolist(),
                        max_new_tokens=2 * rounds * n_ticks + 4)
@@ -1352,7 +1382,7 @@ def tick_turns(params, cfg, dev, n_ticks: int = 5, rounds: int = 10) -> dict:
     names = list(engines)
     ms = {k: [] for k in names}
     for r in range(rounds):
-        for name in names[r % 4:] + names[: r % 4]:
+        for name in names[r % len(names):] + names[: r % len(names)]:
             eng = engines[name]
             t0 = time.perf_counter()
             for _ in range(n_ticks):
@@ -1362,9 +1392,14 @@ def tick_turns(params, cfg, dev, n_ticks: int = 5, rounds: int = 10) -> dict:
     for name in names:
         log(f"  host ms per full-batch tick in turns ({rounds} x {n_ticks} ticks), {name}: "
             f"{[round(x, 2) for x in ms[name]]} (median {out[name]:.2f})")
-    for name in ("greedy", "wta"):
+    for name in ("greedy", "wta", "wta faulty", "wta faulty canary"):
         assert engines[name].compile_counts()["serve_step"] == 1, engines[name].compile_counts()
-    wcfg = engines["wta"].mcfg
+        assert engines[name]._rebuilds == 0
+    probes = engines["wta faulty canary"].metrics()
+    log(f"  canary every tick: {probes.canary_probes} probes, {probes.canary_failures} failed; "
+        f"host ms a tick, medians: canary on {out['wta faulty canary']:.2f}, off "
+        f"{out['wta faulty']:.2f} (sim_faulty, zero knobs), sim {out['wta']:.2f}")
+    assert probes.canary_probes > 0 and probes.canary_failures == 0
     del engines
     torch.cuda.empty_cache()
     logits = (torch.randn((8, cfg.vocab), device=dev) * 2.5).to(torch.bfloat16)
@@ -1509,6 +1544,151 @@ def serve_run(params, cfg, prompts, dev, reads: int, graphs: bool) -> dict:
             "captures": [[list(k), ms] for k, ms in captures]}
 
 
+# The degraded serve's fault schedule: the comparator offset the canary
+# must catch, injected at tick DEGRADE_TICK and taken back at RECOVER_TICK
+DEGRADE_TICK, RECOVER_TICK, DEGRADE_OFFSET = 4, 16, 3.0
+
+
+def degraded_phase(params, cfg, prompts, dev, sim_wta: dict) -> dict:
+    """The trace with WTA sampling through the compiled engine on the
+    ``sim_faulty`` backend, twice.  (a) Every knob at zero: the ``sim``
+    WTA serve's stream token for token (``sim_wta``), and analog counts
+    that equal ``tokens_computed × per-token counts`` (and the other
+    per-event counts) exactly and equal the ``sim`` run's.  (b) The
+    ladder: the canary every tick, ``DegradationPolicy(trip_after=2,
+    recover_after=2)``, ``degrade_device(comparator_offset=3)`` at tick 4
+    and ``recover_device`` at tick 16, then idle ticks until level 0: the
+    ladder must reach level 2 (R = 3 captured) and come back, the canary's
+    ``crossbar_mac`` launches must equal its probes, re-reads must be
+    priced, every request must end with a typed reason, and the tokens
+    published before tick 4 must be (a)'s.  Both print the Table I
+    model's energy per published token."""
+    from repro_torch.core import cost_model as CM
+
+    res = {"zero": degraded_run(params, cfg, prompts, dev, ladder=False),
+           "ladder": degraded_run(params, cfg, prompts, dev, ladder=True)}
+    zero, ladder = res["zero"], res["ladder"]
+    diverged = [r for r in sorted(sim_wta["outs"]) if zero["outs"].get(r) != sim_wta["outs"][r]]
+    for r in diverged:
+        i = next((i for i, (a, b) in enumerate(zip(zero["outs"][r], sim_wta["outs"][r]))
+                  if a != b), 0)
+        log(f"  request {r}: zero-knob sim_faulty and sim streams differ at token {i}: "
+            f"{zero['outs'][r][max(i - 2, 0):i + 3]} vs {sim_wta['outs'][r][max(i - 2, 0):i + 3]}")
+    if diverged or sorted(zero["outs"]) != sorted(sim_wta["outs"]):
+        raise AssertionError(f"zero-knob sim_faulty stream differs from sim's in {len(diverged)} "
+                             f"requests")
+    a = zero["analog"]
+    want = (CM.AnalogOpCounts.from_dict(a["per_token_counts"]).scaled(a["tokens_computed"]["total"])
+            + CM.AnalogOpCounts.from_dict(a["per_sample_counts"]).scaled(a["sample_events"])
+            + CM.AnalogOpCounts.from_dict(a["per_kv_token_counts"]).scaled(a["kv_written_tokens"])
+            + CM.AnalogOpCounts.from_dict(a["per_redundant_counts"]).scaled(
+                a["redundant_read_events"]))
+    sim_a = sim_wta["metrics"]["analog"]
+    log(f"  (a) zero knobs: stream = sim's ({sum(map(len, zero['outs'].values()))} tokens); "
+        f"counts = tokens x per-event counts {want.as_dict() == a['counts']}, = sim's "
+        f"{a['counts'] == sim_a['counts']}; tokens computed {a['tokens_computed']}")
+    if want.as_dict() != a["counts"] or a["counts"] != sim_a["counts"] \
+            or a["tokens_computed"] != sim_a["tokens_computed"]:
+        raise AssertionError("zero-knob sim_faulty accounting differs from its shape counts or sim's")
+    if zero["rebuilds"] != 0:
+        raise AssertionError(f"zero knobs rebuilt {zero['rebuilds']} times")
+    before = [e for tick in ladder["per_tick"][:DEGRADE_TICK] for e in tick]
+    if before != [e for tick in zero["per_tick"][:DEGRADE_TICK] for e in tick]:
+        raise AssertionError(f"the ladder run published other tokens than (a) before tick "
+                             f"{DEGRADE_TICK}")
+    log(f"  (b) the {len(before)} tokens published in ticks 0-{DEGRADE_TICK - 1} equal (a)'s")
+    for name, r in res.items():
+        for scheme, label in (("raca", "RACA"), ("adc1b", "1-bit ADC")):
+            e = r["analog"][scheme]
+            log(f"  ({name}) Table I model, not measured: {label} "
+                f"{e['energy_pj_per_token']:.6e} pJ per published token "
+                f"({e['energy_pj_gross']:.6e} pJ gross), {e['tops_per_w_effective']:.4f} TOPS/W")
+    return res
+
+
+def degraded_run(params, cfg, prompts, dev, *, ladder: bool) -> dict:
+    from repro_torch.kernels import crossbar_mac as CB
+    from repro_torch.kernels import ops as KOPS
+    from repro_torch.serving import DegradationPolicy, FaultInjector, ServeConfig, ServingEngine
+
+    extra = {}
+    if ladder:
+        inj = (FaultInjector()
+               .at(DEGRADE_TICK, "degrade_device", comparator_offset=DEGRADE_OFFSET)
+               .at(RECOVER_TICK, "recover_device"))
+        extra = dict(canary_interval=1, fault_injector=inj,
+                     degradation=DegradationPolicy(trip_after=2, recover_after=2))
+    scfg = ServeConfig(
+        max_batch=8, max_len=512, kv_block_size=16, prefill_chunk=128, max_new_tokens=32,
+        prefill_buckets=(32, 64, 120, 128, 200, 256, 320), seed=0, device_backend="sim_faulty",
+        **extra,
+    )
+    tag = "(b) ladder" if ladder else "(a) zero knobs"
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng = ServingEngine(params, cfg, scfg, device=dev)
+    for p in prompts:
+        eng.submit(p)
+    per_tick, rebuild_mem = [], []
+    CB.launches = CB.prepass_launches = 0
+    before = KOPS.launch_counts()
+    t0 = time.perf_counter()
+    while eng.sched.has_work() or (ladder and eng._degrade_level and len(per_tick) < 200):
+        n = eng._rebuilds
+        if n == 0:
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+        per_tick.append(eng.tick())
+        if eng._rebuilds != n:
+            torch.cuda.synchronize()
+            rebuild_mem.append((eng._ticks, (torch.cuda.memory_allocated() - mem_before) / 2**20))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = KOPS.launch_counts()
+    launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    m = eng.metrics()
+    outs = {r.rid: r.output for r in eng.sched.all_requests()}
+    reasons = {r.rid: r.done_reason for r in eng.sched.all_requests()}
+    log(f"  {tag}: {m.completed} requests, {m.total_tokens} tokens, {len(per_tick)} ticks in "
+        f"{wall:.2f} s; decode steps {m.decode_steps}; evictions {m.evictions}; launches {launches}")
+    log(f"  {tag}: canary {m.canary_failures}/{m.canary_probes} failed, redundant reads "
+        f"{m.redundant_read_events}, degraded_mode {m.degraded_mode}, compile_counts "
+        f"{eng.compile_counts()}")
+    for t in m.degraded_transitions:
+        log(f"  {tag}: transition at tick {t['tick']}: level {t['from']} -> {t['to']} ({t['why']})")
+    captures = eng.capture_log()
+    log(f"  {tag}: graph rebuilds {eng._rebuilds}; captures {len(captures)}: " + ", ".join(
+        f"[gen {g}] (W={w}, R={r}) {ms:.1f} ms" for g, (w, r), ms in captures))
+    log(f"  {tag}: device memory after each rebuild tick, over the tick before the first: "
+        + (", ".join(f"tick {t}: {mib:+.1f} MiB" for t, mib in rebuild_mem) or "no rebuild"))
+    assert sorted(outs) == list(range(len(prompts))), "requests lost"
+    assert all(reasons[r] in ("length", "eos") for r in outs), reasons   # typed, no eviction
+    assert all(len(o) == 32 and all(0 <= t < cfg.vocab for t in o) for o in outs.values())
+    assert all(mib < 32 for _, mib in rebuild_mem), rebuild_mem
+    if ladder:
+        levels = [t["to"] for t in m.degraded_transitions]
+        whys = {t["why"] for t in m.degraded_transitions}
+        assert levels and max(levels) >= 2 and levels[-1] == 0 and m.degraded_mode == 0, levels
+        assert whys == {"fault_pressure", "canary_recovered"}, whys
+        assert any(r == 3 for _, (_, r), _ in captures), "the R = 3 step was never captured"
+        assert eng._rebuilds == 2 and any(g >= 1 for g, _, _ in captures), captures
+        # the canary is the serving path's only crossbar read: one launch a probe
+        assert CB.launches == m.canary_probes > 0 and CB.prepass_launches == 0, \
+            (CB.launches, m.canary_probes)
+        assert 0 < m.canary_failures < m.canary_probes
+        assert m.redundant_read_events > 0
+    else:
+        assert m.canary_probes == 0 and CB.launches == 0 and not m.degraded_transitions
+    crossbar, rebuilds = CB.launches, eng._rebuilds
+    del eng
+    torch.cuda.empty_cache()
+    left = (torch.cuda.memory_allocated() - mem0) / 2**20
+    log(f"  {tag}: {left:.1f} MiB left once the engine is dropped")
+    assert left < 32, left
+    return {"outs": outs, "per_tick": per_tick, "analog": m.analog, "rebuilds": rebuilds,
+            "crossbar_launches": crossbar}
+
+
 # CUgraphNodeType values (cuda.h) of the nodes a decode step captures
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
 
@@ -1647,6 +1827,140 @@ def wta_phase(dev) -> dict:
     # (exact ties aside)
     assert bool((votes == 32).all()), votes
     return {"launches": launches}
+
+
+FAULT_CLOCK = 100          # the fault clock of the faulty entry points
+# Faulty weights, card against CPU: PyTorch's CUDA division by a Python
+# scalar multiplies by its reciprocal (the CPU divides), so the drift's
+# (G - G_ref) / G0 may differ by an ulp of G (≈ 1.2e-7 after / G0 in
+# normalized units, tests/test_torch_backend.py); bound: 4 such ulps x max|w|
+FAULTY_WEIGHT_ULPS = 4 * 1.2e-7
+FAULTY_CROSSBAR = dict(stuck_rate=1e-3, drift_nu=0.1, seed=0)
+FAULTY_WTA = dict(comparator_offset=0.5, read_sigma_inflation=0.2)
+
+
+def faulty_transform(w, bk):
+    """The reference's ``_faulty_weights`` written out in plain torch ops
+    on ``w``'s device: drift in conductance space, then stuck cells at
+    w_min / w_max, under the max|w| scale."""
+    from repro_torch.core.physics import DeviceParams
+
+    dp = DeviceParams()
+    s = w.abs().amax().clamp_min(1e-6)
+    g = dp.g0 * (w / s) + dp.g_ref
+    wn = (bk.fault_state()["drift_mult"] * g - dp.g_ref) / dp.g0
+    sa0, sa1 = (torch.from_numpy(a).to(w.device) for a in bk._stuck_masks(tuple(w.shape)))
+    return wn.masked_fill(sa0, dp.w_min).masked_fill(sa1, dp.w_max) * s
+
+
+def faulty_phase(dev) -> dict:
+    """The entry points through ``use_backend(FaultySimBackend(...))``.
+
+    ``ops.crossbar_mac`` at the (1024, 2560) x (2560, 2560) training read
+    (linear, calibrated, quantized), 0.1% stuck cells and drift at clock
+    100: the faulty weights the backend hands the kernel must equal the
+    plain-torch transform of the same weights on the card bit for bit
+    (:func:`faulty_transform`), and the CPU's within
+    ``FAULTY_WEIGHT_ULPS``, and
+    the read is held against its plain version on those weights at the
+    linear gate, scaled by the read's range scale s (its output is the
+    normalized read times s, one more rounding on each side: + 2**-23·|out|).
+    ``ops.wta_counts`` at the serving head (8 x 50304, T = 32) with a
+    comparator offset of 0.5 and 20% read-noise inflation: held against
+    the plain version at the shifted (vth0 + 0.5, σ·1.2) by its agreement
+    bound.  Launch counts reset just before each call, read just after."""
+    from repro_torch import random as R
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.physics import DeviceParams, calibrate_v_read
+    from repro_torch.kernels import backend as BK
+    from repro_torch.kernels import crossbar_mac as CB
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wta_counts as WTA
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    m, k, n = 1024, 2560, 2560
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k**-0.5).to(torch.bfloat16).float()
+    cfg = AnalogConfig(mode="analog_linear", device=calibrate_v_read(DeviceParams(), k))
+    key = R.PRNGKey(11)
+
+    def faulty(spec):
+        bk = BK.FaultySimBackend(fault=BK.FaultConfig(**spec))
+        bk.advance_clock(FAULT_CLOCK)
+        return bk
+
+    bk = faulty(FAULTY_CROSSBAR)
+    handed = {}
+    real = ops.crossbar_mac_sim
+
+    def recording(x, w, key, cfg, binarize=True):
+        handed["w"] = w
+        return real(x, w, key, cfg, binarize)
+
+    ops.crossbar_mac_sim = recording
+    try:
+        CB.launches = CB.prepass_launches = 0
+        with BK.use_backend(bk):
+            got = ops.crossbar_mac(x, w, key, cfg, binarize=False)
+        torch.cuda.synchronize()
+        launches = (CB.launches, CB.prepass_launches)
+    finally:
+        ops.crossbar_mac_sim = real
+    wf = handed["w"]
+    plain_wf = faulty_transform(w, bk)
+    exact = torch.equal(wf, plain_wf)
+    cpu_err = float((wf.cpu() - faulty(FAULTY_CROSSBAR)._faulty_weights(w.cpu())).abs().max())
+    cpu_tol = FAULTY_WEIGHT_ULPS * float(w.abs().max())
+    state = bk.fault_state()
+    log(f"  faulty crossbar_mac (1024, 2560) x (2560, 2560) linear: {state['stuck_cells']} stuck "
+        f"cells, drift x{state['drift_mult']} at clock {FAULT_CLOCK}; faulty weights = the "
+        f"plain-torch transform on the card bit for bit: {exact}; against the CPU's max|Δ| "
+        f"{cpu_err:.3e} (bound {cpu_tol:.3e}); launches {launches[0]} read + {launches[1]} prepass")
+    if not exact or cpu_err > cpu_tol:
+        raise AssertionError("faulty weights on the card differ from the plain-torch transform")
+    if launches != (1, 1):
+        raise AssertionError(f"faulty crossbar_mac launched {launches}, not one read + one prepass")
+    want = ops.crossbar_mac_reference(x, wf, key, cfg, binarize=False)
+    s = ops.range_scale(wf)
+    dp = cfg.device
+    wq = ref.crossbar_quantize(wf / s, ops._qstep(dp), dp.w_min, dp.w_max)
+    tol = s * 2 * k**0.5 * 2.0**-24 * (x.abs() @ wq.abs()) + 2.0**-23 * want.abs()
+    err = (got - want).abs()
+    worst = float((err / tol.clamp_min(1e-30)).max())
+    healthy = ops.crossbar_mac(x, w, key, cfg, binarize=False)
+    moved = float((healthy - got).abs().max())
+    log(f"  faulty crossbar_mac vs its plain version on the faulty weights: max|err| "
+        f"{float(err.max()):.3e}, worst err/tol {worst:.3f}; the faults moved the read by up to "
+        f"{moved:.3e}")
+    if worst > 1.0 or not torch.isfinite(got).all() or moved == 0.0:
+        raise AssertionError("faulty crossbar_mac disagrees with its plain version")
+    cb_err = float(err.max())
+
+    bk = faulty(FAULTY_WTA)
+    z = torch.randn((8, 50304), generator=gen, device=dev) * WTA_SIGMA
+    seed = 20241216
+    kw = dict(n_trials=32, vth0=WTA_VTH0, sigma_z=WTA_SIGMA)
+    WTA.launches = 0
+    with BK.use_backend(bk):
+        counts = ops.wta_counts(z, seed, **kw)
+    torch.cuda.synchronize()
+    wta_launches = WTA.launches
+    vth0, sigma = bk.wta_readout_params(WTA_VTH0, WTA_SIGMA)
+    plain = ref.wta_counts_ref(z, ops._seed_tensor(seed, z.device), n_trials=32, vth0=vth0,
+                               sigma_z=sigma)
+    healthy = ops.wta_counts(z, seed, **kw)
+    delta = float((counts - plain).abs().sum())
+    sums_equal = torch.equal(counts.sum(-1), plain.sum(-1))
+    log(f"  faulty wta_counts (8, 50304) T=32 at (vth0 {vth0!r}, σ {sigma!r}): launches "
+        f"{wta_launches}, row sums equal {sums_equal}, sum|Δcounts| {delta:.0f} (bound "
+        f"{2 * WTA_FLIP_FRACTION * 8 * 32:.1f}); differs from the healthy point's counts "
+        f"{not torch.equal(counts, healthy)}")
+    if wta_launches != 1 or not sums_equal or delta > 2 * WTA_FLIP_FRACTION * 8 * 32:
+        raise AssertionError("faulty wta_counts disagrees with its plain version")
+    if torch.equal(counts, healthy):
+        raise AssertionError("the fault backend did not move wta_counts' operating point")
+    return {"crossbar_launches": launches[0], "crossbar_err": cb_err,
+            "wta_launches": wta_launches, "wta_err": float((counts - plain).abs().max())}
 
 
 # ---------------------------------------------------------------------------
@@ -2367,6 +2681,8 @@ def main() -> int:
     log("== stoch_round and wta_counts entry points")
     srres = stoch_round_phase(dev)
     wres = wta_phase(dev)
+    log("== crossbar_mac and wta_counts through the fault backend")
+    fres_faulty = faulty_phase(dev)
     log("== analog training of stablelm-3b")
     tres = train_phase(dev)
     log("== the paper's FCNN: fcnn-mnist [784, 500, 300, 10] training and RACA inference")
@@ -2429,6 +2745,16 @@ def main() -> int:
     wta_rec = next(k for k in kernels if k["name"] == "wta_sample")
     wta_rec["launches_r3"] = sres["wta_r3"]["launches"]["wta_sample"]
     wta_rec["launches_fcnn_head"] = fres["launches"]["wta_sample"]
+    # the backend seam's paths: the degraded serve's canary reads, the
+    # entry points through the fault backend
+    deg = sres["degraded"]["ladder"]
+    cb_rec = next(k for k in kernels if k["name"] == "crossbar_mac")
+    cb_rec["launches_canary"] = deg["crossbar_launches"]
+    cb_rec["launches_faulty"] = fres_faulty["crossbar_launches"]
+    cb_rec["max_abs_err_faulty"] = fres_faulty["crossbar_err"]
+    wc_rec = next(k for k in kernels if k["name"] == "wta_counts")
+    wc_rec["launches_faulty"] = fres_faulty["wta_launches"]
+    wc_rec["max_abs_err_faulty"] = fres_faulty["wta_err"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

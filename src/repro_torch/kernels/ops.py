@@ -6,7 +6,13 @@ pool's fused write (the quantizer and the page scatters of
 leaves to XLA: the WTA trials of ``repro/core/wta.py`` (:50-83) and the
 stochastic Sigmoid neurons of ``repro/core/neurons.py`` (:52-84).
 
-A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
+The public ``crossbar_mac``, ``wta_counts``, ``stoch_round_serving``,
+``paged_attention`` and ``paged_prefill_attention`` ask the process-wide
+device backend first (``backend.get_backend()``, ``ops.py:183-195,
+316-331, 386-406, 450-470, 571-580`` of the reference), whose Sim routes
+to the ``*_sim`` functions below; a fault backend perturbs their
+arguments or weights and calls the same functions.  Behind the seam, a
+CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version, and nothing else happens in between: no fallback, no
 try.  The kernels return f32; callers cast to the model dtype, as the
 reference does.  Seeds are uint32 values held in int64 tensors (see
@@ -15,11 +21,14 @@ reference does.  Seeds are uint32 values held in int64 tensors (see
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.physics import BOLTZMANN_K, PROBIT_SCALE
+from . import backend as _backend
 from . import crossbar_mac as CB
 from . import paged_attention as PA
 from . import prefill_attention as PF
@@ -72,7 +81,29 @@ def paged_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Block-table decode attention: (B, H, Dh) f32."""
+    """Block-table decode attention: (B, H, Dh) f32, through the active
+    device backend."""
+    return _backend.get_backend().paged_attention(
+        q, k_pages, v_pages, table, pos, kind=kind, local_window=local_window,
+        softcap=softcap, k_scale=k_scale, v_scale=v_scale,
+    )
+
+
+def paged_attention_sim(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    table: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    kind: str = "global",
+    local_window: int = 0,
+    softcap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The Sim backend's decode attention: the kernel on the card, the
+    plain version on the CPU."""
     fn = PA.paged_attention_cuda if q.is_cuda else ref.paged_attention_ref
     return fn(
         q, k_pages, v_pages, table, pos, kind=kind, local_window=local_window,
@@ -93,7 +124,29 @@ def paged_prefill_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Prefix-aware chunked-prefill attention: (S, H, Dh) f32."""
+    """Prefix-aware chunked-prefill attention: (S, H, Dh) f32, through the
+    active device backend."""
+    return _backend.get_backend().paged_prefill_attention(
+        q, k_pages, v_pages, table, q0, kind=kind, local_window=local_window,
+        softcap=softcap, k_scale=k_scale, v_scale=v_scale,
+    )
+
+
+def paged_prefill_attention_sim(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    table: torch.Tensor,
+    q0: int,
+    *,
+    kind: str = "global",
+    local_window: int = 0,
+    softcap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The Sim backend's prefill attention: the kernel on the card, the
+    plain version on the CPU."""
     fn = PF.paged_prefill_attention_cuda if q.is_cuda else ref.prefill_attention_ref
     return fn(
         q, k_pages, v_pages, table, q0, kind=kind, local_window=local_window,
@@ -113,6 +166,13 @@ def _seed_tensor(seed, device: torch.device) -> torch.Tensor:
 
 
 def stoch_round_serving(
+    x: torch.Tensor, seeds, *, step: float, lo: float, hi: float
+) -> torch.Tensor:
+    """:func:`stoch_round_serving_sim` through the active device backend."""
+    return _backend.get_backend().stoch_round_serving(x, seeds, step=step, lo=lo, hi=hi)
+
+
+def stoch_round_serving_sim(
     x: torch.Tensor, seeds, *, step: float, lo: float, hi: float
 ) -> torch.Tensor:
     """Stochastic rounding of ``x`` (..., N) over its rows ``x.reshape(-1,
@@ -180,6 +240,16 @@ def write_kv_int8(
 
 
 def wta_counts(
+    z: torch.Tensor, seed, *, n_trials: int, vth0: float, sigma_z: float
+) -> torch.Tensor:
+    """:func:`wta_counts_sim` through the active device backend (a fault
+    backend shifts the comparator's operating point first)."""
+    return _backend.get_backend().wta_counts(
+        z, seed, n_trials=n_trials, vth0=vth0, sigma_z=sigma_z
+    )
+
+
+def wta_counts_sim(
     z: torch.Tensor, seed, *, n_trials: int, vth0: float, sigma_z: float
 ) -> torch.Tensor:
     """Winner counts over ``n_trials`` WTA trials: z (..., C) → counts
@@ -339,8 +409,14 @@ class _CrossbarMAC(torch.autograd.Function):
 
 def crossbar_mac(x: torch.Tensor, w: torch.Tensor, key, cfg, binarize: bool = True) -> torch.Tensor:
     """Fused RACA matmul: x (..., K) f32, w (K, N) → (..., N) f32, under the
-    threefry key ``key`` (folded into the kernel's uint32 seed as the
-    reference folds it).  Differentiable through the STE backward."""
+    threefry key ``key``, through the active device backend (a fault
+    backend perturbs the weights or the read first)."""
+    return _backend.get_backend().crossbar_mac(x, w, key, cfg, binarize)
+
+
+def crossbar_mac_sim(x: torch.Tensor, w: torch.Tensor, key, cfg, binarize: bool = True) -> torch.Tensor:
+    """The Sim backend's read: ``key`` folded into the kernel's uint32 seed
+    as the reference folds it; differentiable through the STE backward."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).to(torch.float32)
     y = _CrossbarMAC.apply(x2d, w, prng.key_to_seed(key), cfg, binarize)
@@ -359,3 +435,52 @@ def crossbar_mac_reference(
         x2d, w.to(torch.float32), prng.key_to_seed(key), cfg, binarize, ref.crossbar_mac_ref
     )
     return y.reshape(lead + (w.shape[1],))
+
+
+# ---------------------------------------------------------------------------
+# The canary: a fixed known-answer crossbar read for drift detection.
+# ---------------------------------------------------------------------------
+
+_CANARY_ROWS, _CANARY_COLS = 128, 8
+
+
+@functools.lru_cache(maxsize=1)
+def _canary_operands() -> tuple[np.ndarray, np.ndarray]:
+    """x (1, 128), w (128, 8) f32, drawn as the reference draws them."""
+    rng = np.random.default_rng(0xCA9A31)
+    x = rng.uniform(-1.0, 1.0, (1, _CANARY_ROWS)).astype(np.float32)
+    w = rng.uniform(-1.0, 1.0, (_CANARY_ROWS, _CANARY_COLS)).astype(np.float32)
+    return x, w
+
+
+@functools.lru_cache(maxsize=None)
+def _canary_tensors(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operands on ``device``, copied there once."""
+    return tuple(torch.from_numpy(a).to(device) for a in _canary_operands())
+
+
+@functools.lru_cache(maxsize=1)
+def _canary_cfg():
+    # an unquantized calibrated linear read: the healthy answer is x @ w
+    # plus a small zero-mean read noise, so drift and stuck cells separate
+    # from the noise floor by a relative-error threshold
+    from repro_torch.core.analog import AnalogConfig
+
+    return AnalogConfig(mode="analog_linear", quantize=False, calibrated=True, linear_sigma=0.01)
+
+
+def canary_expected() -> np.ndarray:
+    """The canary's known answer on the host: (1, 8) f32."""
+    x, w = _canary_operands()
+    return x @ w
+
+
+def canary_mac(key, device: torch.device) -> torch.Tensor:
+    """Fire the canary: the fixed (1, 128) × (128, 8) linear crossbar read
+    of :func:`crossbar_mac`, on ``device``, through the active backend.
+    Healthy, it is :func:`canary_expected` plus ≈ ``linear_sigma`` of read
+    noise; drift scales it and stuck cells and a comparator offset shift
+    it, so a relative-error check against the known answer detects a
+    degraded substrate without touching live traffic."""
+    x, w = _canary_tensors(torch.device(device))
+    return crossbar_mac(x, w, key, _canary_cfg(), binarize=False)

@@ -3,12 +3,18 @@ randomly initialized model, greedy or WTA sampling.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\
-        [--kv-dtype int8] [--wta [--n-redundant-reads 3]]
+        [--kv-dtype int8] [--wta [--n-redundant-reads 3]] [--priority 0] \
+        [--device-backend sim_faulty [--stuck-rate R] [--drift-nu NU] \
+         [--read-sigma-inflation I] [--comparator-offset O] [--fault-seed S]] \
+        [--canary-interval N] [--tile-retire-threshold T] [--degrade]
 
 Runs on the card unless ``--device cpu`` is given.  On the card the
-engine's decode step is compiled: one CUDA graph per decode window width,
-captured on first use and replayed (the last line prints
-``compile_counts()``); on the CPU it runs eagerly.
+engine's decode step is compiled: one CUDA graph per decode window width
+and redundant-read factor, captured on first use and replayed, dropped
+and captured again when the fault backend's state moves (the last line
+prints ``compile_counts()``); on the CPU it runs eagerly.  The energy line
+is the Table I cost model's pricing of the analog events the run drove
+(a model of the paper's accelerator, not a measurement of the card).
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels.backend import FaultConfig
 from repro_torch.models.transformer import init_lm
-from repro_torch.serving import ServeConfig, ServingEngine
+from repro_torch.serving import DegradationPolicy, ServeConfig, ServingEngine
 
 
 def main() -> None:
@@ -57,11 +64,55 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights, the prompts and the WTA "
                          "sampler's base key")
+    ap.add_argument("--priority", type=int, default=1,
+                    help="priority class of the submitted requests: 0 = "
+                         "interactive, 1 = batch (default; shed first at "
+                         "degradation level 3)")
+    ap.add_argument("--device-backend", default="sim",
+                    help="analog device backend: 'sim' (ideal math) or "
+                         "'sim_faulty' (seeded ReRAM fault model: stuck "
+                         "cells, conductance drift, readout noise)")
+    ap.add_argument("--stuck-rate", type=float, default=0.0,
+                    help="fraction of crossbar cells stuck at SA0/SA1 "
+                         "(sim_faulty; split evenly between the rails)")
+    ap.add_argument("--drift-nu", type=float, default=0.0,
+                    help="conductance drift exponent: multiplier "
+                         "(1+clock)^-nu on the fault clock (sim_faulty)")
+    ap.add_argument("--read-sigma-inflation", type=float, default=0.0,
+                    help="fractional inflation of comparator read-noise "
+                         "sigma (sim_faulty)")
+    ap.add_argument("--comparator-offset", type=float, default=0.0,
+                    help="additive comparator threshold offset in "
+                         "normalized units (sim_faulty)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the deterministic stuck-cell maps "
+                         "(sim_faulty)")
+    ap.add_argument("--canary-interval", type=int, default=0,
+                    help="run a known-answer crossbar canary probe every "
+                         "N engine ticks (0 = off); failures feed the "
+                         "degradation ladder and tile retirement")
+    ap.add_argument("--tile-retire-threshold", type=float, default=0.0,
+                    help="retire crossbar tiles whose stuck-cell density "
+                         "exceeds this fraction after a canary failure "
+                         "(0 = never retire)")
+    ap.add_argument("--degrade", action="store_true",
+                    help="enable the graceful-degradation ladder (raise "
+                         "redundant reads -> shed batch admissions) driven "
+                         "by canary failures and sanity evictions")
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, wta_head=args.wta, kv_cache_dtype=args.kv_dtype)
     params = init_lm(cfg, seed=args.seed, device=args.device)
+    fault_cfg = None
+    if args.device_backend == "sim_faulty":
+        fault_cfg = FaultConfig(
+            seed=args.fault_seed,
+            stuck_rate=args.stuck_rate,
+            drift_nu=args.drift_nu,
+            read_sigma_inflation=args.read_sigma_inflation,
+            comparator_offset=args.comparator_offset,
+        )
     eng = ServingEngine(
         params, cfg,
         ServeConfig(
@@ -74,13 +125,18 @@ def main() -> None:
             prefill_chunk=args.prefill_chunk,
             seed=args.seed,
             n_redundant_reads=args.n_redundant_reads,
+            device_backend=args.device_backend,
+            device_fault_config=fault_cfg,
+            canary_interval=args.canary_interval,
+            tile_retire_threshold=args.tile_retire_threshold,
+            degradation=DegradationPolicy() if args.degrade else None,
         ),
         device=args.device,
     )
     rng = np.random.default_rng(args.seed + 7)
     for _ in range(args.requests):
         n = int(rng.integers(2, 9))
-        eng.submit(rng.integers(0, cfg.vocab, n).tolist())
+        eng.submit(rng.integers(0, cfg.vocab, n).tolist(), priority=args.priority)
     t0 = time.perf_counter()
     outs = eng.step()
     dt = time.perf_counter() - t0
@@ -94,6 +150,26 @@ def main() -> None:
         f"prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, "
         f"prefill tokens saved {m.prefill_tokens_saved}, kv={args.kv_dtype}, "
         f"sampler={f'wta R={args.n_redundant_reads}' if args.wta else 'greedy'})"
+    )
+    if m.canary_probes or m.degraded_mode or m.degraded_transitions:
+        print(
+            f"fault tolerance: degraded_mode {m.degraded_mode}, "
+            f"canary {m.canary_failures}/{m.canary_probes} failed, "
+            f"retired tiles {m.retired_tiles}, "
+            f"redundant reads {m.redundant_read_events}, "
+            f"transitions {len(m.degraded_transitions)}"
+        )
+    a = m.analog
+    tc = a["tokens_computed"]
+    print(
+        f"energy (Table I pricing, {a['backend']} backend): "
+        f"computed {tc['total']} tokens "
+        f"(prefill {tc['prefill']}, decode {tc['decode']}, "
+        f"draft {tc['draft']}) for {a['tokens_published']} published; "
+        f"RACA {a['raca']['energy_pj_per_token']:.0f} pJ/tok "
+        f"({a['raca']['tops_per_w_effective']:.2f} TOPS/W), "
+        f"1b-ADC {a['adc1b']['energy_pj_per_token']:.0f} pJ/tok "
+        f"({a['adc1b']['tops_per_w_effective']:.2f} TOPS/W)"
     )
     for o in outs:
         print("  ->", o)

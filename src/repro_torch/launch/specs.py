@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import wta as W
+from repro_torch.kernels import backend as BK
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import ModelConfig
 from repro_torch.models import transformer as TF
@@ -121,9 +122,10 @@ def sample_tokens(
     the plain key, read r on ``fold_in(key, r)`` (then the step); the token
     is the majority over the R reads, ties to the lowest token id.
 
-    The reference asks its device backend for the comparator's operating
-    point (``wta_readout_params``); the port has no backend seam, so it
-    uses the healthy identity ``(cfg.analog.vth0, wta_sigma_z(beta))``.
+    The comparator's operating point comes from the active device backend
+    when this runs (``wta_readout_params`` of ``(cfg.analog.vth0,
+    wta_sigma_z(beta))``: the identity on a healthy backend, shifted by a
+    fault backend), so a captured step keeps the point of its capture.
     The trials run in one kernel launch per read on the card
     (``ops.wta_trial_counts``), keys folded on the device."""
     if not (cfg.wta_head and key is not None):
@@ -135,7 +137,9 @@ def sample_tokens(
     if not per_slot:
         keys = keys.reshape(1, 2).expand(b, 2)
     layout = (v, 0) if per_slot else (b * v, v)
-    vth0, sigma_z = cfg.analog.vth0, W.wta_sigma_z(cfg.analog.beta)
+    vth0, sigma_z = BK.get_backend().wta_readout_params(
+        cfg.analog.vth0, W.wta_sigma_z(cfg.analog.beta)
+    )
 
     def sample_once(read: int) -> torch.Tensor:
         words = []
@@ -206,6 +210,45 @@ def make_paged_serve_step(
         return cache, tok, sane
 
     return serve_step
+
+
+def analog_call_profile(
+    entry: str, *, tokens: int = 1, batch: int = 1, k: int = 0, redundant: int = 0,
+) -> dict:
+    """Analog-event multiplicities of ONE call of a serving entry point,
+    the contract the energy accounting rides on (``kernels/backend.py``;
+    ``repro/launch/specs.py:632-700``).
+
+    * ``suffix_prefill``: one chunked-prefill step over ``tokens`` suffix
+      positions, each forwarded and K/V-writing; no sampling.
+    * ``sample0``: one first-token sampling decision (prefill completion,
+      full prefix hit).
+    * ``serve_step``: one batched decode step; ``batch`` ACTIVE slots each
+      forward, sample and write one token (padded idle slots are not
+      logical work); ``redundant`` extra comparator re-reads, each priced
+      as one more per-sample sweep without a sample event.
+    * ``spec_round``: one fused speculative round, ``k`` drafted tokens
+      (forwarded, sampled, written) plus ``k`` read-only verify positions
+      (forwarded, resampled) per active slot.
+    * page and state movement (``page_copy``, ``page_spill``,
+      ``page_restore``, ``state_gather``, ``state_insert``,
+      ``spec_rollback``): memory traffic, no crossbar events.
+
+    An unknown entry raises."""
+    zero = dict(prefill=0, decode=0, draft=0, samples=0, kv_tokens=0, redundant=0)
+    if entry == "suffix_prefill":
+        return dict(zero, prefill=tokens, kv_tokens=tokens)
+    if entry == "sample0":
+        return dict(zero, samples=1)
+    if entry == "serve_step":
+        return dict(zero, decode=batch, samples=batch, kv_tokens=batch, redundant=redundant)
+    if entry == "spec_round":
+        return dict(zero, draft=k * batch, decode=k * batch, samples=2 * k * batch,
+                    kv_tokens=k * batch)
+    if entry in ("page_copy", "page_spill", "page_restore", "state_gather", "state_insert",
+                 "spec_rollback"):
+        return zero
+    raise ValueError(f"unknown serving entry point {entry!r}")
 
 
 def _signature(x):
@@ -281,17 +324,22 @@ class DecodeGraphs:
 
     The graph holds the addresses of the parameters, the cache's tensors
     (the pool, ``pos``, ``quant_step``) and the static inputs, so all of
-    them are written in place and never rebound.  Kernel wrappers count
+    them are written in place and never rebound.  It also holds the kernel
+    arguments of its capture, the device backend's comparator point among
+    them: the engine drops the whole object when the backend's fault state
+    moves.  Kernel wrappers count
     launches in Python, which a replay does not run: each entry keeps the
     counts its capture made (``launches``) and adds them on every replay."""
 
     def __init__(self, cfg: ModelConfig, params: dict, cache: dict, *, n_redundant: int = 1,
-                 capture: bool):
+                 capture: bool, sat_threshold: float = 1e6, entropy_floor: float = 0.0):
         self.params, self.cache = params, cache
         self.reads = n_redundant
         self.capture = capture
         self.device = cache["pos"].device
-        self._step = make_paged_serve_step(cfg, n_redundant=n_redundant)
+        self._step = make_paged_serve_step(cfg, n_redundant=n_redundant,
+                                           sat_threshold=sat_threshold,
+                                           entropy_floor=entropy_floor)
         self.entries: dict[tuple[int, int], _Entry] = {}
         self._pool = torch.cuda.graph_pool_handle() if capture else None
 

@@ -36,22 +36,39 @@ redundant reads), captured on first use and replayed on every later tick
 (``specs.DecodeGraphs``), as the reference jits one step per window
 bucket; :meth:`ServingEngine.compile_counts` is the reference's guard on
 them.  On the CPU the same step runs eagerly on the same static buffers.
-Knobs the reference has and this slice does not honour (dense layout,
-preemption and deadlines, speculation, sharding, energy accounting,
-fault injection, degradation) are absent from :class:`ServeConfig`.
+
+Each engine owns a private device backend (``ServeConfig.device_backend``,
+``kernels/backend.py``) and notes the analog work of every entry-point
+call on it (``specs.analog_call_profile``), so :meth:`ServingEngine.metrics`
+reports the Table I model's energy per token under RACA and 1-bit-ADC
+readout (``ServingMetrics.analog``).  A fault backend (``sim_faulty``) is
+installed process-wide around each tick; its ``fault_version`` moving
+makes the engine drop every captured graph, whose kernel arguments hold
+the comparator point and weights of their capture, and capture again on
+next use.  Degraded-mode serving, as the reference's: a known-answer
+canary read every ``canary_interval`` ticks (with tile retirement on a
+failure), logit-sanity evictions as detection events, and the
+:class:`DegradationPolicy` ladder, which raises the WTA redundant reads at
+level 2 (one compiled step per R) and sheds less urgent admissions at
+level 3.  Knobs the reference has and this slice does not honour (dense
+layout, preemption and deadlines, speculation, sharding) are absent from
+:class:`ServeConfig`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import random as R
 from repro_torch.device import resolve_device
+from repro_torch.kernels import backend as BK
+from repro_torch.kernels import ops as KOPS
 from repro_torch.launch import specs as SP
 from repro_torch.models import ModelConfig
 from repro_torch.models import transformer as TF
@@ -80,6 +97,34 @@ def _default_buckets(max_len: int) -> tuple[int, ...]:
 
 
 @dataclasses.dataclass
+class DegradationPolicy:
+    """Graceful-degradation ladder under sustained fault pressure.
+
+    The engine counts *detection events* per tick (canary failures and
+    logit-sanity evictions).  ``trip_after`` consecutive dirty ticks
+    escalate one rung; ``recover_after`` consecutive clean canary PASSES
+    de-escalate one rung (without a canary, degradation is one-way: there
+    is no evidence the substrate recovered).  Rungs, in order:
+
+    * level 0: healthy;
+    * level 1: speculative decoding off (the port has none yet, so this
+      rung changes nothing here);
+    * level 2: WTA redundant reads raised to ``redundant_reads`` (majority
+      voting over comparator re-reads, priced in the energy accounting);
+    * level 3: admissions shed: queued requests with priority strictly
+      less urgent than ``shed_priority_above`` wait.
+
+    Every transition is recorded in ``ServingMetrics.degraded_transitions``
+    with its tick and cause.
+    """
+
+    trip_after: int = 2        # consecutive dirty ticks per escalation
+    recover_after: int = 3     # consecutive clean canary passes per rung
+    redundant_reads: int = 3   # R at level >= 2 (majority vote)
+    shed_priority_above: int = 0  # level 3: shed priority > this
+
+
+@dataclasses.dataclass
 class ServeConfig:
     max_batch: int = 8          # decode slots
     max_new_tokens: int = 32    # default per-request budget
@@ -101,6 +146,29 @@ class ServeConfig:
     # WTA comparator re-reads per sampled token (majority vote); 1 is the
     # plain single-read path
     n_redundant_reads: int = 1
+    # optional serving.faults.FaultInjector, fired at the start of every
+    # tick; None costs nothing
+    fault_injector: Optional[Any] = None
+    # the device backend the engine accounts analog events against
+    # (kernels.backend.BACKENDS): "sim" keeps the plain math; "sim_faulty"
+    # adds the ReRAM fault model.  Each engine owns a private instance.
+    device_backend: str = "sim"
+    # kernels.backend.FaultConfig for a fault backend (loud otherwise)
+    device_fault_config: Optional[Any] = None
+    # fire the known-answer canary read every N ticks (0 = off); a probe
+    # whose relative error exceeds canary_threshold is a detection event
+    canary_interval: int = 0
+    canary_threshold: float = 0.05
+    # on a canary failure, retire crossbar tiles whose stuck-at density
+    # reaches this (0 disables retirement)
+    tile_retire_threshold: float = 0.0
+    # logit-sanity detection of the decode step: |logit| above the
+    # threshold evicts "saturated", softmax entropy below the floor
+    # "entropy_collapse" (0.0 disables the entropy check)
+    logit_sat_threshold: float = 1e6
+    logit_entropy_floor: float = 0.0
+    # graceful-degradation ladder; None: detection evicts, nothing downshifts
+    degradation: Optional[DegradationPolicy] = None
 
     def buckets(self) -> tuple[int, ...]:
         if not self.prefill_buckets:
@@ -170,6 +238,37 @@ class ServeConfig:
                 f"allocatable blocks, but even the smallest request (bucket "
                 f"{min(self.buckets())} + 1 token) needs {need}"
             )
+        if self.device_backend not in BK.BACKENDS:
+            raise ValueError(
+                f"unknown device_backend {self.device_backend!r}; "
+                f"registered: {sorted(BK.BACKENDS)}"
+            )
+        faulty = BK.BACKENDS[self.device_backend].overrides_compute
+        if self.device_fault_config is not None and not faulty:
+            raise ValueError(
+                "device_fault_config is only meaningful with a fault backend "
+                f"(e.g. 'sim_faulty'); device_backend={self.device_backend!r} "
+                "would silently ignore it"
+            )
+        if self.canary_interval < 0:
+            raise ValueError(f"canary_interval must be >= 0, got {self.canary_interval}")
+        if self.canary_threshold <= 0.0:
+            raise ValueError(f"canary_threshold must be > 0, got {self.canary_threshold}")
+        if not 0.0 <= self.tile_retire_threshold <= 1.0:
+            raise ValueError(
+                f"tile_retire_threshold must be in [0, 1], got {self.tile_retire_threshold}"
+            )
+        if self.degradation is not None:
+            pol = self.degradation
+            if pol.trip_after < 1 or pol.recover_after < 1:
+                raise ValueError(
+                    "DegradationPolicy trip_after/recover_after must be >= 1, got "
+                    f"{pol.trip_after}/{pol.recover_after}"
+                )
+            if pol.redundant_reads < 1:
+                raise ValueError(
+                    f"DegradationPolicy redundant_reads must be >= 1, got {pol.redundant_reads}"
+                )
 
 
 @dataclasses.dataclass
@@ -195,6 +294,18 @@ class ServingMetrics:
     ttft_p99: float = 0.0
     # done_reason -> count over every finished request
     evictions: dict = dataclasses.field(default_factory=dict)
+    # the device backend's accounting snapshot: analog event tallies, the
+    # shape counts they reconcile against, and the Table I model's energy
+    # under RACA and 1-bit-ADC readout (DeviceBackend.snapshot)
+    analog: dict = dataclasses.field(default_factory=dict)
+    # ---- degraded-device serving ----
+    degraded_mode: int = 0        # current DegradationPolicy rung (0..3)
+    canary_probes: int = 0        # known-answer probes fired
+    canary_failures: int = 0      # probes past canary_threshold
+    retired_tiles: int = 0        # crossbar tiles remapped to spares
+    redundant_read_events: int = 0  # extra comparator re-reads (priced)
+    # every ladder transition: {tick, from, to, why} in firing order
+    degraded_transitions: list = dataclasses.field(default_factory=list)
 
     @property
     def decode_step_ms(self) -> float:
@@ -211,6 +322,22 @@ class ServingMetrics:
         if self.evictions:
             out += " evict=" + ",".join(
                 f"{k}:{v}" for k, v in sorted(self.evictions.items())
+            )
+        if self.degraded_mode or self.degraded_transitions:
+            out += (
+                f" degraded={self.degraded_mode}"
+                f" transitions={len(self.degraded_transitions)}"
+            )
+        if self.canary_probes:
+            out += f" canary={self.canary_failures}/{self.canary_probes}"
+        if self.retired_tiles:
+            out += f" retired_tiles={self.retired_tiles}"
+        if self.redundant_read_events:
+            out += f" redundant_reads={self.redundant_read_events}"
+        if self.analog:
+            out += (
+                f" raca_pj_per_tok={self.analog['raca']['energy_pj_per_token']:.0f}"
+                f" adc1b_pj_per_tok={self.analog['adc1b']['energy_pj_per_token']:.0f}"
             )
         return out
 
@@ -249,18 +376,23 @@ class ServingEngine:
         self._table = np.zeros((b, self._max_blocks), np.int32)
         # host mirror of cache["pos"] (drives the decode window width)
         self._host_pos = np.zeros((b,), np.int64)
+        # private device backend: analog-event accounting for THIS
+        # engine's traffic; a compute-overriding one (sim_faulty) is also
+        # installed process-wide around each tick
+        fault_kw = {}
+        if cfg.device_fault_config is not None:
+            fault_kw["fault"] = cfg.device_fault_config
+        self.backend = BK.make_backend(cfg.device_backend, model_cfg, **fault_kw)
+        # base WTA redundant-read factor (a greedy argmax re-read can never
+        # change the token)
+        self._redundant_base = cfg.n_redundant_reads if model_cfg.wta_head else 1
         # the pool exists before the decode step is first captured, and
         # never moves: the graphs hold its addresses
         self._cache = self._init_cache()
-        self._decode = SP.DecodeGraphs(
-            model_cfg, params, self._cache, n_redundant=cfg.n_redundant_reads, capture=graphs
-        )
-        self._suffix_prefill = SP.EagerEntry(
-            SP.make_paged_suffix_prefill(model_cfg), static=("bucket",)
-        )
-        self._state_insert = SP.EagerEntry(SP.make_paged_state_insert(model_cfg))
-        self._page_copy = SP.EagerEntry(SP.make_page_copy(model_cfg))
-        self._sample0 = SP.EagerEntry(SP.make_sample0(model_cfg))
+        self._graphs = graphs
+        self._rebuilds = 0
+        self._dropped_captures: list[tuple[int, tuple[int, int], float]] = []
+        self._build_entry_points()
         # rid -> admission plan built by the gate (block hashes, resume
         # depth, full-hit flag); consumed by _admit_one
         self._plans: dict[int, dict] = {}
@@ -290,11 +422,75 @@ class ServingEngine:
         self._total_tokens = 0
         self._busy_time = 0.0
         self._decode_time = 0.0
+        self._injector = cfg.fault_injector
+        # ---- degraded-device serving state ----
+        self._degrade_level = 0
+        self._dirty_streak = 0       # consecutive ticks with detections
+        self._clean_streak = 0       # consecutive clean canary passes
+        self._degraded_transitions: list[dict] = []
+        self._canary_probes = 0
+        self._canary_failures = 0
+        self._tick_dirty = 0         # detection events in the current tick
+        self._tick_canary: Optional[bool] = None
+        self._canary_expected = KOPS.canary_expected() if cfg.canary_interval else None
+
+    def _get_serve_step(self, n_redundant: int) -> SP.DecodeGraphs:
+        """The compiled decode step at redundant-read factor R, one per R
+        (raising R under degradation captures its own graphs once per
+        window width; dropping back reuses the healthy ones)."""
+        step = self._serve_steps.get(n_redundant)
+        if step is None:
+            step = self._serve_steps[n_redundant] = SP.DecodeGraphs(
+                self.mcfg, self.params, self._cache, n_redundant=n_redundant,
+                capture=self._graphs, sat_threshold=self.cfg.logit_sat_threshold,
+                entropy_floor=self.cfg.logit_entropy_floor,
+            )
+        return step
+
+    def _build_entry_points(self) -> None:
+        """(Re)build every entry point: at construction, and whenever the
+        device backend's ``fault_version`` moves.  A captured decode graph
+        replays the kernel arguments of its capture (the comparator point,
+        faulty weights), so a rebuild drops every graph, which releases
+        their memory pools, and the next tick captures again.  The eager
+        entry points are rebuilt too, so :meth:`compile_counts` restarts as
+        the reference's new jitted functions do."""
+        for step in getattr(self, "_serve_steps", {}).values():
+            self._dropped_captures += [(self._rebuilds, k, ms) for k, ms in step.captures()]
+        self._serve_steps: dict[int, SP.DecodeGraphs] = {}
+        self._decode = self._get_serve_step(self._redundant_base)
+        self._suffix_prefill = SP.EagerEntry(
+            SP.make_paged_suffix_prefill(self.mcfg), static=("bucket",)
+        )
+        self._state_insert = SP.EagerEntry(SP.make_paged_state_insert(self.mcfg))
+        self._page_copy = SP.EagerEntry(SP.make_page_copy(self.mcfg))
+        self._sample0 = SP.EagerEntry(SP.make_sample0(self.mcfg))
+        self._fault_version_seen = getattr(self.backend, "fault_version", 0)
+
+    def _check_fault_version(self) -> None:
+        """Rebuild stale entry points after a backend fault-state change
+        (drift bucket, retirement, degrade/recover)."""
+        v = getattr(self.backend, "fault_version", None)
+        if v is not None and v != self._fault_version_seen:
+            self._build_entry_points()
+            self._rebuilds += 1
+
+    def capture_log(self) -> list[tuple[int, tuple[int, int], float]]:
+        """(build generation, (W, R), capture ms) of every decode graph this
+        engine has captured, those dropped by a rebuild included;
+        generation g was captured after g rebuilds."""
+        live = [(self._rebuilds, k, ms) for step in self._serve_steps.values()
+                for k, ms in step.captures()]
+        return self._dropped_captures + live
 
     # -- request API --------------------------------------------------------
 
-    def submit(self, prompt_tokens: Sequence[int], max_new_tokens: Optional[int] = None) -> int:
-        """Queue a request; returns its request id."""
+    def submit(self, prompt_tokens: Sequence[int], max_new_tokens: Optional[int] = None,
+               priority: int = 1) -> int:
+        """Queue a request; returns its request id.  ``priority`` is its
+        scheduling class (lower is more urgent: 0 interactive overtakes 1
+        batch at admission, and level 3 of the degradation ladder sheds the
+        less urgent ones)."""
         n = len(prompt_tokens)
         if n == 0:
             raise ValueError(
@@ -321,7 +517,8 @@ class ServingEngine:
                 f"request needs {nb} KV blocks but the pool only has "
                 f"{self.blocks.capacity}; raise num_kv_blocks"
             )
-        return self.sched.submit(prompt_tokens, budget, now=time.perf_counter()).rid
+        return self.sched.submit(prompt_tokens, budget, now=time.perf_counter(),
+                                 priority=priority).rid
 
     def _bucket(self, n: int) -> int:
         return next(b for b in self.cfg.buckets() if b >= n)
@@ -477,6 +674,7 @@ class ServingEngine:
                     logits, state = payload
                     self._cache = self._state_insert(self._cache, state, req.slot)
                     tok0 = self._sample0(logits, job["rkey"])
+                    self.backend.note_call(SP.analog_call_profile("sample0"))
                     self._prefix_hits += 1
                     self._prefill_tokens_saved += bucket
                     self._complete_job(rid, job, tok0)
@@ -522,6 +720,7 @@ class ServingEngine:
                 bucket=bucket,
             )
             self._prefill_tokens += c
+            self.backend.note_call(SP.analog_call_profile("suffix_prefill", tokens=c))
             job["q0"] = q0 + c
             computed = True
             done = job["q0"] == bucket
@@ -538,18 +737,40 @@ class ServingEngine:
                 break
             self._cache = self._state_insert(self._cache, job["state"], req.slot)
             tok0 = self._sample0(logits, job["rkey"])
+            self.backend.note_call(SP.analog_call_profile("sample0"))
             self._prefills += 1
             self._complete_job(rid, job, tok0)
             emitted.append((rid, req.output[-1]))
 
     def tick(self) -> list[tuple[int, int]]:
-        """One engine iteration: admit, advance the chunked prefill, then one
-        batched decode step for the decoding slots.  Returns the (rid,
-        token) pairs emitted during this tick."""
+        """One engine iteration: fault pass, admit, advance the chunked
+        prefill, then one batched decode step for the decoding slots.
+
+        A compute-overriding backend (sim_faulty) is installed
+        process-wide for the tick, however it leaves; the degradation
+        policy moves once per tick, after detections and the canary.
+        Returns the (rid, token) pairs emitted during this tick."""
+        ctx = (BK.use_backend(self.backend) if self.backend.overrides_compute
+               else contextlib.nullcontext())
+        with ctx:
+            self._tick_dirty = 0
+            self._tick_canary = None
+            try:
+                return self._tick_inner()
+            finally:
+                self._policy_update()
+
+    def _tick_inner(self) -> list[tuple[int, int]]:
         t_start = time.perf_counter()
         emitted: list[tuple[int, int]] = []
+        if self._injector is not None:
+            self._injector.fire(self, self._ticks)
         self._ticks += 1
-        for req in self.sched.admit(self._try_reserve_blocks):
+        self._fault_pass()
+        pol = self.cfg.degradation
+        shed = (pol.shed_priority_above
+                if pol is not None and self._degrade_level >= 3 else None)
+        for req in self.sched.admit(self._try_reserve_blocks, shed_priority_above=shed):
             self._admit_one(req)
         self._prefill_tick(emitted)
         active = self.sched.active()
@@ -558,12 +779,17 @@ class ServingEngine:
         if active:
             t_dec = time.perf_counter()
             w = self._window_blocks(active)
+            r_eff = self._redundant_effective()
             wta = (self._req_keys, self._steps) if self.mcfg.wta_head else ()
-            nxt, sane = self._decode(self._table[:, :w], self._tokens, *wta)
+            nxt, sane = self._get_serve_step(r_eff)(self._table[:, :w], self._tokens, *wta)
             # one device sync per step: decode_time is honest, and the
             # outputs are read before the next step can reuse them
             nxt_np, sane_np = torch.stack([nxt, sane]).cpu().numpy()
             self._host_pos += 1  # mirrors the step's pos+1, every slot
+            # logical work: one forward, sample and KV write per ACTIVE
+            # slot (padding is not work), R - 1 extra re-reads each
+            self.backend.note_call(SP.analog_call_profile(
+                "serve_step", batch=len(active), redundant=(r_eff - 1) * len(active)))
             now = time.perf_counter()
             self._decode_time += now - t_dec
             self._occ_sum += len(active) / self.cfg.max_batch
@@ -572,9 +798,11 @@ class ServingEngine:
                 slot = req.slot
                 code = int(sane_np[slot])
                 if code:
-                    # logit-sanity trip: evict instead of publishing garbage
+                    # logit-sanity trip: evict instead of publishing garbage;
+                    # a detection event for the degradation policy
                     self.sched.evict(req, SP.SANITY_REASONS.get(code, "nan"), now)
                     self._release_if_done(req)
+                    self._tick_dirty += 1
                     continue
                 t = int(nxt_np[slot])
                 self._tokens[slot] = t
@@ -585,6 +813,75 @@ class ServingEngine:
                 emitted.append((req.rid, t))
         self._busy_time += time.perf_counter() - t_start
         return emitted
+
+    # ---- degraded-device serving: detection, mitigation, policy ----
+
+    def _fault_pass(self) -> None:
+        """Per-tick fault housekeeping before any scheduling decision:
+        advance the backend's fault clock, rebuild stale entry points, and
+        fire the canary on its interval (a failure is a detection event
+        and may retire tiles).  The canary reads its answer back to the
+        host: one sync per probe, outside any capture."""
+        bk = self.backend
+        if bk.overrides_compute:
+            bk.advance_clock(1)
+        self._check_fault_version()
+        ci = self.cfg.canary_interval
+        if not ci or self._ticks % ci:
+            return
+        self._canary_probes += 1
+        key = R.fold_in(self._base_key, 0xCA9A30 + self._ticks)
+        got = KOPS.canary_mac(key, self.device).cpu().numpy()
+        exp = self._canary_expected
+        scale = max(float(np.max(np.abs(exp))), 1e-9)
+        rel = float(np.max(np.abs(got - exp))) / scale
+        passed = rel <= self.cfg.canary_threshold
+        self._tick_canary = passed
+        if passed:
+            return
+        self._canary_failures += 1
+        self._tick_dirty += 1
+        thr = self.cfg.tile_retire_threshold
+        if thr > 0.0 and hasattr(bk, "retire_tiles") and bk.retire_tiles(thr):
+            # retirement changed the stuck masks the graphs were captured with
+            self._check_fault_version()
+
+    def _redundant_effective(self) -> int:
+        """This tick's redundant-read factor: the config's, raised to the
+        policy's at degradation level >= 2 (WTA heads only)."""
+        r = self._redundant_base
+        pol = self.cfg.degradation
+        if pol is not None and self._degrade_level >= 2 and self.mcfg.wta_head:
+            r = max(r, pol.redundant_reads)
+        return r
+
+    def _degrade_transition(self, to: int, why: str) -> None:
+        self._degraded_transitions.append(
+            {"tick": self._ticks, "from": self._degrade_level, "to": to, "why": why}
+        )
+        self._degrade_level = to
+
+    def _policy_update(self) -> None:
+        """End-of-tick step of the ladder: fold this tick's detection events
+        into the streaks and move at most one rung.  Escalation needs
+        ``trip_after`` consecutive dirty ticks; de-escalation
+        ``recover_after`` consecutive clean canary passes."""
+        pol = self.cfg.degradation
+        if pol is None:
+            return
+        if self._tick_dirty:
+            self._dirty_streak += 1
+            self._clean_streak = 0
+        else:
+            self._dirty_streak = 0
+            if self._tick_canary is True:
+                self._clean_streak += 1
+        if self._dirty_streak >= pol.trip_after and self._degrade_level < 3:
+            self._degrade_transition(self._degrade_level + 1, "fault_pressure")
+            self._dirty_streak = 0
+        elif self._clean_streak >= pol.recover_after and self._degrade_level > 0:
+            self._degrade_transition(self._degrade_level - 1, "canary_recovered")
+            self._clean_streak = 0
 
     def _cow_pass(self, active: list[Request]) -> None:
         """Resolve copy-on-write BEFORE the batched decode step: a slot
@@ -618,15 +915,15 @@ class ServingEngine:
         return min(w, self._max_blocks)
 
     def compile_counts(self) -> dict[str, int]:
-        """Compiled-step counts per entry point, the reference's recompile
-        guard.  ``serve_step``: one per (window width, redundant reads)
-        seen, as captured graphs on the card and as prepared entries of
-        static buffers on the CPU, never one per tick, slot or page set.
-        The eager entry points count the distinct argument signatures they
-        were called with, what a ``jax.jit`` compile is keyed on:
-        ``suffix_prefill`` one per (bucket, chunk shape), the others at
-        most one over the engine's life."""
-        counts = {"serve_step": len(self._decode.entries)}
+        """Compiled-step counts per entry point since the last rebuild, the
+        reference's recompile guard.  ``serve_step``: one per (window width,
+        redundant reads) seen, summed over the R variants, as captured
+        graphs on the card and as prepared entries of static buffers on the
+        CPU, never one per tick, slot or page set.  The eager entry points
+        count the distinct argument signatures they were called with, what
+        a ``jax.jit`` compile is keyed on: ``suffix_prefill`` one per
+        (bucket, chunk shape), the others at most one."""
+        counts = {"serve_step": sum(len(s.entries) for s in self._serve_steps.values())}
         for name in ("suffix_prefill", "state_insert", "page_copy", "sample0"):
             counts[name] = len(getattr(self, f"_{name}").signatures)
         return counts
@@ -661,6 +958,7 @@ class ServingEngine:
             if r.done_reason:
                 evictions[r.done_reason] = evictions.get(r.done_reason, 0) + 1
         wall = self._busy_time
+        analog = self.backend.snapshot(published_tokens=self._total_tokens)
         return ServingMetrics(
             completed=len(done),
             total_tokens=self._total_tokens,
@@ -680,4 +978,11 @@ class ServingEngine:
             ttft_p50=_pctl(ttfts, 50),
             ttft_p99=_pctl(ttfts, 99),
             evictions=evictions,
+            analog=analog,
+            degraded_mode=self._degrade_level,
+            canary_probes=self._canary_probes,
+            canary_failures=self._canary_failures,
+            retired_tiles=int(getattr(self.backend, "retired_tiles", 0)),
+            redundant_read_events=analog["redundant_read_events"],
+            degraded_transitions=list(self._degraded_transitions),
         )

@@ -37,7 +37,13 @@ model); its prepass bit-identical to its plain version (exact splits and
 integer levels); the fused int8 KV write bit-identical to its plain
 version outside the trash page 0; a smoke-size analog ``lm_loss`` on the
 card within 1e-3 of the CPU's (a flipped comparator decision moves one
-token's loss), its gradients finite.
+token's loss), its gradients finite.  The device backend seam: a
+``fault_version`` bump replaces every captured decode graph, so replays
+give an eager engine's streams under a degrade and a recover; the
+crossbar read through the fault backend within the gates above of its
+plain version on the same faulty weights, which lie within 4 ulps of a
+conductance of the CPU's (PyTorch's CUDA division by a Python scalar
+multiplies by its reciprocal).
 """
 
 import numpy as np
@@ -889,3 +895,113 @@ def test_cuda_graph_failed_capture_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(SP, "sample_tokens", with_a_host_copy)
     with pytest.raises(RuntimeError):
         _graph_serve(cuda_device, "same", False, 1, None)
+
+
+# ---------------------------------------------------------------------------
+# The device backend seam: fault state moving under captured graphs, and
+# the faulty crossbar read.
+# ---------------------------------------------------------------------------
+
+
+def _fault_engine(device, backend, graphs, inj=None, params=None):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), wta_head=True)
+    params = init_lm(cfg, seed=4, device=device) if params is None else params
+    eng = ServingEngine(
+        params, cfg,
+        ServeConfig(max_batch=4, max_new_tokens=12, max_len=128, kv_block_size=8,
+                    prefill_chunk=16, seed=3, device_backend=backend, fault_injector=inj),
+        device=device, graphs=graphs)
+    for p in _graph_trace():
+        eng.submit(p)
+    return eng, params
+
+
+@pytest.mark.cuda
+def test_cuda_fault_version_bump_drops_every_graph(cuda_device):
+    """A ``fault_version`` bump drops every captured decode graph before
+    the next tick (each baked the comparator point of its capture) and
+    captures again: the replayed engine's streams equal an eager engine's
+    that reads the backend every tick, under a degrade at tick 4 and a
+    recover at tick 8, and differ from the healthy ``sim`` streams."""
+    from repro_torch.serving import FaultInjector
+
+    def inj():
+        return (FaultInjector().at(4, "degrade_device", comparator_offset=3.0)
+                .at(8, "recover_device"))
+
+    g_eng, params = _fault_engine(cuda_device, "sim_faulty", None, inj())
+    e_eng, _ = _fault_engine(cuda_device, "sim_faulty", False, inj(), params)
+    h_eng, _ = _fault_engine(cuda_device, "sim", None, None, params)
+    while g_eng.sched.has_work():
+        graphs = [e.graph for s in g_eng._serve_steps.values() for e in s.entries.values()]
+        g_eng.tick()
+        if g_eng._ticks - 1 in (4, 8):   # the injector's ticks: every graph was replaced
+            assert not any(e.graph is g for s in g_eng._serve_steps.values()
+                           for e in s.entries.values() for g in graphs)
+    outs = {"graphs": g_eng.run(), "eager": e_eng.run(), "sim": h_eng.run()}
+    assert outs["graphs"] == outs["eager"]
+    assert outs["graphs"] != outs["sim"]
+    assert g_eng._rebuilds == e_eng._rebuilds == 2
+    gens = {g for g, _, _ in g_eng.capture_log()}
+    assert gens == {0, 1, 2}, g_eng.capture_log()
+    assert g_eng.compile_counts() == e_eng.compile_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binarize", [False, True])
+def test_cuda_faulty_crossbar_read_matches_plain(cuda_device, binarize):
+    """The crossbar read through ``FaultySimBackend`` (stuck cells, drift,
+    read-noise inflation, comparator offset) on the card against its plain
+    version on the same faulty weights, under chip_smoke.py's gates
+    (linear: scaled by the read's range scale).  The faulty weights equal the
+    CPU's within 4 ulps of a conductance (4 · 1.2e-7 · max|w|): PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal, the
+    CPU divides; stuck cells are exactly ±max|w| on both."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.physics import DeviceParams, calibrate_v_read
+    from repro_torch.kernels import backend as BK
+
+    def faulty():
+        bk = BK.FaultySimBackend(fault=BK.FaultConfig(
+            stuck_rate=0.01, drift_nu=0.1, read_sigma_inflation=0.2, comparator_offset=0.5))
+        bk.advance_clock(100)
+        return bk
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((64, 512)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.standard_normal((512, 200)) * 0.05).astype(np.float32))
+    mode = "analog_stochastic" if binarize else "analog_linear"
+    cfg = AnalogConfig(mode=mode, device=calibrate_v_read(DeviceParams(), 512))
+    bk, key = faulty(), R.PRNGKey(5)
+    wf = bk._faulty_weights(w.to(cuda_device))
+    cpu = faulty()._faulty_weights(w)
+    torch.testing.assert_close(wf.cpu(), cpu, atol=4 * 1.2e-7 * float(w.abs().max()), rtol=0)
+    sa0, sa1 = (torch.from_numpy(a) for a in bk._stuck_masks(tuple(w.shape)))
+    assert torch.equal(wf.cpu()[sa0 | sa1], cpu[sa0 | sa1])
+    with BK.use_backend(bk):
+        got = TOPS.crossbar_mac(x, w.to(cuda_device), key, cfg, binarize=binarize)
+    # the fault backend's read is the plain read of the faulty weights at
+    # the inflated noise, offset on the linear readout
+    if binarize:
+        pcfg = dataclasses.replace(cfg, beta=cfg.beta / 1.2)
+        want = TOPS.crossbar_mac_reference(x, wf, key, pcfg, binarize=True)
+        assert float((got == want).float().mean()) >= 0.9995
+    else:
+        # chip_smoke.py's linear gate, scaled by the range scale s the read
+        # multiplies back (one more rounding on each side: 2**-23·|out|)
+        pcfg = dataclasses.replace(cfg, linear_sigma=cfg.linear_sigma * 1.2)
+        want = TOPS.crossbar_mac_reference(x, wf, key, pcfg, binarize=False) + 0.5
+        s = TOPS.range_scale(wf)
+        dp = cfg.device
+        wq = TREF.crossbar_quantize(wf / s, TOPS._qstep(dp), dp.w_min, dp.w_max)
+        tol = s * 2 * 512**0.5 * 2.0**-24 * (x.abs() @ wq.abs()) + 2.0**-23 * want.abs()
+        assert float(((got - want).abs() / tol).max()) <= 1.0

@@ -121,9 +121,9 @@ def test_entry_points_refuse_to_run_silently_on_the_cpu():
 
 def test_unported_knobs_are_refused():
     """Knobs the reference has and the port does not (the dense layout,
-    degradation) are not fields of ``ServeConfig``; WTA sampling and int8
-    pools are served (``tests/test_torch_wta.py``,
-    ``tests/test_torch_int8.py``)."""
+    speculation) are not fields of ``ServeConfig``; WTA sampling, int8
+    pools and degraded serving are served (``tests/test_torch_wta.py``,
+    ``tests/test_torch_int8.py``, ``tests/test_torch_degraded.py``)."""
     cfg = get_smoke_config("stablelm-3b")
     params = init_lm(cfg, device="cpu")
     eng = ServingEngine(params, dataclasses.replace(cfg, wta_head=True),
@@ -133,7 +133,7 @@ def test_unported_knobs_are_refused():
     with pytest.raises(TypeError):
         ServeConfig(kv_layout="dense")
     with pytest.raises(TypeError):
-        ServeConfig(degradation=None)
+        ServeConfig(speculate_k=0)
 
 
 def test_serve_step_sanity_codes():
