@@ -12,7 +12,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    reports them.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it: both attention kernels at
-   stablelm-3b's full width (bf16 and int8 pools; decode at B=8 over
+   stablelm-3b's full width (first, whether one slot's decode output is
+   bit-identical at every window width W = 8, 16, 32 and at two slot
+   indices, which decides how phase 4c gates its streams; bf16 and int8
+   pools; decode at B=8 over
    W=32, at B=1 over W=32 and at the serve profile's positions 100-130,
    each also at every cluster size; plus small GQA / local / soft-cap
    cases), ``stoch_round`` bit-identical at the int8 decode write,
@@ -84,7 +87,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and each recapture's ms printed, device memory after each rebuild
    within 32 MiB of before, under 32 MiB left once the engine is dropped;
    both print the Table I model's pJ per published token and TOPS/W (a
-   model, not a measurement).  Then host ms a full-batch tick in turns in
+   model, not a measurement).  Then phase 4c (:func:`preempt_phase`),
+   through the compiled engine with half the trace's reservations in the
+   pool: (a) requests 0-7 at priority 1, 8-11 at priority 0 after 7 ticks,
+   two forced preempts at tick 16, a spill budget of one record, greedy
+   bf16: at least 3 preemptions, 1 restore and 1 dropped record, every
+   stream phase 4's, each spill's bytes (the fixed-width record) and ms,
+   each restore's ms, the preempting ticks' host ms beside the others';
+   (b) the same with WTA sampling (phase 4's WTA streams); (c) on an int8
+   pool (agreement printed, not gated); (d) chaos on bf16 and int8 pools:
+   a prefill killed at tick 1, a NaN page at tick 5 (the victim's sanity
+   code ``SANE_NAN`` through the decode kernel), a deadline storm at tick
+   20; each run with typed done reasons, the allocator back to capacity,
+   one signature per preemption entry point, the pool's addresses kept,
+   no capture from a restore or a poison, its kernels launched, under 32
+   MiB left.  Then host ms a full-batch tick in turns in
    one process: greedy and WTA, each compiled and eager, and WTA compiled
    on ``sim_faulty`` with the canary off and on every tick.
 5. entry points: ``ops.stoch_round_serving`` on the 2048² quantizer row
@@ -430,6 +447,45 @@ def check(name, got, want, errs):
     errs.append(err)
 
 
+def decode_w_invariance(gen, dev) -> dict:
+    """Whether one slot's decode attention output is bit-identical at
+    every window width W its position allows (W = 8, 16, 32 at positions
+    100-127; W = 16, 32 at 200-255) and at two slot indices of the B = 8
+    batch (0 and 5): the windows and slots a preempted request meets that
+    the unpreempted one did not.  ``decode_geometry`` picks the cluster
+    split from W, and another split sums in another order."""
+    from repro_torch.kernels import paged_attention as PA
+
+    b, h, hkv, dh, bs = 8, 32, 32, 80, 16
+    out = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        kp, vp, sc = make_pool(gen, b * 32 + 1, bs, hkv, dh, int8, dev)
+        table = (torch.randperm(b * 32, generator=gen, device=dev) + 1).reshape(b, 32)
+        table = table.to(torch.int32)
+        q = torch.randn((b, h, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+        same, worst = True, 0.0
+        for (lo, hi), widths in (((100, 127), (8, 16, 32)), ((200, 255), (16, 32))):
+            pos = torch.randint(lo, hi + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+            first = None
+            for w in widths:
+                for slot in (0, 5):
+                    perm = list(range(b))
+                    perm[0], perm[slot] = perm[slot], perm[0]
+                    o = PA.paged_attention_cuda(q[perm], kp, vp, table[perm, :w].contiguous(),
+                                                pos[perm], **sc)[slot]
+                    if first is None:
+                        first = o
+                    same &= torch.equal(o, first)
+                    worst = max(worst, float((o - first).abs().max()))
+        splits = {w: PA.decode_geometry(b, h, hkv, dh, bs, w, kp.dtype)["n_split"]
+                  for w in (8, 16, 32)}
+        out[tag] = {"identical": bool(same), "max_abs_diff": worst, "n_split": splits}
+        log(f"  decode {tag}, one slot at W = 8/16/32 and slots 0/5: bit-identical {same} "
+            f"(max|diff| {worst:.3e}); n_split by W {splits}")
+    return out
+
+
 def kernel_phase(dev) -> dict:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import prefill_attention as PF
@@ -438,6 +494,7 @@ def kernel_phase(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"decode": [], "prefill": []}
     timing = {}
+    w_invariance = decode_w_invariance(gen, dev)
     # full width: stablelm-3b heads (H = Hkv = 32, Dh = 80), bs = 16
     for int8 in (False, True):
         tag = "int8" if int8 else "bf16"
@@ -501,7 +558,7 @@ def kernel_phase(dev) -> dict:
     timing["write_kv_int8"], errs["write_kv_int8"] = write_kernels(gen, dev)
     timing["wta_sample"], errs["wta_sample"] = wta_sample_kernels(gen, dev)
     timing["sigmoid_sample"], errs["sigmoid_sample"] = sigmoid_sample_kernels(gen, dev)
-    return {"errs": errs, "timing": timing}
+    return {"errs": errs, "timing": timing, "w_invariance": w_invariance}
 
 
 def stoch_round_kernels(gen, dev):
@@ -1282,11 +1339,13 @@ def serve_trace(vocab: int) -> list[list[int]]:
     return prompts
 
 
-def serve_phase(dev) -> dict:
+def serve_phase(dev, w_invariant: bool) -> dict:
     """The 12-request trace at full width with a bf16 pool, then with an
     int8 pool, then with WTA sampling on the bf16 pool
     (``ServeConfig(seed=0)``) at one read and at three redundant reads a
-    token, from the same weights."""
+    token, from the same weights; then the degraded serve and phase 4c
+    (preemption and chaos; ``w_invariant``: phase 3's finding for the bf16
+    decode kernel)."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_lm
 
@@ -1306,6 +1365,8 @@ def serve_phase(dev) -> dict:
                                reads=3)
     res["degraded"] = degraded_phase(params, dataclasses.replace(cfg, wta_head=True), prompts,
                                      dev, res["wta"])
+    log("== 4c: preemption with KV spill to host, deadlines and chaos (stablelm-3b, compiled)")
+    res["preempt"] = preempt_phase(params, cfg, prompts, dev, res, w_invariant)
     same, int8 = res["same"]["outs"], res["int8"]["outs"]
     agree = sum(a == b for r in same for a, b in zip(same[r], int8[r]))
     total = sum(len(o) for o in same.values())
@@ -1687,6 +1748,324 @@ def degraded_run(params, cfg, prompts, dev, *, ladder: bool) -> dict:
     assert left < 32, left
     return {"outs": outs, "per_tick": per_tick, "analog": m.analog, "rebuilds": rebuilds,
             "crossbar_launches": crossbar}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: preemption with KV spill to host, deadlines and chaos.
+# ---------------------------------------------------------------------------
+
+# Runs (a)-(c): requests 0-7 at priority 1, then 8-11 at priority 0 once
+# PREEMPT_ARRIVE ticks have run, and two forced preempts at tick
+# PREEMPT_FORCE_TICK.  Run (d): a prefill killed at tick 1, a NaN page at
+# tick 5, a deadline storm at tick 20; the killed job's sharers get
+# CHAOS_SHARER_TOKENS tokens, so that they finish before the storm.
+PREEMPT_ARRIVE, PREEMPT_FORCE_TICK = 7, 16
+CHAOS_KILL_TICK, CHAOS_NAN_TICK, CHAOS_STORM_TICK, CHAOS_SHARER_TOKENS = 1, 5, 20, 8
+
+
+def preempt_serve_config(prompts, **kw):
+    """Phase 4's ``ServeConfig`` with ``num_kv_blocks`` cut to half the
+    trace's reservations (bucket + 32 tokens a request, no sharing), plus
+    the trash page."""
+    from repro_torch.serving import ServeConfig
+
+    base = dict(max_batch=8, max_len=512, kv_block_size=16, prefill_chunk=128,
+                max_new_tokens=32, prefill_buckets=(32, 64, 120, 128, 200, 256, 320), seed=0)
+    scfg = ServeConfig(**base)
+    total = sum(-(-(next(b for b in scfg.buckets() if b >= len(p)) + scfg.max_new_tokens)
+                  // scfg.kv_block_size) for p in prompts)
+    return ServeConfig(**dict(base, num_kv_blocks=total // 2 + 1, **kw)), total
+
+
+def spill_record_bytes(cfg, scfg) -> int:
+    """One fixed-width spill record: both pool leaves at ``max_kv_blocks()``
+    pages (an int8 pool's codes and f32 scale planes) and ``pos``."""
+    rows = cfg.n_layers * scfg.max_kv_blocks() * scfg.kv_block_size * cfg.n_kv_heads
+    if cfg.kv_cache_dtype == "int8":
+        return 2 * rows * (cfg.head_dim + 4) + 4
+    return 2 * rows * cfg.head_dim * torch.finfo(getattr(torch, cfg.dtype)).bits // 8 + 4
+
+
+class SpillTimer:
+    """Wraps the engine class's spill, restore and poison for one run (and
+    puts them back): each spill's bytes and ms (its gather and the
+    device-to-host copies, which end in a sync), each restore's ms (synced
+    on both sides: its host-to-device copies are asynchronous), and the
+    captures each restore or poison added (must be none)."""
+
+    NAMES = ("_preempt", "_store_spill", "_restore_one", "_poison_nan")
+
+    def __init__(self):
+        self.spills, self.restores, self.captures = [], [], []
+
+    def __enter__(self):
+        from repro_torch.serving import ServingEngine
+
+        self.cls = ServingEngine
+        self.orig = {n: getattr(ServingEngine, n) for n in self.NAMES}
+        timer = self
+
+        def timed(name, sync):
+            def run(eng, *a):
+                n_cap = len(eng.capture_log())
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = timer.orig[name](eng, *a)
+                if sync:
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                timer.captures.append((name, len(eng.capture_log()) - n_cap))
+                if name == "_preempt":
+                    timer.spills[-1]["ms"] = ms
+                elif name == "_restore_one":
+                    timer.restores.append({"rid": a[0].rid, "ms": ms})
+                return out
+            return run
+
+        def store(eng, rid, rec):
+            self.spills.append({"rid": rid, "bytes": eng._spill_nbytes(rec)})
+            return self.orig["_store_spill"](eng, rid, rec)
+
+        ServingEngine._preempt = timed("_preempt", sync=True)
+        ServingEngine._restore_one = timed("_restore_one", sync=True)
+        ServingEngine._poison_nan = timed("_poison_nan", sync=False)
+        ServingEngine._store_spill = store
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.cls, n, f)
+
+
+def preempt_run(params, cfg, prompts, dev, scfg, tag: str, *, arrivals, budgets=None,
+                injector=None) -> dict:
+    """One phase 4c serve: ``arrivals`` maps a tick to the (rid, priority)
+    submitted before it (rids are prompt indices, submitted in order);
+    ``budgets`` optional per-rid token budgets.  Returns streams, done
+    reasons, per-tick host ms and whether the tick preempted, spills and
+    restores, compile counts, launches (reset just before, read just
+    after) and memory."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import stoch_round as SR
+    from repro_torch.kernels import wta_sample as WS
+    from repro_torch.serving import ServingEngine
+
+    if injector is not None:
+        scfg = dataclasses.replace(scfg, fault_injector=injector)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng = ServingEngine(params, cfg, scfg, device=dev)
+    ptrs = {k: v.data_ptr() for k, v in eng._cache.items()}
+    ticks, pending = [], dict(arrivals)
+    PA.launches = PF.launches = SR.launches = SR.write_launches = WS.launches = 0
+    with SpillTimer() as timer:
+        t_run = time.perf_counter()
+        while pending or eng.sched.has_work():
+            for rid, prio in pending.pop(len(ticks), ()):
+                got = eng.submit(prompts[rid], None if budgets is None else budgets.get(rid),
+                                 priority=prio)
+                assert got == rid, (got, rid)
+            n_pre = eng._preemptions
+            t0 = time.perf_counter()
+            emitted = eng.tick()
+            ticks.append({"ms": (time.perf_counter() - t0) * 1e3, "emitted": emitted,
+                          "preempted": eng._preemptions - n_pre})
+            assert len(ticks) < 2000, "phase 4c run did not drain"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+    launches = {"decode": PA.launches, "prefill": PF.launches, "write_kv_int8": SR.write_launches,
+                "stoch_round": SR.launches, "wta_sample": WS.launches}
+    m = eng.metrics()
+    reqs = eng.sched.all_requests()
+    out = {
+        "outs": {r.rid: list(r.output) for r in reqs},
+        "reasons": {r.rid: r.done_reason for r in reqs},
+        "ticks": ticks, "spills": timer.spills, "restores": timer.restores,
+        "restore_captures": sum(n for name, n in timer.captures if name != "_preempt"),
+        "preemptions": m.preemptions, "restores_n": m.restores, "spill_drops": m.spill_drops,
+        "evictions": m.evictions, "compile_counts": eng.compile_counts(),
+        "capture_log": len(eng.capture_log()), "launches": launches, "wall_s": wall,
+        "free_blocks": (eng.blocks.available, eng.blocks.capacity),
+        "ptrs_kept": ptrs == {k: v.data_ptr() for k, v in eng._cache.items()},
+        "spill_left": eng._spill_bytes, "applied": [] if injector is None else list(injector.applied),
+    }
+    del eng
+    torch.cuda.empty_cache()
+    out["left_mib"] = (torch.cuda.memory_allocated() - mem0) / 2**20
+    pre = [t["ms"] for t in ticks if t["preempted"]]
+    rest = [t["ms"] for t in ticks if not t["preempted"]]
+    log(f"  ({tag}) {len(ticks)} ticks in {wall:.2f} s; preemptions {m.preemptions}, restores "
+        f"{m.restores}, spill drops {m.spill_drops}; done reasons {m.evictions}; launches "
+        f"{launches}; compile_counts {out['compile_counts']}; captures {out['capture_log']}")
+    for s in timer.spills:
+        log(f"  ({tag}) spill of request {s['rid']}: {s['bytes']} bytes "
+            f"({s['bytes'] / 2**20:.2f} MiB) in {s['ms']:.2f} ms")
+    for r in timer.restores:
+        log(f"  ({tag}) restore of request {r['rid']}: {r['ms']:.2f} ms")
+    if pre:
+        log(f"  ({tag}) host ms a tick: {len(pre)} preempting ticks median "
+            f"{float(np.median(pre)):.2f} (max {max(pre):.2f}), the other {len(rest)} median "
+            f"{float(np.median(rest)):.2f}")
+    log(f"  ({tag}) pool addresses kept {out['ptrs_kept']}; captures by restores or poison "
+        f"{out['restore_captures']}; blocks {out['free_blocks'][0]}/{out['free_blocks'][1]} "
+        f"free at the end; {out['left_mib']:.1f} MiB left once the engine is dropped")
+    return out
+
+
+def preempt_check(tag: str, run: dict, want: dict, gate: bool,
+                  against: str = "phase 4's") -> int:
+    """Stream agreement with ``want`` (phase 4's streams, or ``against``),
+    token for token, each run's tokens a prefix of that stream; a
+    divergence is printed with its rid, position and both tokens.  Raises
+    when ``gate``.  Returns the tokens that agree."""
+    agree = total = 0
+    bad = []
+    for r, got in sorted(run["outs"].items()):
+        ref = want[r]
+        n = sum(a == b for a, b in zip(got, ref))
+        agree, total = agree + n, total + len(got)
+        if n != len(got):
+            i = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+            bad.append(r)
+            log(f"  ({tag}) request {r} diverges at token {i}: {got[i]} against {against} "
+                f"{ref[i]} ({against} {ref[max(i - 2, 0):i + 3]}, here "
+                f"{got[max(i - 2, 0):i + 3]})")
+    log(f"  ({tag}) {agree}/{total} tokens equal {against} streams"
+        + ("" if gate else " (not gated)"))
+    if gate and bad:
+        raise AssertionError(f"({tag}) streams differ from phase 4's in requests {bad}")
+    return agree
+
+
+def preempt_invariants(tag: str, run: dict, reasons=("length",)) -> None:
+    """What every phase 4c run holds: typed done reasons, the allocator
+    back to capacity, the spill store empty, one signature for each
+    preemption entry point, the pool's addresses kept, no capture from a
+    restore or a poison, and the engine freed."""
+    cc = run["compile_counts"]
+    assert all(r in reasons for r in run["reasons"].values()), (tag, run["reasons"])
+    assert run["free_blocks"][0] == run["free_blocks"][1], (tag, run["free_blocks"])
+    assert run["spill_left"] == 0, (tag, run["spill_left"])
+    assert run["ptrs_kept"] and run["restore_captures"] == 0, tag
+    assert run["left_mib"] < 32, (tag, run["left_mib"])
+    assert run["launches"]["decode"] > 0 and run["launches"]["prefill"] > 0, (tag, run["launches"])
+    if run["preemptions"]:
+        assert cc["page_spill"] == cc["page_restore"] == cc["state_gather"] == 1, (tag, cc)
+
+
+def preempt_phase(params, cfg, prompts, dev, res: dict, w_invariant: bool) -> dict:
+    """Phase 4c at stablelm-3b's full width and depth through the compiled
+    engine: (a) priority preemption with a one-record spill budget, greedy
+    bf16; (b) the same with WTA sampling; (c) on an int8 pool; (d) chaos,
+    bf16 and int8.  With W-invariant decode attention (phase 3) the bf16
+    streams are gated against phase 4's; otherwise (a) and (b) are gated on
+    an f32 copy of the weights against its own unpreempted serve, and the
+    bf16 agreement is printed beside."""
+    from repro_torch.serving import FaultInjector
+
+    scfg, total = preempt_serve_config(prompts)
+    log(f"  the trace reserves {total} blocks (bucket + 32 tokens each, no sharing); phase 4c's "
+        f"pool: num_kv_blocks = {scfg.num_kv_blocks} ({scfg.pool_blocks() - 1} allocatable, "
+        f"{scfg.pool_blocks('int8') - 1} with int8)")
+    arrivals = {0: [(r, 1) for r in range(8)], PREEMPT_ARRIVE: [(r, 0) for r in range(8, 12)]}
+
+    def force():
+        return FaultInjector().at(PREEMPT_FORCE_TICK, "preempt").at(PREEMPT_FORCE_TICK, "preempt")
+
+    out = {}
+    wcfg = dataclasses.replace(cfg, wta_head=True)
+    icfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    for key, c, want in (("a", cfg, "same"), ("b", wcfg, "wta"), ("c", icfg, "int8")):
+        rec = spill_record_bytes(c, scfg)
+        run = out[key] = preempt_run(
+            params, c, prompts, dev, dataclasses.replace(scfg, spill_budget_bytes=rec),
+            f"{key}) {want}", arrivals=arrivals, injector=force())
+        preempt_invariants(key, run)
+        assert run["preemptions"] >= 3 and run["restores_n"] >= 1 and run["spill_drops"] >= 1, \
+            (key, run["preemptions"], run["restores_n"], run["spill_drops"])
+        assert all(s["bytes"] == rec for s in run["spills"]), (key, rec, run["spills"])
+        assert len(run["applied"]) == 2, run["applied"]
+        if key == "b":
+            assert run["launches"]["wta_sample"] > 0, run["launches"]
+        if key == "c":
+            assert run["launches"]["write_kv_int8"] > 0, run["launches"]
+        run["agree"] = preempt_check(key, run, res[want]["outs"],
+                                     gate=key != "c" and w_invariant)
+    log("  (c) int8, not gated: decode writes draw their rounding from the engine-wide "
+        "quant_step, so a restored request's later rows round otherwise than in phase 4")
+    if not w_invariant:
+        out["f32"] = preempt_f32(params, cfg, prompts, dev, scfg, arrivals, force)
+    for kv, c in (("same", cfg), ("int8", icfg)):
+        out[f"d_{kv}"] = chaos_run(params, c, prompts, dev, scfg, res[kv]["outs"],
+                                   gate=kv == "same" and w_invariant)
+    return out
+
+
+def preempt_f32(params, cfg, prompts, dev, scfg, arrivals, force) -> dict:
+    """(a) and (b) on an f32 copy of the weights: the unpreempted trace,
+    then the preempted one, gated token for token."""
+    p32 = tree_float(params)
+    out = {}
+    for key, c in (("a", cfg), ("b", dataclasses.replace(cfg, wta_head=True))):
+        c = dataclasses.replace(c, dtype="float32")
+        base = preempt_run(p32, c, prompts, dev, dataclasses.replace(scfg, num_kv_blocks=0),
+                           f"{key} f32) unpreempted", arrivals={0: [(r, 1) for r in range(12)]})
+        run = preempt_run(p32, c, prompts, dev,
+                          dataclasses.replace(scfg, spill_budget_bytes=spill_record_bytes(c, scfg)),
+                          f"{key} f32) preempted", arrivals=arrivals, injector=force())
+        preempt_invariants(f"{key} f32", run)
+        preempt_check(f"{key} f32", run, base["outs"], gate=True, against="the unpreempted f32")
+        out[key] = {"preemptions": run["preemptions"], "restores": run["restores_n"],
+                    "spill_drops": run["spill_drops"], "spills": run["spills"],
+                    "restore_ms": run["restores"]}
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_float(tree):
+    return {k: tree_float(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+
+def chaos_run(params, cfg, prompts, dev, scfg, want: dict, gate: bool) -> dict:
+    """Run (d): every request at once; ``kill_prefill`` at tick 1 (the job
+    FIFO's head, mid-prefill), ``nan_logits`` at tick 5 (the first active
+    request with a private page), ``deadline_storm`` at tick 20.  The
+    killed job ends ``preempted``, the queued jobs that shared its pages
+    (budget CHAOS_SHARER_TOKENS) end ``length``, the poisoned request
+    ``nan`` (its sanity code ``SANE_NAN`` through the decode kernel), the
+    rest ``deadline``; every published token is phase 4's at its index
+    (gated on bf16)."""
+    from repro_torch.serving import FaultInjector
+
+    kv = cfg.kv_cache_dtype
+    # the FIFO head at tick 1 is request 2 (a: the shared prefix and its
+    # own suffix, mid-prefill after one chunk); 3, 8 and 9 map its pages
+    sharers = {r for r in range(12) if r != 2 and prompts[r][:128] == prompts[2][:128]}
+    inj = (FaultInjector().at(CHAOS_KILL_TICK, "kill_prefill").at(CHAOS_NAN_TICK, "nan_logits")
+           .at(CHAOS_STORM_TICK, "deadline_storm"))
+    run = preempt_run(params, cfg, prompts, dev, scfg, f"d) chaos {kv}",
+                      arrivals={0: [(r, 1) for r in range(12)]},
+                      budgets={r: CHAOS_SHARER_TOKENS for r in sharers}, injector=inj)
+    applied = {k: rid for _, k, rid in run["applied"] if k != "deadline_storm"}
+    log(f"  (d {kv}) applied {applied} and deadline_storm at tick {CHAOS_STORM_TICK}; done "
+        f"reasons {run['reasons']}")
+    killed, victim = applied.get("kill_prefill"), applied.get("nan_logits")
+    assert killed is not None and victim is not None, run["applied"]
+    assert run["reasons"][killed] == "preempted" and run["outs"][killed] == [], killed
+    assert run["reasons"][victim] == "nan", (victim, run["reasons"][victim])
+    assert sharers - {killed} and all(run["reasons"][r] == "length" for r in sharers - {killed}), \
+        (sharers, run["reasons"])
+    rest = set(range(12)) - sharers - {killed, victim}
+    assert all(run["reasons"][r] == "deadline" for r in rest), run["reasons"]
+    preempt_invariants(f"d {kv}", run, reasons=("length", "preempted", "nan", "deadline"))
+    assert run["capture_log"] <= 3, run["capture_log"]   # one graph per window width
+    if kv == "int8":
+        assert run["launches"]["write_kv_int8"] > 0, run["launches"]
+    run["agree"] = preempt_check(f"d {kv}", run, want, gate=gate)
+    return run
 
 
 # CUgraphNodeType values (cuda.h) of the nodes a decode step captures
@@ -2677,7 +3056,7 @@ def main() -> int:
     kres = kernel_phase(dev)
     log("== serve stablelm-3b (bf16 pool, int8 pool, then WTA sampling on the bf16 pool at "
         "R = 1 and 3)")
-    sres = serve_phase(dev)
+    sres = serve_phase(dev, kres["w_invariance"]["bf16"]["identical"])
     log("== stoch_round and wta_counts entry points")
     srres = stoch_round_phase(dev)
     wres = wta_phase(dev)
@@ -2755,6 +3134,13 @@ def main() -> int:
     wc_rec = next(k for k in kernels if k["name"] == "wta_counts")
     wc_rec["launches_faulty"] = fres_faulty["wta_launches"]
     wc_rec["max_abs_err_faulty"] = fres_faulty["wta_err"]
+    # phase 4c: each run's launches, reset just before it and read just after
+    pre = sres["preempt"]
+    for name, key in (("paged_attention", "decode"), ("paged_prefill_attention", "prefill"),
+                      ("write_kv_int8", "write_kv_int8"), ("wta_sample", "wta_sample")):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_preempt"] = {run: pre[run]["launches"][key]
+                                   for run in ("a", "b", "c", "d_same", "d_int8")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

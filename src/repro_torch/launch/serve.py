@@ -4,6 +4,7 @@ randomly initialized model, greedy or WTA sampling.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\
         [--kv-dtype int8] [--wta [--n-redundant-reads 3]] [--priority 0] \
+        [--deadline-ms MS] [--no-preemption] [--spill-budget-bytes N] \
         [--device-backend sim_faulty [--stuck-rate R] [--drift-nu NU] \
          [--read-sigma-inflation I] [--comparator-offset O] [--fault-seed S]] \
         [--canary-interval N] [--tile-retire-threshold T] [--degrade]
@@ -66,8 +67,22 @@ def main() -> None:
                          "sampler's base key")
     ap.add_argument("--priority", type=int, default=1,
                     help="priority class of the submitted requests: 0 = "
-                         "interactive, 1 = batch (default; shed first at "
-                         "degradation level 3)")
+                         "interactive (may preempt lower classes, spilling "
+                         "their KV pages to host), 1 = batch (default; shed "
+                         "first at degradation level 3)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline in ms from submission; a "
+                         "request past it is evicted with reason "
+                         "'deadline' (default: none)")
+    ap.add_argument("--no-preemption", action="store_true",
+                    help="disable priority preemption (higher-priority "
+                         "arrivals back-pressure instead of spilling a "
+                         "lower-priority victim's KV pages to host)")
+    ap.add_argument("--spill-budget-bytes", type=int, default=None,
+                    help="cap on host bytes held by preemption spill "
+                         "records; the oldest drop at the cap and their "
+                         "requests recompute from the prompt on restore "
+                         "(default: unbounded)")
     ap.add_argument("--device-backend", default="sim",
                     help="analog device backend: 'sim' (ideal math) or "
                          "'sim_faulty' (seeded ReRAM fault model: stuck "
@@ -130,13 +145,16 @@ def main() -> None:
             canary_interval=args.canary_interval,
             tile_retire_threshold=args.tile_retire_threshold,
             degradation=DegradationPolicy() if args.degrade else None,
+            enable_preemption=not args.no_preemption,
+            spill_budget_bytes=args.spill_budget_bytes,
         ),
         device=args.device,
     )
     rng = np.random.default_rng(args.seed + 7)
     for _ in range(args.requests):
         n = int(rng.integers(2, 9))
-        eng.submit(rng.integers(0, cfg.vocab, n).tolist(), priority=args.priority)
+        eng.submit(rng.integers(0, cfg.vocab, n).tolist(), priority=args.priority,
+                   deadline_ms=args.deadline_ms)
     t0 = time.perf_counter()
     outs = eng.step()
     dt = time.perf_counter() - t0
@@ -150,6 +168,11 @@ def main() -> None:
         f"prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, "
         f"prefill tokens saved {m.prefill_tokens_saved}, kv={args.kv_dtype}, "
         f"sampler={f'wta R={args.n_redundant_reads}' if args.wta else 'greedy'})"
+    )
+    print(
+        f"preemptions {m.preemptions} (restores {m.restores}, spill drops "
+        f"{m.spill_drops}); done reasons "
+        + ", ".join(f"{k}={v}" for k, v in sorted(m.evictions.items()))
     )
     if m.canary_probes or m.degraded_mode or m.degraded_transitions:
         print(

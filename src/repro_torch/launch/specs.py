@@ -8,6 +8,11 @@ counterpart of the reference's jitted step cached per window bucket; on
 the CPU it runs eagerly on the same static buffers.  The other entry
 points run eagerly; :class:`EagerEntry` records the argument signatures
 they are called with, which is what a ``jax.jit`` compile is keyed on.
+Preemption's three (:func:`make_page_spill`, :func:`make_page_restore`,
+:func:`make_slot_state_gather`) take page ids at the fixed table width,
+padded with the trash page, so each keeps one signature; the restore
+writes into the pool's own tensors, whose addresses the graphs hold.
+Absent still: the speculative round and its rollback, and sharding.
 """
 
 from __future__ import annotations
@@ -95,6 +100,52 @@ def make_page_copy(cfg: ModelConfig):
         return cache
 
     return copy
+
+
+def make_page_spill(cfg: ModelConfig):
+    """(cache, ids (W,) int32) → {pool leaf: (nu, n_attn, W, bs, ...)}: the
+    pages ``ids`` of every page-pool leaf, gathered into new tensors (the
+    device half of a preemption; the pool is only read).  An int8 pool
+    spills its scale planes with its codes, so a restore is bit-exact."""
+
+    def spill(cache: dict, ids: torch.Tensor) -> dict:
+        idx = ids.to(cache["pos"].device, torch.int64)
+        return {name: cache[name][:, :, idx] for name in PAGE_POOL_LEAVES if name in cache}
+
+    return spill
+
+
+def make_page_restore(cfg: ModelConfig):
+    """(cache, ids (W,) int32, payload) → cache: row ``i`` of every payload
+    leaf written at page ``ids[i]``, in place in the pool's own tensors
+    (the inverse of :func:`make_page_spill`).  Ids the engine does not want
+    written point at the trash page, which nothing reads, so repeats of it
+    are harmless."""
+
+    def restore(cache: dict, ids: torch.Tensor, payload: dict) -> dict:
+        for name, rows in payload.items():
+            leaf = cache[name]
+            leaf.index_copy_(2, ids.to(leaf.device, torch.int64), rows.to(leaf.device, leaf.dtype))
+        return cache
+
+    return restore
+
+
+def make_slot_state_gather(cfg: ModelConfig):
+    """(cache, slot) → state_leaves{B=1}: the one-slot view of every
+    per-slot leaf (``pos``), shaped as :func:`make_paged_state_insert`
+    takes it.  Leaves without a slot axis (an int8 pool's engine-wide
+    ``quant_step``) are left out: restoring that counter would replay
+    other slots' rounding draws."""
+
+    def gather(cache: dict, slot: int) -> dict:
+        return {
+            name: leaf.narrow(cache_batch_axis(name), slot, 1)
+            for name, leaf in cache.items()
+            if name not in PAGE_POOL_LEAVES and leaf.ndim and leaf.ndim > cache_batch_axis(name)
+        }
+
+    return gather
 
 
 def sample_tokens(

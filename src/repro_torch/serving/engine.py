@@ -50,9 +50,21 @@ canary read every ``canary_interval`` ticks (with tile retirement on a
 failure), logit-sanity evictions as detection events, and the
 :class:`DegradationPolicy` ladder, which raises the WTA redundant reads at
 level 2 (one compiled step per R) and sheds less urgent admissions at
-level 3.  Knobs the reference has and this slice does not honour (dense
-layout, preemption and deadlines, speculation, sharding) are absent from
-:class:`ServeConfig`.
+level 3.
+
+Preemption, deadlines and chaos, as the reference's: when a queued
+request outranks a decoding one (strictly lower ``priority``), the engine
+spills the weakest victim's pages and per-slot state to a host-side store
+(torch CPU tensors, fixed-width records under ``spill_budget_bytes``,
+oldest dropped first) and requeues it; it restores through the admission
+gate, page for page into the same pool tensors the graphs hold, or, when
+the budget dropped its record, recomputes its prompt and teacher-forces
+its published tokens back through decode.  A request past its
+``deadline_ms`` is evicted in whatever state it is in; a killed prefill
+job demotes the queued jobs that mapped its unwritten pages; the
+``nan_logits`` fault poisons a private page through the restore entry
+point.  Knobs the reference has and this slice does not honour (dense
+layout, speculation, sharding) are absent from :class:`ServeConfig`.
 """
 
 from __future__ import annotations
@@ -85,6 +97,12 @@ from repro_torch.serving.scheduler import (
 def _pctl(vals: Sequence[float], q: float) -> float:
     """Percentile helper tolerant of empty samples (metrics views)."""
     return float(np.percentile(np.asarray(vals), q)) if len(vals) else 0.0
+
+
+def _to_host(leaves: dict) -> dict:
+    """Host copies of device leaves (copies on the CPU too: a spill record
+    must not alias the live cache)."""
+    return {k: v.to("cpu", copy=True) for k, v in leaves.items()}
 
 
 def _default_buckets(max_len: int) -> tuple[int, ...]:
@@ -169,6 +187,15 @@ class ServeConfig:
     logit_entropy_floor: float = 0.0
     # graceful-degradation ladder; None: detection evicts, nothing downshifts
     degradation: Optional[DegradationPolicy] = None
+    # a queued request that outranks a decoding one (strictly lower
+    # priority) preempts the weakest: its pages spill to a host-side store
+    # and it requeues at the head of its class, to restore through the
+    # admission gate; single-class traffic never preempts
+    enable_preemption: bool = True
+    # bytes cap on the spill store (None: unbounded); over it the oldest
+    # records drop, and their requests recompute their prompt and replay
+    # their published tokens through decode
+    spill_budget_bytes: Optional[int] = None
 
     def buckets(self) -> tuple[int, ...]:
         if not self.prefill_buckets:
@@ -216,6 +243,14 @@ class ServeConfig:
             raise ValueError(
                 f"enable_prefix_sharing must be a bool, got "
                 f"{self.enable_prefix_sharing!r}"
+            )
+        if not isinstance(self.enable_preemption, bool):
+            raise ValueError(
+                f"enable_preemption must be a bool, got {self.enable_preemption!r}"
+            )
+        if self.spill_budget_bytes is not None and self.spill_budget_bytes < 0:
+            raise ValueError(
+                f"spill_budget_bytes must be >= 0, got {self.spill_budget_bytes}"
             )
         if self.n_redundant_reads < 1:
             raise ValueError(
@@ -292,6 +327,9 @@ class ServingMetrics:
     prefill_tokens_saved: int = 0  # prompt tokens skipped via the index
     ttft_p50: float = 0.0
     ttft_p99: float = 0.0
+    preemptions: int = 0          # spill-to-host preemptions
+    restores: int = 0             # spilled requests re-admitted from their pages
+    spill_drops: int = 0          # spill records dropped by the bytes budget
     # done_reason -> count over every finished request
     evictions: dict = dataclasses.field(default_factory=dict)
     # the device backend's accounting snapshot: analog event tallies, the
@@ -319,6 +357,10 @@ class ServingMetrics:
             f"step_ms={self.decode_step_ms:.2f} "
             f"occupancy={self.occupancy_mean:.2f}"
         )
+        if self.preemptions or self.restores:
+            out += f" preempt={self.preemptions} restore={self.restores}"
+        if self.spill_drops:
+            out += f" spill_drops={self.spill_drops}"
         if self.evictions:
             out += " evict=" + ",".join(
                 f"{k}:{v}" for k, v in sorted(self.evictions.items())
@@ -404,6 +446,17 @@ class ServingEngine:
         # first chunk runs)
         self._jobs: dict[int, dict] = {}
         self._job_fifo: list[int] = []
+        # rid -> spill record of a preempted request (torch CPU copies of
+        # its pages and per-slot leaves, its decode counters); insertion
+        # order is the drop order under spill_budget_bytes
+        self._spill: dict[int, dict] = {}
+        self._spill_bytes = 0
+        # rid -> published tokens a recompute-restored request teacher-
+        # forces through decode instead of recording them again
+        self._replay: dict[int, list[int]] = {}
+        self._preemptions = 0
+        self._restores = 0
+        self._spill_drops = 0
         self._tokens = np.zeros((b,), np.int32)   # last emitted, per slot
         # WTA sampling: per-request keys fold_in(base, rid), set at
         # admission, and tokens emitted per slot (folded into the key)
@@ -465,6 +518,9 @@ class ServingEngine:
         self._state_insert = SP.EagerEntry(SP.make_paged_state_insert(self.mcfg))
         self._page_copy = SP.EagerEntry(SP.make_page_copy(self.mcfg))
         self._sample0 = SP.EagerEntry(SP.make_sample0(self.mcfg))
+        self._page_spill = SP.EagerEntry(SP.make_page_spill(self.mcfg))
+        self._page_restore = SP.EagerEntry(SP.make_page_restore(self.mcfg))
+        self._state_gather = SP.EagerEntry(SP.make_slot_state_gather(self.mcfg))
         self._fault_version_seen = getattr(self.backend, "fault_version", 0)
 
     def _check_fault_version(self) -> None:
@@ -486,11 +542,13 @@ class ServingEngine:
     # -- request API --------------------------------------------------------
 
     def submit(self, prompt_tokens: Sequence[int], max_new_tokens: Optional[int] = None,
-               priority: int = 1) -> int:
+               priority: int = 1, deadline_ms: Optional[float] = None) -> int:
         """Queue a request; returns its request id.  ``priority`` is its
         scheduling class (lower is more urgent: 0 interactive overtakes 1
-        batch at admission, and level 3 of the degradation ladder sheds the
-        less urgent ones)."""
+        batch at admission and may preempt it, and level 3 of the
+        degradation ladder sheds the less urgent ones).  ``deadline_ms`` is
+        a completion limit from now: past it the deadline pass evicts the
+        request with reason ``"deadline"``, whatever state it is in."""
         n = len(prompt_tokens)
         if n == 0:
             raise ValueError(
@@ -518,7 +576,7 @@ class ServingEngine:
                 f"{self.blocks.capacity}; raise num_kv_blocks"
             )
         return self.sched.submit(prompt_tokens, budget, now=time.perf_counter(),
-                                 priority=priority).rid
+                                 priority=priority, deadline_ms=deadline_ms).rid
 
     def _bucket(self, n: int) -> int:
         return next(b for b in self.cfg.buckets() if b >= n)
@@ -571,6 +629,9 @@ class ServingEngine:
                 memo = (hashes, np.asarray([sd for _, sd in hashes], np.int64))
                 self._hash_memo[req.rid] = memo
             plan["hashes"], plan["seeds"] = memo
+        rec = self._spill.get(req.rid)
+        if rec is not None:
+            return self._gate_restore(req, plan, rec, nb_total)
         if self.sharing:
             shared = self.blocks.longest_prefix_match([h for h, _ in plan["hashes"]])
         full = len(shared) == n_prompt
@@ -587,6 +648,35 @@ class ServingEngine:
             if not full:
                 # attention-only models resume at any matched block
                 plan["resume"] = len(shared) * bs
+        self._plans[req.rid] = plan
+        return True
+
+    def _gate_restore(self, req: Request, plan: dict, rec: dict, nb_total: int) -> bool:
+        """Admission gate for a spilled request, atomic as the fresh one.
+        The prefix probe stops at the pristine prompt blocks: once a decode
+        step wrote into an unaligned boundary block (``rec["dirty"]``) its
+        content left its chain hash, and its spilled copy must come back.
+        Fresh pristine blocks register again unless an identical prompt
+        registered them meanwhile."""
+        bucket, bs = plan["bucket"], self.cfg.kv_block_size
+        n_prompt = plan["n_prompt"]
+        n_clean = n_prompt - 1 if rec["dirty"] else n_prompt
+        shared: list[int] = []
+        if self.sharing:
+            shared = self.blocks.longest_prefix_match([h for h, _ in plan["hashes"]][:n_clean])
+        # an undirtied full match of an unaligned prompt writes its shared
+        # boundary block at the first decode step: the fresh gate's spare
+        n_spare = 1 if (len(shared) == n_prompt and bucket % bs != 0) else 0
+        n_new = nb_total - len(shared)
+        if not self.blocks.can_alloc(n_new + n_spare):
+            return False
+        pages = self.blocks.reserve(req.rid, n_new, shared, n_spare)
+        if self.sharing:
+            for i in range(len(shared), n_clean):
+                if self.blocks.lookup(plan["hashes"][i][0]) is None:
+                    self.blocks.register(pages[i], plan["hashes"][i][0])
+            plan["n_shared"] = len(shared)
+        plan["restore"] = True
         self._plans[req.rid] = plan
         return True
 
@@ -607,6 +697,9 @@ class ServingEngine:
         self._req_keys[req.slot] = rkey
         plan = self._plans.pop(req.rid)
         self._hash_memo.pop(req.rid, None)
+        if plan.get("restore"):
+            self._restore_one(req, plan)
+            return
         pages = self.blocks.owned(req.rid)  # reserved by the gate
         row = np.zeros((self._max_blocks,), np.int32)
         row[: len(pages)] = pages
@@ -635,10 +728,50 @@ class ServingEngine:
         }
         self._job_fifo.append(req.rid)
 
+    def _restore_one(self, req: Request, plan: dict) -> None:
+        """Re-bind a spilled request to its new slot, byte-exactly: shared
+        prefix pages came back through the gate as index hits, the rest of
+        its used pages come back from the record at the new pages (the
+        fixed-width ids point everything else at the trash page), and the
+        per-slot leaves, table row, position, last token and step counter
+        are put back verbatim.  Its key is ``fold_in(base, rid)`` and its
+        WTA noise a function of (key, step), so the rest of its stream is
+        the unpreempted one.  No token is recorded here."""
+        rec = self._pop_spill(req.rid)
+        slot = req.slot
+        pages = self.blocks.owned(req.rid)
+        row = np.zeros((self._max_blocks,), np.int32)
+        row[: len(pages)] = pages
+        ids = np.zeros((self._max_blocks,), np.int32)
+        n_shared = plan["n_shared"]
+        ids[n_shared : rec["n_used"]] = row[n_shared : rec["n_used"]]
+        self._cache = self._page_restore(self._cache, self._put(ids), self._to_device(rec["pages"]))
+        self._cache = self._state_insert(self._cache, self._to_device(rec["state"]), slot)
+        self._table[slot] = row
+        self._host_pos[slot] = rec["pos"]
+        self._tokens[slot] = rec["token"]
+        self._steps[slot] = rec["steps"]
+        self.sched.start_decode(req)
+        self._restores += 1
+
+    def _to_device(self, leaves: dict) -> dict:
+        return {k: v.to(self.device) for k, v in leaves.items()}
+
     def _finish_admission(self, req: Request, tok0: torch.Tensor) -> None:
         """First token, decode start, bookkeeping."""
         slot = req.slot
         self.sched.start_decode(req)
+        rep = self._replay.get(req.rid)
+        if rep:
+            # recompute-restore of a dropped spill record: its first tokens
+            # were published before the preemption, so decode starts from
+            # the recorded first token (bitwise what tok0 resampled) and
+            # the ticks teacher-force the rest; nothing records again
+            self._tokens[slot] = rep.pop(0)
+            if not rep:
+                del self._replay[req.rid]
+            self._steps[slot] = 1
+            return
         t0 = int(tok0[0])  # waits for the prefill: TTFT stamps after it
         self._tokens[slot] = t0
         self._steps[slot] = 1
@@ -654,6 +787,195 @@ class ServingEngine:
         self._job_fifo.pop(0)
         del self._jobs[rid]
         self._finish_admission(req, tok0)
+
+    # -- preemption and eviction --------------------------------------------
+
+    @staticmethod
+    def _spill_nbytes(rec: dict) -> int:
+        """Host bytes a spill record holds: its pages and per-slot leaves
+        (the counters are noise), at the pool's dtype."""
+        return sum(t.numel() * t.element_size()
+                   for t in (*rec["pages"].values(), *rec["state"].values()))
+
+    def _pop_spill(self, rid: int) -> Optional[dict]:
+        """Remove a spill record (restore, cancel), keeping the byte count
+        exact; None if it was never stored or the budget dropped it."""
+        rec = self._spill.pop(rid, None)
+        if rec is not None:
+            self._spill_bytes -= self._spill_nbytes(rec)
+        return rec
+
+    def _store_spill(self, rid: int, rec: dict) -> None:
+        """Insert a spill record, then hold ``spill_budget_bytes``: over it
+        the oldest records drop first (insertion order; a record is touched
+        again only when popped), the new one included.  A dropped record's
+        request re-admits through the fresh gate, recomputes its prompt,
+        and its published tokens move to ``_replay``, which decode
+        teacher-forces back without publishing anything again."""
+        self._spill[rid] = rec
+        self._spill_bytes += self._spill_nbytes(rec)
+        budget = self.cfg.spill_budget_bytes
+        if budget is None:
+            return
+        while self._spill and self._spill_bytes > budget:
+            old_rid = next(iter(self._spill))
+            old = self._pop_spill(old_rid)
+            self._replay[old_rid] = list(old["replay"])
+            self._spill_drops += 1
+
+    def _preempt(self, req: Request) -> None:
+        """Spill a decoding request to the host-side store and requeue it.
+
+        Its used pages (``ceil(pos / block_size)``, padded with the trash
+        page to the table width: one spill signature ever) and per-slot
+        leaves are copied to host tensors, outside any capture (the copy's
+        sync orders it after the last replay), with its decode counters;
+        then its whole reservation is released, shared prefix pages
+        surviving for their other owners, and the scheduler requeues it at
+        the head of its class."""
+        slot, rid = req.slot, req.rid
+        pages = self.blocks.owned(rid)
+        pos = int(self._host_pos[slot])
+        bs = self.cfg.kv_block_size
+        bucket = self._bucket(len(req.prompt))
+        n_used = -(-pos // bs)
+        ids = np.zeros((self._max_blocks,), np.int32)
+        ids[:n_used] = pages[:n_used]
+        self._store_spill(rid, {
+            "bucket": bucket,
+            "n_used": n_used,
+            "pos": pos,
+            # a decode write into an unaligned boundary prompt block moved
+            # its content off the chain hash: no pristine index hit there
+            "dirty": bucket % bs != 0 and pos > bucket,
+            "pages": _to_host(self._page_spill(self._cache, self._put(ids))),
+            "state": _to_host(self._state_gather(self._cache, slot)),
+            "token": int(self._tokens[slot]),
+            "steps": int(self._steps[slot]),
+            # published so far: the replay if the budget drops this record
+            "replay": list(req.output),
+        })
+        self.blocks.free(rid)
+        self._table[slot, :] = 0
+        self.sched.requeue(req)
+        self._preemptions += 1
+
+    def _preempt_pass(self) -> None:
+        """After admission: while the most urgent queued request outranks a
+        decoding one (strictly), spill the weakest (lowest class, then
+        newest) and admit again.  Each round takes one slot, so the loop
+        ends within ``max_batch`` rounds."""
+        while True:
+            head = self.sched.peek()
+            if head is None:
+                return
+            victims = [r for r in self.sched.active() if r.priority > head.priority]
+            if not victims:
+                return
+            self._preempt(max(victims, key=lambda r: (r.priority, r.rid)))
+            for req in self.sched.admit(self._try_reserve_blocks):
+                self._admit_one(req)
+
+    def _evict_request(self, req: Request, reason: str, now: float) -> None:
+        """Evict a request in any live state, with a typed reason: a queued
+        one leaves the queue (its spill record, if any, with it), a
+        prefilling one loses its job and pages (:meth:`_kill_job`), a
+        decoding one releases as usual.  A logit-sanity reason is a
+        detection event for the degradation policy."""
+        if reason in SP.SANITY_REASONS.values():
+            self._tick_dirty += 1
+        if req.state is RequestState.QUEUED:
+            self.sched.cancel(req, reason, now)
+            self._hash_memo.pop(req.rid, None)
+            self._pop_spill(req.rid)
+            self._replay.pop(req.rid, None)
+        elif req.state is RequestState.PREFILL:
+            self._kill_job(req)
+            self.sched.evict(req, reason, now)
+            self._table[req.done_slot, :] = 0
+        elif req.state is RequestState.DECODE:
+            self.sched.evict(req, reason, now)
+            self._release_if_done(req)
+
+    def _kill_job(self, req: Request) -> None:
+        """Drop an in-flight prefill job and free its pages.  Its registered
+        prompt blocks whose content never finished landing are deregistered
+        first; any of them still mapped by a job queued behind it (they
+        mapped it at their gate, trusting FIFO order to fill it) demotes
+        that job to recompute from below its first such page.  Jobs ahead
+        in the FIFO and decoding requests cannot map these pages."""
+        rid = req.rid
+        job = self._jobs.pop(rid)
+        self._job_fifo.remove(rid)
+        plan = job["plan"]
+        garbage: set[int] = set()
+        if self.sharing:
+            bs = self.cfg.kv_block_size
+            for i in range(plan["n_shared"], plan["n_prompt"]):
+                if job["q0"] < min((i + 1) * bs, job["bucket"]):
+                    page = int(job["row"][i])
+                    self.blocks.deregister(page)
+                    garbage.add(page)
+        self.blocks.free(rid)
+        garbage = {p for p in garbage if self.blocks.refcount(p) > 0}
+        for orid in self._job_fifo:
+            self._demote_job_for_garbage(self._jobs[orid], garbage)
+
+    def _demote_job_for_garbage(self, job: dict, garbage: set) -> None:
+        """Lower a queued job's resume point below its first garbage page;
+        it rewrites those pages itself with the bits the dead writer would
+        have written (int8 seeds derive from block content).  Only the FIFO
+        head advances ``q0``, so a demoted job has computed nothing yet."""
+        if not garbage:
+            return
+        plan = job["plan"]
+        bs = self.cfg.kv_block_size
+        frontier = min(-(-job["q0"] // bs), plan["n_prompt"])
+        bad = next((i for i in range(frontier) if int(job["row"][i]) in garbage), None)
+        if bad is None:
+            return
+        plan["full_hit"] = False
+        job["q0"] = bad * bs   # attention-only: any block boundary resumes
+        job["state"] = None
+
+    def _nan_payload(self) -> dict:
+        """A restore payload whose row 0 is NaN in every float pool leaf (an
+        int8 pool's scale planes: its dequant is ``code · scale``).  The
+        other rows are zeros, scattered into the trash page by the
+        fixed-width ids: a NaN trash page would poison every slot, since a
+        masked weight of 0 times NaN is NaN on the V side.  The spill
+        payload's shapes and dtypes, so the restore keeps one signature."""
+        out = {}
+        for name in SP.PAGE_POOL_LEAVES:
+            if name in self._cache:
+                leaf = self._cache[name]
+                shape = list(leaf.shape)
+                shape[2] = self._max_blocks
+                rows = torch.zeros(shape, dtype=leaf.dtype, device=self.device)
+                if leaf.dtype.is_floating_point:
+                    rows[:, :, 0] = float("nan")
+                out[name] = rows
+        return out
+
+    def _poison_nan(self, req: Request) -> bool:
+        """Overwrite one of ``req``'s private read-window pages with NaNs
+        (the ``nan_logits`` fault): its next decode step's logits are not
+        finite and the sanity check evicts it with reason ``"nan"``.  Only
+        a page of refcount 1 is poisoned, deregistered first as a real
+        divergence would be; False when the request has none in its read
+        window yet."""
+        slot, rid = req.slot, req.rid
+        pages = self.blocks.owned(rid)
+        n_read = max(1, -(-int(self._host_pos[slot]) // self.cfg.kv_block_size))
+        target = next((i for i in reversed(range(min(n_read, len(pages))))
+                       if self.blocks.refcount(pages[i]) == 1), None)
+        if target is None:
+            return False
+        self.blocks.deregister(pages[target])
+        ids = np.zeros((self._max_blocks,), np.int32)
+        ids[0] = pages[target]
+        self._cache = self._page_restore(self._cache, self._put(ids), self._nan_payload())
+        return True
 
     def _prefill_tick(self, emitted: list[tuple[int, int]]) -> None:
         """Advance the chunked-prefill pipeline by at most one compute chunk
@@ -767,11 +1089,17 @@ class ServingEngine:
             self._injector.fire(self, self._ticks)
         self._ticks += 1
         self._fault_pass()
+        # deadline pass: an expired request is evicted in whatever state it
+        # is (queued, mid-prefill with its job and pages, or decoding)
+        for req in self.sched.expired(time.perf_counter()):
+            self._evict_request(req, "deadline", time.perf_counter())
         pol = self.cfg.degradation
         shed = (pol.shed_priority_above
                 if pol is not None and self._degrade_level >= 3 else None)
         for req in self.sched.admit(self._try_reserve_blocks, shed_priority_above=shed):
             self._admit_one(req)
+        if self.cfg.enable_preemption:
+            self._preempt_pass()
         self._prefill_tick(emitted)
         active = self.sched.active()
         if active and self.sharing:
@@ -798,13 +1126,20 @@ class ServingEngine:
                 slot = req.slot
                 code = int(sane_np[slot])
                 if code:
-                    # logit-sanity trip: evict instead of publishing garbage;
-                    # a detection event for the degradation policy
-                    self.sched.evict(req, SP.SANITY_REASONS.get(code, "nan"), now)
-                    self._release_if_done(req)
-                    self._tick_dirty += 1
+                    # logit-sanity trip: evict instead of publishing garbage
+                    self._evict_request(req, SP.SANITY_REASONS.get(code, "nan"), now)
                     continue
                 t = int(nxt_np[slot])
+                rep = self._replay.get(req.rid)
+                if rep is not None:
+                    # teacher-force the next published token (the sampled
+                    # one is bitwise the same in a fault-free run); nothing
+                    # is recorded or published again
+                    self._tokens[slot] = rep.pop(0)
+                    if not rep:
+                        del self._replay[req.rid]
+                    self._steps[slot] += 1
+                    continue
                 self._tokens[slot] = t
                 self._steps[slot] += 1
                 self._total_tokens += 1
@@ -922,9 +1257,11 @@ class ServingEngine:
         CPU, never one per tick, slot or page set.  The eager entry points
         count the distinct argument signatures they were called with, what
         a ``jax.jit`` compile is keyed on: ``suffix_prefill`` one per
-        (bucket, chunk shape), the others at most one."""
+        (bucket, chunk shape), the others at most one (preemption's three
+        take fixed-width page ids)."""
         counts = {"serve_step": sum(len(s.entries) for s in self._serve_steps.values())}
-        for name in ("suffix_prefill", "state_insert", "page_copy", "sample0"):
+        for name in ("suffix_prefill", "state_insert", "page_copy", "sample0", "page_spill",
+                     "page_restore", "state_gather"):
             counts[name] = len(getattr(self, f"_{name}").signatures)
         return counts
 
@@ -977,6 +1314,9 @@ class ServingEngine:
             prefill_tokens_saved=self._prefill_tokens_saved,
             ttft_p50=_pctl(ttfts, 50),
             ttft_p99=_pctl(ttfts, 99),
+            preemptions=self._preemptions,
+            restores=self._restores,
+            spill_drops=self._spill_drops,
             evictions=evictions,
             analog=analog,
             degraded_mode=self._degrade_level,

@@ -8,12 +8,27 @@ of every tick and the injector applies whatever events are due.  Under
 every injected fault the engine keeps serving, the allocator's invariants
 hold, and every affected request ends with a typed ``done_reason``.
 
-Fault kinds (the reference's whose machinery the port has):
+Fault kinds, the reference's eight:
 
 ``exhaust_pool``
     Reserve every free block under a sentinel owner: the admission gate
     back-pressures as if live traffic held the pool.  ``release_pool``
     hands it back.
+``nan_logits``
+    Overwrite one private read-window page of a decoding request
+    (``rid=...``, default: the first poisonable active one) with NaN: the
+    next decode step's sanity code is ``SANE_NAN`` and the engine evicts
+    the victim with reason ``"nan"``.
+``deadline_storm``
+    Stamp ``deadline_ms`` (default 0: already expired) onto every live
+    request: the next deadline pass evicts them all.
+``kill_prefill``
+    Evict a mid-prefill request (``rid=...``, default: the job FIFO's
+    head) with reason ``"preempted"``: its job and pages go at once, and
+    queued sharers of its unwritten pages demote to recompute.
+``preempt``
+    Spill a decoding request (``rid=...``, default: the lowest-priority,
+    newest active one): it requeues and restores through the gate.
 ``degrade_device``
     Degrade the engine's device backend (``sim_faulty``): jump its fault
     clock (``clock=...``) and/or override readout knobs
@@ -23,15 +38,12 @@ Fault kinds (the reference's whose machinery the port has):
     Reset the backend's fault clock and drop the knob overrides (retired
     tiles stay retired: remapping is physical and one-way).
 
-The reference's ``nan_logits``, ``deadline_storm``, ``kill_prefill`` and
-``preempt`` need its spill store, ``_kill_job`` and the deadline pass,
-which the port does not have yet: like any kind without a ``_do_*``
-interpreter here, :meth:`FaultInjector.at` refuses them when they are
-scheduled.
+:meth:`FaultInjector.at` refuses an unknown kind when it is scheduled.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Optional
 
 from repro_torch.testing import FaultSchedule
@@ -84,6 +96,40 @@ class FaultInjector(FaultSchedule):
         engine.blocks.free(POOL_HOG_OWNER)
         self._hogging = False
         self.applied.append((tick, "release_pool", None))
+
+    def _do_nan_logits(self, engine, tick: int, rid: Optional[int] = None) -> None:
+        victims = [engine.sched.request(rid)] if rid is not None else engine.sched.active()
+        for req in victims:
+            if req.slot is not None and engine._poison_nan(req):
+                self.applied.append((tick, "nan_logits", req.rid))
+                return
+
+    def _do_deadline_storm(self, engine, tick: int, deadline_ms: float = 0.0) -> None:
+        now = time.perf_counter()
+        for req in engine.sched.all_requests():
+            if req.done_time is None:
+                # the elapsed lifetime counts against the new limit, so
+                # deadline_ms=0 expires everything at the next pass
+                req.deadline_ms = (now - req.submit_time) * 1e3 + float(deadline_ms)
+                self.applied.append((tick, "deadline_storm", req.rid))
+
+    def _do_kill_prefill(self, engine, tick: int, rid: Optional[int] = None) -> None:
+        if rid is None:
+            if not engine._job_fifo:
+                return
+            rid = engine._job_fifo[0]
+        engine._evict_request(engine.sched.request(rid), "preempted", time.perf_counter())
+        self.applied.append((tick, "kill_prefill", rid))
+
+    def _do_preempt(self, engine, tick: int, rid: Optional[int] = None) -> None:
+        if rid is not None:
+            victims = [engine.sched.request(rid)]
+        else:
+            victims = sorted(engine.sched.active(), key=lambda r: (r.priority, r.rid),
+                             reverse=True)
+        if victims and victims[0].slot is not None:
+            engine._preempt(victims[0])
+            self.applied.append((tick, "preempt", victims[0].rid))
 
     def _do_degrade_device(self, engine, tick: int, clock: Optional[int] = None,
                            **knobs: Any) -> None:
