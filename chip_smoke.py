@@ -14,7 +14,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the shapes the main paths give it: both attention kernels at
    stablelm-3b's full width (first, whether one slot's decode output is
    bit-identical at every window width W = 8, 16, 32 and at two slot
-   indices, which decides how phase 4c gates its streams; bf16 and int8
+   indices, which decides how phase 4c gates its streams; then whether a
+   speculative verify's 32 rows (k = 4 steps of B = 8 slots) are
+   bit-identical to the draft rows that computed the same slot and
+   position, launched with the draft batch's cluster split (required) and
+   with their own (printed), and the verify shape at W = 32 against its
+   plain version, timed beside its byte bound and SDPA; bf16 and int8
    pools; decode at B=8 over
    W=32, at B=1 over W=32 and at the serve profile's positions 100-130,
    each also at every cluster size; plus small GQA / local / soft-cap
@@ -103,7 +108,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    no capture from a restore or a poison, its kernels launched, under 32
    MiB left.  Then host ms a full-batch tick in turns in
    one process: greedy and WTA, each compiled and eager, and WTA compiled
-   on ``sim_faulty`` with the canary off and on every tick.
+   on ``sim_faulty`` with the canary off and on every tick.  Then phase
+   4d (:func:`spec_phase`), self-speculative decoding through the
+   compiled engine (one captured round per (W, k)), the trace at 16 tokens
+   a request: first a probe of one round's draft and verify logits
+   (:func:`spec_probe`; bf16 and f32 weights, float and int8 pools:
+   max|Δlogit| between each verify row and its draft row, rows not
+   bit-equal, rows whose argmax or WTA decision differs); then (a) greedy
+   k = 4, (b) WTA k = 3, (c) int8 greedy k = 4, (d) drafts reported wrong
+   every other round (rollbacks; one ``spec_rollback`` signature), (e)
+   forced preempts at ticks 1 and 3 under k = 3 (restores = preemptions);
+   each with its acceptance, tokens a round, tok/s, decode step ms, TTFT,
+   ``compile_counts()`` (one ``spec_round`` per width, fewer than rounds),
+   captures and their ms, no capture inside a rollback, decode attention
+   launches = 32·(k + 1) a round + 32 a plain tick, ``write_kv_int8`` and
+   ``wta_sample`` launches exact, under 32 MiB left.  Where the probe
+   finds the bf16 verify rows bit-equal to their drafts, (a), (b), (d),
+   (e) are gated on phase 4's streams; otherwise the same runs on an f32
+   copy of the weights are gated on its own plain serve, and the bf16
+   agreement is printed (int8 never gated).  Then host ms of a replayed
+   round against a replayed plain tick, in turns (:func:`spec_turns`).
 5. entry points: ``ops.stoch_round_serving`` on the 2048² quantizer row
    and ``ops.wta_counts`` at the serving head's operating point (8 ×
    50304, 32 trials); each kernel's launches, reset just before and read
@@ -486,6 +510,94 @@ def decode_w_invariance(gen, dev) -> dict:
     return out
 
 
+def verify_case(gen, dev, b, k, w, int8, pos_range):
+    """A speculative verify's decode attention: k·B rows, row (j, s) slot
+    s's query at position pos_s + j over slot s's table row (the table
+    tiled k times), every page of the window live.  Returns the case and
+    the k draft calls' (q, table, pos) it re-reads."""
+    bs, h, dh = 16, 32, 80
+    n_pages = b * w + 1
+    kp, vp, sc = make_pool(gen, n_pages, bs, 32, dh, int8, dev)
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).reshape(b, w)
+    table = table.to(torch.int32).contiguous()
+    lo, hi = pos_range
+    pos = torch.randint(lo, hi + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    q = torch.randn((k * b, h, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+    vpos = (pos.repeat(k) + torch.arange(k, device=dev, dtype=torch.int32).repeat_interleave(b))
+    drafts = [(q[j * b:(j + 1) * b], table, (pos + j).to(torch.int32)) for j in range(k)]
+    return (q, kp, vp, table.repeat(k, 1).contiguous(), vpos.contiguous(), sc), drafts
+
+
+def verify_bound(q, kp, table, pos, sc, b):
+    """Bytes a verify must move: each slot's live pages once (its k rows
+    share them), the k·B queries, outputs, table rows and positions; the
+    operations of every row's unmasked keys."""
+    kb, h, dh = q.shape
+    _, bs, hkv, _ = kp.shape
+    last = pos.reshape(-1, b).amax(dim=0)
+    live = int((last // bs + 1).clamp(max=table.shape[1]).sum()) * bs
+    nbytes = live * hkv * dh * kp.element_size() * 2 + (live * hkv * 4 * 2 if sc else 0)
+    nbytes += q.numel() * q.element_size() + kb * h * dh * 4 + table.numel() * 4 + kb * 4
+    keys = int((pos + 1).clamp(max=table.shape[1] * bs).sum())
+    return bound_record(nbytes, 4 * keys * h * dh)
+
+
+def verify_rows(gen, dev, errs, timing) -> dict:
+    """The speculative verify's decode attention at the main path's shape
+    (B = 8 slots, k = 4: 32 rows, bf16 and int8 pools): first whether each
+    verify row is bit-equal to the draft row that computed the same
+    (slot, position) at B = 8, at W = 8, 16 and 32, launched as the round
+    launches it (``split_batch`` = 8: the draft batch's cluster split) and
+    with the split the kernel would pick for 32 rows; then, at W = 32,
+    against its plain version, timed beside its byte bound and SDPA."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref
+
+    b, k = 8, 4
+    out = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        res = {"split_identical": True, "own_identical": True, "own_max_abs_diff": 0.0,
+               "n_split": {}}
+        for w, pr in ((8, (100, 124)), (16, (200, 252)), (32, (300, 508))):
+            (q, kp, vp, table, vpos, sc), drafts = verify_case(gen, dev, b, k, w, int8, pr)
+            want = torch.cat([PA.paged_attention_cuda(dq, kp, vp, dt, dp, **sc)
+                              for dq, dt, dp in drafts])
+            got = PA.paged_attention_cuda(q, kp, vp, table, vpos, split_batch=b, **sc)
+            own = PA.paged_attention_cuda(q, kp, vp, table, vpos, **sc)
+            res["split_identical"] &= torch.equal(got, want)
+            res["own_identical"] &= torch.equal(own, want)
+            res["own_max_abs_diff"] = max(res["own_max_abs_diff"], float((own - want).abs().max()))
+            res["n_split"][w] = (PA.decode_geometry(b, 32, 32, 80, 16, w, kp.dtype)["n_split"],
+                                 PA.decode_geometry(k * b, 32, 32, 80, 16, w, kp.dtype)["n_split"])
+        log(f"  verify {tag} (32 rows = 4 steps x 8 slots) against its draft rows at W = 8/16/32: "
+            f"bit-identical with the draft's split {res['split_identical']}, with its own "
+            f"{res['own_identical']} (max|diff| {res['own_max_abs_diff']:.3e}); n_split (draft "
+            f"B = 8, own 32 rows) by W {res['n_split']}")
+        if not res["split_identical"]:
+            raise AssertionError(f"verify {tag}: rows launched with the draft's split differ "
+                                 "from their draft rows")
+        cases = []
+        for _ in range(ROTATE):
+            case, _ = verify_case(gen, dev, b, k, 32, int8, (300, 508))
+            cases.append(case)
+        q, kp, vp, table, vpos, sc = cases[0]
+        args = (q, kp, vp, table, vpos)
+
+        def kernel(*a, **kw):
+            return PA.paged_attention_cuda(*a, split_batch=b, **kw)
+
+        check(f"decode {tag} verify 32 rows W=32", kernel(*args, **sc),
+              ref.paged_attention_ref(*args, **sc), errs)
+        geo = PA.decode_geometry(b, 32, 32, 80, 16, 32, kp.dtype)
+        timing[tag] = time_kernel(
+            verify_bound(q, kp, table, vpos, sc, b), cases, kernel, ref.paged_attention_ref,
+            None if int8 else sdpa_decode,
+            f"decode {tag} verify 32 rows W=32 (n_split {geo['n_split']} of B = 8)")
+        out[tag] = res
+    return out
+
+
 def kernel_phase(dev) -> dict:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import prefill_attention as PF
@@ -495,6 +607,8 @@ def kernel_phase(dev) -> dict:
     errs = {"decode": [], "prefill": []}
     timing = {}
     w_invariance = decode_w_invariance(gen, dev)
+    verify_timing = {}
+    verify = verify_rows(gen, dev, errs["decode"], verify_timing)
     # full width: stablelm-3b heads (H = Hkv = 32, Dh = 80), bs = 16
     for int8 in (False, True):
         tag = "int8" if int8 else "bf16"
@@ -522,6 +636,9 @@ def kernel_phase(dev) -> dict:
                 timing[("decode", tag)] = rec
             else:
                 extra.append({"case": f"{tag} {label}", **{k: rec[k] for k in CASE_KEYS}})
+        rec = verify_timing[tag]
+        extra.append({"case": f"{tag} verify 32 rows (k = 4 x B = 8) W=32, split of B = 8",
+                      **{k: rec.get(k) for k in CASE_KEYS}})
         timing[("decode", tag)]["cases"] = extra
         for q0 in (0, 128):
             cases = [prefill_case(gen, dev, 128, q0, 32, 32, 80, 16, 16, int8)
@@ -558,7 +675,7 @@ def kernel_phase(dev) -> dict:
     timing["write_kv_int8"], errs["write_kv_int8"] = write_kernels(gen, dev)
     timing["wta_sample"], errs["wta_sample"] = wta_sample_kernels(gen, dev)
     timing["sigmoid_sample"], errs["sigmoid_sample"] = sigmoid_sample_kernels(gen, dev)
-    return {"errs": errs, "timing": timing, "w_invariance": w_invariance}
+    return {"errs": errs, "timing": timing, "w_invariance": w_invariance, "verify": verify}
 
 
 def stoch_round_kernels(gen, dev):
@@ -1367,6 +1484,8 @@ def serve_phase(dev, w_invariant: bool) -> dict:
                                      dev, res["wta"])
     log("== 4c: preemption with KV spill to host, deadlines and chaos (stablelm-3b, compiled)")
     res["preempt"] = preempt_phase(params, cfg, prompts, dev, res, w_invariant)
+    log("== 4d: self-speculative decoding (stablelm-3b, compiled: one graph per (W, k))")
+    res["spec"] = spec_phase(params, cfg, prompts, dev, res)
     same, int8 = res["same"]["outs"], res["int8"]["outs"]
     agree = sum(a == b for r in same for a, b in zip(same[r], int8[r]))
     total = sum(len(o) for o in same.values())
@@ -2066,6 +2185,412 @@ def chaos_run(params, cfg, prompts, dev, scfg, want: dict, gate: bool) -> dict:
         assert run["launches"]["write_kv_int8"] > 0, run["launches"]
     run["agree"] = preempt_check(f"d {kv}", run, want, gate=gate)
     return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: self-speculative decoding.
+# ---------------------------------------------------------------------------
+
+# 4d serves phase 4's trace and ServeConfig with SPEC_NEW_TOKENS tokens a
+# request (streams compare with phase 4's first SPEC_NEW_TOKENS); the
+# forced preempts of run (e) fire at these ticks
+SPEC_NEW_TOKENS = 16
+SPEC_PREEMPT_TICKS = (1, 3)
+
+
+def spec_serve_config(**kw):
+    from repro_torch.serving import ServeConfig
+
+    return ServeConfig(**dict(dict(
+        max_batch=8, max_len=512, kv_block_size=16, prefill_chunk=128,
+        max_new_tokens=SPEC_NEW_TOKENS, prefill_buckets=(32, 64, 120, 128, 200, 256, 320),
+        seed=0), **kw))
+
+
+def spec_probe(params, cfg, prompts, dev, k: int = 4) -> dict:
+    """One speculative round's draft and verify logits, kept: eight slots
+    decoding (the trace's first eight prompts, prefilled), one round of
+    ``specs.make_paged_spec_round`` run eagerly with ``sample_tokens``
+    recording the logits it is handed (k draft calls of B rows, then the
+    verify's k·B).  Per verify row against the draft row that computed the
+    same (slot, position): max|Δlogit|, rows not bit-equal, and rows whose
+    greedy argmax or WTA decision (the slot's key, step + j) differs."""
+    from repro_torch.kernels import ops as KOPS
+    from repro_torch.launch import specs as SP
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(params, cfg, spec_serve_config(max_new_tokens=64), device=dev,
+                        graphs=False)
+    for p in prompts[:8]:
+        eng.submit(p)
+    while eng._job_fifo or eng.sched.queued():
+        eng.tick()
+    active = eng.sched.active()
+    assert len(active) == 8, len(active)
+    b = eng.cfg.max_batch
+    eng._cow_pass(active, k)   # as the engine does before every round
+    w = eng._window_blocks(active, k)
+    pos = eng._host_pos.copy()
+    seen = []
+    real = SP.sample_tokens
+
+    def keep(c, logits, *a, **kw):
+        seen.append(logits)
+        return real(c, logits, *a, **kw)
+
+    attn = []   # (q, out) of every decode attention call, in call order
+    real_attn = KOPS.paged_attention
+
+    def keep_attn(q, *a, **kw):
+        out = real_attn(q, *a, **kw)
+        attn.append((q.clone(), out.clone()))
+        return out
+
+    keys = torch.as_tensor(eng._req_keys, device=dev)
+    steps = torch.as_tensor(eng._steps, device=dev)
+    SP.sample_tokens = keep
+    KOPS.paged_attention = keep_attn
+    try:
+        SP.make_paged_spec_round(cfg, k)(
+            eng.params, eng._cache,
+            torch.as_tensor(np.ascontiguousarray(eng._table[:, :w]), device=dev),
+            torch.as_tensor(eng._tokens, device=dev), keys, steps)
+    finally:
+        SP.sample_tokens = real
+        KOPS.paged_attention = real_attn
+    wcfg = dataclasses.replace(cfg, wta_head=True)
+    draft, verify = torch.stack(seen[:k]), seen[k].reshape(k, b, -1)
+    diff = (verify.float() - draft.float()).abs()
+    out = {"w": w, "max_abs_diff": float(diff.max()),
+           "rows_not_bit_equal": int((diff.amax(dim=-1) > 0).sum()), "rows": k * b,
+           "argmax_differ": int((verify.argmax(-1) != draft.argmax(-1)).sum()),
+           "wta_differ": sum(int((SP.sample_tokens(wcfg, verify[j], keys, steps + j)
+                                  != SP.sample_tokens(wcfg, draft[j], keys, steps + j)).sum())
+                             for j in range(k))}
+    out["bit_equal"] = out["rows_not_bit_equal"] == 0
+    out["differing_rows"] = [(int(s), int(j), int(pos[s]) + int(j)) for j, s in
+                             (diff.amax(dim=-1) > 0).nonzero().tolist()]
+    # where a differing row first parts from its draft: the first layer
+    # whose attention query, then whose attention output, differs
+    n = cfg.n_layers
+    out["first_layer"] = {}
+    for s_, j, _ in out["differing_rows"][:4]:
+        pairs = [(attn[j * n + lay], attn[k * n + lay]) for lay in range(n)]
+        q_at = next((lay for lay, (d, v) in enumerate(pairs)
+                     if not torch.equal(d[0][s_], v[0][j * b + s_])), None)
+        o_at = next((lay for lay, (d, v) in enumerate(pairs)
+                     if not torch.equal(d[1][s_], v[1][j * b + s_])), None)
+        out["first_layer"][(s_, j)] = {"q": q_at, "attention": o_at}
+    log(f"  probe {cfg.dtype} weights, {'int8' if cfg.kv_cache_dtype == 'int8' else cfg.dtype} "
+        f"pool, k = {k}, W = {w}: verify vs draft rows max|Δlogit| {out['max_abs_diff']:.3e}, "
+        f"{out['rows_not_bit_equal']}/{out['rows']} rows not bit-equal, argmax differs in "
+        f"{out['argmax_differ']}, WTA decision in {out['wta_differ']}"
+        + (f"; (slot, j, position) of rows that differ {out['differing_rows'][:8]}; the "
+           f"first layer whose attention query / output differs, by (slot, j) "
+           f"{out['first_layer']}" if out["differing_rows"] else ""))
+    del eng, seen, draft, verify, diff, attn
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_run(params, cfg, prompts, dev, k: int, tag: str, *, tamper: bool = False,
+             injector=None) -> dict:
+    """One phase 4d serve through the compiled engine at ``speculate_k = k``
+    (every request at once): streams, speculation metrics, launches (reset
+    just before, read just after), ``compile_counts()``, round captures and
+    their ms, captures made inside rollbacks (must be none), memory.  With
+    ``tamper`` every other round reports its drafts at step 1 wrong, after
+    the round, as the reference's forced-rejection test does."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import stoch_round as SR
+    from repro_torch.kernels import wta_sample as WS
+    from repro_torch.serving import ServingEngine
+
+    scfg = spec_serve_config(speculate_k=k, fault_injector=injector)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng = ServingEngine(params, cfg, scfg, device=dev)
+    ptrs = {n: v.data_ptr() for n, v in eng._cache.items()}
+    rb_captures, calls = spec_instrument(eng, tamper)
+    for p in prompts:
+        eng.submit(p)
+    PA.launches = PF.launches = SR.launches = SR.write_launches = WS.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"decode": PA.launches, "prefill": PF.launches, "stoch_round": SR.launches,
+                "write_kv_int8": SR.write_launches, "wta_sample": WS.launches}
+    m = eng.metrics()
+    counts = eng.compile_counts()
+    caps = [(key, ms) for _, key, ms in eng.capture_log()]
+    spec_caps = [(key[1:], ms) for key, ms in caps if key[0] == "spec"]
+    plain = m.decode_steps - m.spec_rounds
+    n = cfg.n_layers
+    reqs = eng.sched.all_requests()
+    out = {"outs": outs, "reasons": {r.rid: r.done_reason for r in reqs},
+           "metrics": {f: getattr(m, f) for f in (
+               "spec_rounds", "spec_drafted", "spec_accepted", "spec_acceptance",
+               "spec_tokens_per_round", "tokens_per_s", "decode_step_ms", "ttft_mean",
+               "ttft_p99", "decode_steps", "total_tokens", "preemptions", "restores")},
+           "launches": launches, "compile_counts": counts, "captures": caps, "wall_s": wall,
+           "tampered_rounds": calls["n"] // 2, "rollbacks": len(rb_captures),
+           "ptrs_kept": ptrs == {n_: v.data_ptr() for n_, v in eng._cache.items()},
+           "free_blocks": (eng.blocks.available, eng.blocks.capacity), "plain_ticks": plain}
+    del eng
+    torch.cuda.empty_cache()
+    out["left_mib"] = (torch.cuda.memory_allocated() - mem0) / 2**20
+    log(f"  ({tag}) {m.completed} requests, {m.total_tokens} tokens in {wall:.2f} s: "
+        f"{m.tokens_per_s:.1f} tok/s, decode step {m.decode_step_ms:.2f} ms over "
+        f"{m.decode_steps} steps ({m.spec_rounds} rounds, {plain} plain ticks), TTFT mean "
+        f"{m.ttft_mean * 1e3:.1f} ms p99 {m.ttft_p99 * 1e3:.1f} ms; spec drafted "
+        f"{m.spec_drafted}, accepted {m.spec_accepted} ({m.spec_acceptance:.4f}), "
+        f"{m.spec_tokens_per_round:.2f} tokens a round over all slots; rollbacks "
+        f"{len(rb_captures)}"
+        + (f", tampered rounds {calls['n'] // 2}" if tamper else "")
+        + (f"; preemptions {m.preemptions}, restores {m.restores}"
+           if injector is not None else ""))
+    log(f"  ({tag}) launches {launches} (decode attention per round "
+        f"{(launches['decode'] - n * plain) / max(m.spec_rounds, 1):.1f}); compile_counts "
+        f"{counts}; captures " + ", ".join(f"{key} {ms:.1f} ms" for key, ms in caps)
+        + f"; {out['left_mib']:.1f} MiB left once the engine is dropped")
+    assert sorted(outs) == list(range(len(prompts))), (tag, "requests lost")
+    assert all(r == "length" for r in out["reasons"].values()), (tag, out["reasons"])
+    assert all(len(o) == SPEC_NEW_TOKENS for o in outs.values()), tag
+    assert m.spec_rounds > 0 and m.spec_drafted > 0, tag
+    # one captured round per (W, k), never one per tick, none by a rollback
+    assert counts["spec_round"] == len(spec_caps) == len({w for (w, _), _ in spec_caps}), tag
+    assert all(kk == k for (_, kk), _ in spec_caps), (tag, spec_caps)
+    assert m.spec_rounds > counts["spec_round"], (tag, counts)
+    assert sum(rb_captures) == 0, (tag, rb_captures)
+    assert counts["spec_rollback"] == (1 if rb_captures else 0), (tag, counts)
+    # decode attention: one launch a layer for each of the k draft steps
+    # and the verify, one a layer for a plain tick
+    assert launches["decode"] == n * ((k + 1) * m.spec_rounds + plain), (tag, launches)
+    assert launches["prefill"] > 0 and launches["stoch_round"] == 0, (tag, launches)
+    if cfg.kv_cache_dtype == "int8":
+        # one fused write beside every writing attention launch (the
+        # verify writes nothing)
+        assert launches["write_kv_int8"] == (launches["decode"] - n * m.spec_rounds
+                                             + launches["prefill"]) > 0, (tag, launches)
+    else:
+        assert launches["write_kv_int8"] == 0, (tag, launches)
+    # WTA: one launch a draft step, one a verify, one a plain tick, one a
+    # request's first token
+    want = (k + 1) * m.spec_rounds + plain + len(prompts) if cfg.wta_head else 0
+    assert launches["wta_sample"] == want, (tag, launches, want)
+    assert out["ptrs_kept"] and out["free_blocks"][0] == out["free_blocks"][1], tag
+    assert out["left_mib"] < 32, (tag, out["left_mib"])
+    return out
+
+
+def spec_instrument(eng, tamper: bool) -> tuple[list, dict]:
+    """Count the captures each rollback makes (must be none) and, with
+    ``tamper``, report every other round's drafts at step 1 wrong.  The
+    wrappers live on the engine alone, so dropping it frees its graphs."""
+    rb_captures, calls = [], {"n": 0}
+    rollback = eng._spec_rollback.fn
+    graphs = [eng._spec_graphs, *eng._serve_steps.values()]   # no rebuild in 4d
+
+    def counted_rollback(*a):
+        n = sum(len(g.captures()) for g in graphs)
+        out = rollback(*a)
+        rb_captures.append(sum(len(g.captures()) for g in graphs) - n)
+        return out
+
+    eng._spec_rollback.fn = counted_rollback
+    if tamper:
+        orig = eng._spec_round
+
+        def tampered(*a):
+            d, dok, v, vok, vs = orig(*a)
+            calls["n"] += 1
+            if calls["n"] % 2 == 0:
+                d = d.clone()
+                d[:, 1] ^= 1
+            return d, dok, v, vok, vs
+
+        eng._spec_round = tampered
+    return rb_captures, calls
+
+
+def batch_width_probe(params, cfg, dev) -> dict:
+    """Which of the decode step's operations give a row other bits at 32
+    rows (a k = 4 verify of B = 8) than at 8 (its draft), bf16 and f32, at
+    full width: the projections (cuBLAS picks its GEMM by M) and the RMS
+    norm (PyTorch's reduction picks its launch by the rows)."""
+    from repro_torch.models import layers as TL
+    from repro_torch.models.transformer import unit_params
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    up = unit_params(params["units"], 0)["l0"]
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        x = torch.randn((32, 1, cfg.d_model), generator=gen, device=dev).to(dt)
+        h = torch.randn((32, 1, cfg.d_ff), generator=gen, device=dev).to(dt)
+        ops = {name: (x, lambda a, w=up["attn"][name]: a @ w.to(dt))
+               for name in ("wq", "wk", "wv", "wo")}
+        ops.update({name: (x, lambda a, w=up["ffn"][name]: a @ w.to(dt))
+                    for name in ("w_up", "w_gate")})
+        ops.update({"w_down": (h, lambda a: a @ up["ffn"]["w_down"].to(dt)),
+               "logits": (x, lambda a: TL.logits_out(
+                   {"embedding": params["embed"]["embedding"].to(dt)}, None, a, cfg)),
+                    "rmsnorm": (x, lambda a: TL.rmsnorm(up["ln1"], a, cfg.norm_eps))})
+        for name, (a, fn) in ops.items():
+            full, part = fn(a)[:8], fn(a[:8])
+            out[f"{tag} {name}"] = {"bit_equal": bool(torch.equal(full, part)),
+                                    "max_abs_diff": float((full.float() - part.float()).abs().max())}
+    log("  batch width 8 against 32 rows, per operation (bit-equal, max|diff|): "
+        + ", ".join(f"{k} {v['bit_equal']} {v['max_abs_diff']:.3e}" for k, v in out.items()))
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_turns(params, cfg, dev, n_ticks: int = 3, rounds: int = 6) -> dict:
+    """Host ms of a replayed speculative round against a replayed plain
+    tick, in turns in one process (no profiler): greedy plain, greedy at
+    k = 4, WTA plain and WTA at k = 3, 8 slots at positions ≈ 128 on, each
+    tick ending in the engine's own sync; tokens a tick beside."""
+    from repro_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(2)
+    wcfg = dataclasses.replace(cfg, wta_head=True)
+    engines = {}
+    for name, c, k in (("greedy", cfg, 0), ("greedy k=4", cfg, 4), ("wta", wcfg, 0),
+                       ("wta k=3", wcfg, 3)):
+        # default buckets: the 100-token prompts start at 128, and a budget
+        # of 120 keeps every round and tick inside W = 16, with all 8 slots
+        # decoding to the end of the turns (the first slot drafts during
+        # the others' 7 prefill ticks)
+        eng = ServingEngine(params, c, spec_serve_config(
+            max_new_tokens=120, speculate_k=k, prefill_buckets=()), device=dev)
+        for _ in range(8):
+            eng.submit(rng.integers(0, cfg.vocab, 100).tolist())
+        while eng._job_fifo or eng.sched.queued():
+            eng.tick()
+        eng.tick()
+        engines[name] = eng
+    torch.cuda.synchronize()
+    names = list(engines)
+    ms = {k: [] for k in names}
+    toks = {k: 0 for k in names}
+    for r in range(rounds):
+        for name in names[r % len(names):] + names[: r % len(names)]:
+            eng = engines[name]
+            t0 = time.perf_counter()
+            for _ in range(n_ticks):
+                toks[name] += len(eng.tick())
+            ms[name].append((time.perf_counter() - t0) * 1e3 / n_ticks)
+    out = {"runs": ms, "median": {k: float(np.median(v)) for k, v in ms.items()},
+           "tokens_per_tick": {k: toks[k] / (rounds * n_ticks) for k in names}}
+    out["gap_ms"] = {k: out["median"][k] * 8 / max(out["tokens_per_tick"][k], 1e-9)
+                     for k in names}
+    assert all(len(e.sched.active()) == 8 for e in engines.values()), "a slot finished"
+    for name in names:
+        eng = engines[name]
+        log(f"  host ms a replayed {'round' if 'k=' in name else 'tick'} in turns "
+            f"({rounds} x {n_ticks}), {name}: {[round(x, 2) for x in ms[name]]} (median "
+            f"{out['median'][name]:.2f}), {out['tokens_per_tick'][name]:.2f} tokens a tick over "
+            f"8 slots: a slot's token gap {out['gap_ms'][name]:.3f} ms"
+            + (f", acceptance {eng.metrics().spec_acceptance:.4f}" if eng.spec_k else "")
+            + f"; compile_counts {eng.compile_counts()}")
+    for name in ("greedy k=4", "wta k=3"):
+        assert engines[name].compile_counts()["spec_round"] == 1, engines[name].compile_counts()
+    del engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_phase(params, cfg, prompts, dev, res: dict) -> dict:
+    """Phase 4d at stablelm-3b's full width and depth through the compiled
+    engine: the verify-vs-draft probe (bf16 and f32 weights, bf16/f32 and
+    int8 pools), then (a) greedy k = 4, (b) WTA k = 3, (c) int8 greedy
+    k = 4, (d) forced rejections, (e) forced preempts under k = 3; the
+    host ms of a replayed round in turns.  Where the probe finds the bf16
+    verify rows bit-equal to their drafts, (a), (b), (d), (e) are gated on
+    phase 4's streams; otherwise on an f32 copy of the weights against its
+    own plain serve, the bf16 agreement printed beside.  int8 is never
+    gated on streams (its decode depends on W, ROADMAP C)."""
+    from repro_torch.serving import FaultInjector
+
+    p32 = tree_float(params)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    icfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    probe = {"bf16": spec_probe(params, cfg, prompts, dev),
+             "bf16_int8": spec_probe(params, icfg, prompts, dev),
+             "f32": spec_probe(p32, c32, prompts, dev),
+             "f32_int8": spec_probe(p32, dataclasses.replace(c32, kv_cache_dtype="int8"),
+                                    prompts, dev)}
+    probe["ops"] = batch_width_probe(params, cfg, dev)
+    # the bf16 model's rows must match in both pools: a row that differs in
+    # one says the step is not batch-invariant, only mostly rounded alike
+    gate_bf16 = probe["bf16"]["bit_equal"] and probe["bf16_int8"]["bit_equal"]
+    log(f"  the bf16 verify rows are {'' if gate_bf16 else 'not all '}bit-equal to their drafts: "
+        f"streams gated on {'phase 4' if gate_bf16 else 'an f32 copy against its own plain serve'}")
+
+    def force():
+        inj = FaultInjector()
+        for t in SPEC_PREEMPT_TICKS:
+            inj.at(t, "preempt")
+        return inj
+
+    wcfg = dataclasses.replace(cfg, wta_head=True)
+    runs = {"a": spec_run(params, cfg, prompts, dev, 4, "a) bf16 greedy k=4"),
+            "b": spec_run(params, wcfg, prompts, dev, 3, "b) bf16 WTA k=3"),
+            "c": spec_run(params, icfg, prompts, dev, 4, "c) int8 greedy k=4"),
+            "d": spec_run(params, cfg, prompts, dev, 4, "d) bf16 greedy k=4, forced rejections",
+                          tamper=True),
+            "e": spec_run(params, cfg, prompts, dev, 3, "e) bf16 greedy k=3, forced preempts",
+                          injector=force())}
+    assert runs["d"]["tampered_rounds"] >= 1 and runs["d"]["compile_counts"]["spec_rollback"] == 1
+    assert runs["d"]["metrics"]["spec_accepted"] < runs["d"]["metrics"]["spec_drafted"]
+    pre = runs["e"]["metrics"]
+    assert pre["preemptions"] >= 1 and pre["restores"] == pre["preemptions"], pre
+    want = {"a": res["same"]["outs"], "b": res["wta"]["outs"], "c": res["int8"]["outs"],
+            "d": res["same"]["outs"], "e": res["same"]["outs"]}
+    for key, run in runs.items():
+        run["agree"] = preempt_check(f"4d {key}", run, want[key],
+                                     gate=gate_bf16 and key != "c", against="phase 4's")
+    # (d) and (e) against (a): the same rounds' verify tokens, realigned
+    for key in ("d", "e"):
+        runs[key]["agree_a"] = preempt_check(f"4d {key} vs a", runs[key], runs["a"]["outs"],
+                                             gate=gate_bf16, against="run (a)'s")
+    out = {"probe": probe, "gate_bf16": gate_bf16, "runs": runs}
+    if not gate_bf16:
+        out["f32"] = spec_f32(p32, c32, prompts, dev, force)
+    del p32
+    torch.cuda.empty_cache()
+    out["turns"] = spec_turns(params, cfg, dev)
+    return out
+
+
+def spec_f32(p32, c32, prompts, dev, force) -> dict:
+    """(a), (b), (d) and (e) on an f32 copy of the weights, each gated
+    token for token against the f32 plain serve (``speculate_k = 0``)."""
+    from repro_torch.serving import ServingEngine
+
+    w32 = dataclasses.replace(c32, wta_head=True)
+    base = {}
+    for name, c in (("greedy", c32), ("wta", w32)):
+        eng = ServingEngine(p32, c, spec_serve_config(), device=dev)
+        for p in prompts:
+            eng.submit(p)
+        base[name] = eng.run()
+        del eng
+    runs = {"a": spec_run(p32, c32, prompts, dev, 4, "a f32) greedy k=4"),
+            "b": spec_run(p32, w32, prompts, dev, 3, "b f32) WTA k=3"),
+            "d": spec_run(p32, c32, prompts, dev, 4, "d f32) forced rejections", tamper=True),
+            "e": spec_run(p32, c32, prompts, dev, 3, "e f32) forced preempts",
+                          injector=force())}
+    for key, run in runs.items():
+        run["agree"] = preempt_check(f"4d {key} f32", run, base["wta" if key == "b" else "greedy"],
+                                     gate=True, against="the f32 plain serve's")
+    assert runs["d"]["compile_counts"]["spec_rollback"] == 1
+    assert runs["e"]["metrics"]["restores"] == runs["e"]["metrics"]["preemptions"] >= 1
+    torch.cuda.empty_cache()
+    return runs
 
 
 # CUgraphNodeType values (cuda.h) of the nodes a decode step captures
@@ -3141,6 +3666,13 @@ def main() -> int:
         rec = next(k for k in kernels if k["name"] == name)
         rec["launches_preempt"] = {run: pre[run]["launches"][key]
                                    for run in ("a", "b", "c", "d_same", "d_int8")}
+    # phase 4d: each speculative run's launches, reset just before it and
+    # read just after
+    spec = sres["spec"]["runs"]
+    for name, key in (("paged_attention", "decode"), ("paged_prefill_attention", "prefill"),
+                      ("write_kv_int8", "write_kv_int8"), ("wta_sample", "wta_sample")):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_spec"] = {run: spec[run]["launches"][key] for run in spec}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

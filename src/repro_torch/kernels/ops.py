@@ -80,12 +80,14 @@ def paged_attention(
     softcap: float = 0.0,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    split_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """Block-table decode attention: (B, H, Dh) f32, through the active
-    device backend."""
+    device backend.  ``split_batch``: the batch width whose cluster split
+    the kernel takes (``paged_attention.paged_attention_cuda``)."""
     return _backend.get_backend().paged_attention(
         q, k_pages, v_pages, table, pos, kind=kind, local_window=local_window,
-        softcap=softcap, k_scale=k_scale, v_scale=v_scale,
+        softcap=softcap, k_scale=k_scale, v_scale=v_scale, split_batch=split_batch,
     )
 
 
@@ -101,14 +103,17 @@ def paged_attention_sim(
     softcap: float = 0.0,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    split_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """The Sim backend's decode attention: the kernel on the card, the
-    plain version on the CPU."""
-    fn = PA.paged_attention_cuda if q.is_cuda else ref.paged_attention_ref
-    return fn(
-        q, k_pages, v_pages, table, pos, kind=kind, local_window=local_window,
-        softcap=softcap, k_scale=k_scale, v_scale=v_scale,
-    )
+    plain version on the CPU (whose rows do not depend on the batch, so it
+    takes no ``split_batch``)."""
+    kw = dict(kind=kind, local_window=local_window, softcap=softcap, k_scale=k_scale,
+              v_scale=v_scale)
+    if q.is_cuda:
+        return PA.paged_attention_cuda(q, k_pages, v_pages, table, pos, split_batch=split_batch,
+                                       **kw)
+    return ref.paged_attention_ref(q, k_pages, v_pages, table, pos, **kw)
 
 
 def paged_prefill_attention(

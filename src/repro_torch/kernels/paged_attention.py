@@ -170,10 +170,15 @@ def paged_attention_cuda(
     k_scale: Optional[torch.Tensor] = None,  # (P, bs, Hkv) f32, int8 pools
     v_scale: Optional[torch.Tensor] = None,
     n_split: Optional[int] = None,
+    split_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the decode kernel on the current stream; returns (B, H, Dh) f32.
     ``n_split`` overrides :func:`decode_geometry`'s cluster size (1, 2, 4
-    or 8), for measuring the choice; the main path leaves it unset."""
+    or 8), for measuring the choice; the main path leaves it unset.
+    ``split_batch`` takes the cluster size :func:`decode_geometry` picks
+    for that batch width instead of B: a row's output depends on its own
+    pages, its position, W and the split only, so a speculative verify of
+    k·B rows launched with its draft's B sums every row as the draft did."""
     global launches
     b, h, dh = q.shape
     _, bs, hkv, _ = k_pages.shape
@@ -181,7 +186,8 @@ def paged_attention_cuda(
     check_index(table, (b, table.shape[1]), q.device, "table")
     check_index(pos, (b,), q.device, "pos")
     check_box_shape(dh, bs, k_pages.dtype)
-    geo = decode_geometry(b, h, hkv, dh, bs, table.shape[1], k_pages.dtype)
+    geo = decode_geometry(split_batch or b, h, hkv, dh, bs, table.shape[1], k_pages.dtype)
+    geo["grid"] = (geo["n_split"], hkv, b)
     if n_split is not None:
         if n_split not in (1, 2, 4, 8):
             raise ValueError(f"n_split must be 1, 2, 4 or 8, got {n_split}")

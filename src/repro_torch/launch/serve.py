@@ -5,13 +5,15 @@ randomly initialized model, greedy or WTA sampling.
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\
         [--kv-dtype int8] [--wta [--n-redundant-reads 3]] [--priority 0] \
         [--deadline-ms MS] [--no-preemption] [--spill-budget-bytes N] \
+        [--speculate-k K] \
         [--device-backend sim_faulty [--stuck-rate R] [--drift-nu NU] \
          [--read-sigma-inflation I] [--comparator-offset O] [--fault-seed S]] \
         [--canary-interval N] [--tile-retire-threshold T] [--degrade]
 
 Runs on the card unless ``--device cpu`` is given.  On the card the
 engine's decode step is compiled: one CUDA graph per decode window width
-and redundant-read factor, captured on first use and replayed, dropped
+and redundant-read factor (with ``--speculate-k``, one per width for the
+fused draft + verify round), captured on first use and replayed, dropped
 and captured again when the fault backend's state moves (the last line
 prints ``compile_counts()``); on the CPU it runs eagerly.  The energy line
 is the Table I cost model's pricing of the analog events the run drove
@@ -78,6 +80,11 @@ def main() -> None:
                     help="disable priority preemption (higher-priority "
                          "arrivals back-pressure instead of spilling a "
                          "lower-priority victim's KV pages to host)")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="self-speculative decoding: draft K tokens a tick "
+                         "through the compiled decode step, verify the run in "
+                         "one read-only step, roll back at the first mismatch "
+                         "(0 = off)")
     ap.add_argument("--spill-budget-bytes", type=int, default=None,
                     help="cap on host bytes held by preemption spill "
                          "records; the oldest drop at the cap and their "
@@ -147,6 +154,7 @@ def main() -> None:
             degradation=DegradationPolicy() if args.degrade else None,
             enable_preemption=not args.no_preemption,
             spill_budget_bytes=args.spill_budget_bytes,
+            speculate_k=args.speculate_k,
         ),
         device=args.device,
     )
@@ -174,6 +182,12 @@ def main() -> None:
         f"{m.spill_drops}); done reasons "
         + ", ".join(f"{k}={v}" for k, v in sorted(m.evictions.items()))
     )
+    if m.spec_rounds:
+        print(
+            f"speculation k={args.speculate_k}: {m.spec_rounds} rounds, "
+            f"{m.spec_accepted}/{m.spec_drafted} drafts accepted "
+            f"({m.spec_acceptance:.2f}), {m.spec_tokens_per_round:.2f} tokens a round"
+        )
     if m.canary_probes or m.degraded_mode or m.degraded_transitions:
         print(
             f"fault tolerance: degraded_mode {m.degraded_mode}, "

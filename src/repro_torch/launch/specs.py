@@ -12,7 +12,11 @@ Preemption's three (:func:`make_page_spill`, :func:`make_page_restore`,
 :func:`make_slot_state_gather`) take page ids at the fixed table width,
 padded with the trash page, so each keeps one signature; the restore
 writes into the pool's own tensors, whose addresses the graphs hold.
-Absent still: the speculative round and its rollback, and sharding.
+Self-speculation: :func:`make_paged_spec_round` fuses k chained draft
+steps and one read-only verify of the drafted run, compiled as
+:class:`SpecGraphs` (one CUDA graph per (window width, k)), and
+:func:`make_spec_rollback` rewinds one slot's ``pos`` in place.  Absent
+still: sharding.
 """
 
 from __future__ import annotations
@@ -51,6 +55,107 @@ def cache_batch_axis(leaf_name: str) -> int:
     if leaf_name == "pos":
         return 0
     raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm cache")
+
+
+def _spec_state_leaves(cache: dict) -> dict:
+    """The per-slot leaves a speculative round snapshots and rolls back:
+    all but the shared page pool and an int8 pool's engine-wide
+    ``quant_step`` (rewinding it would replay rounding draws).  The ported
+    decoder has no recurrent state, so this is ``pos``."""
+    return {n: v for n, v in cache.items() if n not in PAGE_POOL_LEAVES and n != "quant_step"}
+
+
+def _check_token_lm(cfg: ModelConfig) -> None:
+    if cfg.family in ("encdec", "fcnn"):
+        raise ValueError(f"paged serving is token-LM only (no {cfg.family})")
+
+
+def make_paged_spec_round(cfg: ModelConfig, k: int):
+    """One fused draft-k → verify-k speculative round over a paged cache
+    (``repro/launch/specs.py:199-291``):
+
+    (params, cache, table (B, W), token (B,)[, keys (B, 2), steps (B,)]) →
+    (dtoks (B, k), doks (B, k), vtoks (B, k), voks (B, k), vstates
+    {"pos": (k, B)}).
+
+    Draft: k chained :func:`TF.lm_decode_step` + :func:`sample_tokens`
+    calls, each with the slot's own ``(key, steps + j)``, so the drafts are
+    k plain engine ticks; their K/V lands in the slots' pages, and ``pos``
+    and an int8 pool's ``quant_step`` advance in place, one a step.
+    ``vstates["pos"][j]`` is ``pos`` after consuming input j.
+
+    Verify: ONE read-only decode step of k·B rows (``kv_write=False``):
+    row (j, s) consumes input j of ``[token, dtoks[:-1]]`` for slot s at
+    position ``pre-draft pos + j`` (a ``pos`` tensor of its own: the
+    cache's is never handed over), the table tiled k times, resampled
+    with the same ``(key, steps + j)``.  Its decode attention launches
+    with the cluster split the draft's B chose (``split_batch``), so a
+    verify row attends exactly as its draft row did.  In a fault-free
+    round whose rows are batch-invariant ``vtoks == dtoks`` and every
+    draft accepts; where they differ, the first mismatch is both the
+    rejection point and the corrected token.  ``doks`` / ``voks`` are the
+    per-step finite-logits flags (the NaN guard at draft depth).
+
+    The pre-draft ``pos`` is snapshot inside the round, so a captured
+    round reads nothing from the host."""
+    _check_token_lm(cfg)
+    if k < 1:
+        raise ValueError(f"speculate_k must be >= 1, got {k}")
+
+    def finite(logits: torch.Tensor) -> torch.Tensor:
+        return torch.isfinite(logits.float()).all(dim=-1)
+
+    def spec_round(params, cache, table, token, keys=None, steps=None):
+        b = token.shape[0]
+        states = [{n: v.clone() for n, v in _spec_state_leaves(cache).items()}]
+        dtoks, doks = [], []
+        tok = token
+        for j in range(k):
+            cache, logits = TF.lm_decode_step(params, cache, tok, cfg, table)
+            tok = sample_tokens(cfg, logits, keys, None if steps is None else steps + j)
+            dtoks.append(tok)
+            doks.append(finite(logits))
+            states.append({n: v.clone() for n, v in _spec_state_leaves(cache).items()})
+        dtoks = torch.stack(dtoks)                                   # (k, B)
+        # row (j, s) of the verify holds slot s's state before input j
+        view = {n: v for n, v in cache.items() if n not in states[0] and n != "quant_step"}
+        for n in states[0]:
+            view[n] = torch.cat([st[n] for st in states[:-1]], dim=cache_batch_axis(n))
+        inputs = torch.cat([token[None], dtoks[:-1]]).reshape(-1)
+        _, logits = TF.lm_decode_step(params, view, inputs, cfg, table.repeat(k, 1),
+                                      kv_write=False, split_batch=b)
+        xkeys = xsteps = None
+        if keys is not None:
+            xkeys = keys.repeat(k, 1)
+        if steps is not None:
+            xsteps = steps.repeat(k) + torch.arange(
+                k, dtype=steps.dtype, device=steps.device).repeat_interleave(b)
+        vtoks = sample_tokens(cfg, logits, xkeys, xsteps).reshape(k, b)
+        voks = finite(logits).reshape(k, b)
+        vstates = {n: torch.stack([st[n] for st in states[1:]]) for n in states[0]}
+        return dtoks.T, torch.stack(doks).T, vtoks.T, voks.T, vstates
+
+    return spec_round
+
+
+def make_spec_rollback(cfg: ModelConfig):
+    """(cache, vstates {leaf: (k, ...)}, idx, slot) → cache: roll one slot
+    back to the state after consuming a round's input ``idx``
+    (``vstates[leaf][idx]``, the draft's own state there, which is the
+    plain engine's), in place in the cache's own tensors, whose addresses
+    the graphs hold.  Drafted K/V past the new ``pos`` stays in the pages
+    as dead rows: masked, and overwritten when decode reaches them again.
+    ``idx`` and ``slot`` are Python ints, so every pair shares one
+    signature."""
+    _check_token_lm(cfg)
+
+    def rollback(cache: dict, vstates: dict, idx: int, slot: int) -> dict:
+        for name, st in vstates.items():
+            ax = cache_batch_axis(name)
+            cache[name].narrow(ax, slot, 1).copy_(st[idx].narrow(ax, slot, 1))
+        return cache
+
+    return rollback
 
 
 def make_paged_suffix_prefill(cfg: ModelConfig):
@@ -394,11 +499,14 @@ class DecodeGraphs:
         self.entries: dict[tuple[int, int], _Entry] = {}
         self._pool = torch.cuda.graph_pool_handle() if capture else None
 
+    def _key(self, width: int) -> tuple:
+        return width, self.reads
+
     def __call__(self, table: np.ndarray, tokens: np.ndarray, *wta: np.ndarray):
         """One decode step: table (B, W), tokens (B,)[, keys (B, 2), steps
         (B,)] host arrays → (tok, sane) (B,) int32 on the device."""
         srcs = (table, tokens, *wta)
-        key = (table.shape[1], self.reads)
+        key = self._key(table.shape[1])
         entry = self.entries.get(key)
         if entry is None:
             pin = self.device.type == "cuda"
@@ -419,11 +527,11 @@ class DecodeGraphs:
         KOPS.add_launches(entry.launches)
         return entry.out
 
-    def _run(self, inputs: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    def _run(self, inputs: tuple) -> tuple[torch.Tensor, ...]:
         _, tok, sane = self._step(self.params, self.cache, *inputs)
         return tok, sane
 
-    def _warm_up_and_capture(self, entry: _Entry) -> tuple[torch.Tensor, torch.Tensor]:
+    def _warm_up_and_capture(self, entry: _Entry) -> tuple[torch.Tensor, ...]:
         cur = torch.cuda.current_stream(self.device)
         side = capture_stream(self.device.index)
         side.wait_stream(cur)
@@ -451,6 +559,54 @@ class DecodeGraphs:
         entry.graph = graph
         return out
 
-    def captures(self) -> list[tuple[tuple[int, int], float]]:
-        """((W, R), capture ms) of every captured entry."""
-        return [(k, e.capture_ms) for k, e in self.entries.items() if e.graph is not None]
+    def captures(self) -> list[tuple[tuple, float]]:
+        """(entry key, capture ms) of every captured entry: (W, R) here,
+        ("spec", W, k) for :class:`SpecGraphs`."""
+        return [(self._log_key(k), e.capture_ms) for k, e in self.entries.items()
+                if e.graph is not None]
+
+    def _log_key(self, key: tuple) -> tuple:
+        return key
+
+
+class SpecGraphs(DecodeGraphs):
+    """The compiled speculative round of one engine: :func:`make_paged_spec_round`
+    over its parameters and cache, one entry per (window width W, k), the
+    counterpart of the reference's round jitted per window bucket.
+
+    The machinery is :class:`DecodeGraphs`': static inputs (table, tokens[,
+    keys, steps]) filled through pinned staging, the first call of an
+    entry eager on the capture stream and then captured under
+    ``set_sync_debug_mode("error")``, every later call a replay that adds
+    the capture's launch counts, no eager fallback; eager on the same
+    buffers without ``capture``.  A call returns ``(dtoks, doks, vtoks,
+    voks, vstates)``, which live in the graphs' memory pool until the next
+    call: the engine reads the tokens and flags in one sync and does every
+    rollback from ``vstates`` before it replays anything again.  The round
+    writes the pool, ``pos`` and ``quant_step`` in place, k times a replay."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, cache: dict, *, k: int, capture: bool):
+        self.params, self.cache = params, cache
+        self.k = k
+        self.capture = capture
+        self.device = cache["pos"].device
+        self._round = make_paged_spec_round(cfg, k)
+        self.entries: dict[tuple[int, int], _Entry] = {}
+        self._pool = torch.cuda.graph_pool_handle() if capture else None
+
+    def _key(self, width: int) -> tuple:
+        return width, self.k
+
+    def _log_key(self, key: tuple) -> tuple:
+        return ("spec", *key)
+
+    def __call__(self, table: np.ndarray, tokens: np.ndarray, *wta: np.ndarray):
+        """One round: table (B, W), tokens (B,)[, keys (B, 2), steps (B,)]
+        host arrays → (dtoks, doks, vtoks, voks) (B, k), vstates {"pos": (k,
+        B)} on the device."""
+        dtoks, doks, vtoks, voks, vpos = super().__call__(table, tokens, *wta)
+        return dtoks, doks, vtoks, voks, {"pos": vpos}
+
+    def _run(self, inputs: tuple) -> tuple[torch.Tensor, ...]:
+        dtoks, doks, vtoks, voks, vstates = self._round(self.params, self.cache, *inputs)
+        return dtoks, doks, vtoks, voks, vstates["pos"]

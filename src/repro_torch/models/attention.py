@@ -206,26 +206,35 @@ def paged_decode_self_attention(
     k_scale_pages: Optional[torch.Tensor] = None,  # (P, bs, Hkv) f32, int8 pools
     v_scale_pages: Optional[torch.Tensor] = None,
     quant_seed: Optional[torch.Tensor] = None,     # int64 uint32 seed (device)
+    write: bool = True,
+    split_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """Write this step's K/V into each slot's current block, then attend
     over the W table blocks only.  Returns the (B, 1, D) output after w_o.
 
     int8 pools quantize the step's K/V rows under ``quant_seed`` and write
-    codes and scales in place; attention folds the scales into its math."""
+    codes and scales in place; attention folds the scales into its math.
+
+    ``write=False`` is the speculative verify's re-read: the draft step
+    already wrote this position's K/V, so the pool is attended as it lies
+    and left untouched (an int8 pool passes its scale planes, no seed).
+    ``split_batch`` launches the card's kernel with the cluster split it
+    would choose for that batch width (the draft's), so that a verify row
+    sums in its draft row's order; the plain version ignores it."""
     int8_pool = k_pages.dtype == torch.int8
     q, k, v = qkv(p, x, cfg)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    if int8_pool:
+    if write and int8_pool:
         KOPS.write_kv_int8(k, v, k_pages, v_pages, k_scale_pages, v_scale_pages, quant_seed,
                            table=table, pos=pos)
-    else:
+    elif write:
         paged_write(k_pages, k, table, pos)
         paged_write(v_pages, v, table, pos)
     out = KOPS.paged_attention(
         q[:, 0], k_pages, v_pages, table, pos,
         kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,
         k_scale=k_scale_pages if int8_pool else None,
-        v_scale=v_scale_pages if int8_pool else None,
+        v_scale=v_scale_pages if int8_pool else None, split_batch=split_batch,
     ).reshape(x.shape[0], 1, -1)
     return A.analog_matmul(_proj_cfg(cfg), None, out.to(x.dtype), p["wo"])

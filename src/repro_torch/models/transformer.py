@@ -24,6 +24,8 @@ held in int64).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch import random as R
@@ -253,6 +255,8 @@ def lm_decode_step(
     token: torch.Tensor,   # (B,) int last emitted token
     cfg: ModelConfig,
     table: torch.Tensor,   # (B, W) int32 block table
+    kv_write: bool = True,
+    split_batch: Optional[int] = None,
 ) -> tuple[dict, torch.Tensor]:
     """One decode step over the paged pool; returns (cache, logits (B, V)).
 
@@ -261,10 +265,16 @@ def lm_decode_step(
     storage after their last read, so a captured step (``specs.DecodeGraphs``)
     reads the values the engine writes there between steps.  The returned
     cache is the same dict.  An int8 write of unit ``u``, sublayer ``i`` rounds under
-    ``quant_step·2654435761 + u·40503 + i·1299721 mod 2**32``."""
+    ``quant_step·2654435761 + u·40503 + i·1299721 mod 2**32``.
+
+    ``kv_write=False`` is the speculative verify's step: the same math over
+    the pool as the draft left it, which stays untouched, and no
+    ``quant_step`` tick; ``pos`` still advances, so the caller passes a
+    cache view with a ``pos`` of its own.  ``split_batch`` is handed to
+    decode attention (``attention.paged_decode_self_attention``)."""
     pos = cache["pos"]
     int8_pool = "k_scale_pages" in cache
-    if int8_pool:
+    if int8_pool and kv_write:
         qstep = cache["quant_step"]
         seeds = _layer_seeds(mul32(qstep.long() & MASK, 2654435761), cfg)
     x = embed(params["embed"], token[:, None], cfg)
@@ -272,17 +282,21 @@ def lm_decode_step(
         up = unit_params(params["units"], u)
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
-            kw = _int8_kw(cache, u, i, seeds, "quant_seed") if int8_pool else {}
+            kw = {}
+            if int8_pool and kv_write:
+                kw = _int8_kw(cache, u, i, seeds, "quant_seed")
+            elif int8_pool:
+                kw = {n: cache[n][u, i] for n in ("k_scale_pages", "v_scale_pages")}
             a = ATT.paged_decode_self_attention(
                 sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps),
                 cache["k_pages"][u, i], cache["v_pages"][u, i],
-                table, pos, cfg, kind=kind, **kw,
+                table, pos, cfg, kind=kind, write=kv_write, split_batch=split_batch, **kw,
             )
             x = _attn_block(sub, x, a, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)
     pos.add_(1)
-    if int8_pool:
+    if int8_pool and kv_write:
         qstep.add_(1)
     return cache, logits[:, 0, :]
 

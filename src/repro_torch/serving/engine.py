@@ -63,8 +63,18 @@ its published tokens back through decode.  A request past its
 ``deadline_ms`` is evicted in whatever state it is in; a killed prefill
 job demotes the queued jobs that mapped its unwritten pages; the
 ``nan_logits`` fault poisons a private page through the restore entry
-point.  Knobs the reference has and this slice does not honour (dense
-layout, speculation, sharding) are absent from :class:`ServeConfig`.
+point.
+
+Self-speculative decoding, as the reference's: with ``speculate_k = k``
+a decode tick is one fused round (``specs.SpecGraphs``, one CUDA graph per
+(window width, k) on the card): every decoding slot drafts k chained
+tokens through the plain decode step, then the drafted run is decoded
+again read-only as k·B rows, and each slot accepts its drafts up to the
+first token the verify resamples otherwise, which is the token it
+publishes there; a rejected tail rolls ``pos`` back in place.  Level 1 of
+the degradation ladder turns it off.  Knobs the reference has and this
+slice does not honour (dense layout, sharding) are absent from
+:class:`ServeConfig`.
 """
 
 from __future__ import annotations
@@ -125,8 +135,8 @@ class DegradationPolicy:
     is no evidence the substrate recovered).  Rungs, in order:
 
     * level 0: healthy;
-    * level 1: speculative decoding off (the port has none yet, so this
-      rung changes nothing here);
+    * level 1: speculative decoding off (a k-deep draft multiplies one bad
+      logit row's reach by k);
     * level 2: WTA redundant reads raised to ``redundant_reads`` (majority
       voting over comparator re-reads, priced in the energy accounting);
     * level 3: admissions shed: queued requests with priority strictly
@@ -196,6 +206,13 @@ class ServeConfig:
     # records drop, and their requests recompute their prompt and replay
     # their published tokens through decode
     spill_budget_bytes: Optional[int] = None
+    # self-speculative decoding depth: k > 0 makes each decode tick one
+    # fused round that drafts k chained tokens per slot and verifies the
+    # run read-only in one k·B-row step, accepting up to the first
+    # disagreement (which is the corrected token); a rejected tail rolls
+    # pos back.  Streams equal speculate_k = 0's where verify rows
+    # reproduce their drafts bit for bit
+    speculate_k: int = 0
 
     def buckets(self) -> tuple[int, ...]:
         if not self.prefill_buckets:
@@ -255,6 +272,15 @@ class ServeConfig:
         if self.n_redundant_reads < 1:
             raise ValueError(
                 f"n_redundant_reads must be >= 1, got {self.n_redundant_reads}"
+            )
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {self.speculate_k}")
+        if self.speculate_k and self.speculate_k >= self.max_new_tokens:
+            # a draft run as long as the whole decode budget amortizes
+            # nothing: it would overrun the budget on its first round
+            raise ValueError(
+                f"speculate_k={self.speculate_k} must be < the decode budget "
+                f"max_new_tokens={self.max_new_tokens}"
             )
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
@@ -330,6 +356,11 @@ class ServingMetrics:
     preemptions: int = 0          # spill-to-host preemptions
     restores: int = 0             # spilled requests re-admitted from their pages
     spill_drops: int = 0          # spill records dropped by the bytes budget
+    spec_rounds: int = 0          # fused draft + verify rounds run
+    spec_drafted: int = 0         # draft tokens considered by acceptance
+    spec_accepted: int = 0        # drafted tokens accepted verbatim
+    spec_acceptance: float = 0.0  # accepted / drafted
+    spec_tokens_per_round: float = 0.0  # tokens consumed per round
     # done_reason -> count over every finished request
     evictions: dict = dataclasses.field(default_factory=dict)
     # the device backend's accounting snapshot: analog event tallies, the
@@ -361,6 +392,11 @@ class ServingMetrics:
             out += f" preempt={self.preemptions} restore={self.restores}"
         if self.spill_drops:
             out += f" spill_drops={self.spill_drops}"
+        if self.spec_rounds:
+            out += (
+                f" spec_acc={self.spec_acceptance:.2f} "
+                f"spec_tok_per_round={self.spec_tokens_per_round:.1f}"
+            )
         if self.evictions:
             out += " evict=" + ",".join(
                 f"{k}:{v}" for k, v in sorted(self.evictions.items())
@@ -428,6 +464,7 @@ class ServingEngine:
         # base WTA redundant-read factor (a greedy argmax re-read can never
         # change the token)
         self._redundant_base = cfg.n_redundant_reads if model_cfg.wta_head else 1
+        self.spec_k = cfg.speculate_k
         # the pool exists before the decode step is first captured, and
         # never moves: the graphs hold its addresses
         self._cache = self._init_cache()
@@ -457,6 +494,10 @@ class ServingEngine:
         self._preemptions = 0
         self._restores = 0
         self._spill_drops = 0
+        self._spec_rounds = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_emitted = 0
         self._tokens = np.zeros((b,), np.int32)   # last emitted, per slot
         # WTA sampling: per-request keys fold_in(base, rid), set at
         # admission, and tokens emitted per slot (folded into the key)
@@ -507,11 +548,19 @@ class ServingEngine:
         faulty weights), so a rebuild drops every graph, which releases
         their memory pools, and the next tick captures again.  The eager
         entry points are rebuilt too, so :meth:`compile_counts` restarts as
-        the reference's new jitted functions do."""
-        for step in getattr(self, "_serve_steps", {}).values():
-            self._dropped_captures += [(self._rebuilds, k, ms) for k, ms in step.captures()]
+        the reference's new jitted functions do.  The speculative round's
+        graphs (:class:`specs.SpecGraphs`) are dropped and recaptured the same
+        way."""
+        self._dropped_captures += [(self._rebuilds, k, ms) for k, ms in self._live_captures()]
         self._serve_steps: dict[int, SP.DecodeGraphs] = {}
         self._decode = self._get_serve_step(self._redundant_base)
+        self._spec_graphs = None
+        if self.spec_k:
+            self._spec_graphs = SP.SpecGraphs(self.mcfg, self.params, self._cache,
+                                              k=self.spec_k, capture=self._graphs)
+            # the round as the engine calls it (a test may wrap it)
+            self._spec_round = self._spec_graphs
+            self._spec_rollback = SP.EagerEntry(SP.make_spec_rollback(self.mcfg))
         self._suffix_prefill = SP.EagerEntry(
             SP.make_paged_suffix_prefill(self.mcfg), static=("bucket",)
         )
@@ -531,13 +580,19 @@ class ServingEngine:
             self._build_entry_points()
             self._rebuilds += 1
 
-    def capture_log(self) -> list[tuple[int, tuple[int, int], float]]:
-        """(build generation, (W, R), capture ms) of every decode graph this
-        engine has captured, those dropped by a rebuild included;
+    def _live_captures(self) -> list[tuple[tuple, float]]:
+        graphs = list(getattr(self, "_serve_steps", {}).values())
+        if getattr(self, "_spec_graphs", None) is not None:
+            graphs.append(self._spec_graphs)
+        return [c for g in graphs for c in g.captures()]
+
+    def capture_log(self) -> list[tuple[int, tuple, float]]:
+        """(build generation, key, capture ms) of every graph this engine
+        has captured, those dropped by a rebuild included: the key is (W, R)
+        for a decode step, ("spec", W, k) for a speculative round;
         generation g was captured after g rebuilds."""
-        live = [(self._rebuilds, k, ms) for step in self._serve_steps.values()
-                for k, ms in step.captures()]
-        return self._dropped_captures + live
+        return self._dropped_captures + [(self._rebuilds, k, ms)
+                                         for k, ms in self._live_captures()]
 
     # -- request API --------------------------------------------------------
 
@@ -1102,9 +1157,19 @@ class ServingEngine:
             self._preempt_pass()
         self._prefill_tick(emitted)
         active = self.sched.active()
+        # speculate only when no draft write can pass max_len (near the
+        # end of a slot's capacity the tick falls back to plain decode, so
+        # a write never clamps into a live block), and below degradation
+        # level 1
+        spec_now = (bool(active) and self.spec_k > 0 and self._spec_viable(active)
+                    and self._degrade_level < 1)
         if active and self.sharing:
-            self._cow_pass(active)
-        if active:
+            self._cow_pass(active, self.spec_k if spec_now else 1)
+        if active and spec_now:
+            t_dec = time.perf_counter()
+            self._spec_tick(active, emitted)
+            self._decode_time += time.perf_counter() - t_dec
+        elif active:
             t_dec = time.perf_counter()
             w = self._window_blocks(active)
             r_eff = self._redundant_effective()
@@ -1218,32 +1283,137 @@ class ServingEngine:
             self._degrade_transition(self._degrade_level - 1, "canary_recovered")
             self._clean_streak = 0
 
-    def _cow_pass(self, active: list[Request]) -> None:
+    def _spec_viable(self, active: list[Request]) -> bool:
+        """True when no decoding slot's k-deep draft can write past
+        ``max_len`` (a write past its reservation lands in the trash page,
+        but one past the table width would clamp into its last block)."""
+        lim = self.cfg.max_len - self.spec_k
+        return all(int(self._host_pos[r.slot]) <= lim for r in active)
+
+    def _spec_tick(self, active: list[Request], emitted: list) -> None:
+        """One fused speculative round for every decoding slot
+        (``repro/serving/engine.py:1930-2050``).
+
+        One call drafts k chained tokens per slot and verifies the run
+        read-only (:class:`specs.SpecGraphs`); one sync reads its tokens and
+        flags.  Per slot, drafts are accepted until the verify resamples
+        otherwise: that resample is published in the draft's place, and it
+        is the token a plain tick would emit there wherever the verify's
+        rows equal their draft rows bit for bit (on the card cuBLAS may
+        round a row otherwise at k·B rows than at B).  A rejected
+        or short round rolls the slot's ``pos`` back through the draft's
+        per-step states, before anything replays again (``vstates`` lives in
+        the graphs' pool); drafted K/V past it stays as masked dead rows.
+        The NaN guard is at draft depth: a non-finite draft step cuts the
+        usable run, and a slot with nothing usable, or whose every usable
+        draft accepted before it, is evicted ``nan`` as a plain tick would
+        have.  A recompute-restored request teacher-forces its published
+        tokens through the round, truncating it where a forced token
+        differs from its draft."""
+        k = self.spec_k
+        w = self._window_blocks(active, k)
+        pre_pos = self._host_pos.copy()
+        pre_steps = self._steps.copy()
+        wta = (self._req_keys, self._steps) if self.mcfg.wta_head else ()
+        dtoks, doks, vtoks, _, vstates = self._spec_round(self._table[:, :w], self._tokens, *wta)
+        # one device sync reads the round: decode_time is honest
+        d_np, dok_np, v_np = torch.stack([dtoks, doks.to(torch.int32), vtoks]).cpu().numpy()
+        # k drafted tokens (forwarded, sampled, written) and k read-only
+        # verify positions per active slot; rejected drafts stay counted
+        self.backend.note_call(SP.analog_call_profile("spec_round", batch=len(active), k=k))
+        self._host_pos += k  # mirrors the draft's k pos bumps, every slot
+        now = time.perf_counter()
+        self._occ_sum += len(active) / self.cfg.max_batch
+        self._decode_steps += 1
+        self._spec_rounds += 1
+        for req in active:
+            slot = req.slot
+            # usable drafts stop at the first non-finite draft step
+            m = next((j for j in range(k) if not dok_np[slot, j]), k)
+            if m == 0:
+                self._evict_request(req, "nan", now)
+                continue
+            self._spec_drafted += m
+            req.spec_drafted += m
+            req.spec_high = max(req.spec_high, int(pre_pos[slot]) + m - 1)
+            e = 0              # inputs consumed from this round
+            done = False
+            rollback_at = None  # the draft state to roll back to
+            for i in range(m):
+                t_d = int(d_np[slot, i])
+                rep = self._replay.get(req.rid)
+                if rep is not None:
+                    # teacher-forced replay of published tokens, recorded
+                    # nowhere; a forced token that differs from its draft
+                    # (only under injected faults) ends the round there
+                    forced = rep.pop(0)
+                    if not rep:
+                        del self._replay[req.rid]
+                    self._tokens[slot] = forced
+                    e += 1
+                    if forced != t_d:
+                        rollback_at = i
+                        break
+                    continue
+                t = int(v_np[slot, i])  # the draft, where accepted
+                self._tokens[slot] = t
+                e += 1
+                accepted = t == t_d
+                if accepted:
+                    self._spec_accepted += 1
+                    req.spec_accepted += 1
+                self._total_tokens += 1
+                done = self.sched.record_token(req, t, self.cfg.eos_token, now)
+                emitted.append((req.rid, t))
+                if done:
+                    break
+                if not accepted:
+                    rollback_at = i
+                    break
+            self._spec_emitted += e
+            if done:
+                self._release_if_done(req)
+                continue
+            if rollback_at is not None:
+                self._cache = self._spec_rollback(self._cache, vstates, rollback_at, slot)
+                self._host_pos[slot] = int(pre_pos[slot]) + e
+            elif m < k:
+                # every usable draft accepted and the next draft step went
+                # non-finite from exactly this state: so would a plain tick
+                self._evict_request(req, "nan", now)
+                continue
+            self._steps[slot] = int(pre_steps[slot]) + e
+
+    def _cow_pass(self, active: list[Request], span: int = 1) -> None:
         """Resolve copy-on-write BEFORE the batched decode step: a slot
         about to write into a still-shared block forks it onto its spare
         page (device copy + table repoint); a sole owner writes in place,
-        after dropping the page's index entry (its content diverges)."""
+        after dropping the page's index entry (its content diverges).  A
+        speculative round writes ``span`` positions: every block they touch
+        is resolved, of which only the first can be shared (decode-budget
+        blocks past the prompt are always fresh)."""
         bs = self.cfg.kv_block_size
         for req in active:
-            wb = int(self._host_pos[req.slot]) // bs
-            if wb >= self._max_blocks:
-                continue
-            page = int(self._table[req.slot, wb])
-            if page < self.blocks.n_reserved:
-                continue  # trash row of an already-evicted slot
-            if self.blocks.refcount(page) > 1 and self.blocks.spare_count(req.rid) > 0:
-                _, new = self.blocks.cow_fork(req.rid, wb)
-                self._cache = self._page_copy(self._cache, page, new)
-                self._table[req.slot, wb] = new
-                self._cow_forks += 1
-            else:
-                self.blocks.deregister(page)  # no-op if unregistered
+            p = int(self._host_pos[req.slot])
+            last = min((p + span - 1) // bs, self._max_blocks - 1)
+            for wb in range(p // bs, last + 1):
+                page = int(self._table[req.slot, wb])
+                if page < self.blocks.n_reserved:
+                    continue  # trash row of an already-evicted slot
+                if self.blocks.refcount(page) > 1 and self.blocks.spare_count(req.rid) > 0:
+                    _, new = self.blocks.cow_fork(req.rid, wb)
+                    self._cache = self._page_copy(self._cache, page, new)
+                    self._table[req.slot, wb] = new
+                    self._cow_forks += 1
+                else:
+                    self.blocks.deregister(page)  # no-op if unregistered
 
-    def _window_blocks(self, active: list[Request]) -> int:
+    def _window_blocks(self, active: list[Request], span: int = 1) -> int:
         """Decode window width in blocks: the smallest power of two that
-        covers every active slot's current position."""
+        covers every active slot's current position, plus the ``span``
+        positions a speculative round writes."""
         bs = self.cfg.kv_block_size
-        need = max(int(self._host_pos[r.slot]) // bs + 1 for r in active)
+        need = max((int(self._host_pos[r.slot]) + span - 1) // bs + 1 for r in active)
         w = 1
         while w < need:
             w *= 2
@@ -1258,11 +1428,15 @@ class ServingEngine:
         count the distinct argument signatures they were called with, what
         a ``jax.jit`` compile is keyed on: ``suffix_prefill`` one per
         (bucket, chunk shape), the others at most one (preemption's three
-        take fixed-width page ids)."""
+        take fixed-width page ids).  With ``speculate_k``: ``spec_round`` one
+        per window width (k is fixed), ``spec_rollback`` at most one."""
         counts = {"serve_step": sum(len(s.entries) for s in self._serve_steps.values())}
         for name in ("suffix_prefill", "state_insert", "page_copy", "sample0", "page_spill",
                      "page_restore", "state_gather"):
             counts[name] = len(getattr(self, f"_{name}").signatures)
+        if self.spec_k:
+            counts["spec_round"] = len(self._spec_graphs.entries)
+            counts["spec_rollback"] = len(self._spec_rollback.signatures)
         return counts
 
     def run(self) -> dict[int, list[int]]:
@@ -1317,6 +1491,11 @@ class ServingEngine:
             preemptions=self._preemptions,
             restores=self._restores,
             spill_drops=self._spill_drops,
+            spec_rounds=self._spec_rounds,
+            spec_drafted=self._spec_drafted,
+            spec_accepted=self._spec_accepted,
+            spec_acceptance=self._spec_accepted / max(self._spec_drafted, 1),
+            spec_tokens_per_round=self._spec_emitted / max(self._spec_rounds, 1),
             evictions=evictions,
             analog=analog,
             degraded_mode=self._degrade_level,

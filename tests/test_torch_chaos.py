@@ -9,10 +9,10 @@ id the done reason and the output must equal ``repro``'s, and the block
 allocator's invariants (``tests/test_prefix_sharing.py``) must hold after
 every tick.
 
-The fuzz is the reference's without ``speculate_k`` (the port has no
-speculative decoding yet), with a deadline of 600 s where the reference
-draws 10 s: a deadline is wall-clock time, and the two packages must
-take the same branch however long a tick takes on a loaded CPU.
+The fuzz is the reference's, ``speculate_k`` drawn from (0, 2, 3) as
+there, with a deadline of 600 s where the reference draws 10 s: a
+deadline is wall-clock time, and the two packages must take the same
+branch however long a tick takes on a loaded CPU.
 """
 
 import dataclasses
@@ -212,6 +212,9 @@ def _chaos_trace(weights, seed: int, faulty: bool) -> None:
         faulty=dict(seed=seed, stuck_rate=0.02) if faulty else None,
         prefill_buckets=(16, 32), prefill_chunk=rng.choice((0, 8)),
         num_kv_blocks=rng.choice((0, 9)), max_new_tokens=8,
+        # speculative rounds in the same storm: the draft-depth NaN guard,
+        # preempting a speculating slot, rollbacks under pressure
+        speculate_k=rng.choice((0, 2, 3)),
     )
     submits = []
     for _ in range(24):

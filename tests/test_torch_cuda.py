@@ -43,7 +43,10 @@ give an eager engine's streams under a degrade and a recover; the
 crossbar read through the fault backend within the gates above of its
 plain version on the same faulty weights, which lie within 4 ulps of a
 conductance of the CPU's (PyTorch's CUDA division by a Python scalar
-multiplies by its reciprocal).
+multiplies by its reciprocal).  Self-speculation: a replayed round
+equals the eager round on the same state bit for bit, rollbacks keep the
+pool's and ``pos``'s addresses, and a ``fault_version`` bump recaptures
+the round's graphs.
 """
 
 import numpy as np
@@ -895,6 +898,162 @@ def test_cuda_graph_failed_capture_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(SP, "sample_tokens", with_a_host_copy)
     with pytest.raises(RuntimeError):
         _graph_serve(cuda_device, "same", False, 1, None)
+
+
+# ---------------------------------------------------------------------------
+# Self-speculation: the fused round captured per (W, k), its rollback.
+# ---------------------------------------------------------------------------
+
+
+def _spec_engine(device, kv, wta, graphs, k=3, params=None, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), kv_cache_dtype=kv, wta_head=wta)
+    params = init_lm(cfg, seed=4, device=device) if params is None else params
+    eng = ServingEngine(
+        params, cfg,
+        ServeConfig(max_batch=4, max_new_tokens=12, max_len=128, kv_block_size=8,
+                    prefill_chunk=16, seed=3, speculate_k=k, **kw),
+        device=device, graphs=graphs)
+    return eng, params
+
+
+def _tamper_every_other_round(eng) -> dict:
+    """Report every other round's drafts at step 1 wrong, after the round:
+    the engine takes the rollback path, the verify's tokens stay true."""
+    orig, calls = eng._spec_round, {"n": 0}
+
+    def tampered(*a):
+        d, dok, v, vok, vs = orig(*a)
+        calls["n"] += 1
+        if calls["n"] % 2 == 0:
+            d = d.clone()
+            d[:, 1] ^= 1
+        return d, dok, v, vok, vs
+
+    eng._spec_round = tampered
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,wta", [("same", False), ("int8", False), ("same", True)],
+                         ids=["greedy", "int8", "wta"])
+def test_cuda_spec_round_captured_equals_eager(cuda_device, kv, wta):
+    """A replayed round equals the eager round on the same state, bit for
+    bit: drafts, flags, verify tokens, ``vstates``, the pool and ``pos``
+    (and ``quant_step``) after it; one capture per (W, k), the launch
+    counters adding each replay's launches."""
+    from repro_torch.launch import specs as SP
+
+    eng, _ = _spec_engine(cuda_device, kv, wta, None)
+    eng.submit(list(range(1, 20)), 11)
+    eng.submit(list(range(3, 9)), 11)
+    while eng._job_fifo or eng.sched.queued():
+        eng.tick()
+    cache = {k: v.clone() for k, v in eng._cache.items()}
+    graphs = SP.SpecGraphs(eng.mcfg, eng.params, eng._cache, k=3, capture=True)
+    eager = SP.SpecGraphs(eng.mcfg, eng.params, cache, k=3, capture=False)
+    table = eng._table[:, :4].copy()
+    tokens = eng._tokens.copy()
+    wta_in = (eng._req_keys.copy(), eng._steps.copy()) if wta else ()
+    for rnd in range(3):   # warm-up, capture; then replays
+        before = TOPS.launch_counts()
+        got = graphs(table, tokens, *wta_in)
+        mid = TOPS.launch_counts()
+        want = eager(table, tokens, *wta_in)
+        after = TOPS.launch_counts()
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g, w), rnd
+        assert torch.equal(got[4]["pos"], want[4]["pos"])
+        for name in cache:
+            a, b = eng._cache[name], cache[name]
+            if name.endswith("pages"):   # idle slots race on the trash page 0
+                a, b = a[:, :, 1:], b[:, :, 1:]
+            assert torch.equal(a, b), (rnd, name)
+        if rnd:
+            assert {k: mid[k] - before[k] for k in mid} == {k: after[k] - mid[k] for k in mid}
+        tokens = got[0][:, -1].cpu().numpy()
+        if wta:
+            wta_in = (wta_in[0], wta_in[1] + 3)
+    assert list(graphs.entries) == [(4, 3)] and len(graphs.captures()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["same", "int8"])
+def test_cuda_spec_engine_graphs_equal_eager_with_rollbacks(cuda_device, kv):
+    """A speculating engine on captured rounds equals one on eager rounds,
+    with rejections forced every other round: streams, pool (outside the
+    trash page 0), ``pos`` and launch counts; every rollback writes into
+    the tensors the graphs hold (their addresses never change), the
+    rollback keeps one signature, and no round is captured per tick."""
+    runs = {}
+    params = None
+    for graphs in (None, False):
+        eng, params = _spec_engine(cuda_device, kv, False, graphs, params=params)
+        ptrs = {k: v.data_ptr() for k, v in eng._cache.items()}
+        calls = _tamper_every_other_round(eng)
+        before = TOPS.launch_counts()
+        for p in _graph_trace():
+            eng.submit(p)
+        outs = eng.run()
+        torch.cuda.synchronize()
+        after = TOPS.launch_counts()
+        assert {k: v.data_ptr() for k, v in eng._cache.items()} == ptrs
+        assert calls["n"] >= 2
+        runs[graphs] = (eng, outs, {k: after[k] - before[k] for k in after})
+    (g_eng, g_out, g_launch), (e_eng, e_out, e_launch) = runs[None], runs[False]
+    assert g_eng._spec_graphs.capture and not e_eng._spec_graphs.capture
+    assert g_out == e_out and g_launch == e_launch
+    for name, leaf in g_eng._cache.items():
+        other = e_eng._cache[name]
+        if name.endswith("pages"):
+            leaf, other = leaf[:, :, 1:], other[:, :, 1:]
+        assert torch.equal(leaf, other), name
+    m = g_eng.metrics()
+    assert m.spec_accepted < m.spec_drafted
+    counts = g_eng.compile_counts()
+    assert counts == e_eng.compile_counts()
+    assert counts["spec_rollback"] == 1
+    assert counts["spec_round"] == len(g_eng._spec_graphs.captures()) < m.spec_rounds
+    # decode attention: one launch per layer a draft step, one a verify
+    plain_ticks = m.decode_steps - m.spec_rounds
+    assert g_launch["paged_attention"] == 2 * (4 * m.spec_rounds + plain_ticks)
+
+
+@pytest.mark.cuda
+def test_cuda_fault_version_bump_recaptures_spec_graphs(cuda_device):
+    """A ``fault_version`` bump drops the speculative round's graphs with
+    the decode step's and captures them again: the replayed engine's
+    streams equal an eager engine's under a degrade at tick 2 and a
+    recover at tick 4, and the capture log holds round captures of every
+    build generation."""
+    from repro_torch.serving import FaultInjector
+
+    def inj():
+        return (FaultInjector().at(2, "degrade_device", comparator_offset=3.0)
+                .at(4, "recover_device"))
+
+    g_eng, params = _spec_engine(cuda_device, "same", True, None, k=2,
+                                 device_backend="sim_faulty", fault_injector=inj())
+    e_eng, _ = _spec_engine(cuda_device, "same", True, False, k=2, params=params,
+                            device_backend="sim_faulty", fault_injector=inj())
+    for eng in (g_eng, e_eng):
+        for p in _graph_trace():
+            eng.submit(p)
+    while g_eng.sched.has_work():
+        spec = g_eng._spec_graphs
+        g_eng.tick()
+        if g_eng._ticks - 1 in (2, 4):
+            assert g_eng._spec_graphs is not spec
+    assert g_eng.run() == e_eng.run()
+    assert g_eng._rebuilds == e_eng._rebuilds == 2
+    gens = {g for g, key, _ in g_eng.capture_log() if key[0] == "spec"}
+    assert gens == {0, 1, 2}, g_eng.capture_log()
+    assert g_eng.compile_counts() == e_eng.compile_counts()
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,7 @@ ROADMAP C), byte for byte, as ``tests/test_torch_wta.py`` compares them;
 ladder transitions, canary probes and failures, redundant-read events and
 ``compile_counts()`` must be equal.
 
-Left out: the reference's speculation case (``test_degradation_disables_
-speculation``: the port has no speculative decoding yet, so level 1
-changes nothing here) and its 1×1-mesh cases (no sharding yet).
+Left out: the reference's 1×1-mesh cases (no sharding yet).
 """
 
 import dataclasses
@@ -208,6 +206,32 @@ def test_shedding_holds_batch_admissions_until_recovery(bridged):
         assert req.done_reason == "length" and len(req.output) == 3
     jm, tm = _both(engines, lambda e: e.metrics())
     assert tm.degraded_transitions == jm.degraded_transitions
+
+
+def test_degradation_disables_speculation(bridged):
+    """Level 1: a speculating engine under persistent canary failure stops
+    drafting (``spec_rounds`` freezes) and decodes to completion with
+    plain ticks, as the reference's does."""
+    engines = _pair(
+        bridged, "greedy", lambda I: I().at(0, "degrade_device", comparator_offset=3.0),
+        device_backend="sim_faulty", canary_interval=1, degradation=dict(trip_after=1),
+        speculate_k=2, max_new_tokens=12,
+    )
+    rids = [eng.submit(list(range(1, 9)), 12) for eng in engines]
+    j_out, t_out = _both(engines, lambda e: e.run())
+    assert t_out == j_out
+    j_eng, t_eng = engines
+    req = t_eng.sched.request(rids[1])
+    assert req.done_reason == "length" and len(req.output) == 12
+    jm, tm = _both(engines, lambda e: e.metrics())
+    assert tm.degraded_mode >= 1
+    # the ladder moves at the end of a tick, so the first decode tick may
+    # still draft once; 12 tokens at k = 2 would take ~5 healthy rounds
+    assert tm.spec_rounds <= 1
+    assert (tm.spec_rounds, tm.spec_drafted, tm.spec_accepted) == (
+        jm.spec_rounds, jm.spec_drafted, jm.spec_accepted)
+    assert tm.degraded_transitions == jm.degraded_transitions
+    assert t_eng.compile_counts() == j_eng.compile_counts()
 
 
 def test_sanity_evictions_are_detection_events(bridged):

@@ -9,11 +9,12 @@ exactly, every price within 1e-12 relative (the two cost models are the
 same Python arithmetic, so they are in fact equal).  Then the reference's
 invariances, on the port alone: the tallies do not depend on batch
 composition or on the prefix-sharing flag, and a sharing hit accounts
-only the tokens it computed (``tests/test_energy_accounting.py``).
+only the tokens it computed, and speculation's gross counts keep their
+documented relation to plain decode's, with ``repro``'s counts
+(``tests/test_energy_accounting.py``).
 
-Left out: the reference's speculation case (the port has no speculative
-decoding yet) and its 1×1-mesh case (no sharding yet; red on jax 0.9 in
-the reference itself, ROADMAP C).
+Left out: the reference's 1×1-mesh case (no sharding yet; red on jax 0.9
+in the reference itself, ROADMAP C).
 """
 
 import dataclasses
@@ -183,6 +184,37 @@ def test_sharing_hits_account_only_computed_tokens(smoke):
     assert tc_on["prefill"] + on.prefill_tokens_saved == tc_off["prefill"]
     assert tc_on["decode"] == tc_off["decode"]
     assert on.analog["raca"]["energy_pj_gross"] < off.analog["raca"]["energy_pj_gross"]
+
+
+def test_speculative_gross_vs_published_relationship():
+    """``speculate_k = 2`` against plain decode at equal published streams:
+    gross counts grow (every round forwards k drafted and k verify
+    positions whether or not they publish), in the documented relation,
+    and every count and price equals ``repro``'s at the same k."""
+    jcfg, jp, tcfg, tp = _bridged("same", False, 1)
+    k = 2
+    plain = _arrivals(tcfg, tp, PROMPTS[:3], [0, 0, 0], speculate_k=0)
+    spec = _arrivals(tcfg, tp, PROMPTS[:3], [0, 0, 0], speculate_k=k)
+    j_eng = JServingEngine(jp, jcfg, JServeConfig(max_batch=2, max_new_tokens=4, max_len=64,
+                                                  kv_block_size=8, speculate_k=k))
+    _serve(j_eng, PROMPTS[:3])
+    assert_snapshots_match(spec.analog, j_eng.metrics().analog)
+    assert spec.spec_rounds == j_eng.metrics().spec_rounds > 0
+    # the same streams publish the same totals
+    assert spec.total_tokens == plain.total_tokens
+    assert spec.analog["tokens_published"] == plain.analog["tokens_published"]
+    tc = spec.analog["tokens_computed"]
+    # whole k-deep rounds of drafts, a verify re-decode for each (plain
+    # fallback ticks may add decode, never take it away)
+    assert tc["draft"] > 0 and tc["draft"] % k == 0
+    assert tc["decode"] >= tc["draft"]
+    assert plain.analog["tokens_computed"]["draft"] == 0
+    assert tc["prefill"] == plain.analog["tokens_computed"]["prefill"]
+    # rejected and unpublished drafts cost energy: gross and per published
+    # token both grow
+    assert spec.analog["raca"]["energy_pj_gross"] > plain.analog["raca"]["energy_pj_gross"]
+    assert (spec.analog["raca"]["energy_pj_per_token"]
+            > plain.analog["raca"]["energy_pj_per_token"])
 
 
 def test_int8_and_wta_add_their_event_classes(smoke):

@@ -120,10 +120,11 @@ def test_entry_points_refuse_to_run_silently_on_the_cpu():
 
 
 def test_unported_knobs_are_refused():
-    """Knobs the reference has and the port does not (the dense layout,
-    speculation) are not fields of ``ServeConfig``; WTA sampling, int8
-    pools and degraded serving are served (``tests/test_torch_wta.py``,
-    ``tests/test_torch_int8.py``, ``tests/test_torch_degraded.py``)."""
+    """Knobs the reference has and the port does not (the dense layout) are
+    not fields of ``ServeConfig``; WTA sampling, int8 pools, degraded
+    serving and speculation are served (``tests/test_torch_wta.py``,
+    ``tests/test_torch_int8.py``, ``tests/test_torch_degraded.py``,
+    ``tests/test_torch_spec.py``)."""
     cfg = get_smoke_config("stablelm-3b")
     params = init_lm(cfg, device="cpu")
     eng = ServingEngine(params, dataclasses.replace(cfg, wta_head=True),
@@ -132,8 +133,6 @@ def test_unported_knobs_are_refused():
     assert len(eng.run()[rid]) == 2
     with pytest.raises(TypeError):
         ServeConfig(kv_layout="dense")
-    with pytest.raises(TypeError):
-        ServeConfig(speculate_k=0)
 
 
 def test_serve_step_sanity_codes():

@@ -8,7 +8,8 @@ in-place advance of ``pos`` and ``quant_step`` that a graph depends on,
 RoPE frequencies bit-identical to their old host-tensor form, one
 ``serve_step`` entry per window width, the reference's compile counts on
 the same trace, and greedy, int8 and WTA (R = 1, 3) streams through the
-static buffers byte-identical to ``repro`` at f32.
+static buffers byte-identical to ``repro`` at f32, with speculation
+(``speculate_k``, ``specs.SpecGraphs``) too.
 """
 
 import dataclasses
@@ -129,18 +130,20 @@ def test_one_serve_step_entry_per_window_width():
     assert eng.metrics().decode_steps == len(widths)
 
 
-@pytest.mark.parametrize("kv,wta,reads,seed", [
-    ("same", False, 1, 1), ("int8", False, 1, 2), ("same", True, 1, 1), ("same", True, 3, 1),
-], ids=["greedy", "int8", "wta", "wta_r3"])
-def test_compile_counts_and_streams_match_reference(kv, wta, reads, seed):
+@pytest.mark.parametrize("kv,wta,reads,seed,spec", [
+    ("same", False, 1, 1, 0), ("int8", False, 1, 2, 0), ("same", True, 1, 1, 0),
+    ("same", True, 3, 1, 0), ("same", False, 1, 1, 3),
+], ids=["greedy", "int8", "wta", "wta_r3", "greedy_spec3"])
+def test_compile_counts_and_streams_match_reference(kv, wta, reads, seed, spec):
     """The port's ``compile_counts()`` equals ``repro``'s on the same trace,
     with the same keys (the preemption entry points ``page_spill``,
     ``page_restore`` and ``state_gather`` included, at 0 on a trace that
-    preempts nothing), before and after a second identical trace; the
+    preempts nothing; with ``speculate_k`` also ``spec_round`` and
+    ``spec_rollback``), before and after a second identical trace; the
     streams through the static decode buffers are byte-identical to
     ``repro``'s."""
     jcfg, jp, tcfg, tp = _bridged(kv, wta, seed)
-    scfg = dict(SERVE, n_redundant_reads=reads)
+    scfg = dict(SERVE, n_redundant_reads=reads, speculate_k=spec)
     j_eng = JServingEngine(jp, jcfg, JServeConfig(**scfg))
     t_eng = ServingEngine(tp, tcfg, ServeConfig(**scfg), device="cpu")
     for _ in range(2):
@@ -149,7 +152,10 @@ def test_compile_counts_and_streams_match_reference(kv, wta, reads, seed):
         ours, theirs = t_eng.compile_counts(), j_eng.compile_counts()
         assert set(ours) == set(theirs)
         assert ours == theirs
+        assert ("spec_round" in ours) == bool(spec)
     assert t_eng.metrics().decode_steps == j_eng.metrics().decode_steps
+    if spec:
+        assert t_eng.metrics().spec_rounds > 0
 
 
 def test_graphs_default_is_eager_on_the_cpu():
@@ -167,18 +173,19 @@ def test_graphs_default_is_eager_on_the_cpu():
         ServingEngine(params, cfg, ServeConfig(**SERVE), device="cpu", graphs=True)
 
 
-@pytest.mark.parametrize("wta", [False, True])
-def test_engine_is_freed_when_dropped(wta):
-    """Nothing an engine holds (its entry points, its compiled step) refers
-    back to it, so dropping the last reference frees it, its pool and its
-    graphs at once, without waiting for the cycle collector: a process
-    that builds engines one after another (``chip_smoke.py``) holds one
-    pool at a time."""
+@pytest.mark.parametrize("wta,spec", [(False, 0), (True, 0), (False, 3)],
+                         ids=["False", "True", "spec3"])
+def test_engine_is_freed_when_dropped(wta, spec):
+    """Nothing an engine holds (its entry points, its compiled step and
+    speculative round) refers back to it, so dropping the last reference
+    frees it, its pool and its graphs at once, without waiting for the
+    cycle collector: a process that builds engines one after another
+    (``chip_smoke.py``) holds one pool at a time."""
     cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), dtype="float32", wta_head=wta)
-    eng = ServingEngine(init_lm(cfg, seed=0, device="cpu"), cfg, ServeConfig(**SERVE),
-                        device="cpu")
+    eng = ServingEngine(init_lm(cfg, seed=0, device="cpu"), cfg,
+                        ServeConfig(**SERVE, speculate_k=spec), device="cpu")
     _serve(eng, _trace()[:4])
-    assert eng.compile_counts()["serve_step"] >= 1
+    assert eng.compile_counts()["spec_round" if spec else "serve_step"] >= 1
     ref, pool = weakref.ref(eng), weakref.ref(eng._cache["k_pages"])
     gc.disable()
     try:
