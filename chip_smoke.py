@@ -128,6 +128,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
    copy of the weights are gated on its own plain serve, and the bf16
    agreement is printed (int8 never gated).  Then host ms of a replayed
    round against a replayed plain tick, in turns (:func:`spec_turns`).
+4e. loop (:func:`loop_phase`): (a) ``examples/train_lm_torch.py``'s
+   stablelm-100m at batch 8 x 256, full depth, 12 steps through
+   ``train.loop.run`` with a checkpoint every 4, clean and again with a
+   fault before step 9, digital and analog: exactly one restart, final
+   parameters and moments within atol 1e-6, rtol 1e-5 of the clean run's
+   (bit-equality printed), the analog runs' ``crossbar_mac`` launches
+   56 a step; step ms, checkpoint bytes, each save's host-gather and
+   write ms, the restart's init and load ms.  (b) 15 steps of
+   stablelm-100m with int8 gradient compression against without: both
+   fall, the last three within 0.25; the compression's device ms a step
+   (profiler, its ``train/compress`` range).  (c) a params-only
+   checkpoint of the smoke config served greedy by ``serve.py
+   --ckpt-dir``: the streams of serving the parameters directly.  (d)
+   ``repro_torch.benchmarks.run``'s five benches at the reference's
+   protocol, gated on their relations (Fig. 4's calibrated rmse < 0.02
+   and < detuned x4, Fig. 5's one winner a trial and argmax agreement at
+   every T, Fig. 6's 64 votes >= 1 vote, Table I within 0.05 points of the
+   paper), then ``bench_kernels``' shapes timed as phase 3 times kernels
+   beside their bounds, plain versions and SGEMM.  (f)
+   ``examples/quickstart_torch.py`` (E[comparator] against the
+   range-quantized layer's sigmoid: mean error <= 0.1, max <= 0.156; WTA
+   predictions agree) and ``examples/serve_stochastic_torch.py`` with a
+   bf16 and an int8 pool.  Each path's kernel launches, reset just before
+   it and read just after, must be > 0.  (e) runs in phase 6b.
 5. entry points: ``ops.stoch_round_serving`` on the 2048² quantizer row
    and ``ops.wta_counts`` at the serving head's operating point (8 ×
    50304, 32 trials); each kernel's launches, reset just before and read
@@ -151,8 +175,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    RACA accuracy at 1 / 4 / 16 / 64 votes beside the reference's CPU
    numbers; ``sigmoid_sample`` and ``wta_sample`` launched exactly 2 and 1
    times a vote (reset just before, read just after); accuracy gates of
-   ``tests/test_system.py``; a profiled training step and 64-vote
-   prediction.
+   ``tests/test_system.py``; phase 4e (e): Fig. 6's threshold and SNR
+   sweeps at 16 votes (V_th0 = 0, calibrated; beta = 2), 96 and 48
+   launches; a profiled training step and 64-vote prediction.
 7. reference: smoke-size prefill and decode logits on the card (kernels)
    agree with the same model on the CPU (plain versions), for a float and
    an int8 pool (whose written codes must agree too); two smoke-size
@@ -172,6 +197,7 @@ turns).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1332,6 +1358,22 @@ def one_pass_shares(x, w, seed, sigma_cmp, kw):
                 x, w, kw, lin, ref.crossbar_mac_ref(x, w, seed, sigma, **kw))
         del got
     return out
+
+
+def scaled_linear_err_over_tol(x, w, cfg, got, want):
+    """Worst |got − want| of a calibrated linear read through
+    ``ops.crossbar_mac`` over the linear gate scaled by the read's range
+    scale s (its output is the normalized read times s, one more rounding
+    on each side: + 2**-23·|out|)."""
+    from repro_torch.kernels import ops, ref
+
+    k = w.shape[0]
+    x, got, want = x.reshape(-1, k), got.reshape(-1, w.shape[1]), want.reshape(-1, w.shape[1])
+    s = ops.range_scale(w)
+    dp = cfg.device
+    wq = ref.crossbar_quantize(w / s, ops._qstep(dp), dp.w_min, dp.w_max) if cfg.quantize else w / s
+    tol = s * 2 * k**0.5 * 2.0**-24 * (x.abs() @ wq.abs()) + 2.0**-23 * want.abs()
+    return float(((got - want).abs() / tol.clamp_min(1e-30)).max())
 
 
 def linear_err_over_tol(x, w, kw, got, want):
@@ -2825,12 +2867,8 @@ def faulty_phase(dev) -> dict:
     if launches != (1, 1):
         raise AssertionError(f"faulty crossbar_mac launched {launches}, not one read + one prepass")
     want = ops.crossbar_mac_reference(x, wf, key, cfg, binarize=False)
-    s = ops.range_scale(wf)
-    dp = cfg.device
-    wq = ref.crossbar_quantize(wf / s, ops._qstep(dp), dp.w_min, dp.w_max)
-    tol = s * 2 * k**0.5 * 2.0**-24 * (x.abs() @ wq.abs()) + 2.0**-23 * want.abs()
     err = (got - want).abs()
-    worst = float((err / tol.clamp_min(1e-30)).max())
+    worst = scaled_linear_err_over_tol(x, wf, cfg, got, want)
     healthy = ops.crossbar_mac(x, w, key, cfg, binarize=False)
     moved = float((healthy - got).abs().max())
     log(f"  faulty crossbar_mac vs its plain version on the faulty weights: max|err| "
@@ -2988,6 +3026,518 @@ def profile_train_step(step_fn, state, batch) -> dict:
     return split
 
 # ---------------------------------------------------------------------------
+# Phase 4e: the fault-tolerant training loop, checkpoints, gradient
+# compression, serve.py --ckpt-dir, the paper's benches and the examples.
+# ---------------------------------------------------------------------------
+
+# (a): examples/train_lm_torch.py's stablelm-100m at the example's batch,
+# full depth; a fault before step LOOP_FAULT_STEP, restart from the step-8
+# checkpoint.  Gate on the final parameters and moments against the clean
+# run: tests/test_train.py's atol 1e-6, rtol 1e-5 (bit-equality printed).
+LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAULT_STEP = 12, 4, 9
+LOOP_BATCH, LOOP_SEQ = 8, 256
+LOOP_ATOL, LOOP_RTOL = 1e-6, 1e-5
+# (b): tests/test_train.py:138-156's protocol (lr 1e-2, f32 moments without
+# stochastic rounding, 15 steps) at stablelm-100m and the example's batch
+COMPRESS_STEPS = 15
+# (f): quickstart's E[comparator] against the range-quantized layer's
+# sigmoid: mean error within 0.1, max error within 5 sigma of a 256-sample
+# mean of a Bernoulli (sqrt(0.25 / 256))
+QUICKSTART_MEAN_ERR, QUICKSTART_MAX_ERR = 0.1, 5 * (0.25 / 256) ** 0.5
+# (d): Table I's changes against the paper's, in points
+TABLE1_PAPER = (-58.29, -38.43, 142.37)
+TABLE1_ATOL = 0.05
+
+
+def load_example(name: str) -> dict:
+    """An example's module globals (``__name__`` is not ``__main__``: its
+    ``main`` does not run)."""
+    import runpy
+
+    return runpy.run_path(str(ROOT / "examples" / f"{name}.py"), run_name=name)
+
+
+def launches_since(before: dict) -> dict:
+    from repro_torch.kernels import ops
+
+    return {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+
+
+def state_match(a, b) -> dict:
+    """Final parameters and moments of two runs: bit-equal, and the largest
+    excess over atol + rtol·|a| (<= 0 passes the gate)."""
+    from repro_torch.optim import tree_leaves
+
+    equal, excess, max_abs = True, -float("inf"), 0.0
+    for ta, tb in ((a.params, b.params), (a.opt.m, b.opt.m), (a.opt.v, b.opt.v)):
+        for x, y in zip(tree_leaves(ta), tree_leaves(tb)):
+            x, y = x.detach().float(), y.detach().float()
+            equal = equal and torch.equal(x, y)
+            d = (x - y).abs()
+            max_abs = max(max_abs, float(d.max()))
+            excess = max(excess, float((d - LOOP_ATOL - LOOP_RTOL * x.abs()).max()))
+    return {"bit_equal": equal, "max_abs": max_abs, "excess": excess}
+
+
+def loop_run(cfg, tcfg, dev, ckpt_dir: Path, fault_step=None) -> tuple:
+    """``loop.run`` at the example's batch; its state, stats, wall seconds
+    and kernel launches."""
+    import shutil
+
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import LoopConfig, run
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    lcfg = LoopConfig(steps=LOOP_STEPS, ckpt_dir=str(ckpt_dir), ckpt_every=LOOP_CKPT_EVERY,
+                      log_every=100, fault_inject_step=fault_step)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    state, stats = run(cfg, tcfg, lcfg,
+                       lambda s: lm_batch(cfg, batch=LOOP_BATCH, seq=LOOP_SEQ, step=s, device=dev),
+                       device=dev)
+    torch.cuda.synchronize()
+    return state, stats, time.perf_counter() - t0, launches_since(before)
+
+
+def loop_phase_a(dev, analog: bool, ckpt_root: Path) -> dict:
+    """(a): a clean run and a run with a fault at LOOP_FAULT_STEP; exactly
+    one restart, the final states equal.  Analog: the clean run's first
+    read at each shape is held against its plain version
+    (:func:`check_loop_reads`)."""
+    import shutil
+
+    ex = load_example("train_lm_torch")
+    cfg = ex["small_lm"](analog)
+    tcfg = ex["train_config"](LOOP_STEPS)
+    tag = "analog" if analog else "digital"
+    reads = {}
+    with recording_reads(reads if analog else None):
+        clean, cstats, cwall, claunch = loop_run(cfg, tcfg, dev, ckpt_root / f"{tag}_clean")
+    faulty, fstats, fwall, flaunch = loop_run(cfg, tcfg, dev, ckpt_root / f"{tag}_fault",
+                                              LOOP_FAULT_STEP)
+    match = state_match(clean, faulty)
+    steady = cstats["step_s"][1:]
+    saves = cstats["saves"] + fstats["saves"]
+    restart = fstats["restart_s"]
+    res = {
+        "params": cfg.param_count(), "step_ms": 1e3 * sum(steady) / len(steady),
+        "first_step_ms": 1e3 * cstats["step_s"][0], "restarts": fstats["restarts"],
+        "stragglers": (cstats["stragglers"], fstats["stragglers"]),
+        "ckpt_bytes": saves[0]["bytes"],
+        "gather_ms": [round(1e3 * s["gather_s"], 3) for s in saves],
+        "write_ms": [round(1e3 * s["write_s"], 3) for s in saves],
+        "restart_ms": [round(1e3 * r["total_s"], 3) for r in restart],
+        "init_ms": [round(1e3 * r["init_s"], 3) for r in restart],
+        "load_ms": [round(1e3 * r["load_s"], 3) for r in restart],
+        "wall_s": (cwall, fwall), "losses": (cstats["losses"][0][1], cstats["losses"][-1][1]),
+        "launches": (claunch, flaunch), **match,
+    }
+    shutil.rmtree(ckpt_root / f"{tag}_clean", ignore_errors=True)
+    shutil.rmtree(ckpt_root / f"{tag}_fault", ignore_errors=True)
+    log(f"  (a) {tag}: {cfg.name} ({res['params'] / 1e6:.1f} M parameters, {cfg.n_layers}L "
+        f"d{cfg.d_model} V{cfg.vocab} {cfg.dtype}, batch {LOOP_BATCH} x {LOOP_SEQ}), "
+        f"{LOOP_STEPS} steps, a checkpoint every {LOOP_CKPT_EVERY}: loss "
+        f"{res['losses'][0]:.4f} -> {res['losses'][1]:.4f}; step {res['step_ms']:.2f} ms "
+        f"(steps after the first, host clock to the loss's read), first {res['first_step_ms']:.1f} ms; "
+        f"checkpoint {res['ckpt_bytes']} bytes, host gather ms {res['gather_ms']}, write ms "
+        f"{res['write_ms']} (in the background); fault at step {LOOP_FAULT_STEP}: restarts "
+        f"{res['restarts']}, restart ms {res['restart_ms']} (init {res['init_ms']} + load "
+        f"{res['load_ms']}); wall {cwall:.1f} / {fwall:.1f} s; final state bit-equal "
+        f"{match['bit_equal']}, max|diff| {match['max_abs']:.3e}; stragglers {res['stragglers']}; "
+        f"launches clean {claunch}, faulty {flaunch}")
+    if res["restarts"] != 1 or faulty.step != LOOP_STEPS:
+        raise AssertionError(f"(a) {tag}: {res['restarts']} restarts, step {faulty.step}")
+    if match["excess"] > 0:
+        raise AssertionError(f"(a) {tag}: the resumed run's final state differs from the clean "
+                             f"run's beyond atol {LOOP_ATOL}, rtol {LOOP_RTOL}: {match}")
+    if not all(np.isfinite([res["losses"][0], res["losses"][1]])):
+        raise AssertionError(f"(a) {tag}: non-finite loss {res['losses']}")
+    if analog:
+        per_step = CB_PER_LAYER * cfg.n_layers
+        steps_run = len(cstats["losses"]), len(fstats["losses"])
+        want = tuple(per_step * n for n in steps_run)
+        got = (claunch.get("crossbar_mac", 0), flaunch.get("crossbar_mac", 0))
+        if got != want:
+            raise AssertionError(f"(a) analog: crossbar_mac launched {got}, expected {want} "
+                                 f"({per_step} a step over {steps_run} steps)")
+        res["reads"] = check_loop_reads(reads)
+    return res
+
+
+@contextlib.contextmanager
+def recording_reads(into):
+    """Within the block, keep a copy of the inputs of the first
+    ``ops.crossbar_mac`` read of each (x shape, W shape, binarize) in
+    ``into``; ``None`` records nothing."""
+    from repro_torch.kernels import ops
+
+    if into is None:
+        yield
+        return
+    real = ops.crossbar_mac_sim
+
+    def recording(x, w, key, cfg, binarize=True):
+        sig = (tuple(x.shape), tuple(w.shape), binarize)
+        if sig not in into:
+            into[sig] = (x.detach().clone(), w.detach().clone(),
+                         key.clone() if isinstance(key, torch.Tensor) else key, cfg)
+        return real(x, w, key, cfg, binarize)
+
+    ops.crossbar_mac_sim = recording
+    try:
+        yield
+    finally:
+        ops.crossbar_mac_sim = real
+
+
+def check_loop_reads(reads: dict) -> dict:
+    """The loop's own reads at stablelm-100m's shapes (M = 8 x 256 tokens,
+    640² attention, 640→1728 and 1728→640 MLP), from one step's inputs:
+    ``ops.crossbar_mac`` against ``ops.crossbar_mac_reference`` on the same
+    x, W and key; comparator decisions at CB_AGREEMENT, linear reads at the
+    range-scaled linear gate (:func:`scaled_linear_err_over_tol`)."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    with torch.no_grad():
+        for (xs, ws, binarize), (x, w, key, cfg) in sorted(reads.items()):
+            label = f"{'x'.join(map(str, xs))} @ {ws[0]}x{ws[1]} {'comparator' if binarize else 'linear'}"
+            got = ops.crossbar_mac(x, w, key, cfg, binarize)
+            want = ops.crossbar_mac_reference(x, w, key, cfg, binarize)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"(a) crossbar_mac {label}: non-finite output")
+            if binarize:
+                agree = float((got == want).float().mean())
+                binary = bool(((got == 0) | (got == 1)).all())
+                out[label] = {"agreement": agree}
+                log(f"  (a) crossbar_mac {label}: {agree:.6f} of decisions equal "
+                    f"(gate {CB_AGREEMENT})")
+                if agree < CB_AGREEMENT or not binary:
+                    raise AssertionError(f"(a) crossbar_mac {label}: kernel disagrees with its "
+                                         f"plain version")
+            else:
+                worst = scaled_linear_err_over_tol(x, w, cfg, got, want)
+                err = float((got - want).abs().max())
+                out[label] = {"max_abs_err": err, "err_over_tol": worst}
+                log(f"  (a) crossbar_mac {label}: max|err| {err:.3e}, worst err/tol {worst:.3f}")
+                if worst > 1.0:
+                    raise AssertionError(f"(a) crossbar_mac {label}: kernel disagrees with its "
+                                         f"plain version")
+    if not any(ws[0] % 128 or ws[1] % 128 for _, ws, _ in reads):
+        raise AssertionError(f"(a) no read off the 128 grid was recorded: {sorted(reads)}")
+    return out
+
+
+def profile_compress(step_fn, state, batch) -> tuple[dict, object]:
+    """Device ms of one compressed step's kernels inside its
+    ``train/compress`` range, beside the step's device total; and the
+    state the step returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == cuda]
+    ranges = [e.time_range for e in events if e.name == "train/compress"]
+    kernels = [e for e in events if not e.name.startswith("train/")]
+    inside = [e for e in kernels if any(r.start <= e.time_range.start < r.end for r in ranges)]
+    return {"compress_ms": sum(e.time_range.elapsed_us() for e in inside) / 1e3,
+            "compress_kernels": len(inside),
+            "device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}, state
+
+
+def loop_phase_b(dev) -> dict:
+    """(b): COMPRESS_STEPS steps of stablelm-100m with int8 gradient
+    compression against without, from the same init: both fall, the last
+    three within 0.25 (tests/test_train.py:138-156)."""
+    from repro_torch.data import lm_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = load_example("train_lm_torch")["small_lm"](False)
+    opt = AdamWConfig(lr=1e-2, state_dtype="float32", stochastic_rounding=False)
+    out = {}
+    for tag, compress in (("plain", False), ("compressed", True)):
+        tcfg = TrainConfig(opt=opt, compress_grads=compress)
+        state = init_train_state(0, cfg, tcfg, device=dev)
+        step_fn = make_train_step(cfg, tcfg)
+        losses, times = [], []
+        for i in range(COMPRESS_STEPS):
+            batch = lm_batch(cfg, batch=LOOP_BATCH, seq=LOOP_SEQ, step=i, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        out[tag] = {"losses": losses, "step_ms": 1e3 * sum(times[1:]) / len(times[1:])}
+        if compress:
+            prof, state = profile_compress(
+                step_fn, state, lm_batch(cfg, batch=LOOP_BATCH, seq=LOOP_SEQ, step=COMPRESS_STEPS,
+                                         device=dev))
+            out[tag].update(prof)
+        del state
+    lp, lc = out["plain"]["losses"], out["compressed"]["losses"]
+    gap = abs(np.mean(lc[-3:]) - np.mean(lp[-3:]))
+    log(f"  (b) compression, {cfg.name} batch {LOOP_BATCH} x {LOOP_SEQ}, {COMPRESS_STEPS} steps: "
+        f"loss plain {lp[0]:.4f} -> {lp[-1]:.4f}, compressed {lc[0]:.4f} -> {lc[-1]:.4f}, last "
+        f"three apart by {gap:.4f}; step ms plain {out['plain']['step_ms']:.2f}, compressed "
+        f"{out['compressed']['step_ms']:.2f}; a compressed step's compression "
+        f"{out['compressed']['compress_ms']:.2f} device ms over {out['compressed']['compress_kernels']} "
+        f"kernels, of {out['compressed']['device_ms']:.2f} device ms")
+    if not (np.all(np.isfinite(lc)) and np.mean(lc[-3:]) < lc[0] and np.mean(lp[-3:]) < lp[0]):
+        raise AssertionError(f"(b) the losses did not fall: plain {lp}, compressed {lc}")
+    if gap >= 0.25:
+        raise AssertionError(f"(b) compressed and plain losses apart by {gap} >= 0.25")
+    out["gap"] = gap
+    return out
+
+
+def loop_phase_c(dev, ckpt_root: Path) -> dict:
+    """(c): a params-only checkpoint of the smoke config written by the
+    port, served greedy by ``serve.py --ckpt-dir``; the streams equal
+    serving the same parameters directly."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as LS
+    from repro_torch.models.transformer import init_lm
+
+    cfg = get_smoke_config("stablelm-3b")
+    params = init_lm(cfg, seed=3, device=dev)
+    d = ckpt_root / "serve"
+    shutil.rmtree(d, ignore_errors=True)
+    save_checkpoint(str(d), 7, params)
+    args = ["--arch", "stablelm-3b", "--smoke", "--requests", "4", "--new-tokens", "16"]
+    buf = io.StringIO()
+    before = ops.launch_counts()
+    with contextlib.redirect_stdout(buf):
+        served = LS.main([*args, "--ckpt-dir", str(d)])
+    launches = launches_since(before)
+    real = LS.init_lm
+    LS.init_lm = lambda c, seed=0, device=None: params
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            direct = LS.main(args)
+    finally:
+        LS.init_lm = real
+    shutil.rmtree(d, ignore_errors=True)
+    loaded = "loaded checkpoint step 7" in buf.getvalue()
+    n = sum(map(len, served))
+    log(f"  (c) serve.py --ckpt-dir on a params-only checkpoint (smoke stablelm-3b, greedy): "
+        f"loaded {loaded}, {len(served)} streams, {n} tokens, equal to serving the parameters "
+        f"directly {served == direct}; launches {launches}")
+    if not loaded or served != direct or n == 0:
+        raise AssertionError("(c) serve.py --ckpt-dir did not serve the checkpoint's parameters")
+    if launches.get("paged_attention", 0) == 0 or launches.get("paged_prefill_attention", 0) == 0:
+        raise AssertionError(f"(c) the serve launched no attention kernel: {launches}")
+    return {"tokens": n, "launches": launches}
+
+
+def loop_phase_d(dev) -> dict:
+    """(d): ``repro_torch.benchmarks.run``'s five benches on the card at
+    the reference's protocol, gated on their own relations."""
+    import io
+    import re
+
+    from repro_torch.benchmarks import run as BR
+    from repro_torch.kernels import ops
+
+    def num(derived, key):
+        return float(re.search(rf"{key}=([-+0-9.e]+)", derived).group(1))
+
+    buf = io.StringIO()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    rows, failed = BR.run_all(dev, out=buf)
+    wall = time.perf_counter() - t0
+    launches = launches_since(before)
+    for line in buf.getvalue().strip().splitlines():
+        log(f"  (d) {line}")
+    log(f"  (d) benches in {wall:.1f} s; launches {launches}")
+    if failed:
+        raise AssertionError("(d) a bench raised")
+    fig4 = {n: num(d, "rmse") for n, _, d in rows["fig4"]}
+    if not fig4["sigmoid_fit_calibrated"] < min(0.02, fig4["sigmoid_fit_detuned_x4"]):
+        raise AssertionError(f"(d) Fig. 4: calibrated rmse {fig4}")
+    fig5 = rows["fig5"]
+    if "one_winner_per_trial=True" not in fig5[0][2] or not all(
+            "argmax_agree=True" in d for n, _, d in fig5 if n.startswith("wta_tv_vs_softmax_T")):
+        raise AssertionError(f"(d) Fig. 5: {fig5}")
+    fig6 = {n: d for n, _, d in rows["fig6"]}
+    if not num(fig6["fig6_raca_votes64"], "acc") >= num(fig6["fig6_raca_votes1"], "acc"):
+        raise AssertionError(f"(d) Fig. 6: 64 votes below 1 vote: {fig6}")
+    changes = [float(v) for v in re.findall(r"(?:energy|area|eff)([-+][0-9.]+)%",
+                                             rows["table1"][2][2])]
+    if len(changes) != 3 or max(abs(a - b) for a, b in zip(changes, TABLE1_PAPER)) > TABLE1_ATOL:
+        raise AssertionError(f"(d) Table I changes {changes} against the paper's {TABLE1_PAPER}")
+    for kernel in ("wta_sample", "sigmoid_sample", "crossbar_mac", "wta_counts", "stoch_round"):
+        if launches.get(kernel, 0) == 0:
+            raise AssertionError(f"(d) the benches launched no {kernel}: {launches}")
+    return {"rows": {tag: [list(r) for r in rs] for tag, rs in rows.items()}, "wall_s": wall,
+            "launches": launches, "kernel_times": bench_kernel_times(dev)}
+
+
+def profiled_call(fn, n: int = 10, tries: int = 3) -> dict:
+    """Device ms of one call of ``fn`` (every kernel and copy it puts on
+    the card, summed from the profiler over ``n`` calls), its kernels and
+    host-to-device copies a call.  The public wrappers copy a Python seed
+    or scalar to the card each call and wait for it, so a spin kernel
+    cannot hide their host time (:func:`device_ms`).  The ``n`` calls are
+    traced in the profiler's active cycle, after a warm-up cycle of the
+    same calls: a trace's first events can be lost (seen late in a long
+    process), and a trace whose counts are not whole multiples of ``n``
+    is taken again, up to ``tries`` times, then raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the schedule's step annotation spans the cycle on the device too
+        events = [e for e in prof.events()
+                  if e.device_type == cuda and not e.name.startswith("ProfilerStep")]
+        kernels = sum("Memcpy" not in e.name and "Memset" not in e.name for e in events)
+        h2d = sum("HtoD" in e.name for e in events)
+        seen.append((kernels, h2d))
+        if kernels > 0 and kernels % n == 0 and h2d % n == 0:
+            return {"device_ms": sum(e.time_range.elapsed_us() for e in events) / 1e3 / n,
+                    "kernels": kernels / n, "h2d": h2d / n}
+    raise AssertionError(f"the profiler lost events in {tries} traces of {n} calls "
+                         f"(kernels, host-to-device copies): {seen}")
+
+
+def bench_kernel_times(dev) -> dict:
+    """``bench_kernels``' cases (:func:`bench_kernels.cases`): device ms of
+    a call as the bench makes it (:func:`profiled_call`), ms per call (24
+    back-to-back calls between CUDA events), the plain version on the
+    card, and the library call where one computes the same product (SGEMM,
+    product only); the crossbar reads' decisions against the plain
+    version's (CB_AGREEMENT)."""
+    from repro_torch.benchmarks import bench_kernels as BK
+
+    out = {}
+    with torch.no_grad():
+        for case in BK.cases(dev):
+            t = {**profiled_call(case.call), "ms": cuda_ms([case.call]),
+                 "plain_ms": cuda_ms([case.plain], iters=4, warmup=1),
+                 "library_ms": None if case.library is None else cuda_ms([case.library]),
+                 "bound_ms": case.bound_us / 1e3}
+            if case.name.startswith("crossbar_mac"):
+                got, want = case.call(), case.plain()
+                t["agreement"] = float((got == want).float().mean())
+                if t["agreement"] < CB_AGREEMENT:
+                    raise AssertionError(f"(d) {case.name}: decisions agree {t['agreement']}")
+            out[case.name] = t
+            library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+            log(f"  (d) {case.name}: device ms {t['device_ms']:.4f} ({t['kernels']} kernels, "
+                f"{t['h2d']} host-to-device copies a call), per call {t['ms']:.4f}, plain "
+                f"{t['plain_ms']:.4f}, library {library}, bound {t['bound_ms']:.4f}"
+                + (f", decisions agree {t['agreement']:.6f}" if "agreement" in t else ""))
+    return out
+
+
+def loop_phase_f(dev) -> dict:
+    """(f): ``examples/quickstart_torch.py`` and
+    ``examples/serve_stochastic_torch.py`` (bf16 pool, then int8) on the
+    card, each to its end, with their kernels' launches."""
+    import contextlib
+    import io
+    import re
+    import runpy
+
+    from repro_torch.kernels import ops
+
+    out = {}
+    before = ops.launch_counts()
+    buf = io.StringIO()
+    argv = sys.argv
+    sys.argv = [str(ROOT / "examples" / "quickstart_torch.py")]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(sys.argv[0], run_name="__main__")
+    finally:
+        sys.argv = argv
+    text = buf.getvalue()
+    out["quickstart_launches"] = launches_since(before)
+    for line in text.strip().splitlines():
+        log(f"  (f) quickstart: {line}")
+    m = re.search(r"range-quantized layer: max err ([0-9.]+), mean err ([0-9.]+)", text)
+    max_err, mean_err = float(m.group(1)), float(m.group(2))
+    log(f"  (f) quickstart launches {out['quickstart_launches']}")
+    if not (mean_err <= QUICKSTART_MEAN_ERR and max_err <= QUICKSTART_MAX_ERR):
+        raise AssertionError(f"(f) quickstart: E[comparator] vs sigmoid mean {mean_err}, max "
+                             f"{max_err} (gates {QUICKSTART_MEAN_ERR}, {QUICKSTART_MAX_ERR:.3f})")
+    if "prediction agreement: True" not in text or "binary: [0.0, 1.0]" not in text:
+        raise AssertionError("(f) quickstart: WTA predictions or binary activations fail")
+    for k in ("crossbar_mac", "wta_sample"):
+        if out["quickstart_launches"].get(k, 0) == 0:
+            raise AssertionError(f"(f) quickstart launched no {k}")
+    ex = load_example("serve_stochastic_torch")
+    want_tokens = sum(n for _, n in ex["REQUESTS"])
+    for kv in ("same", "int8"):
+        before = ops.launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as sbuf:
+            runs = ex["main"](["--kv-dtype", kv])
+        launches = launches_since(before)
+        out[f"serve_{kv}_launches"] = launches
+        for line in sbuf.getvalue().strip().splitlines():
+            log(f"  (f) serve_stochastic_torch --kv-dtype {kv}: {line}")
+        log(f"  (f) serve_stochastic_torch --kv-dtype {kv} launches {launches}")
+        for mode, _wta, _rids, outs, m in runs:
+            if m.completed != 4 or sum(map(len, outs.values())) != want_tokens:
+                raise AssertionError(f"(f) serve_stochastic_torch {kv} {mode}: {m.completed} "
+                                     f"requests, {sum(map(len, outs.values()))} tokens")
+        need = ["paged_attention", "paged_prefill_attention", "wta_sample"]
+        need += ["write_kv_int8"] if kv == "int8" else []
+        if any(launches.get(k, 0) == 0 for k in need):
+            raise AssertionError(f"(f) serve_stochastic_torch {kv} launched {launches}")
+    return out
+
+
+def loop_phase(dev) -> dict:
+    """Phase 4e: (a) the loop at full width, digital and analog; (b)
+    compression; (c) ``serve.py --ckpt-dir``; (d) the benches; (f) the
+    serving-side examples.  (e) runs in the FCNN phase.  Checkpoints go
+    under ``build/ckpts`` of the checkout and are removed."""
+    import shutil
+
+    ckpt_root = ROOT / "build" / "ckpts"
+    res = {}
+    try:
+        res["a_digital"] = loop_phase_a(dev, False, ckpt_root)
+        res["a_analog"] = loop_phase_a(dev, True, ckpt_root)
+        res["b"] = loop_phase_b(dev)
+        res["c"] = loop_phase_c(dev, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    res["d"] = loop_phase_d(dev)
+    res["f"] = loop_phase_f(dev)
+    summary = {k: {kk: vv for kk, vv in v.items() if kk not in ("rows",)}
+               for k, v in res.items() if k != "b"}
+    summary["b"] = {k: {kk: vv for kk, vv in v.items() if kk != "losses"} if isinstance(v, dict)
+                    else v for k, v in res["b"].items()}
+    log("  4e summary " + json.dumps(summary, default=str))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 6b: the paper's FCNN at full width, training and RACA inference.
 # ---------------------------------------------------------------------------
 
@@ -3068,9 +3618,38 @@ def fcnn_phase(dev) -> dict:
                              f"{n_votes}")
     if not (digital > 0.85 and raca[64] >= raca[1] and raca[64] >= digital - 0.05):
         raise AssertionError(f"Fig. 6 relations fail: digital {digital}, RACA {raca}")
+    sweeps = fcnn_sweeps(state.params, test["image"], y, cfg)
     profile = profile_fcnn(step_fn, state, batches[0], test["image"], cfg)
     return {"launches": launches, "losses": (losses[0], losses[-1]), "step_ms": step_ms,
-            "digital": digital, "raca": raca, "walls": walls, "profile": profile}
+            "digital": digital, "raca": raca, "walls": walls, "sweeps": sweeps,
+            "profile": profile}
+
+
+def fcnn_sweeps(params, x, y, cfg) -> dict:
+    """Phase 4e (e): Fig. 6's threshold and SNR sweeps at the paper's
+    width, as ``bench_fcnn_accuracy`` runs them: 16 votes with V_th0 = 0
+    and calibrated under PRNGKey(8) (Fig. 6b), with β = 2 under
+    PRNGKey(9) (Fig. 6a); 2 ``sigmoid_sample`` and 1 ``wta_sample``
+    launches a vote."""
+    from repro_torch import random as R
+    from repro_torch.kernels import sigmoid_sample as SS
+    from repro_torch.kernels import wta_sample as WS
+    from repro_torch.models.fcnn import fcnn_predict_raca
+
+    SS.launches = WS.launches = 0
+    acc = {}
+    for name, vth in (("vth0_zero", 0.0), ("vth0_cal", None)):
+        pred = fcnn_predict_raca(params, x, cfg, R.PRNGKey(8), 16, vth0=vth)
+        acc[f"fig6b_{name}_votes16"] = float((pred == y).float().mean())
+    cfg_det = dataclasses.replace(cfg, analog=dataclasses.replace(cfg.analog, beta=2.0))
+    pred = fcnn_predict_raca(params, x, cfg_det, R.PRNGKey(9), 16)
+    acc["fig6a_detuned_beta2_votes16"] = float((pred == y).float().mean())
+    launches = {"sigmoid_sample": SS.launches, "wta_sample": WS.launches}
+    log(f"  (e) Fig. 6 sweeps at [784, 500, 300, 10], {FCNN_TEST} images, 16 votes: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in acc.items()) + f"; launches {launches}")
+    if launches != {"sigmoid_sample": 2 * 48, "wta_sample": 48}:
+        raise AssertionError(f"(e) sweep launches {launches}, expected 96 and 48")
+    return {"acc": acc, "launches": launches}
 
 
 def profile_fcnn(step_fn, state, batch, x, cfg) -> dict:
@@ -3582,6 +4161,9 @@ def main() -> int:
     log("== serve stablelm-3b (bf16 pool, int8 pool, then WTA sampling on the bf16 pool at "
         "R = 1 and 3)")
     sres = serve_phase(dev, kres["w_invariance"]["bf16"]["identical"])
+    log("== 4e: the training loop (checkpoints, restart, compression), serve.py --ckpt-dir, "
+        "the paper's benches and examples")
+    lres = loop_phase(dev)
     log("== stoch_round and wta_counts entry points")
     srres = stoch_round_phase(dev)
     wres = wta_phase(dev)
@@ -3673,6 +4255,18 @@ def main() -> int:
                       ("write_kv_int8", "write_kv_int8"), ("wta_sample", "wta_sample")):
         rec = next(k for k in kernels if k["name"] == name)
         rec["launches_spec"] = {run: spec[run]["launches"][key] for run in spec}
+    # phase 4e: each path's launches, reset just before it and read just after
+    for rec in kernels:
+        name = rec["name"]
+        rec["launches_4e"] = {
+            "loop_analog": lres["a_analog"]["launches"][0].get(name, 0),
+            "serve_ckpt": lres["c"]["launches"].get(name, 0),
+            "benches": lres["d"]["launches"].get(name, 0),
+            "quickstart": lres["f"]["quickstart_launches"].get(name, 0),
+            "serve_example_int8": lres["f"]["serve_int8_launches"].get(name, 0),
+            "fig6_sweeps": fres["sweeps"]["launches"].get(name, 0),
+        }
+    log(smi)  # again here, so that the tail of a long output still holds it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,13 +23,15 @@ packages step from the same state.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig
 from repro_torch.models.layers import dtype_of
-from repro_torch.optim import AdamWState, tree_leaves
+from repro_torch.optim import AdamWState, CompressState, tree_leaves
 from repro_torch.train import TrainState
 
 
@@ -74,26 +76,29 @@ def paged_cache_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
 
 def train_state_from_numpy(
     params: dict, m: dict, v: dict, opt_step: int, step: int, rng,
-    cfg: ModelConfig, train_cfg, device=None,
+    cfg: ModelConfig, train_cfg, device=None, compress_error: Optional[dict] = None,
 ):
     """The reference's ``TrainState`` (``params``, ``opt.m``, ``opt.v``,
-    ``opt.step``, ``step``, ``rng`` key data; leaves as numpy, bf16 ones
-    handed over as float32) as the port's ``TrainState`` on ``device``."""
+    ``opt.step``, ``step``, ``rng`` key data, and ``compress.error`` when
+    it compresses; leaves as numpy, bf16 ones handed over as float32) as
+    the port's ``TrainState`` on ``device``."""
     dev = resolve_device(device)
     p = params_from_numpy(params, cfg, dev)
     for leaf in tree_leaves(p):
         leaf.requires_grad_(True)
     sdt = getattr(torch, train_cfg.opt.state_dtype)
 
-    def moments(tree):
+    def tensors(tree, dtype):
         return {
-            k: moments(x) if isinstance(x, dict)
-            else torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=sdt)
+            k: tensors(x, dtype) if isinstance(x, dict)
+            else torch.from_numpy(np.array(x, dtype=np.float32)).to(device=dev, dtype=dtype)
             for k, x in tree.items()
         }
 
     key = np.asarray(rng, dtype=np.uint32).reshape(-1)
+    comp = (None if compress_error is None
+            else CompressState(error=tensors(compress_error, torch.float32)))
     return TrainState(
-        params=p, opt=AdamWState(step=int(opt_step), m=moments(m), v=moments(v)),
-        compress=None, step=int(step), rng=(int(key[0]), int(key[1])),
+        params=p, opt=AdamWState(step=int(opt_step), m=tensors(m, sdt), v=tensors(v, sdt)),
+        compress=comp, step=int(step), rng=(int(key[0]), int(key[1])),
     )

@@ -8,7 +8,8 @@ randomly initialized model, greedy or WTA sampling.
         [--speculate-k K] \
         [--device-backend sim_faulty [--stuck-rate R] [--drift-nu NU] \
          [--read-sigma-inflation I] [--comparator-offset O] [--fault-seed S]] \
-        [--canary-interval N] [--tile-retire-threshold T] [--degrade]
+        [--canary-interval N] [--tile-retire-threshold T] [--degrade] \
+        [--ckpt-dir ckpts/stablelm-3b]
 
 Runs on the card unless ``--device cpu`` is given.  On the card the
 engine's decode step is compiled: one CUDA graph per decode window width
@@ -18,6 +19,12 @@ and captured again when the fault backend's state moves (the last line
 prints ``compile_counts()``); on the CPU it runs eagerly.  The energy line
 is the Table I cost model's pricing of the analog events the run drove
 (a model of the paper's accelerator, not a measurement of the card).
+
+``--ckpt-dir`` loads the latest checkpoint there over the random weights,
+as the reference does: a params-only checkpoint (``save_checkpoint(dir,
+step, params)``, leaf names such as ``embed/embedding``).  A training
+loop's checkpoint holds a ``TrainState`` (names under ``.params/``) and
+raises ``KeyError`` here, in both packages.
 """
 
 from __future__ import annotations
@@ -28,13 +35,15 @@ import time
 
 import numpy as np
 
+from repro_torch.checkpoint import latest_step, load_checkpoint
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.backend import FaultConfig
 from repro_torch.models.transformer import init_lm
 from repro_torch.serving import DegradationPolicy, ServeConfig, ServingEngine
 
 
-def main() -> None:
+def main(argv=None) -> list:
+    """Serve and print; returns the request streams (lists of token ids)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -121,11 +130,17 @@ def main() -> None:
                     help="enable the graceful-degradation ladder (raise "
                          "redundant reads -> shed batch admissions) driven "
                          "by canary failures and sanity evictions")
-    args = ap.parse_args()
+    ap.add_argument("--ckpt-dir")
+    args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, wta_head=args.wta, kv_cache_dtype=args.kv_dtype)
     params = init_lm(cfg, seed=args.seed, device=args.device)
+    if args.ckpt_dir:
+        step = latest_step(args.ckpt_dir)
+        if step is not None:
+            params = load_checkpoint(args.ckpt_dir, step, params)  # params-only checkpoints
+            print(f"loaded checkpoint step {step}")
     fault_cfg = None
     if args.device_backend == "sim_faulty":
         fault_cfg = FaultConfig(
@@ -211,6 +226,7 @@ def main() -> None:
     for o in outs:
         print("  ->", o)
     print(f"compile counts {eng.compile_counts()}")
+    return outs
 
 
 if __name__ == "__main__":

@@ -57,6 +57,17 @@ def tree_leaves(tree: dict) -> list[torch.Tensor]:
     return out
 
 
+def tree_unflatten(tree: dict, leaves: list) -> dict:
+    """``tree``'s nested dicts with its leaves replaced by ``leaves``, in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        return {k: build(node[k]) if isinstance(node[k], dict) else next(it) for k in sorted(node)}
+
+    return build(tree)
+
+
 def _map(fn, tree: dict) -> dict:
     return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 

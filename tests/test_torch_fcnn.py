@@ -283,9 +283,10 @@ def test_init_train_state_is_reference_init():
     assert st.rng == R.fold_in(R.PRNGKey(3), 1)
 
 
-def test_launcher_fcnn(capsys):
+def test_launcher_fcnn(capsys, tmp_path):
+    # the launcher checkpoints (by default into ckpts/<name>, resuming from it)
     launch_train.main(["--arch", "fcnn-mnist", "--smoke", "--device", "cpu", "--steps", "3",
-                       "--batch", "16"])
+                       "--batch", "16", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "done: steps=3" in out
     with pytest.raises(SystemExit):

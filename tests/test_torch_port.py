@@ -1,6 +1,7 @@
-"""The port stands alone: no jax and nothing of ``repro`` in its package or
-in ``chip_smoke.py``, checked statically and by importing every module in
-a process where jax and repro cannot be imported."""
+"""The port stands alone: no jax and nothing of ``repro`` in its package,
+its examples (``examples/*_torch.py``) or ``chip_smoke.py``, checked
+statically, and for the package by importing every module in a process
+where jax and repro cannot be imported."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:

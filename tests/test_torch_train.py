@@ -214,14 +214,21 @@ def test_train_steps_match(mode, microbatches):
 
 
 def test_init_train_state_and_compress_refused():
+    """The initial state; with ``compress_grads`` (ported since the loop
+    slice) the step trains and carries a nonzero residual."""
     _, tc = _cfgs("analog_stochastic")
     state = t_init_train_state(0, tc, TTrainConfig(), device="cpu")
     assert state.rng == _pair(jax.random.fold_in(jax.random.PRNGKey(0), 1))
-    assert state.step == 0 and state.opt.step == 0
+    assert state.step == 0 and state.opt.step == 0 and state.compress is None
     assert all(p.requires_grad for p in tree_leaves(state.params))
     assert all(m.dtype == torch.bfloat16 and not m.any() for m in tree_leaves(state.opt.m))
-    with pytest.raises(NotImplementedError):
-        t_make_train_step(tc, TTrainConfig(compress_grads=True))
+    tcfg = TTrainConfig(compress_grads=True)
+    state = t_init_train_state(0, tc, tcfg, device="cpu")
+    assert not any(e.any() for e in tree_leaves(state.compress.error))
+    state, m = t_make_train_step(tc, tcfg)(
+        state, t_lm_batch(tc, batch=2, seq=16, step=0, device="cpu"))
+    assert np.isfinite(float(m["loss"])) and state.step == 1
+    assert any(e.any() for e in tree_leaves(state.compress.error))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present")
@@ -246,13 +253,22 @@ def test_loss_decreases(mode):
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1, losses
 
 
-def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys):
+def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
+    """The launcher runs the checkpointing loop, with ``--compress``, and
+    resumes from its checkpoints; only ``--model-par`` other than 1 is
+    refused."""
+    from repro_torch.checkpoint import latest_step
     from repro_torch.launch import train as LT
 
-    LT.main(["--arch", "stablelm-3b", "--smoke", "--analog", "--device", "cpu",
-             "--steps", "3", "--batch", "2", "--seq", "16"])
+    base = ["--arch", "stablelm-3b", "--smoke", "--analog", "--device", "cpu",
+            "--batch", "2", "--seq", "16", "--compress", "--ckpt-dir", str(tmp_path)]
+    LT.main([*base, "--steps", "3"])
     out = capsys.readouterr().out
     assert "done: steps=3 first_loss=" in out and "last_loss=" in out
-    for flags in (["--compress"], ["--model-par", "2"], ["--ckpt-dir", "x"]):
-        with pytest.raises(SystemExit):
-            LT.main(["--arch", "stablelm-3b", "--smoke", "--device", "cpu", *flags])
+    assert "restarts=0 stragglers=" in out
+    assert latest_step(str(tmp_path)) == 3
+    LT.main([*base, "--steps", "5"])           # resumes at step 3
+    out = capsys.readouterr().out
+    assert "done: steps=5 first_loss=" in out and latest_step(str(tmp_path)) == 5
+    with pytest.raises(SystemExit):
+        LT.main(["--arch", "stablelm-3b", "--smoke", "--device", "cpu", "--model-par", "2"])
