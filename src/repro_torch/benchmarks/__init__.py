@@ -7,6 +7,8 @@ module per table or figure, each with ``run(device=None)`` returning
     bench_fcnn_accuracy  — Fig. 6 (accuracy vs votes / threshold / SNR)
     bench_cost_model     — Table I (energy / area / TOPS-W)
     bench_kernels        — the hand-written kernels, with their H100 bounds
+    bench_serving        — the serving engines under load (``run(device,
+                           dry_run)`` returns its rows and a report)
 
 ``python -m repro_torch.benchmarks.run [--device cpu]`` prints them all.
 A row's ``us_per_call`` is wall time up to a device synchronize

@@ -1,8 +1,10 @@
-"""Serving launcher: the paged continuous-batching engine against a
-randomly initialized model, greedy or WTA sampling.
+"""Serving launcher: the continuous-batching engine (paged or dense KV
+layout) or the static-batch reference engine against a randomly
+initialized model, greedy or WTA sampling.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\
+        [--static] [--kv-layout dense] \\
         [--kv-dtype int8] [--wta [--n-redundant-reads 3]] [--priority 0] \
         [--deadline-ms MS] [--no-preemption] [--spill-budget-bytes N] \
         [--speculate-k K] \
@@ -14,7 +16,8 @@ randomly initialized model, greedy or WTA sampling.
 Runs on the card unless ``--device cpu`` is given.  On the card the
 engine's decode step is compiled: one CUDA graph per decode window width
 and redundant-read factor (with ``--speculate-k``, one per width for the
-fused draft + verify round), captured on first use and replayed, dropped
+fused draft + verify round; with ``--kv-layout dense`` or ``--static``,
+one per batch width), captured on first use and replayed, dropped
 and captured again when the fault backend's state moves (the last line
 prints ``compile_counts()``); on the CPU it runs eagerly.  The energy line
 is the Table I cost model's pricing of the analog events the run drove
@@ -39,7 +42,12 @@ from repro_torch.checkpoint import latest_step, load_checkpoint
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.backend import FaultConfig
 from repro_torch.models.transformer import init_lm
-from repro_torch.serving import DegradationPolicy, ServeConfig, ServingEngine
+from repro_torch.serving import (
+    DegradationPolicy,
+    ServeConfig,
+    ServingEngine,
+    StaticServingEngine,
+)
 
 
 def main(argv=None) -> list:
@@ -58,8 +66,14 @@ def main(argv=None) -> list:
     ap.add_argument("--n-redundant-reads", type=int, default=1,
                     help="comparator re-reads per WTA sample, majority-voted "
                          "(1 = single read)")
+    ap.add_argument("--static", action="store_true",
+                    help="static-batch reference engine (no slot refill; "
+                         "takes no priority or deadline)")
     ap.add_argument("--slots", type=int, default=4,
                     help="decode slots (continuous-batching batch width)")
+    ap.add_argument("--kv-layout", choices=("paged", "dense"), default="paged",
+                    help="KV cache layout: paged block pool (default) or the "
+                         "dense per-slot max_len oracle")
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="tokens per KV block")
     ap.add_argument("--kv-blocks", type=int, default=0,
@@ -150,12 +164,16 @@ def main(argv=None) -> list:
             read_sigma_inflation=args.read_sigma_inflation,
             comparator_offset=args.comparator_offset,
         )
-    eng = ServingEngine(
+    engine_cls = StaticServingEngine if args.static else ServingEngine
+    eng = engine_cls(
         params, cfg,
         ServeConfig(
             max_batch=args.slots,
             max_new_tokens=args.new_tokens,
             max_len=args.max_len,
+            # passed through as given: ServeConfig.validate refuses the
+            # paged-only knobs on the dense layout
+            kv_layout=args.kv_layout,
             kv_block_size=args.kv_block_size,
             num_kv_blocks=args.kv_blocks,
             enable_prefix_sharing=not args.no_prefix_sharing,
@@ -174,22 +192,28 @@ def main(argv=None) -> list:
         device=args.device,
     )
     rng = np.random.default_rng(args.seed + 7)
+    # the static engine has no scheduler: priority and deadline are the
+    # continuous engine's
+    submit_kw = {} if args.static else dict(priority=args.priority,
+                                            deadline_ms=args.deadline_ms)
     for _ in range(args.requests):
         n = int(rng.integers(2, 9))
-        eng.submit(rng.integers(0, cfg.vocab, n).tolist(), priority=args.priority,
-                   deadline_ms=args.deadline_ms)
+        eng.submit(rng.integers(0, cfg.vocab, n).tolist(), **submit_kw)
     t0 = time.perf_counter()
-    outs = eng.step()
+    # both drain everything: the static engine's step() serves one wave
+    outs = eng.run() if args.static else eng.step()
     dt = time.perf_counter() - t0
     m = eng.metrics()
     total = sum(len(o) for o in outs)
+    layout = "dense" if args.static else args.kv_layout
     print(
         f"served {len(outs)} requests, {total} tokens in {dt:.2f}s on "
         f"{eng.device} ({total / max(dt, 1e-9):.1f} tok/s, ttft "
         f"{m.ttft_mean * 1e3:.0f}ms p99 {m.ttft_p99 * 1e3:.0f}ms, "
         f"step {m.decode_step_ms:.2f}ms, occupancy {m.occupancy_mean:.2f}, "
         f"prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, "
-        f"prefill tokens saved {m.prefill_tokens_saved}, kv={args.kv_dtype}, "
+        f"prefill tokens saved {m.prefill_tokens_saved}, kv={args.kv_dtype} {layout}, "
+        f"engine={'static' if args.static else 'continuous'}, "
         f"sampler={f'wta R={args.n_redundant_reads}' if args.wta else 'greedy'})"
     )
     print(
@@ -211,18 +235,25 @@ def main(argv=None) -> list:
             f"redundant reads {m.redundant_read_events}, "
             f"transitions {len(m.degraded_transitions)}"
         )
-    a = m.analog
-    tc = a["tokens_computed"]
-    print(
-        f"energy (Table I pricing, {a['backend']} backend): "
-        f"computed {tc['total']} tokens "
-        f"(prefill {tc['prefill']}, decode {tc['decode']}, "
-        f"draft {tc['draft']}) for {a['tokens_published']} published; "
-        f"RACA {a['raca']['energy_pj_per_token']:.0f} pJ/tok "
-        f"({a['raca']['tops_per_w_effective']:.2f} TOPS/W), "
-        f"1b-ADC {a['adc1b']['energy_pj_per_token']:.0f} pJ/tok "
-        f"({a['adc1b']['tops_per_w_effective']:.2f} TOPS/W)"
-    )
+    for pr, row in sorted(m.latency_by_class.items()):
+        print(
+            f"class {pr}: n={row['n']} ttft p50/p99 {row['ttft_p50_ms']:.0f}/"
+            f"{row['ttft_p99_ms']:.0f}ms, latency p50/p99 "
+            f"{row['latency_p50_ms']:.0f}/{row['latency_p99_ms']:.0f}ms"
+        )
+    if m.analog:
+        a = m.analog
+        tc = a["tokens_computed"]
+        print(
+            f"energy (Table I pricing, {a['backend']} backend): "
+            f"computed {tc['total']} tokens "
+            f"(prefill {tc['prefill']}, decode {tc['decode']}, "
+            f"draft {tc['draft']}) for {a['tokens_published']} published; "
+            f"RACA {a['raca']['energy_pj_per_token']:.0f} pJ/tok "
+            f"({a['raca']['tops_per_w_effective']:.2f} TOPS/W), "
+            f"1b-ADC {a['adc1b']['energy_pj_per_token']:.0f} pJ/tok "
+            f"({a['adc1b']['tops_per_w_effective']:.2f} TOPS/W)"
+        )
     for o in outs:
         print("  ->", o)
     print(f"compile counts {eng.compile_counts()}")

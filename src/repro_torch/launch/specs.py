@@ -1,4 +1,7 @@
-"""The paged serving entry points the engine drives (``repro/launch/specs.py``).
+"""The serving entry points the engine drives (``repro/launch/specs.py``):
+the paged layout's, and the dense layout's (:func:`init_decode_cache`,
+:func:`make_cache_insert`, :func:`make_serve_step`, compiled as
+:class:`DenseGraphs`).
 
 Each ``make_*`` returns a plain function on tensors that updates the pool
 in place, where the reference jits and donates.  The decode step is the
@@ -15,8 +18,9 @@ writes into the pool's own tensors, whose addresses the graphs hold.
 Self-speculation: :func:`make_paged_spec_round` fuses k chained draft
 steps and one read-only verify of the drafted run, compiled as
 :class:`SpecGraphs` (one CUDA graph per (window width, k)), and
-:func:`make_spec_rollback` rewinds one slot's ``pos`` in place.  Absent
-still: sharding.
+:func:`make_spec_rollback` rewinds one slot's ``pos`` in place.  The
+dense step attends over every slot's whole ``max_len`` window, so its
+graphs are keyed by batch width alone.  Absent still: sharding.
 """
 
 from __future__ import annotations
@@ -50,11 +54,54 @@ SANITY_REASONS = {
 }
 
 
+# the dense layout's per-slot K/V leaves, (nu, n_attn, B, max_len, ...)
+DENSE_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
 def cache_batch_axis(leaf_name: str) -> int:
-    """Slot axis of a per-slot cache leaf (``pos`` is (B,))."""
+    """Slot axis of a per-slot cache leaf: ``pos`` is (B,), the dense
+    layout's K/V leaves (nu, n_attn, B, ...)."""
     if leaf_name == "pos":
         return 0
+    if leaf_name in DENSE_LEAVES:
+        return 2
     raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm cache")
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+    """The dense layout's cache for a live batch (``TF.init_decode_cache``)."""
+    _check_token_lm(cfg)
+    return TF.init_decode_cache(cfg, batch, max_len, device)
+
+
+def make_cache_insert(cfg: ModelConfig):
+    """(batch_cache, one_cache (B=1), slot) → batch_cache: copy one
+    request's prefilled dense cache into ``slot`` along each leaf's slot
+    axis, in place in the batch cache's own tensors (a captured decode
+    step holds their addresses).  ``slot`` is a Python int: every slot
+    shares one signature."""
+
+    def insert(batch_cache: dict, one_cache: dict, slot: int) -> dict:
+        for name, leaf in batch_cache.items():
+            leaf.narrow(cache_batch_axis(name), slot, 1).copy_(one_cache[name].to(leaf.dtype))
+        return batch_cache
+
+    return insert
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One dense decode step: (params, cache, token (B,)[, key, steps]) →
+    (cache, token (B,) int32), the cache written and ``pos`` advanced in
+    place.  With ``cfg.wta_head`` the token is :func:`sample_tokens`' WTA
+    vote: ``key`` one key pair for the whole batch, or (B, 2) per-slot
+    keys with ``steps`` (B,) folded in."""
+    _check_token_lm(cfg)
+
+    def serve_step(params, cache, token, key=None, steps=None):
+        cache, logits = TF.lm_decode_step(params, cache, token, cfg)
+        return cache, sample_tokens(cfg, logits, key, steps)
+
+    return serve_step
 
 
 def _spec_state_leaves(cache: dict) -> dict:
@@ -445,10 +492,6 @@ def capture_stream(index: int) -> "torch.cuda.Stream":
     return torch.cuda.Stream(index)
 
 
-# the dtypes of a decode step's inputs: table, tokens[, keys, steps]
-_INPUT_DTYPES = (torch.int32, torch.int32, torch.int64, torch.int64)
-
-
 @dataclasses.dataclass
 class _Entry:
     inputs: tuple                # static table, tokens[, keys, steps] on the device
@@ -499,22 +542,27 @@ class DecodeGraphs:
         self.entries: dict[tuple[int, int], _Entry] = {}
         self._pool = torch.cuda.graph_pool_handle() if capture else None
 
-    def _key(self, width: int) -> tuple:
-        return width, self.reads
+    # the dtypes of a step's inputs: table, tokens[, keys, steps]
+    input_dtypes = (torch.int32, torch.int32, torch.int64, torch.int64)
+
+    def _key(self, srcs: tuple) -> tuple:
+        return srcs[0].shape[1], self.reads
 
     def __call__(self, table: np.ndarray, tokens: np.ndarray, *wta: np.ndarray):
         """One decode step: table (B, W), tokens (B,)[, keys (B, 2), steps
         (B,)] host arrays → (tok, sane) (B,) int32 on the device."""
-        srcs = (table, tokens, *wta)
-        key = self._key(table.shape[1])
+        return self._call((table, tokens, *wta))
+
+    def _call(self, srcs: tuple) -> tuple:
+        key = self._key(srcs)
         entry = self.entries.get(key)
         if entry is None:
             pin = self.device.type == "cuda"
             entry = self.entries[key] = _Entry(
                 inputs=tuple(torch.empty(a.shape, dtype=dt, device=self.device)
-                             for a, dt in zip(srcs, _INPUT_DTYPES)),
+                             for a, dt in zip(srcs, self.input_dtypes)),
                 stage=tuple(torch.empty(a.shape, dtype=dt, pin_memory=pin)
-                            for a, dt in zip(srcs, _INPUT_DTYPES)),
+                            for a, dt in zip(srcs, self.input_dtypes)),
             )
         for dst, stage, src in zip(entry.inputs, entry.stage, srcs):
             stage.numpy()[...] = src
@@ -594,8 +642,8 @@ class SpecGraphs(DecodeGraphs):
         self.entries: dict[tuple[int, int], _Entry] = {}
         self._pool = torch.cuda.graph_pool_handle() if capture else None
 
-    def _key(self, width: int) -> tuple:
-        return width, self.k
+    def _key(self, srcs: tuple) -> tuple:
+        return srcs[0].shape[1], self.k
 
     def _log_key(self, key: tuple) -> tuple:
         return ("spec", *key)
@@ -604,9 +652,54 @@ class SpecGraphs(DecodeGraphs):
         """One round: table (B, W), tokens (B,)[, keys (B, 2), steps (B,)]
         host arrays → (dtoks, doks, vtoks, voks) (B, k), vstates {"pos": (k,
         B)} on the device."""
-        dtoks, doks, vtoks, voks, vpos = super().__call__(table, tokens, *wta)
+        dtoks, doks, vtoks, voks, vpos = self._call((table, tokens, *wta))
         return dtoks, doks, vtoks, voks, {"pos": vpos}
 
     def _run(self, inputs: tuple) -> tuple[torch.Tensor, ...]:
         dtoks, doks, vtoks, voks, vstates = self._round(self.params, self.cache, *inputs)
         return dtoks, doks, vtoks, voks, vstates["pos"]
+
+
+class DenseGraphs(DecodeGraphs):
+    """The compiled dense decode step: :func:`make_serve_step` over the
+    parameters and one dense cache per batch width, one entry per batch
+    width B (the window is always ``max_len``, so no width is keyed), the
+    counterpart of the reference's dense step jitted per batch shape.
+
+    The machinery is :class:`DecodeGraphs`': static inputs (tokens (B,)
+    int32[, key (2,) or keys (B, 2) int64[, steps (B,) int64]]) filled
+    through pinned staging, the first call of an entry eager on the
+    capture stream and then captured under ``set_sync_debug_mode("error")``,
+    every later call a replay that adds the capture's launch counts; eager
+    on the same buffers without ``capture``.  A call returns ``(tok,)``,
+    valid until the next call.  ``caches`` maps a batch width to its cache;
+    the caller adds one before the first call at a new width, and writes
+    every later prompt into that same cache in place (the continuous
+    engine's slot insert, the static engine's prefill), never rebinding
+    a leaf: the graph holds their addresses."""
+
+    input_dtypes = (torch.int32, torch.int64, torch.int64)
+
+    def __init__(self, cfg: ModelConfig, params: dict, caches: dict, *, capture: bool):
+        self.params, self.caches = params, caches
+        self.capture = capture
+        self.device = params["embed"]["embedding"].device
+        self._step = make_serve_step(cfg)
+        self.entries: dict[tuple[int], _Entry] = {}
+        self._pool = torch.cuda.graph_pool_handle() if capture else None
+
+    def _key(self, srcs: tuple) -> tuple:
+        return (srcs[0].shape[0],)
+
+    def _log_key(self, key: tuple) -> tuple:
+        return ("dense", *key)
+
+    def __call__(self, tokens: np.ndarray, *wta: np.ndarray):
+        """One dense decode step of the cache of width ``len(tokens)``:
+        tokens (B,)[, key (2,) or keys (B, 2)[, steps (B,)]] host arrays →
+        (tok,) (B,) int32 on the device."""
+        return self._call((tokens, *wta))
+
+    def _run(self, inputs: tuple) -> tuple[torch.Tensor, ...]:
+        _, tok = self._step(self.params, self.caches[inputs[0].shape[0]], *inputs)
+        return (tok,)

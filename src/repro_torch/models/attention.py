@@ -1,6 +1,7 @@
 """Attention (``repro/models/attention.py``): the full-sequence
-self-attention of the training path, and the paged attention of the
-serving path.
+self-attention of the training path and of the dense prefill, the dense
+decode attention (:func:`attend_one_token`, :func:`decode_self_attention`)
+and the paged attention of the serving path.
 
 The training path's projections take threefry keys (``split`` of the
 layer's key, as the reference splits it) and run the crossbar in analog
@@ -17,7 +18,14 @@ the decode step runs), so the per-slot scatter never collides; shared
 pages are only ever read.  Slots whose table row is all trash (page 0)
 write into page 0, which no live request reads.
 
-Attention and the int8 KV write go through ``kernels.ops``: the
+The dense layout's attention is plain PyTorch on every device, as the
+reference's is jnp on every backend (it reaches no Pallas kernel): its
+cache is a per-slot ``max_len`` window written in place at ``pos``, an
+int8 one with nearest-rounded codes and per-(slot, position, head) scales.
+The reference's ``init_cache`` / ``KVCache`` have no caller there and are
+not ported.
+
+Paged attention and the int8 KV write go through ``kernels.ops``: the
 hand-written CUDA kernels for CUDA tensors, their plain PyTorch versions
 for CPU tensors.  int8 pools carry per-(page, row, kv head) f32 scale
 planes beside the codes; one fused write quantizes a layer's K/V rows and
@@ -138,6 +146,102 @@ def self_attention(
     qpos = positions[0] if positions.dim() == 2 else positions
     out = attend_full(q, k, v, qpos, qpos, kind, cfg).reshape(b, s, -1)
     return A.analog_matmul(_proj_cfg(cfg), ko, out, p["wo"])
+
+
+def _write_at(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write ``new`` (B, 1, ...) at row ``pos[b]`` of each slot's window in
+    ``buf`` (B, Smax, ...), in place in ``buf``'s own storage.  A position
+    past the window is clamped to its last row, as the reference's
+    ``dynamic_update_slice`` clamps: an idle slot's ``pos`` keeps counting
+    up, and its writes land where no live request reads."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf.index_put_((rows, pos.long().clamp(0, buf.shape[1] - 1)), new[:, 0])
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(slot, position, head) int8 codes of K/V rows, by
+    deterministic nearest rounding: (codes int8, scales f32 (..., Hkv)).
+    The scale factors out of the head_dim contraction, so attention over
+    an int8 cache multiplies its scores and weights by ``scale / 127``."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-6)
+    q = torch.round(xf / scale[..., None] * 127.0)
+    return q.to(torch.int8), scale
+
+
+def attend_one_token(
+    q: torch.Tensor,        # (B, 1, H, Dh), RoPE applied
+    k_buf: torch.Tensor,    # (B, T, Hkv, Dh) float or int8
+    v_buf: torch.Tensor,
+    pos: torch.Tensor,      # (B,) last valid key position
+    cfg: ModelConfig,
+    kind: str = "global",
+    k_scale: Optional[torch.Tensor] = None,  # (B, T, Hkv) for int8 buffers
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One query token's attention over a contiguous KV window, the dense
+    layout's readout: (B, 1, H·Dh) f32, before w_o.
+
+    The compute dtype is the reference's: bf16 for an int8 cache, else
+    ``cfg.attn_probs_dtype``.  Operands are rounded to it and the products
+    summed in f32 (the reference's ``preferred_element_type``), which an
+    f32 einsum over the rounded operands reproduces: a product of two bf16
+    values is exact in f32.  Keys past ``pos`` (and, for ``local``, before
+    the window) score NEG_INF and weigh exactly 0."""
+    b, t = k_buf.shape[0], k_buf.shape[1]
+    hkv, dh = cfg.n_kv_heads, q.shape[-1]
+    int8_cache = k_buf.dtype == torch.int8
+    cdt = torch.bfloat16 if int8_cache else getattr(torch, cfg.attn_probs_dtype)
+    qg = q.reshape(b, 1, hkv, -1, dh).to(cdt) * torch.tensor(cfg.head_dim**-0.5, dtype=cdt)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_buf.to(cdt).float())
+    if int8_cache:
+        sc = sc * (k_scale.transpose(1, 2) / 127.0)[:, :, None, None, :]
+    if cfg.attn_softcap > 0.0:
+        sc = cfg.attn_softcap * torch.tanh(sc / cfg.attn_softcap)
+    kpos = torch.arange(t, device=q.device)[None]
+    ok = kpos <= pos[:, None]
+    if kind == "local":
+        ok &= kpos > (pos[:, None] - cfg.local_window)
+    sc = sc + torch.where(ok, 0.0, NEG_INF)[:, None, None, None, :]
+    w = torch.softmax(sc, dim=-1)
+    if int8_cache:
+        w = w * (v_scale.transpose(1, 2) / 127.0)[:, :, None, None, :]
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(cdt).float(), v_buf.to(cdt).float())
+    return out.reshape(b, 1, -1)
+
+
+def decode_self_attention(
+    p: dict,
+    x: torch.Tensor,         # (B, 1, D)
+    k_cache: torch.Tensor,   # (B, Smax, Hkv, Dh) float or int8 (in place)
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,       # (B,) write index
+    cfg: ModelConfig,
+    kind: str = "global",
+    k_scale: Optional[torch.Tensor] = None,  # (B, Smax, Hkv) f32, int8 caches
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One token's attention against the dense cache: write this step's
+    K/V at ``pos`` in place (an int8 cache: its nearest-rounded codes and
+    scales, :func:`quantize_kv`), then attend over the whole ``Smax``
+    window (:func:`attend_one_token`).  Returns (B, 1, D) after w_o."""
+    int8_cache = k_cache.dtype == torch.int8
+    q, k, v = qkv(p, x, cfg)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    if int8_cache:
+        k8, ks = quantize_kv(k)
+        v8, vs = quantize_kv(v)
+        _write_at(k_cache, k8, pos)
+        _write_at(v_cache, v8, pos)
+        _write_at(k_scale, ks, pos)
+        _write_at(v_scale, vs, pos)
+    else:
+        _write_at(k_cache, k, pos)
+        _write_at(v_cache, v, pos)
+    out = attend_one_token(q, k_cache, v_cache, pos, cfg, kind,
+                           k_scale=k_scale, v_scale=v_scale).to(x.dtype)
+    return A.analog_matmul(_proj_cfg(cfg), None, out, p["wo"])
 
 
 def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

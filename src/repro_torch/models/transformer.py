@@ -1,5 +1,6 @@
 """Decoder LM stack: init, the full-sequence forward and loss of the
-training path, the paged decode step and chunked paged prefill
+training path, the decode step over a dense or a paged cache, the dense
+layout's monolithic prefill and the chunked paged prefill
 (``repro/models/transformer.py``, ``decoder_lm`` family).
 
 Parameters keep the reference's tree: units stacked on a leading
@@ -10,7 +11,13 @@ leaves are views into the stacked tensors.
 
 The paged pool is updated in place: :func:`lm_decode_step` and
 :func:`lm_prefill_chunk` write K/V rows into the pool tensors they are
-given (see ``attention.py`` for why the writes never collide).
+given (see ``attention.py`` for why the writes never collide).  So is the
+dense cache (``init_decode_cache``: one ``max_len`` window per slot):
+the decode step writes each slot's row at its ``pos``, and
+:func:`lm_prefill` fills a cache it allocates or one it is given.  An
+int8 dense cache holds nearest-rounded codes and per-(slot, position,
+head) scales (``attention.quantize_kv``), the reference's deterministic
+quantizer, not the paged pool's stochastic rounding.
 
 With ``cfg.kv_cache_dtype == "int8"`` the pools hold stochastically
 rounded int8 codes plus f32 scale planes.  Every write's rounding seed is
@@ -34,6 +41,7 @@ from repro_torch.kernels.prng import MASK, mul32
 from . import attention as ATT
 from .config import ModelConfig
 from .layers import (
+    apply_rope,
     dtype_of,
     embed,
     init_embedding,
@@ -186,8 +194,33 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, key=None) -> tuple[torc
 
 
 # ---------------------------------------------------------------------------
-# Paged cache.
+# Caches.
 # ---------------------------------------------------------------------------
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+    """The dense layout's cache: ``pos`` (B,) int32 and, per K/V, one
+    ``max_len`` window per slot, ``(nu, n_attn, B, max_len, Hkv, Dh)``.
+    An int8 cache (``cfg.kv_cache_dtype == "int8"``) holds int8 codes and
+    the ``(nu, n_attn, B, max_len, Hkv)`` f32 scales ``k_scale`` /
+    ``v_scale`` (ones until written).  The ported family keeps no
+    recurrent state, so there are no other leaves."""
+    _check_family(cfg)
+    if cfg.kv_cache_dtype not in ("same", "int8"):
+        raise ValueError(f"kv_cache_dtype must be 'same' or 'int8', got {cfg.kv_cache_dtype!r}")
+    dev = resolve_device(device)
+    n_attn = len(cfg.layer_pattern)
+    shape = (cfg.n_units, n_attn, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.kv_cache_dtype == "int8":
+        cache["k"] = torch.zeros(shape, dtype=torch.int8, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=torch.int8, device=dev)
+        cache["k_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+        cache["v_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+    else:
+        cache["k"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
+    return cache
 
 
 def init_paged_decode_cache(
@@ -254,18 +287,26 @@ def lm_decode_step(
     cache: dict,
     token: torch.Tensor,   # (B,) int last emitted token
     cfg: ModelConfig,
-    table: torch.Tensor,   # (B, W) int32 block table
+    table: Optional[torch.Tensor] = None,   # (B, W) int32 block table (paged)
     kv_write: bool = True,
     split_batch: Optional[int] = None,
 ) -> tuple[dict, torch.Tensor]:
-    """One decode step over the paged pool; returns (cache, logits (B, V)).
+    """One decode step; returns (cache, logits (B, V)).
 
-    Everything is updated in place: the pool leaves are written, and
+    A paged cache (``k_pages`` leaves) is read and written through the
+    block ``table``; a dense cache (``k`` leaves, :func:`init_decode_cache`)
+    through each slot's own window (``attention.decode_self_attention``),
+    and ``table`` is not used.  The rest of the step is the same code on
+    both layouts.
+
+    Everything is updated in place: the cache leaves are written, and
     ``pos`` (and an int8 pool's ``quant_step``) advance by one in their own
-    storage after their last read, so a captured step (``specs.DecodeGraphs``)
-    reads the values the engine writes there between steps.  The returned
-    cache is the same dict.  An int8 write of unit ``u``, sublayer ``i`` rounds under
-    ``quant_step·2654435761 + u·40503 + i·1299721 mod 2**32``.
+    storage after their last read, so a captured step (``specs.DecodeGraphs``,
+    ``specs.DenseGraphs``) reads the values the engine writes there between
+    steps.  The returned cache is the same dict.  An int8 pool's write of
+    unit ``u``, sublayer ``i`` rounds under
+    ``quant_step·2654435761 + u·40503 + i·1299721 mod 2**32``; an int8
+    dense cache rounds to nearest.
 
     ``kv_write=False`` is the speculative verify's step: the same math over
     the pool as the draft left it, which stays untouched, and no
@@ -273,7 +314,11 @@ def lm_decode_step(
     cache view with a ``pos`` of its own.  ``split_batch`` is handed to
     decode attention (``attention.paged_decode_self_attention``)."""
     pos = cache["pos"]
+    paged = "k_pages" in cache
     int8_pool = "k_scale_pages" in cache
+    int8_dense = "k_scale" in cache
+    if paged and table is None:
+        raise ValueError("a paged cache's decode step needs its block table")
     if int8_pool and kv_write:
         qstep = cache["quant_step"]
         seeds = _layer_seeds(mul32(qstep.long() & MASK, 2654435761), cfg)
@@ -282,14 +327,20 @@ def lm_decode_step(
         up = unit_params(params["units"], u)
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
+            hin = rmsnorm(sub["ln1"], x, cfg.norm_eps)
+            if not paged:
+                kw = {n: cache[n][u, i] for n in ("k_scale", "v_scale")} if int8_dense else {}
+                a = ATT.decode_self_attention(sub["attn"], hin, cache["k"][u, i],
+                                              cache["v"][u, i], pos, cfg, kind=kind, **kw)
+                x = _attn_block(sub, x, a, cfg)
+                continue
             kw = {}
             if int8_pool and kv_write:
                 kw = _int8_kw(cache, u, i, seeds, "quant_seed")
             elif int8_pool:
                 kw = {n: cache[n][u, i] for n in ("k_scale_pages", "v_scale_pages")}
             a = ATT.paged_decode_self_attention(
-                sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps),
-                cache["k_pages"][u, i], cache["v_pages"][u, i],
+                sub["attn"], hin, cache["k_pages"][u, i], cache["v_pages"][u, i],
                 table, pos, cfg, kind=kind, write=kv_write, split_batch=split_batch, **kw,
             )
             x = _attn_block(sub, x, a, cfg)
@@ -298,6 +349,53 @@ def lm_decode_step(
     pos.add_(1)
     if int8_pool and kv_write:
         qstep.add_(1)
+    return cache, logits[:, 0, :]
+
+
+def lm_prefill(
+    params: dict,
+    tokens: torch.Tensor,   # (B, S)
+    cfg: ModelConfig,
+    max_len: int,
+    cache: Optional[dict] = None,
+) -> tuple[dict, torch.Tensor]:
+    """The dense layout's monolithic prefill: run the whole prompt and fill
+    a dense cache (:func:`init_decode_cache`) with its K/V, padded to
+    ``max_len``; returns (cache, last-token logits (B, V)).  Attention is
+    ``attention.attend_full``, w_o a plain matmul, as in the reference.
+    An int8 cache stores :func:`attention.quantize_kv` of the padded rows.
+
+    ``cache``, when given (B slots, ``max_len`` wide), is written in place
+    and returned, every leaf overwritten whole, ``pos`` included: a
+    captured decode step that holds its addresses then serves the prompt
+    (the static engine's waves); otherwise a new cache is allocated."""
+    _check_family(cfg)
+    b, s = tokens.shape
+    if cache is None:
+        cache = init_decode_cache(cfg, b, max_len, tokens.device)
+    x = embed(params["embed"], tokens, cfg)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    int8 = cfg.kv_cache_dtype == "int8"
+    for u in range(cfg.n_units):
+        up = unit_params(params["units"], u)
+        for i, kind in enumerate(cfg.layer_pattern):
+            sub = up[f"l{i}"]
+            q, k, v = ATT.qkv(sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            o = ATT.attend_full(q, k, v, positions[0], positions[0], kind, cfg)
+            x = _attn_block(sub, x, o.reshape(b, s, -1) @ sub["attn"]["wo"].to(x.dtype), cfg)
+            for name, rows in (("k", k), ("v", v)):
+                padded = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, max_len - s))
+                if int8:
+                    codes, scale = ATT.quantize_kv(padded)
+                    cache[name][u, i].copy_(codes)
+                    cache[f"{name}_scale"][u, i].copy_(scale)
+                else:
+                    cache[name][u, i].copy_(padded)
+    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    logits = logits_out(params["embed"], params.get("head"), x, cfg)
+    cache["pos"].fill_(s)
     return cache, logits[:, 0, :]
 
 

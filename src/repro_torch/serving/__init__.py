@@ -1,7 +1,14 @@
-"""Serving stack of the port: scheduler, block allocator, paged engine,
+"""Serving stack of the port: scheduler, block allocator, the continuous
+engine (paged or dense layout), the static-batch reference engine,
 degradation policy and fault injection."""
 
-from .engine import DegradationPolicy, ServeConfig, ServingEngine, ServingMetrics
+from .engine import (
+    DegradationPolicy,
+    ServeConfig,
+    ServingEngine,
+    ServingMetrics,
+    StaticServingEngine,
+)
 from .faults import POOL_HOG_OWNER, FaultInjector
 from .scheduler import (
     PRIORITY_BATCH,
@@ -25,4 +32,5 @@ __all__ = [
     "ServeConfig",
     "ServingEngine",
     "ServingMetrics",
+    "StaticServingEngine",
 ]

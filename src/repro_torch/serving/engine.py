@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine over the paged KV pool, with greedy
-or WTA sampling (the paged core of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine over the paged KV pool or the dense
+per-slot cache, with greedy or WTA sampling, and the static-batch
+reference engine (``repro/serving/engine.py``).
 
 A slot-based scheduler admits queued requests into free slots of a live
 decode batch.  Admission reserves a request's whole block budget from the
@@ -72,9 +73,20 @@ tokens through the plain decode step, then the drafted run is decoded
 again read-only as k·B rows, and each slot accepts its drafts up to the
 first token the verify resamples otherwise, which is the token it
 publishes there; a rejected tail rolls ``pos`` back in place.  Level 1 of
-the degradation ladder turns it off.  Knobs the reference has and this
-slice does not honour (dense layout, sharding) are absent from
-:class:`ServeConfig`.
+the degradation ladder turns it off.
+
+The dense layout (``ServeConfig(kv_layout="dense")``), the reference's
+byte-identity oracle: each slot owns a ``max_len`` window of the cache;
+admission prefills a request's whole bucket in one call
+(``transformer.lm_prefill``), samples its first token there and copies
+its cache into the slot; each tick decodes every slot over its whole
+window, one CUDA graph per batch width on the card
+(``specs.DenseGraphs``).  No blocks, sharing, chunking, preemption,
+speculation, fault backend or injector: :class:`ServeConfig` refuses each
+of them with the reference's message.  :class:`StaticServingEngine` is
+the reference's pre-continuous-batching engine on that step, kept as the
+equivalence oracle and occupancy baseline.  Sharding is not ported, and
+``mesh`` is not a field of :class:`ServeConfig`.
 """
 
 from __future__ import annotations
@@ -157,6 +169,10 @@ class ServeConfig:
     max_batch: int = 8          # decode slots
     max_new_tokens: int = 32    # default per-request budget
     max_len: int = 512          # per-request capacity (prompt + generated)
+    # "paged": the shared block pool; "dense": one max_len window per slot
+    # (the byte-identity oracle: no sharing, chunking, preemption,
+    # speculation or fault backend)
+    kv_layout: str = "paged"
     eos_token: int = -1         # -1: never stop early
     seed: int = 0               # WTA sampling: the base key PRNGKey(seed)
     # prompt lengths are left-padded up to the next bucket
@@ -247,69 +263,94 @@ class ServeConfig:
         return self.max_batch * self.max_kv_blocks() + 1
 
     def validate(self, kv_cache_dtype: str = "same") -> None:
-        """Loud, eager config validation."""
+        """Loud, eager config validation, with the reference's refusals of
+        paged-only knobs on the dense layout."""
         if kv_cache_dtype not in ("same", "int8"):
             raise ValueError(
                 f"kv_cache_dtype must be 'same' or 'int8', got {kv_cache_dtype!r}"
             )
+        if self.kv_layout not in ("paged", "dense"):
+            raise ValueError(
+                f"kv_layout must be 'paged' or 'dense', got {self.kv_layout!r}"
+            )
         self.buckets()
-        if self.kv_block_size < 1:
-            raise ValueError(f"kv_block_size must be >= 1, got {self.kv_block_size}")
-        if not isinstance(self.enable_prefix_sharing, bool):
-            # a truthy string like "off" would silently ENABLE sharing
+        if self.kv_layout == "paged":
+            if self.kv_block_size < 1:
+                raise ValueError(f"kv_block_size must be >= 1, got {self.kv_block_size}")
+            if not isinstance(self.enable_prefix_sharing, bool):
+                # a truthy string like "off" would silently ENABLE sharing
+                raise ValueError(
+                    f"enable_prefix_sharing must be a bool, got "
+                    f"{self.enable_prefix_sharing!r}"
+                )
+            if not isinstance(self.enable_preemption, bool):
+                raise ValueError(
+                    f"enable_preemption must be a bool, got {self.enable_preemption!r}"
+                )
+            if self.prefill_chunk < 0:
+                raise ValueError(f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
+            if self.prefill_chunk and self.prefill_chunk % self.kv_block_size:
+                # chunks scatter whole blocks and the resume grid is block-indexed
+                raise ValueError(
+                    f"prefill_chunk={self.prefill_chunk} must be a multiple of "
+                    f"kv_block_size={self.kv_block_size}"
+                )
+            # the smallest admissible request: shortest bucket + one token
+            need = -(-(min(self.buckets()) + 1) // self.kv_block_size)
+            cap = self.pool_blocks(kv_cache_dtype) - 1  # minus trash page
+            if cap < need:
+                raise ValueError(
+                    f"num_kv_blocks={self.num_kv_blocks} leaves a pool of {cap} "
+                    f"allocatable blocks, but even the smallest request (bucket "
+                    f"{min(self.buckets())} + 1 token) needs {need}"
+                )
+        elif self.prefill_chunk:
             raise ValueError(
-                f"enable_prefix_sharing must be a bool, got "
-                f"{self.enable_prefix_sharing!r}"
+                "prefill_chunk is a paged-layout knob; the dense layout "
+                "prefills monolithically (it is the byte-identity oracle)"
             )
-        if not isinstance(self.enable_preemption, bool):
+        if self.fault_injector is not None and self.kv_layout != "paged":
             raise ValueError(
-                f"enable_preemption must be a bool, got {self.enable_preemption!r}"
-            )
-        if self.spill_budget_bytes is not None and self.spill_budget_bytes < 0:
-            raise ValueError(
-                f"spill_budget_bytes must be >= 0, got {self.spill_budget_bytes}"
-            )
-        if self.n_redundant_reads < 1:
-            raise ValueError(
-                f"n_redundant_reads must be >= 1, got {self.n_redundant_reads}"
+                "fault_injector drives the paged allocator/pipeline; the "
+                "dense layout is the fault-free byte-identity oracle"
             )
         if self.speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {self.speculate_k}")
-        if self.speculate_k and self.speculate_k >= self.max_new_tokens:
-            # a draft run as long as the whole decode budget amortizes
-            # nothing: it would overrun the budget on its first round
-            raise ValueError(
-                f"speculate_k={self.speculate_k} must be < the decode budget "
-                f"max_new_tokens={self.max_new_tokens}"
-            )
-        if self.prefill_chunk < 0:
-            raise ValueError(f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
-        if self.prefill_chunk and self.prefill_chunk % self.kv_block_size:
-            # chunks scatter whole blocks and the resume grid is block-indexed
-            raise ValueError(
-                f"prefill_chunk={self.prefill_chunk} must be a multiple of "
-                f"kv_block_size={self.kv_block_size}"
-            )
-        # the smallest admissible request: shortest bucket + one token
-        need = -(-(min(self.buckets()) + 1) // self.kv_block_size)
-        cap = self.pool_blocks(kv_cache_dtype) - 1  # minus trash page
-        if cap < need:
-            raise ValueError(
-                f"num_kv_blocks={self.num_kv_blocks} leaves a pool of {cap} "
-                f"allocatable blocks, but even the smallest request (bucket "
-                f"{min(self.buckets())} + 1 token) needs {need}"
-            )
+        if self.speculate_k:
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    "speculate_k > 0 drafts through the paged block pool; the "
+                    "dense layout is the plain-decode byte-identity oracle and "
+                    "cannot speculate"
+                )
+            if self.speculate_k >= self.max_new_tokens:
+                # a draft run as long as the whole decode budget amortizes
+                # nothing: it would overrun the budget on its first round
+                raise ValueError(
+                    f"speculate_k={self.speculate_k} must be < the decode budget "
+                    f"max_new_tokens={self.max_new_tokens}"
+                )
         if self.device_backend not in BK.BACKENDS:
             raise ValueError(
                 f"unknown device_backend {self.device_backend!r}; "
                 f"registered: {sorted(BK.BACKENDS)}"
             )
         faulty = BK.BACKENDS[self.device_backend].overrides_compute
+        if faulty and self.kv_layout != "paged":
+            raise ValueError(
+                f"device_backend={self.device_backend!r} overrides compute and "
+                "needs the paged engine's rebuild/degradation loop; the dense "
+                "layout is the healthy byte-identity oracle"
+            )
         if self.device_fault_config is not None and not faulty:
             raise ValueError(
                 "device_fault_config is only meaningful with a fault backend "
                 f"(e.g. 'sim_faulty'); device_backend={self.device_backend!r} "
                 "would silently ignore it"
+            )
+        if self.n_redundant_reads < 1:
+            raise ValueError(
+                f"n_redundant_reads must be >= 1, got {self.n_redundant_reads}"
             )
         if self.canary_interval < 0:
             raise ValueError(f"canary_interval must be >= 0, got {self.canary_interval}")
@@ -329,6 +370,16 @@ class ServeConfig:
             if pol.redundant_reads < 1:
                 raise ValueError(
                     f"DegradationPolicy redundant_reads must be >= 1, got {pol.redundant_reads}"
+                )
+        if self.spill_budget_bytes is not None:
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    "spill_budget_bytes bounds the paged preemption spill store; "
+                    "the dense layout never spills"
+                )
+            if self.spill_budget_bytes < 0:
+                raise ValueError(
+                    f"spill_budget_bytes must be >= 0, got {self.spill_budget_bytes}"
                 )
 
 
@@ -363,6 +414,9 @@ class ServingMetrics:
     spec_tokens_per_round: float = 0.0  # tokens consumed per round
     # done_reason -> count over every finished request
     evictions: dict = dataclasses.field(default_factory=dict)
+    # priority class -> {n, ttft_p50_ms, ttft_p99_ms, latency_p50_ms,
+    # latency_p99_ms}: the per-class SLO view (latency = submit → done)
+    latency_by_class: dict = dataclasses.field(default_factory=dict)
     # the device backend's accounting snapshot: analog event tallies, the
     # shape counts they reconcile against, and the Table I model's energy
     # under RACA and 1-bit-ADC readout (DeviceBackend.snapshot)
@@ -412,6 +466,11 @@ class ServingMetrics:
             out += f" retired_tiles={self.retired_tiles}"
         if self.redundant_read_events:
             out += f" redundant_reads={self.redundant_read_events}"
+        if self.latency_by_class:
+            out += " class=" + ",".join(
+                f"{k}:n={v['n']}/p99={v['latency_p99_ms']:.0f}ms"
+                for k, v in sorted(self.latency_by_class.items())
+            )
         if self.analog:
             out += (
                 f" raca_pj_per_tok={self.analog['raca']['energy_pj_per_token']:.0f}"
@@ -421,8 +480,8 @@ class ServingMetrics:
 
 
 class ServingEngine:
-    """Continuous-batching engine over the paged pool (greedy or WTA
-    sampling)."""
+    """Continuous-batching engine over the paged pool or the dense cache
+    (greedy or WTA sampling)."""
 
     def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None, *,
                  graphs: Optional[bool] = None):
@@ -439,21 +498,24 @@ class ServingEngine:
                 f"params live on {params['embed']['embedding'].device}, "
                 f"the engine on {self.device}"
             )
-        self.sharing = cfg.enable_prefix_sharing
-        self.int8 = model_cfg.kv_cache_dtype == "int8"
+        self.paged = cfg.kv_layout == "paged"
+        self.int8 = self.paged and model_cfg.kv_cache_dtype == "int8"
+        self.sharing = self.paged and cfg.enable_prefix_sharing
         self.params = params
         self.mcfg = model_cfg
         self.cfg = cfg
         self.sched = Scheduler(cfg.max_batch)
         b = cfg.max_batch
-        self._max_blocks = cfg.max_kv_blocks()
-        self.blocks = BlockAllocator(
-            cfg.pool_blocks(model_cfg.kv_cache_dtype), n_reserved=1
-        )
-        # host-authoritative block table; row = trash page 0 when free
-        self._table = np.zeros((b, self._max_blocks), np.int32)
-        # host mirror of cache["pos"] (drives the decode window width)
-        self._host_pos = np.zeros((b,), np.int64)
+        self.blocks = None
+        if self.paged:
+            self._max_blocks = cfg.max_kv_blocks()
+            self.blocks = BlockAllocator(
+                cfg.pool_blocks(model_cfg.kv_cache_dtype), n_reserved=1
+            )
+            # host-authoritative block table; row = trash page 0 when free
+            self._table = np.zeros((b, self._max_blocks), np.int32)
+            # host mirror of cache["pos"] (drives the decode window width)
+            self._host_pos = np.zeros((b,), np.int64)
         # private device backend: analog-event accounting for THIS
         # engine's traffic; a compute-overriding one (sim_faulty) is also
         # installed process-wide around each tick
@@ -464,8 +526,8 @@ class ServingEngine:
         # base WTA redundant-read factor (a greedy argmax re-read can never
         # change the token)
         self._redundant_base = cfg.n_redundant_reads if model_cfg.wta_head else 1
-        self.spec_k = cfg.speculate_k
-        # the pool exists before the decode step is first captured, and
+        self.spec_k = cfg.speculate_k if self.paged else 0
+        # the cache exists before the decode step is first captured, and
         # never moves: the graphs hold its addresses
         self._cache = self._init_cache()
         self._graphs = graphs
@@ -516,7 +578,7 @@ class ServingEngine:
         self._total_tokens = 0
         self._busy_time = 0.0
         self._decode_time = 0.0
-        self._injector = cfg.fault_injector
+        self._injector = cfg.fault_injector if self.paged else None
         # ---- degraded-device serving state ----
         self._degrade_level = 0
         self._dirty_streak = 0       # consecutive ticks with detections
@@ -553,8 +615,19 @@ class ServingEngine:
         way."""
         self._dropped_captures += [(self._rebuilds, k, ms) for k, ms in self._live_captures()]
         self._serve_steps: dict[int, SP.DecodeGraphs] = {}
-        self._decode = self._get_serve_step(self._redundant_base)
         self._spec_graphs = None
+        self._fault_version_seen = getattr(self.backend, "fault_version", 0)
+        if not self.paged:
+            # the dense step (one graph per batch width: the engine's is
+            # max_batch), the monolithic prefill and the slot insert
+            self._decode = SP.DenseGraphs(self.mcfg, self.params,
+                                          {self.cfg.max_batch: self._cache},
+                                          capture=self._graphs)
+            self._serve_steps = {1: self._decode}
+            self._prefill = SP.EagerEntry(self._make_prefill())
+            self._insert = SP.EagerEntry(SP.make_cache_insert(self.mcfg))
+            return
+        self._decode = self._get_serve_step(self._redundant_base)
         if self.spec_k:
             self._spec_graphs = SP.SpecGraphs(self.mcfg, self.params, self._cache,
                                               k=self.spec_k, capture=self._graphs)
@@ -570,7 +643,20 @@ class ServingEngine:
         self._page_spill = SP.EagerEntry(SP.make_page_spill(self.mcfg))
         self._page_restore = SP.EagerEntry(SP.make_page_restore(self.mcfg))
         self._state_gather = SP.EagerEntry(SP.make_slot_state_gather(self.mcfg))
-        self._fault_version_seen = getattr(self.backend, "fault_version", 0)
+
+    def _make_prefill(self):
+        """The dense layout's monolithic one-request prefill: (params,
+        tokens (1, L), key pair) → (cache (B=1), first token (1,)), the
+        first token sampled as :func:`specs.make_sample0` samples it (the
+        paged layout's prefill is the chunked ``_suffix_prefill``)."""
+        cfg, max_len = self.mcfg, self.cfg.max_len
+        sample0 = SP.make_sample0(cfg)
+
+        def prefill(params, tokens, key):
+            cache, logits = TF.lm_prefill(params, tokens, cfg, max_len)
+            return cache, sample0(logits, key)
+
+        return prefill
 
     def _check_fault_version(self) -> None:
         """Rebuild stale entry points after a backend fault-state change
@@ -624,12 +710,13 @@ class ServingEngine:
                 f"prefill bucket {self._bucket(n)} + {budget} new tokens "
                 f"= {need} exceeds cache max_len={self.cfg.max_len}"
             )
-        nb = self._blocks_needed(self._bucket(n), budget)
-        if nb > self.blocks.capacity:
-            raise ValueError(
-                f"request needs {nb} KV blocks but the pool only has "
-                f"{self.blocks.capacity}; raise num_kv_blocks"
-            )
+        if self.paged:
+            nb = self._blocks_needed(self._bucket(n), budget)
+            if nb > self.blocks.capacity:
+                raise ValueError(
+                    f"request needs {nb} KV blocks but the pool only has "
+                    f"{self.blocks.capacity}; raise num_kv_blocks"
+                )
         return self.sched.submit(prompt_tokens, budget, now=time.perf_counter(),
                                  priority=priority, deadline_ms=deadline_ms).rid
 
@@ -641,6 +728,9 @@ class ServingEngine:
         return -(-(bucket + budget) // self.cfg.kv_block_size)
 
     def _init_cache(self) -> dict:
+        if not self.paged:
+            return SP.init_decode_cache(self.mcfg, self.cfg.max_batch, self.cfg.max_len,
+                                        device=self.device)
         return TF.init_paged_decode_cache(
             self.mcfg, self.cfg.max_batch, self.cfg.pool_blocks(self.mcfg.kv_cache_dtype),
             self.cfg.kv_block_size, device=self.device,
@@ -737,19 +827,36 @@ class ServingEngine:
 
     def _release_if_done(self, req: Request) -> None:
         """Reclaim an evicted request's blocks and point its slot's table
-        row at the trash page (the batched decode step keeps running)."""
-        if req.state is not RequestState.DONE:
+        row at the trash page (the batched decode step keeps running).
+        The dense layout has nothing to reclaim: the next admission's
+        insert overwrites the slot's whole window."""
+        if not (self.paged and req.state is RequestState.DONE):
             return
         self.blocks.free(req.rid)
         self._table[req.done_slot, :] = 0
 
     def _admit_one(self, req: Request) -> None:
-        """Enqueue a chunked-prefill job for an admitted request.  Its
-        table row stays on the trash page until the job completes, so the
-        batched decode steps of the other slots never touch it."""
+        """Bind an admitted request to its slot.  Dense: the monolithic
+        prefill, the slot insert, the first token; decode starts at once.
+        Paged: enqueue a chunked-prefill job; its table row stays on the
+        trash page until the job completes, so the batched decode steps of
+        the other slots never touch it."""
         plen = self._bucket(len(req.prompt))
         rkey = R.fold_in(self._base_key, req.rid)
         self._req_keys[req.slot] = rkey
+        if not self.paged:
+            toks = torch.tensor([left_pad(req.prompt, plen)], dtype=torch.int32,
+                                device=self.device)
+            one_cache, tok0 = self._prefill(self.params, toks, rkey)
+            self._cache = self._insert(self._cache, one_cache, req.slot)
+            self._prefills += 1
+            self._prefill_tokens += plen
+            # the monolithic prefill forwards the whole padded bucket and
+            # samples the first token in the same call
+            self.backend.note_call(SP.analog_call_profile("suffix_prefill", tokens=plen))
+            self.backend.note_call(SP.analog_call_profile("sample0"))
+            self._finish_admission(req, tok0)
+            return
         plan = self._plans.pop(req.rid)
         self._hash_memo.pop(req.rid, None)
         if plan.get("restore"):
@@ -941,13 +1048,16 @@ class ServingEngine:
             self._tick_dirty += 1
         if req.state is RequestState.QUEUED:
             self.sched.cancel(req, reason, now)
-            self._hash_memo.pop(req.rid, None)
-            self._pop_spill(req.rid)
-            self._replay.pop(req.rid, None)
+            if self.paged:
+                self._hash_memo.pop(req.rid, None)
+                self._pop_spill(req.rid)
+                self._replay.pop(req.rid, None)
         elif req.state is RequestState.PREFILL:
-            self._kill_job(req)
+            if self.paged:
+                self._kill_job(req)
             self.sched.evict(req, reason, now)
-            self._table[req.done_slot, :] = 0
+            if self.paged:
+                self._table[req.done_slot, :] = 0
         elif req.state is RequestState.DECODE:
             self.sched.evict(req, reason, now)
             self._release_if_done(req)
@@ -1143,7 +1253,8 @@ class ServingEngine:
         if self._injector is not None:
             self._injector.fire(self, self._ticks)
         self._ticks += 1
-        self._fault_pass()
+        if self.paged:
+            self._fault_pass()
         # deadline pass: an expired request is evicted in whatever state it
         # is (queued, mid-prefill with its job and pages, or decoding)
         for req in self.sched.expired(time.perf_counter()):
@@ -1151,8 +1262,15 @@ class ServingEngine:
         pol = self.cfg.degradation
         shed = (pol.shed_priority_above
                 if pol is not None and self._degrade_level >= 3 else None)
-        for req in self.sched.admit(self._try_reserve_blocks, shed_priority_above=shed):
+        gate = self._try_reserve_blocks if self.paged else None
+        for req in self.sched.admit(gate, shed_priority_above=shed):
             self._admit_one(req)
+            if not self.paged:
+                emitted.append((req.rid, req.output[-1]))
+        if not self.paged:
+            self._dense_tick(emitted)
+            self._busy_time += time.perf_counter() - t_start
+            return emitted
         if self.cfg.enable_preemption:
             self._preempt_pass()
         self._prefill_tick(emitted)
@@ -1213,6 +1331,31 @@ class ServingEngine:
                 emitted.append((req.rid, t))
         self._busy_time += time.perf_counter() - t_start
         return emitted
+
+    def _dense_tick(self, emitted: list) -> None:
+        """One dense decode step for every decoding slot (the reference's
+        non-paged branch: one read, no sanity codes).  Every slot decodes
+        over its whole window; an idle slot's row is dead weight, as in
+        the reference."""
+        active = self.sched.active()
+        if not active:
+            return
+        t_dec = time.perf_counter()
+        wta = (self._req_keys, self._steps) if self.mcfg.wta_head else ()
+        (nxt,) = self._decode(self._tokens, *wta)
+        nxt_np = nxt.cpu().numpy()   # one sync a step: decode_time is honest
+        self.backend.note_call(SP.analog_call_profile("serve_step", batch=len(active)))
+        now = time.perf_counter()
+        self._decode_time += now - t_dec
+        self._occ_sum += len(active) / self.cfg.max_batch
+        self._decode_steps += 1
+        for req in active:
+            t = int(nxt_np[req.slot])
+            self._tokens[req.slot] = t
+            self._steps[req.slot] += 1
+            self._total_tokens += 1
+            self.sched.record_token(req, t, self.cfg.eos_token, now)
+            emitted.append((req.rid, t))
 
     # ---- degraded-device serving: detection, mitigation, policy ----
 
@@ -1429,8 +1572,15 @@ class ServingEngine:
         a ``jax.jit`` compile is keyed on: ``suffix_prefill`` one per
         (bucket, chunk shape), the others at most one (preemption's three
         take fixed-width page ids).  With ``speculate_k``: ``spec_round`` one
-        per window width (k is fixed), ``spec_rollback`` at most one."""
+        per window width (k is fixed), ``spec_rollback`` at most one.  Dense:
+        ``serve_step`` one (the batch width is fixed), ``prefill`` one per
+        bucket, ``insert`` one."""
         counts = {"serve_step": sum(len(s.entries) for s in self._serve_steps.values())}
+        if not self.paged:
+            # one dense step per batch width; one prefill per bucket
+            counts["prefill"] = len(self._prefill.signatures)
+            counts["insert"] = len(self._insert.signatures)
+            return counts
         for name in ("suffix_prefill", "state_insert", "page_copy", "sample0", "page_spill",
                      "page_restore", "state_gather"):
             counts[name] = len(getattr(self, f"_{name}").signatures)
@@ -1468,6 +1618,18 @@ class ServingEngine:
         for r in done:
             if r.done_reason:
                 evictions[r.done_reason] = evictions.get(r.done_reason, 0) + 1
+        by_class: dict[int, dict] = {}
+        for pr in sorted({r.priority for r in done}):
+            rs = [r for r in done if r.priority == pr]
+            tt = [r.ttft for r in rs if r.ttft is not None]
+            lat = [r.done_time - r.submit_time for r in rs if r.done_time is not None]
+            by_class[pr] = {
+                "n": len(rs),
+                "ttft_p50_ms": _pctl(tt, 50) * 1e3,
+                "ttft_p99_ms": _pctl(tt, 99) * 1e3,
+                "latency_p50_ms": _pctl(lat, 50) * 1e3,
+                "latency_p99_ms": _pctl(lat, 99) * 1e3,
+            }
         wall = self._busy_time
         analog = self.backend.snapshot(published_tokens=self._total_tokens)
         return ServingMetrics(
@@ -1497,6 +1659,7 @@ class ServingEngine:
             spec_acceptance=self._spec_accepted / max(self._spec_drafted, 1),
             spec_tokens_per_round=self._spec_emitted / max(self._spec_rounds, 1),
             evictions=evictions,
+            latency_by_class=by_class,
             analog=analog,
             degraded_mode=self._degrade_level,
             canary_probes=self._canary_probes,
@@ -1504,4 +1667,145 @@ class ServingEngine:
             retired_tiles=int(getattr(self.backend, "retired_tiles", 0)),
             redundant_read_events=analog["redundant_read_events"],
             degraded_transitions=list(self._degraded_transitions),
+        )
+
+
+class StaticServingEngine:
+    """The pre-continuous-batching reference: a whole batch prefilled
+    together (prompts left-padded to the batch's longest, no buckets),
+    every slot held until the LAST request of the batch finishes.  Kept as
+    the equivalence oracle for tests and the occupancy baseline for
+    benchmarks, with the reference's quirks: the first token is an argmax
+    even under ``wta_head``; under WTA each decode step draws one key for
+    the whole batch (:meth:`_next_key`); padded positions are attended
+    without a mask; ``submit(submit_time=)`` backdates a request.
+
+    Its decode step is the dense layout's (``specs.DenseGraphs``): on the
+    card one CUDA graph per wave width, over one persistent cache of that
+    width that each wave's prefill writes in place, so the graph replays
+    across waves; eager on the CPU."""
+
+    def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None, *,
+                 graphs: Optional[bool] = None):
+        self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        elif graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, the engine is on {self.device}")
+        self.params = params
+        self.mcfg = model_cfg
+        self.cfg = cfg
+        # batch width -> its dense cache, written in place by every wave
+        self._caches: dict[int, dict] = {}
+        self._decode = SP.DenseGraphs(model_cfg, params, self._caches, capture=graphs)
+        self._queue: list[tuple[list[int], int, float]] = []
+        self._key = R.PRNGKey(cfg.seed)
+        self._occ_sum = 0.0
+        self._decode_steps = 0
+        self._total_tokens = 0
+        self._busy_time = 0.0
+        self._decode_time = 0.0
+        self._ttfts: list[float] = []
+        self._completed = 0
+
+    def submit(self, prompt_tokens: Sequence[int], max_new_tokens: Optional[int] = None,
+               submit_time: Optional[float] = None) -> None:
+        budget = self.cfg.max_new_tokens if max_new_tokens is None else max_new_tokens
+        if budget < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {budget}")
+        if len(prompt_tokens) + budget > self.cfg.max_len:
+            raise ValueError(
+                f"prompt {len(prompt_tokens)} + {budget} new tokens "
+                f"exceeds cache max_len={self.cfg.max_len}"
+            )
+        self._queue.append((list(prompt_tokens), budget,
+                            submit_time if submit_time is not None else time.perf_counter()))
+
+    def pending(self) -> int:
+        """Requests queued for a future batch wave."""
+        return len(self._queue)
+
+    def _next_key(self) -> tuple[int, int]:
+        self._key, k = R.split(self._key)
+        return k
+
+    def step(self) -> list[list[int]]:
+        """Serve one batch from the queue; returns generated token lists."""
+        if not self._queue:
+            return []
+        t_start = time.perf_counter()
+        batch = self._queue[: self.cfg.max_batch]
+        self._queue = self._queue[self.cfg.max_batch :]
+        prompts = [p for p, _, _ in batch]
+        budgets = [m for _, m, _ in batch]
+        b = len(prompts)
+        plen = max(len(p) for p in prompts)
+        # decode starts at the batch's padded length for EVERY slot, so a
+        # short prompt beside a long one can overflow the cache even when
+        # its own prompt + budget fit at submit time
+        worst = plen + max(budgets)
+        if worst > self.cfg.max_len:
+            raise ValueError(
+                f"padded prompt window {plen} + max budget {max(budgets)} "
+                f"= {worst} exceeds cache max_len={self.cfg.max_len}"
+            )
+        toks = torch.tensor([left_pad(p, plen) for p in prompts], dtype=torch.int32,
+                            device=self.device)
+        if b not in self._caches:
+            self._caches[b] = SP.init_decode_cache(self.mcfg, b, self.cfg.max_len,
+                                                   device=self.device)
+        _, logits = TF.lm_prefill(self.params, toks, self.mcfg, self.cfg.max_len,
+                                  cache=self._caches[b])
+        token = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        out: list[list[int]] = [[] for _ in range(b)]
+        done = np.zeros(b, bool)
+        now = time.perf_counter()
+        for _, _, t_sub in batch:
+            self._ttfts.append(now - t_sub)
+        for _ in range(max(budgets)):
+            for i in range(b):
+                if not done[i]:
+                    t = int(token[i])
+                    out[i].append(t)
+                    self._total_tokens += 1
+                    if t == self.cfg.eos_token or len(out[i]) >= budgets[i]:
+                        done[i] = True
+            if done.all():
+                break
+            wta = (np.asarray(self._next_key(), np.int64),) if self.mcfg.wta_head else ()
+            t_dec = time.perf_counter()
+            (nxt,) = self._decode(token, *wta)
+            token = nxt.cpu().numpy()   # the step's sync, and its output read
+            self._decode_time += time.perf_counter() - t_dec
+            # slots stay held for the whole batch: idle ones count against
+            # occupancy, which is the cost continuous batching removes
+            self._occ_sum += (b - int(done.sum())) / self.cfg.max_batch
+            self._decode_steps += 1
+        self._completed += b
+        self._busy_time += time.perf_counter() - t_start
+        return out
+
+    def run(self) -> list[list[int]]:
+        outs: list[list[int]] = []
+        while self._queue:
+            outs.extend(self.step())
+        return outs
+
+    def compile_counts(self) -> dict[str, int]:
+        """The dense decode step's entries: one per wave width seen."""
+        return {"serve_step": len(self._decode.entries)}
+
+    def metrics(self) -> ServingMetrics:
+        wall = self._busy_time
+        return ServingMetrics(
+            completed=self._completed,
+            total_tokens=self._total_tokens,
+            wall_time=wall,
+            tokens_per_s=self._total_tokens / max(wall, 1e-9),
+            ttft_mean=float(np.mean(self._ttfts)) if self._ttfts else 0.0,
+            ttft_max=float(np.max(self._ttfts)) if self._ttfts else 0.0,
+            decode_steps=self._decode_steps,
+            prefills=self._completed,
+            occupancy_mean=self._occ_sum / max(self._decode_steps, 1),
+            decode_time=self._decode_time,
         )

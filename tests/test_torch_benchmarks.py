@@ -15,7 +15,10 @@ names, and the same numbers within stated bounds.
   held); the derived column carries the H100 bound and no ``tpu_`` field.
 
 Fig. 6 is held in ``test_torch_benchmarks_fig6.py`` (the reference's
-Fig. 6 alone takes most of a minute on a CPU, even cut).
+Fig. 6 alone takes most of a minute on a CPU, even cut).  The serving
+bench runs its dry-run protocol here for its row names (the reference's
+but ``serve_sharded_decode``); its numbers are held against the
+reference's in ``test_torch_bench_serving.py``.
 """
 
 import io
@@ -44,6 +47,14 @@ FIG5_TV_ATOL, FIG5_RATE_ATOL = 0.01, 0.02
 TAGS = {"fig4": JS, "fig5": JW, "table1": J4, "kernels": JK}
 FIG6_NAMES = ["fcnn_train"] + [f"fig6_raca_votes{v}" for v in (1, 4, 16, 64)] + [
     "fig6b_vth0_zero_votes16", "fig6b_vth0_cal_votes16", "fig6a_detuned_beta2_votes16"]
+# benchmarks/bench_serving.py's dry-run rows, in order, but its
+# serve_sharded_decode (sharding is not ported)
+SERVING_NAMES = ["serve_cb_greedy", "serve_cb_wta_T8", "serve_static_greedy",
+                 "serve_occupancy_gain", "serve_paged_vs_dense_L128",
+                 "serve_paged_vs_dense_L512", "serve_paged_int8_L128", "serve_paged_int8_L512",
+                 "serve_int8_capacity", "serve_prefix_sharing", "serve_partial_prefix",
+                 "serve_preemption", "serve_speculative_decode", "serve_energy_per_token",
+                 "serve_fault_tolerance"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,28 +74,32 @@ def _num(derived: str, key: str) -> float:
 
 @pytest.fixture(scope="module")
 def rows(request):
-    """The reference's benches but Fig. 6 once, and the port's harness
-    (``run_all``, Fig. 6 at the cut protocol), whose printout is kept."""
+    """The reference's benches but Fig. 6 and serving once, and the port's
+    harness (``run_all``, Fig. 6 at the cut protocol, serving's dry run),
+    whose printout is kept."""
     mp = pytest.MonkeyPatch()
     mp.setattr(T6, "LAYERS", CUT_LAYERS)
     mp.setattr(T6, "TRAIN_STEPS", CUT_STEPS)
     mp.setattr(TK, "N_CALLS", 1)
     ref = {tag: mod.run() for tag, mod in TAGS.items()}
     out = io.StringIO()
-    port, failed = TR.run_all("cpu", out=out)
+    port, failed = TR.run_all("cpu", out=out, dry_run=True)
     mp.undo()
     assert not failed
     return ref, port, out.getvalue()
 
 
 def test_same_rows_and_names(rows):
-    """The harness prints every row the reference's prints for these five
+    """The harness prints every row the reference's prints for these six
     benches, under the same ``tag/name``, as ``name,us_per_call,derived``
     (Fig. 6's names are the reference's, held against its rows in
-    ``test_torch_benchmarks_fig6.py``)."""
+    ``test_torch_benchmarks_fig6.py``; serving's are the reference's dry
+    run's but the sharded row)."""
     ref, port, text = rows
-    ref = {**ref, "fig6": [(n, 0.0, "") for n in FIG6_NAMES]}
-    assert [tag for tag, _ in TR.BENCHES] == ["fig4", "fig5", "fig6", "table1", "kernels"]
+    ref = {**ref, "fig6": [(n, 0.0, "") for n in FIG6_NAMES],
+           "serving": [(n, 0.0, "") for n in SERVING_NAMES]}
+    assert [tag for tag, _ in TR.BENCHES] == ["fig4", "fig5", "fig6", "table1", "kernels",
+                                              "serving"]
     for tag, _ in TR.BENCHES:
         assert [r[0] for r in port[tag]] == [r[0] for r in ref[tag]], tag
     lines = text.strip().splitlines()

@@ -1164,3 +1164,82 @@ def test_cuda_faulty_crossbar_read_matches_plain(cuda_device, binarize):
         wq = TREF.crossbar_quantize(wf / s, TOPS._qstep(dp), dp.w_min, dp.w_max)
         tol = s * 2 * 512**0.5 * 2.0**-24 * (x.abs() @ wq.abs()) + 2.0**-23 * want.abs()
         assert float(((got - want).abs() / tol).max()) <= 1.0
+
+
+def _dense_trace():
+    return ([[5, 6, 7, 1, 2, 3, 4, 9], [1, 2, 3], [9, 8, 7, 6, 5, 4, 3, 2], [4] * 20, [11, 12],
+             [7] * 13], [6, 9, 3, 12, 5, 7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,wta", [("same", False), ("int8", False), ("same", True)],
+                         ids=["bf16", "int8", "wta"])
+def test_cuda_dense_engine_graphs_equal_eager(cuda_device, kv, wta):
+    """The dense layout's compiled step (one graph per batch width) gives
+    the eager engine's streams and caches bit for bit, captures once, and
+    launches no attention kernel and no int8 write; under WTA one
+    ``wta_sample`` a tick and one a first token."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), kv_cache_dtype=kv, wta_head=wta)
+    params = init_lm(cfg, seed=0, device=cuda_device)
+    prompts, budgets = _dense_trace()
+    runs = {}
+    for graphs in (True, False):
+        eng = ServingEngine(params, cfg, ServeConfig(max_batch=3, max_new_tokens=8, max_len=64,
+                                                     kv_layout="dense"),
+                            device=cuda_device, graphs=graphs)
+        for p, b in zip(prompts, budgets):
+            eng.submit(p, b)
+        before = TOPS.launch_counts()
+        out = eng.run()
+        after = TOPS.launch_counts()
+        runs[graphs] = (eng, out, {k: after[k] - before[k] for k in after})
+    (g_eng, g_out, g_launch), (e_eng, e_out, e_launch) = runs[True], runs[False]
+    assert g_out == e_out and g_launch == e_launch
+    for name, leaf in g_eng._cache.items():
+        assert torch.equal(leaf, e_eng._cache[name]), name
+    assert g_eng.compile_counts() == e_eng.compile_counts()
+    assert g_eng.compile_counts()["serve_step"] == len(g_eng._decode.captures()) == 1
+    assert g_launch["paged_attention"] == g_launch["paged_prefill_attention"] == 0
+    assert g_launch["write_kv_int8"] == 0
+    want = g_eng.metrics().decode_steps + len(prompts) if wta else 0
+    assert g_launch["wta_sample"] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wta", [False, True])
+def test_cuda_static_engine_graphs_equal_eager(cuda_device, wta):
+    """``StaticServingEngine``: waves of three then three (one graph, its
+    cache written in place by each wave's prefill) and a last of one (a
+    second graph) give the eager engine's streams; under WTA one
+    ``wta_sample`` a decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ServeConfig, StaticServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), wta_head=wta)
+    params = init_lm(cfg, seed=0, device=cuda_device)
+    prompts, budgets = _dense_trace()
+    runs = {}
+    for graphs in (True, False):
+        eng = StaticServingEngine(params, cfg, ServeConfig(max_batch=3, max_new_tokens=8,
+                                                           max_len=64),
+                                  device=cuda_device, graphs=graphs)
+        for p, b in zip(prompts + prompts[:1], budgets + budgets[:1]):
+            eng.submit(p, b)
+        before = TOPS.launch_counts()
+        out = eng.run()
+        after = TOPS.launch_counts()
+        runs[graphs] = (eng, out, {k: after[k] - before[k] for k in after})
+    (g_eng, g_out, g_launch), (_, e_out, e_launch) = runs[True], runs[False]
+    assert g_out == e_out and g_launch == e_launch
+    assert g_eng.compile_counts() == {"serve_step": 2} and len(g_eng._decode.captures()) == 2
+    assert g_launch["paged_attention"] == g_launch["paged_prefill_attention"] == 0
+    assert g_launch["wta_sample"] == (g_eng.metrics().decode_steps if wta else 0)

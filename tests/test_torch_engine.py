@@ -120,19 +120,23 @@ def test_entry_points_refuse_to_run_silently_on_the_cpu():
 
 
 def test_unported_knobs_are_refused():
-    """Knobs the reference has and the port does not (the dense layout) are
-    not fields of ``ServeConfig``; WTA sampling, int8 pools, degraded
-    serving and speculation are served (``tests/test_torch_wta.py``,
-    ``tests/test_torch_int8.py``, ``tests/test_torch_degraded.py``,
-    ``tests/test_torch_spec.py``)."""
+    """Knobs the reference has and the port does not (sharding's ``mesh``)
+    are not fields of ``ServeConfig``; WTA sampling, int8 pools, degraded
+    serving, speculation and the dense layout are served
+    (``tests/test_torch_wta.py``, ``tests/test_torch_int8.py``,
+    ``tests/test_torch_degraded.py``, ``tests/test_torch_spec.py``,
+    ``tests/test_torch_static.py``)."""
     cfg = get_smoke_config("stablelm-3b")
     params = init_lm(cfg, device="cpu")
     eng = ServingEngine(params, dataclasses.replace(cfg, wta_head=True),
                         ServeConfig(max_len=32), device="cpu")
     rid = eng.submit([1, 2, 3], 2)
     assert len(eng.run()[rid]) == 2
+    dense = ServingEngine(params, cfg, ServeConfig(max_len=32, kv_layout="dense"), device="cpu")
+    rid = dense.submit([1, 2, 3], 2)
+    assert len(dense.run()[rid]) == 2
     with pytest.raises(TypeError):
-        ServeConfig(kv_layout="dense")
+        ServeConfig(mesh=object())
 
 
 def test_serve_step_sanity_codes():
