@@ -56,7 +56,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    nonzero counter offsets, its bits, uniforms, p and decisions exactly
    equal to the plain version's (any difference printed with u and p),
    timed beside its byte bound and the issue estimate of its own SASS
-   (``sigmoid_sample_issue``).
+   (``sigmoid_sample_issue``).  Then (:func:`head_shape_kernels`) both
+   attention kernels at gemma2-2b's (8 / 4 heads of 256), deepseek-coder-
+   33b's (56 / 8 of 128) and nemotron-4-340b's (96 / 8 of 192) head
+   shapes: decode B = 8 over W = 32 and prefill S = 128 at q0 = 128 over
+   bf16, int8 and f32 pools, and gemma2's local layer (window 300,
+   soft-cap 50), each checked, timed beside its bound and SDPA, with its
+   geometry (warps, ring stages, split, shared memory, CTAs an SM) and the
+   new tile instantiations' ptxas registers and spills; the fused int8
+   write at those kv heads; ``wta_sample`` at the 256000- and 32256-column
+   heads.
 4. serve: ``ServingEngine`` serves a 12-request shared-prefix trace at
    stablelm-3b full width (random seeded weights) four times, with a
    bf16 and an int8 KV pool, then with WTA sampling (``wta_head``,
@@ -144,6 +153,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    write on the dense path, ``wta_sample`` = ticks + first tokens (dense
    WTA), = decode steps (static WTA).  Phase 7 also holds the dense
    layout's logits card against CPU.
+4g. decoders (:func:`decoders_phase`, run after phase 6b): gemma2-2b at
+   full width and depth (26 layers, local + global units, soft-caps,
+   post-norms, tied 256000-column embeddings; seed 0) serves phase 4's
+   trace with a bf16
+   pool greedy, an int8 pool and WTA sampling, each through the compiled
+   engine and eagerly (streams and launches equal, profiled ticks); then
+   two prompts of 4500 and 5000 tokens decode at positions past its local
+   window of 4096 (eager, ``max_len`` 6144), the first decode step's local
+   and global attention outputs held against the plain versions on the
+   same card tensors (:func:`long_context`); then deepseek-coder-33b cut to
+   8 layers and nemotron-4-340b cut to 2, at full width: four requests
+   each, compiled = eager, peak device memory printed (:func:`cut_serve`).
 4e. loop (:func:`loop_phase`): (a) ``examples/train_lm_torch.py``'s
    stablelm-100m at batch 8 x 256, full depth, 12 steps through
    ``train.loop.run`` with a checkpoint every 4, clean and again with a
@@ -400,17 +421,24 @@ def prefill_case(gen, dev, s, q0, h, hkv, dh, bs, w, int8):
     return q, kp, vp, table.contiguous(), q0, sc
 
 
-def decode_bound(q, kp, table, pos, sc):
+def decode_bound(q, kp, table, pos, sc, local_window=0):
+    """Bytes of the pages a slot's keys lie on (a local window's only from
+    its first page), q, the output, table and pos; 4 flops a visible key,
+    head and dimension."""
     b, h, dh = q.shape
     _, bs, hkv, _ = kp.shape
-    live = int((pos // bs + 1).clamp(max=table.shape[1]).sum()) * bs  # keys read
+    nblk = (pos // bs + 1).clamp(max=table.shape[1])
+    first = ((pos - local_window + 1).clamp(min=0) // bs) if local_window else 0
+    live = int((nblk - first).sum()) * bs  # keys read
     page_bytes = live * hkv * dh * kp.element_size() * 2
     if sc:
         page_bytes += live * hkv * 4 * 2
     nbytes = page_bytes + q.numel() * q.element_size() + b * h * dh * 4 \
         + table.numel() * 4 + pos.numel() * 4
-    keys = int((pos + 1).clamp(max=table.shape[1] * bs).sum())   # unmasked keys
-    flops = 4 * keys * h * dh
+    keys = (pos + 1).clamp(max=table.shape[1] * bs)
+    if local_window:
+        keys = keys.clamp(max=local_window)
+    flops = 4 * int(keys.sum()) * h * dh   # visible keys
     return bound_record(nbytes, flops)
 
 
@@ -720,7 +748,95 @@ def kernel_phase(dev) -> dict:
     timing["write_kv_int8"], errs["write_kv_int8"] = write_kernels(gen, dev)
     timing["wta_sample"], errs["wta_sample"] = wta_sample_kernels(gen, dev)
     timing["sigmoid_sample"], errs["sigmoid_sample"] = sigmoid_sample_kernels(gen, dev)
+    timing["head_shapes"] = head_shape_kernels(gen, dev, errs)
     return {"errs": errs, "timing": timing, "w_invariance": w_invariance, "verify": verify}
+
+
+# (H, Hkv, Dh) of the decoder configs beside stablelm-3b
+HEAD_SHAPES = {"gemma2-2b": (8, 4, 256), "deepseek-coder-33b": (56, 8, 128),
+               "nemotron-4-340b": (96, 8, 192)}
+
+
+def as_f32_case(c):
+    """A decode or prefill case with its queries and pool in f32."""
+    q, kp, vp, table, p, sc = c
+    return q.float(), kp.float(), vp.float(), table, p, sc
+
+
+def geometry_line(geo: dict) -> str:
+    keys = ("route", "grid", "n_split", "warps", "stages", "smem_bytes", "ctas_per_sm")
+    return ", ".join(f"{k} {geo[k]}" for k in keys if k in geo)
+
+
+def head_shape_kernels(gen, dev, errs) -> dict:
+    """Both attention kernels at gemma2-2b's, deepseek-coder-33b's and
+    nemotron-4-340b's head shapes (bs = 16): decode of B = 8 slots over
+    W = 32 pages and a 128-query prefill chunk at q0 = 128, over bf16 and
+    int8 pools with bf16 queries and over an f32 pool with f32 queries,
+    and gemma2's local layer (window 300 of the 512 keys, soft-cap 50) on
+    the bf16 pool; each against its plain version (within ATOL / RTOL),
+    timed beside its bound and, on float pools, SDPA; each launch's
+    geometry printed.  Then the fused int8 write at each shape's kv heads
+    (bit for bit) and ``wta_sample`` at the 256000- and 32256-column heads
+    (counts and decisions equal).  Returns {"decode", "prefill",
+    "write_kv_int8", "wta_sample"}: lists of case records."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import ref
+
+    log_ptxas(*(f"prefill_tc_kernel<{t},{d}>" for t in ("bf16", "int8") for d in (128, 192, 256)))
+    out = {"decode": [], "prefill": [], "write_kv_int8": [], "wta_sample": []}
+
+    def record(key, label, geo, rec):
+        out[key].append({"case": label, "geometry": geo, **{k: rec.get(k) for k in CASE_KEYS}})
+
+    for arch, (h, hkv, dh) in HEAD_SHAPES.items():
+        for pool in ("bf16", "int8", "f32"):
+            int8 = pool == "int8"
+            to = as_f32_case if pool == "f32" else (lambda c: c)
+            layers = [("global", 0, 0.0)]
+            if arch == "gemma2-2b" and pool == "bf16":
+                layers.append(("local", 300, 50.0))
+            for kind, lw, cap in layers:
+                kw = dict(kind=kind, local_window=lw, softcap=cap)
+                cases = [to(decode_case(gen, dev, 8, h, hkv, dh, 16, 32, int8))
+                         for _ in range(ROTATE)]
+                q, kp, vp, table, pos, sc = cases[0]
+                args = (q, kp, vp, table, pos)
+                geo = PA.decode_geometry(8, h, hkv, dh, 16, 32, kp.dtype)
+                label = f"{arch} {pool} B=8 W=32" + (f" {kind} {lw} cap {cap}" if lw else "")
+                check(f"decode {label}", PA.paged_attention_cuda(*args, **kw, **sc),
+                      ref.paged_attention_ref(*args, **kw, **sc), errs["decode"])
+                rec = time_kernel(
+                    decode_bound(q, kp, table, pos, sc, lw),
+                    [(*c[:-1], {**c[-1], **kw}) for c in cases],
+                    PA.paged_attention_cuda, ref.paged_attention_ref,
+                    None if int8 or lw else sdpa_decode,
+                    f"decode {label} ({geometry_line(geo)})")
+                record("decode", label, geo, rec)
+            cases = [to(prefill_case(gen, dev, 128, 128, h, hkv, dh, 16, 16, int8))
+                     for _ in range(ROTATE)]
+            q, kp, vp, table, _, sc = cases[0]
+            args = (q, kp, vp, table, 128)
+            geo = PF.prefill_geometry(128, h, hkv, dh, 16, q.dtype, kp.dtype)
+            label = f"{arch} {pool} S=128 q0=128"
+            check(f"prefill {label}", PF.paged_prefill_attention_cuda(*args, **sc),
+                  ref.prefill_attention_ref(*args, **sc), errs["prefill"])
+            rec = time_kernel(prefill_bound(q, kp, table, 128, sc), cases,
+                              PF.paged_prefill_attention_cuda, ref.prefill_attention_ref,
+                              None if int8 else sdpa_prefill,
+                              f"prefill {label} ({geometry_line(geo)})")
+            record("prefill", label, geo, rec)
+        rec, werr = write_kernels(gen, dev, hkv, dh)
+        errs["write_kv_int8"] += werr
+        out["write_kv_int8"] += [{"case": f"decode write, 8 slots Hkv={hkv} Dh={dh}",
+                                  **{k: rec.get(k) for k in CASE_KEYS}}] + rec["cases"]
+    for c, arch in ((256000, "gemma2-2b, nemotron-4-340b"), (32256, "deepseek-coder-33b")):
+        case = wta_sample_case(gen, dev, 8, c, torch.bfloat16, layout="per slot")
+        check_wta_sample(f"(8, {c}) T=32 per-slot keys, step ({arch})", *case, 32,
+                         errs["wta_sample"])
+        out["wta_sample"].append({"case": f"(8, {c}) T=32 bf16, checked", "columns": c})
+    return out
 
 
 def stoch_round_kernels(gen, dev):
@@ -776,16 +892,17 @@ def stoch_round_kernels(gen, dev):
     return recs[2], errs
 
 
-def write_kernels(gen, dev):
+def write_kernels(gen, dev, hkv: int = 32, dh: int = 80):
     """The fused int8 KV write vs its plain version, bit for bit outside
-    the trash page 0, at stablelm-3b's kv heads (Hkv 32, Dh 80, bs 16,
-    bf16 rows): the decode write of 8 slots (one on the trash page, one
-    past its table) and a 128-token prefill chunk of 8 blocks; times at
-    each.  Returns (decode record, max|err| list)."""
+    the trash page 0, at a model's kv heads (stablelm-3b's Hkv 32, Dh 80 by
+    default; bs 16, bf16 rows): the decode write of 8 slots (one on the
+    trash page, one past its table) and a 128-token prefill chunk of 8
+    blocks; times at each.  Returns (decode record, max|err| list)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import stoch_round as SR
 
-    hkv, dh, bs, n_pages = 32, 80, 16, 8 * 32 + 1
+    bs, n_pages = 16, 8 * 32 + 1
+    at = "" if (hkv, dh) == (32, 80) else f" Hkv={hkv} Dh={dh}"
 
     def pools():
         return [torch.randint(-127, 128, (n_pages, bs, hkv, dh), generator=gen, device=dev,
@@ -805,8 +922,8 @@ def write_kernels(gen, dev):
     table[1, 40 // bs] = -1
     row = table[0].contiguous()
     cases = [
-        ("decode write, 8 slots", (8, 1, hkv, dh), 1, dict(table=table, pos=pos)),
-        ("prefill chunk, 128 tokens", (1, 128, hkv, dh), 8, dict(table_row=row, b0=8)),
+        ("decode write, 8 slots" + at, (8, 1, hkv, dh), 1, dict(table=table, pos=pos)),
+        ("prefill chunk, 128 tokens" + at, (1, 128, hkv, dh), 8, dict(table_row=row, b0=8)),
     ]
     recs, errs = [], []
     for label, shape, n_seeds, where in cases:
@@ -3135,6 +3252,169 @@ def profile_decode(eng, vocab: int, mode: str, n_ticks: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4g: the other decoder configs.
+# ---------------------------------------------------------------------------
+
+
+def decoders_phase(dev) -> dict:
+    """gemma2-2b at full width and depth (seed 0) on phase 4's trace: a
+    bf16 pool greedy, an int8 pool and WTA sampling at its 256000-wide
+    head, each compiled = eager (:func:`serve_once`); then decode past
+    position 4096 with its local layers' mask held (:func:`long_context`);
+    then deepseek-coder-33b and nemotron-4-340b at full width and cut
+    depth (:func:`cut_serve`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+
+    cfg = get_config("gemma2-2b")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  init gemma2-2b ({cfg.n_layers}L d{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} "
+        f"Dh{cfg.head_dim} ff{cfg.d_ff} V{cfg.vocab} {cfg.layer_pattern} window "
+        f"{cfg.local_window} caps {cfg.attn_softcap}/{cfg.logit_softcap}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = serve_trace(cfg.vocab)
+    serve_warm_up(params, cfg, prompts, dev)
+    res = {"same": serve_once(params, cfg, prompts, dev)}
+    res["int8"] = serve_once(params, dataclasses.replace(cfg, kv_cache_dtype="int8"), prompts, dev)
+    res["wta"] = serve_once(params, dataclasses.replace(cfg, wta_head=True), prompts, dev)
+    same, wta = res["same"]["outs"], res["wta"]["outs"]
+    total = sum(len(o) for o in same.values())
+    agree = sum(a == b for r in same for a, b in zip(same[r], wta[r]))
+    log(f"  gemma2-2b WTA vs greedy tokens: {agree}/{total} equal")
+    if agree == total:
+        raise AssertionError("the WTA serve emitted the greedy tokens: the sampler did not draw")
+    res["long"] = long_context(params, cfg, dev)
+    del params
+    torch.cuda.empty_cache()
+    res["cuts"] = {arch: cut_serve(arch, n, dev)
+                   for arch, n in (("deepseek-coder-33b", 8), ("nemotron-4-340b", 2))}
+    return res
+
+
+def long_context(params, cfg, dev, lengths=(4500, 5000), buckets=(4608, 5120),
+                 max_len=6144) -> dict:
+    """Two prompts of 4500 and 5000 tokens (buckets 4608 and 5120) through
+    an eager paged engine with ``max_len`` 6144, so that decode runs at
+    positions past gemma2's local window of 4096.  The first attention
+    launches of the first decode step in which both slots are live (unit
+    0: its local layer, then its global one) are each held, on the same
+    card tensors, against the plain version (within ATOL / RTOL); the
+    local layer's output is also set beside the plain version without the
+    window, which must differ (the mask cuts keys there)."""
+    from repro_torch.kernels import ops as KOPS
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.kernels import ref
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    rng = np.random.default_rng(5)
+    scfg = ServeConfig(max_batch=2, max_len=max_len, kv_block_size=16, max_new_tokens=4,
+                       prefill_buckets=buckets, seed=0)
+    eng = ServingEngine(params, cfg, scfg, device=dev, graphs=False)
+    for n in lengths:
+        eng.submit(rng.integers(0, cfg.vocab, n).tolist())
+    held, errs = [], []
+    orig = KOPS.paged_attention
+
+    def probe(q, k_pages, v_pages, table, pos, **kw):
+        got = orig(q, k_pages, v_pages, table, pos, **kw)
+        if len(held) < 2 and (held or bool((table[:, 0] > 0).all())):
+            kw = {k: v for k, v in kw.items() if k != "split_batch"}
+            want = ref.paged_attention_ref(q, k_pages, v_pages, table, pos, **kw)
+            live = pos.tolist()
+            check(f"long context, first step with both slots live, {kw['kind']} layer (window "
+                  f"{kw['local_window']}, cap {kw['softcap']}) at positions {live}", got, want,
+                  errs)
+            rec = {"kind": kw["kind"], "pos": live, "err": errs[-1]}
+            if kw["kind"] == "local":
+                unmasked = ref.paged_attention_ref(q, k_pages, v_pages, table, pos,
+                                                   **dict(kw, kind="global"))
+                rec["window_effect"] = float((want - unmasked).abs().max())
+                log(f"  max|local - unwindowed| at those positions {rec['window_effect']:.3e}")
+                if rec["window_effect"] == 0.0:
+                    raise AssertionError("the local window cut no key past position 4096")
+            held.append(rec)
+        return got
+
+    PA.launches = PF.launches = 0
+    KOPS.paged_attention = probe
+    try:
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        KOPS.paged_attention = orig
+    m = eng.metrics()
+    log(f"  long context: {len(outs)} requests, {m.total_tokens} tokens in {wall:.2f} s, "
+        f"decode step {m.decode_step_ms:.2f} ms, TTFT mean {m.ttft_mean * 1e3:.1f} ms; "
+        f"launches decode {PA.launches} prefill {PF.launches}")
+    assert [r["kind"] for r in held] == ["local", "global"], held
+    assert min(min(r["pos"]) for r in held) > cfg.local_window and len(held[0]["pos"]) == 2, held
+    assert all(len(o) == 4 for o in outs.values()) and PA.launches > 0 and PF.launches > 0
+    del eng
+    torch.cuda.empty_cache()
+    return {"held": held, "launches": {"decode": PA.launches, "prefill": PF.launches},
+            "decode_step_ms": m.decode_step_ms, "wall_s": wall}
+
+
+def cut_serve(arch: str, n_layers: int, dev) -> dict:
+    """``arch`` at full width and ``n_layers`` layers (seed 0): four
+    requests of 20-120 tokens, 8 new tokens each, greedy on a bf16 pool,
+    through the compiled engine and eagerly (streams and launches equal);
+    its init time, peak device memory and decode step ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  init {arch} cut to {n_layers} layers ({n_params / 1e9:.2f} B parameters, d"
+        f"{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} Dh{cfg.head_dim} ff{cfg.d_ff} "
+        f"V{cfg.vocab}) in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in rng.integers(20, 121, 4)]
+    runs = {}
+    for graphs in (True, False):
+        eng = ServingEngine(params, cfg, ServeConfig(max_batch=4, max_len=256, kv_block_size=16,
+                                                     prefill_chunk=128, max_new_tokens=8),
+                            device=dev, graphs=graphs)
+        for p in prompts:
+            eng.submit(p)
+        PA.launches = PF.launches = 0
+        outs = eng.run()
+        torch.cuda.synchronize()
+        m = eng.metrics()
+        runs[graphs] = {"outs": outs, "launches": (PA.launches, PF.launches),
+                        "decode_step_ms": m.decode_step_ms, "tokens_per_s": m.tokens_per_s}
+        log(f"  [{'graphs' if graphs else 'eager'}] {arch}: {m.total_tokens} tokens, decode "
+            f"step {m.decode_step_ms:.2f} ms, {m.tokens_per_s:.1f} tok/s, launches decode "
+            f"{PA.launches} prefill {PF.launches}")
+        del eng
+    g, e = runs[True], runs[False]
+    if g["outs"] != e["outs"] or g["launches"] != e["launches"]:
+        raise AssertionError(f"{arch}: compiled and eager serves differ")
+    assert all(len(o) == 8 for o in g["outs"].values()) and g["launches"][0] > 0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {arch} ({n_layers} layers): graphs = eager on {len(prompts)} streams; peak device "
+        f"memory {peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return {"n_layers": n_layers, "params_b": n_params / 1e9, "peak_gib": peak,
+            "launches": {"decode": g["launches"][0], "prefill": g["launches"][1]},
+            "decode_step_ms": {"graphs": g["decode_step_ms"], "eager": e["decode_step_ms"]}}
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the stochastic-rounding and WTA vote-count entry points.
 # ---------------------------------------------------------------------------
 
@@ -4568,12 +4848,17 @@ def ab_phase(dev, parent: Path) -> None:
     """``--ab DIR``: the wta_counts and stoch_round kernels of the checkout
     at DIR (its package loaded as ``repro_torch_ab``, built into DIR's own
     build directory) against this checkout's, on the same inputs in one
-    process: outputs compared (both are exact, so they must be equal) and
-    device times, then per-call times (host included, 200 back-to-back
-    calls), taken in turns, DIR, this, this, DIR."""
+    process, and both attention kernels at stablelm-3b's head shape
+    (decode B = 8 over W = 32, prefill S = 128 at q0 = 128; bf16 and int8
+    pools): outputs compared (each pair runs the same arithmetic in the
+    same order, so they must be equal) and device times, then per-call
+    times (host included, 200 back-to-back calls), taken in turns, DIR,
+    this, this, DIR."""
     import importlib
     import importlib.util
 
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
     from repro_torch.kernels import stoch_round as SR
     from repro_torch.kernels import wta_counts as WTA
 
@@ -4584,6 +4869,8 @@ def ab_phase(dev, parent: Path) -> None:
     spec.loader.exec_module(sys.modules["repro_torch_ab"])
     old_wta = importlib.import_module("repro_torch_ab.kernels.wta_counts")
     old_sr = importlib.import_module("repro_torch_ab.kernels.stoch_round")
+    old_pa = importlib.import_module("repro_torch_ab.kernels.paged_attention")
+    old_pf = importlib.import_module("repro_torch_ab.kernels.prefill_attention")
     gen = torch.Generator(device=dev).manual_seed(16)
 
     def seeds(k):
@@ -4604,6 +4891,14 @@ def ab_phase(dev, parent: Path) -> None:
                 for _ in range(ROTATE)]
         cases.append((f"stoch_round ({m}, {n}), {g} seeds", old_sr.stoch_round_cuda,
                        SR.stoch_round_cuda, sets))
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        sets = [decode_case(gen, dev, 8, 32, 32, 80, 16, 32, int8) for _ in range(ROTATE)]
+        cases.append((f"decode attention stablelm-3b {tag} B=8 W=32",
+                      old_pa.paged_attention_cuda, PA.paged_attention_cuda, sets))
+        sets = [prefill_case(gen, dev, 128, 128, 32, 32, 80, 16, 16, int8) for _ in range(ROTATE)]
+        cases.append((f"prefill attention stablelm-3b {tag} S=128 q0=128",
+                      old_pf.paged_prefill_attention_cuda, PF.paged_prefill_attention_cuda, sets))
     for label, old, new, sets in cases:
         *args, kw = sets[0]
         if not torch.equal(old(*args, **kw), new(*args, **kw)):
@@ -4666,6 +4961,11 @@ def main() -> int:
     tres = train_phase(dev)
     log("== the paper's FCNN: fcnn-mnist [784, 500, 300, 10] training and RACA inference")
     fres = fcnn_phase(dev)
+    # after the phases that gate on profiler event counts (4e (d)), which
+    # lost events once this phase's six profiled serves ran before them
+    log("== 4g: gemma2-2b at full width and depth (bf16, int8, WTA; decode past 4096), "
+        "deepseek-coder-33b (8 layers) and nemotron-4-340b (2 layers)")
+    gres = decoders_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
     reference_wta(dev)
@@ -4719,6 +5019,20 @@ def main() -> int:
         if "cases" in t:
             kernels[-1]["cases"] = t["cases"] + (
                 kres["timing"][(key, "int8")].get("cases", []) if isinstance(tkey, tuple) else [])
+    # phase 3's cases at the other decoder configs' head shapes, and phase
+    # 4g's launches, each run reset just before it and read just after
+    heads = kres["timing"]["head_shapes"]
+    for name, key in (("paged_attention", "decode"), ("paged_prefill_attention", "prefill"),
+                      ("write_kv_int8", "write_kv_int8"), ("wta_sample", "wta_sample")):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec.setdefault("cases", []).extend(heads[key])
+        launches_4g = {f"gemma2 {run}": gres[run]["launches"][key]
+                       for run in ("same", "int8", "wta")}
+        if key in ("decode", "prefill"):
+            launches_4g["gemma2 long"] = gres["long"]["launches"][key]
+            for arch, run in gres["cuts"].items():
+                launches_4g[arch] = run["launches"][key]
+        rec["launches_4g"] = launches_4g
     # the R = 3 serve of the same trace and the FCNN's head: their own
     # paths, counted apart
     wta_rec = next(k for k in kernels if k["name"] == "wta_sample")

@@ -1,10 +1,15 @@
-"""Per-architecture configs ported so far: ``stablelm-3b`` and the paper's
-``fcnn-mnist``."""
+"""Per-architecture configs ported so far: the attention-only decoder LMs
+``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b`` and
+``nemotron-4-340b``, and the paper's ``fcnn-mnist``; plus the shape suite
+(``SHAPES``, ``ShapeSpec``) and each arch's ``skip_shapes``."""
 
 from importlib import import_module
 
 _MODULES = {
     "stablelm-3b": "stablelm_3b",
+    "gemma2-2b": "gemma2_2b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "nemotron-4-340b": "nemotron_4_340b",
     "fcnn-mnist": "fcnn_mnist",
 }
 
@@ -21,3 +26,10 @@ def get_config(name: str):
 
 def get_smoke_config(name: str):
     return _mod(name).smoke_config()
+
+
+def skip_shapes(name: str) -> dict:
+    return getattr(_mod(name), "SKIP_SHAPES", {})
+
+
+from .shapes import SHAPES, ShapeSpec  # noqa: E402,F401

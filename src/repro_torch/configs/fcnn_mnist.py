@@ -23,6 +23,8 @@ CONFIG = ModelConfig(
     dtype="float32",
 )
 
+SKIP_SHAPES = {}
+
 
 def smoke_config() -> ModelConfig:
     """(64, 32, 16, 10): inputs are the first 64 pixels of an image, as the

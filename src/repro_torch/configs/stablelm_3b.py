@@ -22,6 +22,8 @@ CONFIG = ModelConfig(
     max_seq=33_000,
 )
 
+SKIP_SHAPES = {"long_500k": "pure full-attention arch (quadratic at 500k)"}
+
 
 def smoke_config() -> ModelConfig:
     return dataclasses.replace(

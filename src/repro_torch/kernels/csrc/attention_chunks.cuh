@@ -159,17 +159,35 @@ __device__ __forceinline__ void convert_rows_i8(const unsigned char* rows, Chunk
 }
 
 // A warp's 16 query rows and online-softmax state, in registers, for
-// head dim DH (a multiple of 16, at most 128: prefill_attention.cu
-// compiles the tile for each).
+// head dim DH (a multiple of 16: prefill_attention.cu compiles the tile
+// for each it takes).  Up to Dh = 128 the rows' A fragments stay in
+// registers; above it they are read from a query tile in shared memory
+// (rows of DH + kPad bf16) at each k-step, which leaves the registers to
+// the 16 x DH f32 output.
 template <int DH>
 struct TcRows {
   static constexpr int kNT = kChunk / 8;  // score n-tiles of a chunk
   static constexpr int kKS = DH / 16;     // k-steps over Dh
   static constexpr int kDT = DH / 8;      // output n-tiles over Dh
-  uint32_t qf[kKS][4];
+  static constexpr bool kQSmem = DH > 128;
+  uint32_t qf[kQSmem ? 1 : kKS][4];
+  const __nv_bfloat16* q_tile;  // kQSmem: the staged rows
   float o[kDT][4];
   float w[kNT][4];  // the current chunk's scores, then weights
   float m_a, m_b, l_a, l_b;
+
+  __device__ __forceinline__ void zero_state() {
+#pragma unroll
+    for (int d = 0; d < kDT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+    m_a = m_b = NEG_INF;
+    l_a = l_b = 0.f;
+  }
+
+  // kQSmem: the rows are the 16 rows of `tile` (stride DH + kPad).
+  __device__ __forceinline__ void init_smem(const __nv_bfloat16* tile) {
+    q_tile = tile;
+    zero_state();
+  }
 
   // Rows a (gid) and b (gid + 8) of the lane's quad from row pointers
   // (null: a padding row of zeros).
@@ -183,10 +201,7 @@ struct TcRows {
       qf[s][2] = qa ? ld_u32(qa + col + 8) : 0u;
       qf[s][3] = qb ? ld_u32(qb + col + 8) : 0u;
     }
-#pragma unroll
-    for (int d = 0; d < kDT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-    m_a = m_b = NEG_INF;
-    l_a = l_b = 0.f;
+    zero_state();
   }
 
   // Scores of one chunk: keys key0 + j (j < kChunk) from bf16 rows at
@@ -200,14 +215,31 @@ struct TcRows {
                                          int local_window, float softcap, float scale,
                                          int lane) {
     const int gid = lane >> 2, tg = lane & 3;
+    if constexpr (kQSmem) {
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      w[nt][0] = w[nt][1] = w[nt][2] = w[nt][3] = 0.f;
-      const unsigned char* kr = k_rows + rr.at(nt * 8 + gid) + tg * 4;
+      for (int nt = 0; nt < kNT; ++nt) w[nt][0] = w[nt][1] = w[nt][2] = w[nt][3] = 0.f;
+      const __nv_bfloat16* qa = q_tile + gid * (DH + kPad) + tg * 2;
+      const __nv_bfloat16* qb = qa + 8 * (DH + kPad);
+#pragma unroll 4
+      for (int s = 0; s < kKS; ++s) {
+        const uint32_t a0 = ld_u32(qa + s * 16), a1 = ld_u32(qb + s * 16);
+        const uint32_t a2 = ld_u32(qa + s * 16 + 8), a3 = ld_u32(qb + s * 16 + 8);
 #pragma unroll
-      for (int s = 0; s < kKS; ++s)
-        mma_bf16(w[nt], qf[s][0], qf[s][1], qf[s][2], qf[s][3], ld_u32(kr + s * 32),
-                 ld_u32(kr + s * 32 + 16));
+        for (int nt = 0; nt < kNT; ++nt) {
+          const unsigned char* kr = k_rows + rr.at(nt * 8 + gid) + tg * 4 + s * 32;
+          mma_bf16(w[nt], a0, a1, a2, a3, ld_u32(kr), ld_u32(kr + 16));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        w[nt][0] = w[nt][1] = w[nt][2] = w[nt][3] = 0.f;
+        const unsigned char* kr = k_rows + rr.at(nt * 8 + gid) + tg * 4;
+#pragma unroll
+        for (int s = 0; s < kKS; ++s)
+          mma_bf16(w[nt], qf[s][0], qf[s][1], qf[s][2], qf[s][3], ld_u32(kr + s * 32),
+                   ld_u32(kr + s * 32 + 16));
+      }
     }
     float mx_a = m_a, mx_b = m_b;
 #pragma unroll

@@ -28,12 +28,21 @@
 //   garbage under m = NEG_INF, which exp(NEG_INF - m*) wipes because the
 //   key at pos is visible to some CTA.
 // - Warps own 32-key chunks (attention_chunks.cuh): warp j walks chunks j,
-//   j+4, ... of its CTA's share (two pages at bs=16) with its own online
+//   j+NW, ... of its CTA's share (two pages at bs=16) with its own online
 //   softmax, loading each through TMA page boxes into a two-stage ring, so
 //   chunk k+1 is in flight while chunk k is consumed; page ids are read
 //   one chunk ahead and the first chunk is requested before q is staged.
 //   The warps merge in shared memory once at the end, and the G query
 //   rows of a GQA group share each chunk read.
+// - The shared-memory plan (NW warps, STAGES ring stages a warp) is a
+//   template argument, picked by the host (decode_geometry): 4 warps of
+//   two stages where that fits in 227 KiB (every head shape up to
+//   Dh = 128 in bf16 and int8), else 4 warps of one stage (a chunk is
+//   then loaded only after the last one is consumed), else 2 of one.  A
+//   stage of 32 keys at Dh = 256 is 32 KiB in bf16 and 64 KiB in f32, so
+//   gemma2's bf16 pool runs 4 warps of one stage and its f32 pool 2 warps
+//   of one stage.  As template arguments, the plans cost the 4 x 2 kernel
+//   no branch or runtime divisor.
 // - Per-key work stays short: one key per lane, its score as a 16-byte
 //   vector dot product, the row max and sum as warp shuffles, P.V with
 //   each lane owning four dimensions, all in f32 on the CUDA cores.
@@ -52,18 +61,18 @@ namespace cg = cooperative_groups;
 
 namespace raca {
 
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = kThreads / 32;  // warps of the widest plan
 
-// Dynamic shared memory of one CTA: 128 bytes of alignment slack, the
-// warps' two-stage rings and mbarriers (16 bytes a warp), then f32 q rows,
-// each warp's (32 weights, m, l padded to 16 bytes, acc) and the CTA's
-// combined (m, l).
+// Dynamic shared memory of one CTA of nw warps with `stages` ring stages
+// each: 128 bytes of alignment slack, the warps' rings and mbarriers (16
+// bytes a warp), then f32 q rows, each warp's (32 weights, m, l padded to
+// 16 bytes, acc) and the CTA's combined (m, l).
 __host__ __device__ inline size_t decode_smem_bytes(int G, int bs, int dh, int kv_bytes,
-                                                    bool int8) {
+                                                    bool int8, int nw, int stages) {
   const int wfl = 32 + (2 * G + 3) / 4 * 4 + G * dh;
   return 128 +
-         static_cast<size_t>(kWarps) * (2 * chunk_stage_bytes(bs, dh, kv_bytes, int8) + 16) +
-         sizeof(float) * (G * dh + kWarps * wfl + 2 * G);
+         static_cast<size_t>(nw) * (stages * chunk_stage_bytes(bs, dh, kv_bytes, int8) + 16) +
+         sizeof(float) * (G * dh + nw * wfl + 2 * G);
 }
 
 __device__ __forceinline__ unsigned char* align128(unsigned char* p) {
@@ -83,12 +92,12 @@ __device__ __forceinline__ int2 share_keys(int p, int r, int bs, int W, int loca
 // Rank 0 of the cluster combines the CTAs' (m_c, l_c, acc_c) of n_rows
 // rows and writes out_rows[row * dh + d]; with NS = 1 the CTA writes its
 // own.  Called by every thread of every CTA of the cluster.
-template <int NS>
+template <int NS, int NT>
 __device__ __forceinline__ void cluster_combine(float* m_c, float* l_c, float* acc_c,
                                                 int acc_stride, int n_rows, int dh,
                                                 float* out_rows) {
   if constexpr (NS == 1) {
-    for (int idx = threadIdx.x; idx < n_rows * dh; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < n_rows * dh; idx += NT) {
       const int row = idx / dh, d = idx - row * dh;
       out_rows[idx] = acc_c[row * acc_stride + d] / fmaxf(l_c[row], 1e-30f);
     }
@@ -96,7 +105,7 @@ __device__ __forceinline__ void cluster_combine(float* m_c, float* l_c, float* a
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();  // every share's state is in its CTA's shared memory
     if (blockIdx.x == 0) {
-      for (int idx = threadIdx.x; idx < n_rows * dh; idx += kThreads) {
+      for (int idx = threadIdx.x; idx < n_rows * dh; idx += NT) {
         const int row = idx / dh, d = idx - row * dh;
         float mx = NEG_INF;
 #pragma unroll
@@ -173,13 +182,14 @@ __device__ __forceinline__ void fma4(float4& a, float p, float4 v) {
   a.w = fmaf(p, v.w, a.w);
 }
 
-template <typename TQ, typename TKV, int NS>
+template <typename TQ, typename TKV, int NS, int NW, int STAGES>
 __device__ __forceinline__ void decode_body(
     const TQ* __restrict__ q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ table, const int* __restrict__ pos, float* __restrict__ out,
     int H, int hkv, int dh, int bs, int W, int local, int local_window, float softcap) {
   constexpr int VEC = 16 / sizeof(TKV);
+  constexpr int nw = NW, stages = STAGES, nt = 32 * NW;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = align128(smem_raw);
   const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -189,9 +199,9 @@ __device__ __forceinline__ void decode_body(
   const ChunkRows rr = chunk_rows(bs, dh, sizeof(TKV));
   const int nb = kChunk / rr.rows;
   const int stage_bytes = chunk_stage_bytes(bs, dh, sizeof(TKV), int8);
-  unsigned char* ring = smem + warp * 2 * stage_bytes;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kWarps * 2 * stage_bytes) + 2 * warp;
-  float* q_s = reinterpret_cast<float*>(smem + kWarps * (2 * stage_bytes + 16));
+  unsigned char* ring = smem + warp * stages * stage_bytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + nw * stages * stage_bytes) + 2 * warp;
+  float* q_s = reinterpret_cast<float*>(smem + nw * (stages * stage_bytes + 16));
   // A warp's state: 32 weights, m[G], l[G] (padded to 16 bytes), acc[G][Dh].
   const int wml = (2 * G + 3) / 4 * 4;
   const int wfl = 32 + wml + G * dh;
@@ -201,7 +211,7 @@ __device__ __forceinline__ void decode_body(
   float* m_w = w_m(warp);
   float* l_w = m_w + G;
   float* acc_w = w_acc(warp);
-  float* m_c = q_s + G * dh + kWarps * wfl;
+  float* m_c = q_s + G * dh + nw * wfl;
   float* l_c = m_c + G;
   if (lane == 0) {
     mbar_init(bars);
@@ -214,16 +224,16 @@ __device__ __forceinline__ void decode_body(
   const int2 kr2 = share_keys<NS>(p, r, bs, W, local, local_window);
   const int k_lo = kr2.x, k_hi = kr2.y;
   const int n_chunks = (k_hi - k_lo + kChunk - 1) / kChunk;
-  const int n_mine = n_chunks > warp ? (n_chunks - warp + kWarps - 1) / kWarps : 0;
+  const int n_mine = n_chunks > warp ? (n_chunks - warp + nw - 1) / nw : 0;
   const int* trow = table + static_cast<int64_t>(b) * W;
-  auto key0_of = [&](int i) { return k_lo + (warp + i * kWarps) * kChunk; };
+  auto key0_of = [&](int i) { return k_lo + (warp + i * nw) * kChunk; };
   int id_next = n_mine > 0 ? chunk_page_id(trow, key0_of(0), k_hi, bs, lane) : 0;
-  auto issue = [&](int i) {  // the warp's i-th chunk into stage i % 2
+  auto issue = [&](int i) {  // the warp's i-th chunk into stage i % stages
     if (i < n_mine) {
       const int id = id_next;
       if (i + 1 < n_mine) id_next = chunk_page_id(trow, key0_of(i + 1), k_hi, bs, lane);
-      load_chunk<TKV>(ring + (i % 2) * stage_bytes, bars + i % 2, tm_k, tm_v, ks, vs, id,
-                      key0_of(i), k_hi, bs, hkv, kh, dh, lane);
+      load_chunk<TKV>(ring + (i % stages) * stage_bytes, bars + i % stages, tm_k, tm_v, ks,
+                      vs, id, key0_of(i), k_hi, bs, hkv, kh, dh, lane);
     }
     cp_async_commit();
   };
@@ -231,7 +241,7 @@ __device__ __forceinline__ void decode_body(
 
   const float scale = 1.f / sqrtf(static_cast<float>(dh));
   const int64_t row0 = (static_cast<int64_t>(b) * H + kh * G) * dh;
-  for (int i = threadIdx.x; i < G * dh; i += kThreads) q_s[i] = to_f32(q[row0 + i]) * scale;
+  for (int i = threadIdx.x; i < G * dh; i += nt) q_s[i] = to_f32(q[row0 + i]) * scale;
   for (int i = lane; i < G * dh; i += 32) acc_w[i] = 0.f;
   for (int i = lane; i < G; i += 32) {
     m_w[i] = NEG_INF;
@@ -241,11 +251,16 @@ __device__ __forceinline__ void decode_body(
 
   const int cpr = dh / VEC;  // 16-byte pieces per row
   for (int i = 0; i < n_mine; ++i) {
-    issue(i + 1);
-    mbar_wait(bars + i % 2, (i / 2) & 1);
-    cp_async_wait<1>();
+    if constexpr (STAGES == 2) {  // chunk i + 1 flies while chunk i is consumed
+      issue(i + 1);
+      mbar_wait(bars + i % 2, (i / 2) & 1);
+      cp_async_wait<1>();
+    } else {
+      mbar_wait(bars, i & 1);
+      cp_async_wait<0>();
+    }
     __syncwarp();
-    const unsigned char* k_st = ring + (i % 2) * stage_bytes;
+    const unsigned char* k_st = ring + (i % stages) * stage_bytes;
     const unsigned char* v_st = k_st + nb * rr.slot;
     const float* sc = reinterpret_cast<const float*>(v_st + nb * rr.slot);
     const int kpos = key0_of(i) + lane;
@@ -305,6 +320,7 @@ __device__ __forceinline__ void decode_body(
       }
       __syncwarp();
     }
+    if constexpr (STAGES == 1) issue(i + 1);  // the one stage is free again
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -312,28 +328,28 @@ __device__ __forceinline__ void decode_body(
   // Merge the warps into the CTA's state: m_c, l_c, and acc in warp 0's
   // acc (each element is read and written by one thread only).
   float* acc_c = w_acc(0);
-  for (int idx = threadIdx.x; idx < G * dh; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < G * dh; idx += nt) {
     const int g = idx / dh;
     float mx = NEG_INF;
-    for (int v = 0; v < kWarps; ++v) mx = fmaxf(mx, w_m(v)[g]);
+    for (int v = 0; v < nw; ++v) mx = fmaxf(mx, w_m(v)[g]);
     float a = 0.f;
-    for (int v = 0; v < kWarps; ++v) a += w_acc(v)[idx] * expf(w_m(v)[g] - mx);
+    for (int v = 0; v < nw; ++v) a += w_acc(v)[idx] * expf(w_m(v)[g] - mx);
     acc_c[idx] = a;
   }
-  for (int g = threadIdx.x; g < G; g += kThreads) {
+  for (int g = threadIdx.x; g < G; g += nt) {
     float mx = NEG_INF, l = 0.f;
-    for (int v = 0; v < kWarps; ++v) mx = fmaxf(mx, w_m(v)[g]);
-    for (int v = 0; v < kWarps; ++v) l += w_m(v)[G + g] * expf(w_m(v)[g] - mx);
+    for (int v = 0; v < nw; ++v) mx = fmaxf(mx, w_m(v)[g]);
+    for (int v = 0; v < nw; ++v) l += w_m(v)[G + g] * expf(w_m(v)[g] - mx);
     m_c[g] = mx;
     l_c[g] = l;
   }
   __syncthreads();
-  cluster_combine<NS>(m_c, l_c, acc_c, dh, G, dh, out + row0);
+  cluster_combine<NS, nt>(m_c, l_c, acc_c, dh, G, dh, out + row0);
 }
 
 #define RACA_DECODE_KERNEL(NS)                                                        \
-  template <typename TQ, typename TKV>                                                \
-  __global__ void __cluster_dims__(NS, 1, 1) __launch_bounds__(kThreads)              \
+  template <typename TQ, typename TKV, int NW, int STAGES>                            \
+  __global__ void __cluster_dims__(NS, 1, 1) __launch_bounds__(32 * NW)               \
       paged_decode_kernel_##NS(const TQ* __restrict__ q,                              \
                                const __grid_constant__ CUtensorMap tm_k,              \
                                const __grid_constant__ CUtensorMap tm_v,              \
@@ -343,8 +359,8 @@ __device__ __forceinline__ void decode_body(
                                const int* __restrict__ pos, float* __restrict__ out,  \
                                int H, int hkv, int dh, int bs, int W, int local,      \
                                int local_window, float softcap) {                     \
-    decode_body<TQ, TKV, NS>(q, &tm_k, &tm_v, ks, vs, table, pos, out, H, hkv, dh, bs, \
-                             W, local, local_window, softcap);                        \
+    decode_body<TQ, TKV, NS, NW, STAGES>(q, &tm_k, &tm_v, ks, vs, table, pos, out, H,  \
+                                         hkv, dh, bs, W, local, local_window, softcap); \
   }
 RACA_DECODE_KERNEL(1)
 RACA_DECODE_KERNEL(2)
@@ -352,7 +368,7 @@ RACA_DECODE_KERNEL(4)
 RACA_DECODE_KERNEL(8)
 #undef RACA_DECODE_KERNEL
 
-template <typename TQ, typename TKV, typename Kernel>
+template <typename TQ, typename TKV, int NW, int STAGES, typename Kernel>
 cudaError_t launch_ns(Kernel kern, const void* q, const void* kp, const void* vp,
                       const float* ks, const float* vs, const int* table, const int* pos,
                       float* out, int P, int B, int H, int hkv, int dh, int bs, int W,
@@ -364,26 +380,27 @@ cudaError_t launch_ns(Kernel kern, const void* q, const void* kp, const void* vp
   if (err == cudaSuccess)
     err = encode_pool_map(&tm_v, vp, sizeof(TKV), n_rows, hkv, dh, box_rows(bs));
   if (err != cudaSuccess) return err;
-  size_t bytes = decode_smem_bytes(H / hkv, bs, dh, sizeof(TKV), ks != nullptr);
+  size_t bytes = decode_smem_bytes(H / hkv, bs, dh, sizeof(TKV), ks != nullptr, NW, STAGES);
   err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(n_split, hkv, B);
-  kern<<<grid, kThreads, bytes, stream>>>(static_cast<const TQ*>(q), tm_k, tm_v, ks, vs, table,
-                                          pos, out, H, hkv, dh, bs, W, local, local_window,
-                                          softcap);
+  kern<<<grid, 32 * NW, bytes, stream>>>(static_cast<const TQ*>(q), tm_k, tm_v, ks, vs, table,
+                                         pos, out, H, hkv, dh, bs, W, local, local_window,
+                                         softcap);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* kp, const void* vp, const float* ks,
-                   const float* vs, const int* table, const int* pos, float* out, int P, int B,
-                   int H, int hkv, int dh, int bs, int W, int n_split, int local,
-                   int local_window, float softcap, cudaStream_t stream) {
+template <typename TQ, typename TKV, int NW, int STAGES>
+cudaError_t launch_plan(const void* q, const void* kp, const void* vp, const float* ks,
+                        const float* vs, const int* table, const int* pos, float* out, int P,
+                        int B, int H, int hkv, int dh, int bs, int W, int n_split, int local,
+                        int local_window, float softcap, cudaStream_t stream) {
 #define RACA_NS(NS)                                                                      \
   if (n_split == NS)                                                                     \
-  return launch_ns<TQ, TKV>(paged_decode_kernel_##NS<TQ, TKV>, q, kp, vp, ks, vs, table, \
-                            pos, out, P, B, H, hkv, dh, bs, W, n_split, local,           \
-                            local_window, softcap, stream)
+  return launch_ns<TQ, TKV, NW, STAGES>(paged_decode_kernel_##NS<TQ, TKV, NW, STAGES>,   \
+                                        q, kp, vp, ks, vs, table, pos, out, P, B, H, hkv, \
+                                        dh, bs, W, n_split, local, local_window, softcap, \
+                                        stream)
   RACA_NS(1);
   RACA_NS(2);
   RACA_NS(4);
@@ -392,23 +409,44 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const float* k
   return cudaErrorInvalidValue;
 }
 
+// The plans decode_geometry picks from: (warps, stages) = (4, 2), (4, 1), (2, 1).
+template <typename TQ, typename TKV>
+cudaError_t launch(const void* q, const void* kp, const void* vp, const float* ks,
+                   const float* vs, const int* table, const int* pos, float* out, int P, int B,
+                   int H, int hkv, int dh, int bs, int W, int n_split, int nw, int stages,
+                   int local, int local_window, float softcap, cudaStream_t stream) {
+#define RACA_PLAN(NW, STAGES)                                                            \
+  if (nw == NW && stages == STAGES)                                                      \
+  return launch_plan<TQ, TKV, NW, STAGES>(q, kp, vp, ks, vs, table, pos, out, P, B, H,   \
+                                          hkv, dh, bs, W, n_split, local, local_window,  \
+                                          softcap, stream)
+  RACA_PLAN(kWarps, 2);
+  RACA_PLAN(kWarps, 1);
+  RACA_PLAN(2, 1);
+#undef RACA_PLAN
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace raca
 
 // Plain C entry point for ctypes.  q_dtype is f32 or bf16; kv_dtype is f32,
 // bf16 or int8 (int8 requires the scale planes); P is the pool's page
-// count.  n_split (1, 2, 4 or 8) comes from the wrapper's decode_geometry.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a type pair, split or shape it does not take.
+// count.  n_split (1, 2, 4 or 8) and the plan (nw warps, `stages` ring
+// stages a warp: (4, 2), (4, 1) or (2, 1)) come from the wrapper's
+// decode_geometry.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a type pair, split, plan or shape it does not
+// take.
 extern "C" int paged_attention_launch(
     const void* q, int q_dtype, const void* kp, const void* vp, int kv_dtype,
     const float* ks, const float* vs, const int* table, const int* pos,
-    float* out, int P, int B, int H, int hkv, int dh, int bs, int W, int n_split, int local,
-    int local_window, float softcap, void* stream) {
+    float* out, int P, int B, int H, int hkv, int dh, int bs, int W, int n_split, int nw,
+    int stages, int local, int local_window, float softcap, void* stream) {
   using namespace raca;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RACA_LAUNCH(TQ, TKV)                                                        \
   return static_cast<int>(launch<TQ, TKV>(q, kp, vp, ks, vs, table, pos, out, P, B, \
-                                          H, hkv, dh, bs, W, n_split, local,        \
-                                          local_window, softcap, st))
+                                          H, hkv, dh, bs, W, n_split, nw, stages,   \
+                                          local, local_window, softcap, st))
   if (q_dtype == kF32 && kv_dtype == kF32) RACA_LAUNCH(float, float);
   if (q_dtype == kBF16 && kv_dtype == kBF16) RACA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == kF32 && kv_dtype == kI8) RACA_LAUNCH(float, int8_t);

@@ -31,8 +31,12 @@
 //   v_scale/127 folded into P.  At the end each warp leaves (O, m, l) in
 //   its region and the CTA combines them with exp(m_j - m*), which wipes
 //   a warp whose keys were all masked for a row (its m is NEG_INF; every
-//   row's own key is visible to some warp).  Needs Dh a multiple of 16
-//   and at most 128.
+//   row's own key is visible to some warp).  Compiled for Dh a multiple
+//   of 16 up to 128, and for 192 and 256 (nemotron-4-340b, gemma2-2b).
+//   Above 128 the 16 query rows are staged once in shared memory and each
+//   k-step loads its A fragments there (held in registers beside the
+//   16 x Dh f32 output, they would spill), and at Dh = 256, where eight
+//   warps' regions of 32 KB do not fit, the CTA has four (tc_warps).
 // - f32 queries (f32 pools, and f32 queries on int8 pools): the CUDA-core
 //   body attend_rows of attention_common.cuh, 16-query tiles, 128 threads.
 //
@@ -45,16 +49,27 @@ namespace raca {
 constexpr int kQT = 16;      // f32 route: query rows per block
 constexpr int kTcWarps = 8;  // tensor-core route: warps per CTA, sharing its keys
 
-// Dynamic shared memory of the tensor-core route: 128 bytes of alignment
-// slack, the warps' regions (tc_warp_bytes), then their mbarriers.
-__host__ __device__ inline size_t prefill_tc_smem_bytes(int bs, int dh, int kv_bytes, bool int8) {
-  return 128 + static_cast<size_t>(kTcWarps) * (tc_warp_bytes(bs, dh, kv_bytes, int8) + 8);
+// Warps of a tensor-core CTA at head dim dh: eight, or four above 192.
+__host__ __device__ constexpr int tc_warps(int dh) { return dh > 192 ? kTcWarps / 2 : kTcWarps; }
+
+// Bytes of the staged query tile (Dh > 128 only): 16 bf16 rows of Dh + kPad.
+__host__ __device__ inline int q_tile_bytes(int dh) {
+  return dh > 128 ? 16 * (dh + kPad) * 2 : 0;
+}
+
+// Dynamic shared memory of the tensor-core route with nw warps: 128 bytes
+// of alignment slack, the warps' regions (tc_warp_bytes), the staged query
+// tile, then the warps' mbarriers.
+__host__ __device__ inline size_t prefill_tc_smem_bytes(int bs, int dh, int kv_bytes, bool int8,
+                                                        int nw) {
+  return 128 + static_cast<size_t>(nw) * (tc_warp_bytes(bs, dh, kv_bytes, int8) + 8) +
+         q_tile_bytes(dh);
 }
 
 // Up to Dh = 80 the tile fits 128 registers a thread, so two CTAs share an
 // SM; wider heads would spill under that cap and run one CTA an SM.
 template <typename TKV, int DH>
-__global__ void __launch_bounds__(32 * kTcWarps, DH <= 80 ? 2 : 1) prefill_tc_kernel(
+__global__ void __launch_bounds__(32 * tc_warps(DH), DH <= 80 ? 2 : 1) prefill_tc_kernel(
     const __nv_bfloat16* __restrict__ q,  // (S, H, Dh)
     const __grid_constant__ CUtensorMap tm_k,  // the (P, bs, Hkv, Dh) pools
     const __grid_constant__ CUtensorMap tm_v,
@@ -71,10 +86,12 @@ __global__ void __launch_bounds__(32 * kTcWarps, DH <= 80 ? 2 : 1) prefill_tc_ke
   const int i0 = blockIdx.x * 16;
   const int h = blockIdx.y;
   const int kh = h / (H / hkv);
+  constexpr int nw = tc_warps(DH);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wbytes = tc_warp_bytes(bs, dh, sizeof(TKV), kInt8);
   unsigned char* region = smem + warp * wbytes;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kTcWarps * wbytes) + warp;
+  __nv_bfloat16* q_tile = reinterpret_cast<__nv_bfloat16*>(smem + nw * wbytes);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + nw * wbytes + q_tile_bytes(dh)) + warp;
   __nv_bfloat16* work =
       reinterpret_cast<__nv_bfloat16*>(region + chunk_stage_bytes(bs, dh, sizeof(TKV), kInt8));
   if (lane == 0) {
@@ -84,15 +101,15 @@ __global__ void __launch_bounds__(32 * kTcWarps, DH <= 80 ? 2 : 1) prefill_tc_ke
   __syncwarp();
 
   // Live keys of the CTA: [j_lo, j_hi) in absolute positions, in chunks
-  // c_first, c_first + 1, ...; this warp takes every kTcWarps-th chunk.
+  // c_first, c_first + 1, ...; this warp takes every nw-th chunk.
   const int n_rows = min(S - i0, 16);
   const int last = q0 + i0 + n_rows - 1;
   const int j_lo = first_block(q0 + i0, local, local_window, bs) * bs;
   const int j_hi = min(W * bs, last + 1);
   const int c_first = j_lo / kChunk;
   const int n_chunks = j_hi > j_lo ? (j_hi - 1) / kChunk - c_first + 1 : 0;
-  const int n_mine = n_chunks > warp ? (n_chunks - warp + kTcWarps - 1) / kTcWarps : 0;
-  auto key0_of = [&](int i) { return (c_first + warp + i * kTcWarps) * kChunk; };
+  const int n_mine = n_chunks > warp ? (n_chunks - warp + nw - 1) / nw : 0;
+  auto key0_of = [&](int i) { return (c_first + warp + i * nw) * kChunk; };
   int id_next = n_mine > 0 ? chunk_page_id(table, key0_of(0), j_hi, bs, lane) : 0;
   auto issue = [&](int i) {  // the warp's i-th chunk into its stage
     if (i < n_mine) {
@@ -111,8 +128,24 @@ __global__ void __launch_bounds__(32 * kTcWarps, DH <= 80 ? 2 : 1) prefill_tc_ke
   const int ra = i0 + gid, rb = ra + 8;
   const int64_t ldq = static_cast<int64_t>(H) * dh;
   const __nv_bfloat16* qh = q + static_cast<int64_t>(h) * dh;
-  st.init(ra < S ? qh + ra * ldq : nullptr, rb < S ? qh + rb * ldq : nullptr, tg);
-  issue(0);
+  if constexpr (TcRows<DH>::kQSmem) {
+    // the CTA's 16 rows into the query tile (rows past S are zeros), 16
+    // bytes a thread per step
+    constexpr int per = DH / 8;
+    for (int c = threadIdx.x; c < 16 * per; c += 32 * nw) {
+      const int row = c / per, e = 8 * (c - row * per);
+      const uint4 v = i0 + row < S
+          ? *reinterpret_cast<const uint4*>(qh + (i0 + row) * ldq + e)
+          : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(q_tile + row * (DH + kPad) + e) = v;
+    }
+    st.init_smem(q_tile);
+    issue(0);
+    __syncthreads();
+  } else {
+    st.init(ra < S ? qh + ra * ldq : nullptr, rb < S ? qh + rb * ldq : nullptr, tg);
+    issue(0);
+  }
   const float scale = 1.f / sqrtf(static_cast<float>(dh));
   const ChunkRows raw = chunk_rows(bs, dh, sizeof(TKV));
   const ChunkRows conv = {0, 5, kChunk, (dh + kPad) * 2};
@@ -146,9 +179,9 @@ __global__ void __launch_bounds__(32 * kTcWarps, DH <= 80 ? 2 : 1) prefill_tc_ke
   st.store(reinterpret_cast<float*>(region), lane);
   __syncthreads();
   const float* base = reinterpret_cast<const float*>(smem);
-  for (int idx = threadIdx.x; idx < n_rows * dh; idx += 32 * kTcWarps) {
+  for (int idx = threadIdx.x; idx < n_rows * dh; idx += 32 * nw) {
     const int row = idx / dh, d = idx - row * dh;
-    const float3 m = merge_states(base, wbytes / 4, kTcWarps, dh, row, d);
+    const float3 m = merge_states(base, wbytes / 4, nw, dh, row, d);
     out[(i0 + row) * ldq + static_cast<int64_t>(h) * dh + d] = m.x / fmaxf(m.y, 1e-30f);
   }
 }
@@ -194,11 +227,11 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       err = encode_pool_map(&tm_v, vp, sizeof(TKV), n_rows, hkv, dh, box_rows(bs));
     if (err != cudaSuccess) return err;
     auto go = [&](auto kern) {
-      size_t bytes = prefill_tc_smem_bytes(bs, dh, sizeof(TKV), sizeof(TKV) == 1);
+      size_t bytes = prefill_tc_smem_bytes(bs, dh, sizeof(TKV), sizeof(TKV) == 1, tc_warps(dh));
       cudaError_t e = allow_smem(kern, bytes);
       if (e != cudaSuccess) return e;
       dim3 grid((S + 15) / 16, H);
-      kern<<<grid, 32 * kTcWarps, bytes, stream>>>(
+      kern<<<grid, 32 * tc_warps(dh), bytes, stream>>>(
           static_cast<const __nv_bfloat16*>(q), tm_k, tm_v, ks, vs, table, out, S, q0, H, hkv,
           bs, W, local, local_window, softcap);
       return cudaGetLastError();
@@ -212,6 +245,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       case 96: return go(prefill_tc_kernel<TKV, 96>);
       case 112: return go(prefill_tc_kernel<TKV, 112>);
       case 128: return go(prefill_tc_kernel<TKV, 128>);
+      case 192: return go(prefill_tc_kernel<TKV, 192>);
+      case 256: return go(prefill_tc_kernel<TKV, 256>);
       default: return cudaErrorInvalidValue;
     }
   } else {

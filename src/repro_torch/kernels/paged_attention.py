@@ -5,8 +5,9 @@ The kernel (``csrc/paged_attention.cu``) gives each (slot, kv head) a
 thread block cluster of ``n_split`` CTAs that share its live pages; inside
 a CTA each warp walks its own 32-key chunks through a ring of TMA page
 loads, reading bf16/int8 pages as they lie and accumulating in f32.
-:func:`decode_geometry` is the launch's shape (grid, ``n_split``, shared
-memory), :func:`split_shares` the pages each CTA takes.  Its plain
+:func:`decode_geometry` is the launch's shape (grid, ``n_split``, the
+warps and ring stages of a CTA, shared memory), :func:`split_shares` the
+pages each CTA takes.  Its plain
 PyTorch version is :func:`paged_attention_ref` (the reference oracle's
 math over a gathered window); ``ops.paged_attention`` sends CPU tensors
 there and CUDA tensors here.  ``launches`` counts kernel launches
@@ -28,14 +29,19 @@ launches = 0
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-MAX_SMEM_BYTES = 227 * 1024
+MAX_SMEM_BYTES = 227 * 1024   # dynamic shared memory a CTA may have
+SM_SMEM_BYTES = 228 * 1024    # shared memory of an SM; each CTA also takes 1 KiB
 SMS = 132             # H100 SXM streaming multiprocessors
 WARPS = 4             # kWarps in csrc/paged_attention.cu (128 threads)
+# (warps, ring stages a warp) in the order decode_geometry tries them: the
+# first whose shared memory fits is the CTA's plan
+PLANS = ((WARPS, 2), (WARPS, 1), (2, 1))   # the kernel's instantiations
 CHUNK = 32            # kChunk in csrc/attention_chunks.cuh: keys per warp step
 MAX_SPLIT = 8         # portable thread block cluster size
 MIN_SHARE = 8         # pages of a full window each CTA of a cluster keeps
-REGISTERS = 120       # at least ptxas's count for the bf16/int8 decode kernels (96-118,
-                      # as chip_smoke.py prints them)
+REGISTERS = 120       # at least ptxas's count for the 4-warp decode kernels (95-120, as
+                      # chip_smoke.py prints them); the 2-warp plan's (up to 128)
+                      # runs one CTA an SM by shared memory
 
 
 def split_shares(w_lo: int, w_hi: int, n_split: int) -> list[tuple[int, int]]:
@@ -59,29 +65,41 @@ def chunk_stage_bytes(bs: int, dh: int, kv_dtype: torch.dtype) -> int:
     return stage + (8 * CHUNK if kv_dtype == torch.int8 else 0)
 
 
+def decode_smem_bytes(g: int, dh: int, bs: int, kv_dtype: torch.dtype, warps: int,
+                      stages: int) -> int:
+    """``decode_smem_bytes`` in the source: ``stages`` 32-key stages per
+    warp, their mbarriers, then the f32 state (q rows, each warp's
+    weights, m, l and acc, the CTA's m and l)."""
+    floats = g * dh + warps * (32 + -(-2 * g // 4) * 4 + g * dh) + 2 * g
+    return 128 + warps * (stages * chunk_stage_bytes(bs, dh, kv_dtype) + 16) + 4 * floats
+
+
 def decode_geometry(
     b: int, h: int, hkv: int, dh: int, bs: int, w: int, kv_dtype: torch.dtype
 ) -> dict:
     """Launch shape of the decode kernel: ``grid`` (n_split, Hkv, B),
-    ``n_split`` CTAs per (slot, kv head) cluster, ``threads``, the G query
-    ``rows`` of a CTA, its dynamic ``smem_bytes`` (``decode_smem_bytes`` in
-    the source: two 32-key stages per warp, their mbarriers, then the f32
-    state) and the CTAs an SM holds at once (``ctas_per_sm``, by shared
-    memory, registers and threads).  The host knows only the window ``w``:
-    the split doubles while the doubled grid still fits in one wave of
+    ``n_split`` CTAs per (slot, kv head) cluster, the ``warps`` of a CTA and
+    the ring ``stages`` of a warp (the first of :data:`PLANS` whose shared
+    memory fits: four warps of two stages up to Dh = 128 in bf16 and int8),
+    ``threads``, the G query ``rows`` of a CTA, its dynamic ``smem_bytes``
+    and the CTAs an SM holds at once (``ctas_per_sm``, by shared memory,
+    registers and threads).  The host knows only the window ``w``: the
+    split doubles while the doubled grid still fits in one wave of
     resident CTAs and each CTA keeps MIN_SHARE pages of a full window (the
     rule the split sweep of chip_smoke.py bears out, PERF.md)."""
     g = h // hkv
-    floats = g * dh + WARPS * (32 + -(-2 * g // 4) * 4 + g * dh) + 2 * g
-    smem = 128 + WARPS * (2 * chunk_stage_bytes(bs, dh, kv_dtype) + 16) + 4 * floats
-    threads = 32 * WARPS
-    per_sm = min(MAX_SMEM_BYTES // (smem + 1024), 65536 // (REGISTERS * threads), 2048 // threads)
+    for warps, stages in PLANS:
+        smem = decode_smem_bytes(g, dh, bs, kv_dtype, warps, stages)
+        if smem <= MAX_SMEM_BYTES:
+            break
+    threads = 32 * warps
+    per_sm = min(SM_SMEM_BYTES // (smem + 1024), 65536 // (REGISTERS * threads), 2048 // threads)
     n_split = 1
     while (n_split < MAX_SPLIT and 2 * n_split * MIN_SHARE <= w
            and b * hkv * 2 * n_split <= SMS * per_sm):
         n_split *= 2
-    return {"grid": (n_split, hkv, b), "n_split": n_split, "threads": threads,
-            "rows": g, "smem_bytes": smem, "ctas_per_sm": per_sm}
+    return {"grid": (n_split, hkv, b), "n_split": n_split, "warps": warps, "stages": stages,
+            "threads": threads, "rows": g, "smem_bytes": smem, "ctas_per_sm": per_sm}
 
 
 def check_box_shape(dh: int, bs: int, kv_dtype: torch.dtype) -> None:
@@ -98,7 +116,7 @@ def _lib():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 10 + [_F, _P]
+        fn.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 12 + [_F, _P]
         fn.restype = _I
     return fn
 
@@ -200,7 +218,7 @@ def paged_attention_cuda(
         data_ptr(q), DTYPE_CODES[q.dtype], data_ptr(k_pages), data_ptr(v_pages),
         DTYPE_CODES[k_pages.dtype], data_ptr(k_scale), data_ptr(v_scale), data_ptr(table),
         data_ptr(pos), data_ptr(out), k_pages.shape[0], b, h, hkv, dh, bs, table.shape[1],
-        geo["n_split"], int(kind == "local"), int(local_window),
+        geo["n_split"], geo["warps"], geo["stages"], int(kind == "local"), int(local_window),
         float(softcap), stream,
     )
     if rc != 0:

@@ -66,8 +66,8 @@ def _check_family(cfg: ModelConfig) -> None:
             f"only attention-only decoder_lm models are ported, got "
             f"{cfg.family} {cfg.layer_pattern}"
         )
-    if cfg.n_experts or cfg.post_norms:
-        raise NotImplementedError("MoE and post-norm blocks are not ported yet")
+    if cfg.n_experts:
+        raise NotImplementedError("MoE blocks are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -88,15 +88,18 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         params["head"] = init_lm_head(gen, cfg.d_model, cfg.vocab, dt)
-    params["units"] = {
-        f"l{i}": {
+    params["units"] = {}
+    for i in range(len(cfg.layer_pattern)):
+        sub = {
             "ln1": init_rmsnorm(cfg.d_model, lead, dev),
             "attn": ATT.init_attn(gen, cfg, lead),
             "ln2": init_rmsnorm(cfg.d_model, lead, dev),
             "ffn": init_mlp(gen, cfg, lead),
         }
-        for i in range(len(cfg.layer_pattern))
-    }
+        if cfg.post_norms:
+            sub["post_ln1"] = init_rmsnorm(cfg.d_model, lead, dev)
+            sub["post_ln2"] = init_rmsnorm(cfg.d_model, lead, dev)
+        params["units"][f"l{i}"] = sub
     return params
 
 
@@ -124,6 +127,21 @@ def unit_params(units: dict, u: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _attn_block(sub: dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig,
+                key=None) -> torch.Tensor:
+    """Residual add of the attention output, then the norm + MLP tail (its
+    analog draws under ``key``).  With ``cfg.post_norms`` the attention
+    output and the MLP output are each normed (``post_ln1``, ``post_ln2``)
+    before their residual adds, as gemma2's blocks are."""
+    if cfg.post_norms:
+        a = rmsnorm(sub["post_ln1"], a, cfg.norm_eps)
+    x = x + a
+    f = mlp_apply(sub["ffn"], rmsnorm(sub["ln2"], x, cfg.norm_eps), cfg, key=key)
+    if cfg.post_norms:
+        f = rmsnorm(sub["post_ln2"], f, cfg.norm_eps)
+    return x + f
+
+
 def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConfig, key):
     """One unit of ``cfg.layer_pattern``; sublayer ``i`` draws under
     ``fold_in(key, i)``, its attention under ``fold_in(·, 0)`` and its MLP
@@ -135,9 +153,7 @@ def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConf
             sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps), positions, cfg,
             kind=kind, key=None if ki is None else R.fold_in(ki, 0),
         )
-        x = x + a
-        h = rmsnorm(sub["ln2"], x, cfg.norm_eps)
-        x = x + mlp_apply(sub["ffn"], h, cfg, key=None if ki is None else R.fold_in(ki, 1))
+        x = _attn_block(sub, x, a, cfg, key=None if ki is None else R.fold_in(ki, 1))
     return x
 
 
@@ -274,12 +290,6 @@ def _int8_kw(pool: dict, u: int, i: int, seeds: torch.Tensor, name: str) -> dict
         "v_scale_pages": pool["v_scale_pages"][u, i],
         name: seeds[u, i],
     }
-
-
-def _attn_block(sub: dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Residual add of the attention output, then the norm + MLP tail."""
-    x = x + a
-    return x + mlp_apply(sub["ffn"], rmsnorm(sub["ln2"], x, cfg.norm_eps), cfg)
 
 
 def lm_decode_step(

@@ -87,16 +87,19 @@ def test_split_fills_one_wave():
 @pytest.mark.parametrize("g", [1, 4, 8, 32])
 def test_shared_memory_within_the_sm(q_dtype, kv_dtype, g):
     """Both kernels' CTAs stay within the 227 KB a block may use, at the
-    heads the port serves (Dh 16 and 80) and at Dh 128, for every type pair
-    and GQA group size G.  The one shape that does not fit is decode over
-    an f32 pool at Dh 128 (two 32-key stages of 16 KB of K and V for each
-    of four warps), which the wrapper refuses."""
-    for dh in (16, 80, 128):
+    heads the port serves (Dh 16, 80, 128, 192 and 256), for every type
+    pair and GQA group size G.  Decode over an f32 pool at Dh 128 (two
+    32-key stages of 16 KB of K and V for each of four warps would not
+    fit) runs four warps of one stage; Dh 80 keeps four warps of two."""
+    for dh in (16, 80, 128, 192, 256):
         for bs in (8, 16, 32, 64):
             geo = PA.decode_geometry(8, 32, 32 // g, dh, bs, 32, kv_dtype)
-            fits = not (kv_dtype == torch.float32 and dh == 128)
-            assert (geo["smem_bytes"] <= SMEM) == fits, (dh, bs, geo)
+            assert geo["smem_bytes"] <= SMEM and geo["ctas_per_sm"] >= 1, (dh, bs, geo)
             assert geo["rows"] == g and geo["grid"][1] == 32 // g
+            if dh <= 80:
+                assert (geo["warps"], geo["stages"]) == (4, 2)
+            if dh == 128 and kv_dtype == torch.float32:
+                assert (geo["warps"], geo["stages"]) == (4, 1)
             pg = PF.prefill_geometry(128, 32, 32 // g, dh, bs, q_dtype, kv_dtype)
             assert pg["smem_bytes"] <= SMEM
             assert pg["route"] == ("tensor-core" if q_dtype == BF16 else "cuda-core")
@@ -112,7 +115,7 @@ def test_tile_shape_checks():
     for dh, bs, kv in ((80, 12, BF16), (20, 16, torch.int8), (264, 16, torch.float32)):
         with pytest.raises(ValueError):
             PA.check_box_shape(dh, bs, kv)
-    assert list(PF.TC_HEAD_DIMS) == [16, 32, 48, 64, 80, 96, 112, 128]
+    assert list(PF.TC_HEAD_DIMS) == [16, 32, 48, 64, 80, 96, 112, 128, 192, 256]
 
 
 @pytest.mark.parametrize("s", [1, 15, 16, 31, 32, 33, 37, 50, 128, 300])

@@ -212,6 +212,108 @@ def test_cuda_bf16_attention_split_and_tensor_core_paths(
         torch.testing.assert_close(got, want, atol=BF16_TOL, rtol=BF16_TOL)
 
 
+# (H, Hkv, Dh) of the decoder configs with head dims above stablelm-3b's
+HEAD_SHAPES = {"gemma2-2b": (8, 4, 256), "deepseek-coder-33b": (56, 8, 128),
+               "nemotron-4-340b": (96, 8, 192)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(HEAD_SHAPES))
+@pytest.mark.parametrize("pool", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("kind,local_window,softcap", [("global", 0, 0.0), ("local", 40, 50.0)])
+def test_cuda_attention_at_the_new_head_shapes(cuda_device, arch, pool, kind, local_window,
+                                               softcap):
+    """Both attention kernels at gemma2-2b's, deepseek-coder-33b's and
+    nemotron-4-340b's head shapes (G = 2, 7, 12 at Dh = 256, 128, 192;
+    bs = 16) over bf16 and int8 pools with bf16 queries and f32 pools with
+    f32 queries, against their plain versions on the same card inputs,
+    with the shared-memory plan each shape gets (fewer warps or one ring
+    stage where two do not fit).  Decode: B = 3 at W = 12, one slot on a
+    single live page, one with a live id < 0, at every cluster size.
+    Prefill: S = 37 at q0 = 0 and 45.  Tolerances as above: f32 within
+    ATOL / RTOL, bf16 queries within BF16_TOL."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import prefill_attention as PF
+
+    h, hkv, dh = HEAD_SHAPES[arch]
+    rng = np.random.default_rng(dh + hkv)
+    kw = dict(kind=kind, local_window=local_window, softcap=softcap)
+    bs, w, b = 16, 12, 3
+    qdt = torch.float32 if pool == "f32" else torch.bfloat16
+    tol = dict(atol=ATOL, rtol=RTOL) if pool == "f32" else dict(atol=BF16_TOL, rtol=BF16_TOL)
+
+    def pools(n_pages):
+        if pool == "f32":
+            kp, vp, _, _ = _pool(rng, n_pages, bs, hkv, dh, False)
+            return torch.from_numpy(kp).to(cuda_device), torch.from_numpy(vp).to(cuda_device), {}
+        return _bf16_case(rng, n_pages, bs, hkv, dh, pool == "int8", cuda_device)
+
+    n_pages = b * w + 2
+    kp, vp, sc = pools(n_pages)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(cuda_device, qdt)
+    table = (rng.permutation(n_pages - 1)[: b * w] + 1).reshape(b, w).astype(np.int32)
+    table[2, 3] = -1
+    table = torch.from_numpy(table).to(cuda_device)
+    pos = torch.tensor([w * bs - 1, 9, 150], dtype=torch.int32, device=cuda_device)
+    geo = PA.decode_geometry(b, h, hkv, dh, bs, w, kp.dtype)
+    assert geo["smem_bytes"] <= PA.MAX_SMEM_BYTES and geo["ctas_per_sm"] >= 1
+    before = PA.launches
+    got = TOPS.paged_attention(q, kp, vp, table, pos, **kw, **sc)
+    assert PA.launches == before + 1
+    want = TREF.paged_attention_ref(q, kp, vp, table, pos, **kw, **sc)
+    torch.testing.assert_close(got, want, **tol)
+    for ns in (1, 2, 4, 8):
+        got = PA.paged_attention_cuda(q, kp, vp, table, pos, **kw, **sc, n_split=ns)
+        torch.testing.assert_close(got, want, **tol)
+    kp, vp, sc = pools(8)
+    table = (rng.permutation(7)[:7] + 1).astype(np.int32)
+    table[1] = -1
+    table = torch.from_numpy(table).to(cuda_device)
+    for q0 in (0, 45):
+        q = torch.from_numpy(rng.standard_normal((37, h, dh)).astype(np.float32))
+        q = q.to(cuda_device, qdt)
+        geo = PF.prefill_geometry(37, h, hkv, dh, bs, qdt, kp.dtype)
+        assert geo["smem_bytes"] <= PA.MAX_SMEM_BYTES and geo["ctas_per_sm"] >= 1
+        before = PF.launches
+        got = TOPS.paged_prefill_attention(q, kp, vp, table, q0, **kw, **sc)
+        assert PF.launches == before + 1
+        want = TREF.prefill_attention_ref(q, kp, vp, table, q0, **kw, **sc)
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(HEAD_SHAPES))
+def test_cuda_write_kv_int8_at_the_new_head_shapes(cuda_device, arch):
+    """The fused int8 write at the new configs' kv heads (Hkv 4 or 8 at
+    Dh 256, 128, 192), both modes, bit for bit outside the trash page."""
+    from repro_torch.kernels import stoch_round as SR
+
+    _, hkv, dh = HEAD_SHAPES[arch]
+    rng = np.random.default_rng(dh)
+    bs, n_pages = 16, 40
+    table = torch.from_numpy(
+        (rng.permutation(n_pages - 1)[:24] + 1).reshape(6, 4).astype(np.int32)).to(cuda_device)
+    pos = torch.tensor([5, 40, 63, 64 + 7, 1000, 0], dtype=torch.int32, device=cuda_device)
+    row = torch.from_numpy((rng.permutation(n_pages - 1)[:6] + 1).astype(np.int32)).to(cuda_device)
+    for kind, shape, seeds, where in (
+        ("decode", (6, 1, hkv, dh), [2**32 - 1], dict(table=table, pos=pos)),
+        ("chunk", (1, 37, hkv, dh), [2**32 - 2, 7, 2**31], dict(table_row=row, b0=2)),
+    ):
+        k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3).to(
+            cuda_device, torch.bfloat16)
+        v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+        sd = torch.tensor(seeds, dtype=torch.int64, device=cuda_device)
+        got = _int8_pools(np.random.default_rng(5), n_pages, bs, hkv, dh, cuda_device)
+        want = [t.clone() for t in got]
+        before = SR.write_launches
+        TOPS.write_kv_int8(k, v, *got, sd, **where)
+        assert SR.write_launches == before + 1, kind
+        TREF.write_kv_int8_ref(k, v, *want, sd, **where)
+        for g, w in zip(got, want):
+            assert torch.equal(g[1:], w[1:]), kind
+
+
 def _sr_input(shape, lo, hi):
     x = (np.random.default_rng(6).standard_normal(shape) * 0.8 * hi).astype(np.float32)
     x.flat[:6] = [lo - 1.0, lo, hi, hi + 1.0, 0.0, lo + (hi - lo) / 2]
@@ -410,6 +512,8 @@ def _wta_sample_case(dev, n, c, reads, layout, dtype=torch.float32, seed=0):
     (64, 10, 100, 0, "one key", torch.float32),      # wta_trials on the 10-class head
     (5, 777, 20, 1, "per slot", torch.float32),      # an odd width
     (3, 4097, 7, 0, "one key", torch.bfloat16),
+    (8, 256000, 32, 0, "per slot", torch.bfloat16),  # gemma2-2b's and nemotron's head
+    (8, 32256, 32, 2, "per slot", torch.bfloat16),   # deepseek-coder-33b's
 ])
 def test_cuda_wta_sample_matches_plain(cuda_device, n, c, t, read, layout, dtype):
     from repro_torch.kernels import wta_sample as WS

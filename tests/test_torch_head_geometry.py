@@ -1,0 +1,56 @@
+"""Launch geometry of both attention kernels at every head shape the
+ported decoder configs have, without a card.
+
+``decode_geometry`` and ``prefill_geometry`` choose each CTA's
+shared-memory plan (warps, ring stages, the staged query tile) from the
+head shape; the CUDA sources compute the same bytes and refuse a launch
+that does not fit.  These tests pin what the kernels need to launch: at
+most ``MAX_SMEM_BYTES`` of dynamic shared memory and at least one
+resident CTA an SM, at stablelm-3b's, gemma2-2b's, deepseek-coder-33b's
+and nemotron-4-340b's head shapes over bf16, int8 and f32 pools (bs = 16,
+B = 8, W = 32, prefill S = 128), and across Dh in {80, 128, 192, 256} and
+G in {1, 2, 7, 12}.  stablelm-3b's plan stays the one measured before
+(four warps of two stages; 84296 and 45384 bytes).
+"""
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import prefill_attention as PF
+
+ARCHS = ["stablelm-3b", "gemma2-2b", "deepseek-coder-33b", "nemotron-4-340b"]
+POOLS = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}
+
+
+def _check(h, hkv, dh, kv):
+    geo = PA.decode_geometry(8, h, hkv, dh, 16, 32, kv)
+    assert geo["smem_bytes"] <= PA.MAX_SMEM_BYTES and geo["ctas_per_sm"] >= 1, geo
+    assert geo["threads"] == 32 * geo["warps"] and geo["rows"] == h // hkv
+    # the bf16 route of a bf16 or int8 pool, the f32 route of an f32 one
+    qdt = torch.float32 if kv == torch.float32 else torch.bfloat16
+    pre = PF.prefill_geometry(128, h, hkv, dh, 16, qdt, kv)
+    assert pre["smem_bytes"] <= PA.MAX_SMEM_BYTES and pre["ctas_per_sm"] >= 1, pre
+    if qdt == torch.bfloat16:
+        assert dh in PF.TC_HEAD_DIMS and pre["route"] == "tensor-core"
+    return geo, pre
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_config_head_shape_launches(arch, pool):
+    cfg = get_config(arch)
+    geo, pre = _check(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, POOLS[pool])
+    if arch == "stablelm-3b" and pool != "f32":
+        assert (geo["warps"], geo["stages"]) == (4, 2)
+        assert geo["smem_bytes"] == {"bf16": 84296, "int8": 45384}[pool]
+        assert geo["n_split"] == {"bf16": 1, "int8": 2}[pool]
+        assert pre["warps"] == PF.TC_WARPS
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("g", [1, 2, 7, 12])
+@pytest.mark.parametrize("dh", [80, 128, 192, 256])
+def test_head_dims_and_groups_launch(dh, g, pool):
+    _check(8 * g, 8, dh, POOLS[pool])
