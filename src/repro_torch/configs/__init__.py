@@ -1,6 +1,7 @@
 """Per-architecture configs ported so far: the attention-only decoder LMs
 ``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b`` and
-``nemotron-4-340b``, and the paper's ``fcnn-mnist``; plus the shape suite
+``nemotron-4-340b``, the hybrid ``recurrentgemma-2b`` (RG-LRU blocks and
+local attention), and the paper's ``fcnn-mnist``; plus the shape suite
 (``SHAPES``, ``ShapeSpec``) and each arch's ``skip_shapes``."""
 
 from importlib import import_module
@@ -10,6 +11,7 @@ _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "nemotron-4-340b": "nemotron_4_340b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "fcnn-mnist": "fcnn_mnist",
 }
 

@@ -1,9 +1,9 @@
 """Serving launcher: the continuous-batching engine (paged or dense KV
 layout) or the static-batch reference engine against a randomly
 initialized model, greedy or WTA sampling.  ``--arch`` takes every ported
-decoder config: ``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b`` and
-``nemotron-4-340b`` (``--smoke`` for their small configs), each through
-every option below.
+token-LM config: ``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b``,
+``nemotron-4-340b`` and the hybrid ``recurrentgemma-2b`` (``--smoke`` for
+their small configs), each through every option below.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\

@@ -56,16 +56,20 @@ SANITY_REASONS = {
 
 # the dense layout's per-slot K/V leaves, (nu, n_attn, B, max_len, ...)
 DENSE_LEAVES = ("k", "v", "k_scale", "v_scale")
+# a hybrid model's recurrent state, dense per slot in either layout:
+# (nu, n_rec, B, 3, W) and (nu, n_rec, B, W)
+STATE_LEAVES = ("rec_conv", "rec_h")
 
 
 def cache_batch_axis(leaf_name: str) -> int:
     """Slot axis of a per-slot cache leaf: ``pos`` is (B,), the dense
-    layout's K/V leaves (nu, n_attn, B, ...)."""
+    layout's K/V leaves (nu, n_attn, B, ...), the recurrent state leaves
+    (nu, n_rec, B, ...)."""
     if leaf_name == "pos":
         return 0
-    if leaf_name in DENSE_LEAVES:
+    if leaf_name in DENSE_LEAVES or leaf_name in STATE_LEAVES:
         return 2
-    raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm cache")
+    raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm or hybrid cache")
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
@@ -107,8 +111,8 @@ def make_serve_step(cfg: ModelConfig):
 def _spec_state_leaves(cache: dict) -> dict:
     """The per-slot leaves a speculative round snapshots and rolls back:
     all but the shared page pool and an int8 pool's engine-wide
-    ``quant_step`` (rewinding it would replay rounding draws).  The ported
-    decoder has no recurrent state, so this is ``pos``."""
+    ``quant_step`` (rewinding it would replay rounding draws): ``pos``
+    and, for a hybrid model, ``rec_conv`` and ``rec_h``."""
     return {n: v for n, v in cache.items() if n not in PAGE_POOL_LEAVES and n != "quant_step"}
 
 
@@ -123,18 +127,21 @@ def make_paged_spec_round(cfg: ModelConfig, k: int):
 
     (params, cache, table (B, W), token (B,)[, keys (B, 2), steps (B,)]) →
     (dtoks (B, k), doks (B, k), vtoks (B, k), voks (B, k), vstates
-    {"pos": (k, B)}).
+    {state leaf: (k, ...)}: ``pos`` (k, B), and a hybrid model's
+    recurrent leaves).
 
     Draft: k chained :func:`TF.lm_decode_step` + :func:`sample_tokens`
     calls, each with the slot's own ``(key, steps + j)``, so the drafts are
-    k plain engine ticks; their K/V lands in the slots' pages, and ``pos``
-    and an int8 pool's ``quant_step`` advance in place, one a step.
-    ``vstates["pos"][j]`` is ``pos`` after consuming input j.
+    k plain engine ticks; their K/V lands in the slots' pages, and ``pos``,
+    the recurrent state and an int8 pool's ``quant_step`` advance in
+    place, one a step.  ``vstates[leaf][j]`` is the leaf after consuming
+    input j.
 
     Verify: ONE read-only decode step of k·B rows (``kv_write=False``):
     row (j, s) consumes input j of ``[token, dtoks[:-1]]`` for slot s at
-    position ``pre-draft pos + j`` (a ``pos`` tensor of its own: the
-    cache's is never handed over), the table tiled k times, resampled
+    position ``pre-draft pos + j`` from the state the draft held there
+    (state tensors of its own: the cache's are never handed over), the
+    table tiled k times, resampled
     with the same ``(key, steps + j)``.  Its decode attention launches
     with the cluster split the draft's B chose (``split_batch``), so a
     verify row attends exactly as its draft row did.  In a fault-free
@@ -143,7 +150,7 @@ def make_paged_spec_round(cfg: ModelConfig, k: int):
     rejection point and the corrected token.  ``doks`` / ``voks`` are the
     per-step finite-logits flags (the NaN guard at draft depth).
 
-    The pre-draft ``pos`` is snapshot inside the round, so a captured
+    The pre-draft state is snapshot inside the round, so a captured
     round reads nothing from the host."""
     _check_token_lm(cfg)
     if k < 1:
@@ -189,11 +196,11 @@ def make_spec_rollback(cfg: ModelConfig):
     """(cache, vstates {leaf: (k, ...)}, idx, slot) → cache: roll one slot
     back to the state after consuming a round's input ``idx``
     (``vstates[leaf][idx]``, the draft's own state there, which is the
-    plain engine's), in place in the cache's own tensors, whose addresses
-    the graphs hold.  Drafted K/V past the new ``pos`` stays in the pages
-    as dead rows: masked, and overwritten when decode reaches them again.
-    ``idx`` and ``slot`` are Python ints, so every pair shares one
-    signature."""
+    plain engine's: ``pos`` and any recurrent state in one go), in place
+    in the cache's own tensors, whose addresses the graphs hold.  Drafted
+    K/V past the new ``pos`` stays in the pages as dead rows: masked, and
+    overwritten when decode reaches them again.  ``idx`` and ``slot`` are
+    Python ints, so every pair shares one signature."""
     _check_token_lm(cfg)
 
     def rollback(cache: dict, vstates: dict, idx: int, slot: int) -> dict:
@@ -285,10 +292,10 @@ def make_page_restore(cfg: ModelConfig):
 
 def make_slot_state_gather(cfg: ModelConfig):
     """(cache, slot) → state_leaves{B=1}: the one-slot view of every
-    per-slot leaf (``pos``), shaped as :func:`make_paged_state_insert`
-    takes it.  Leaves without a slot axis (an int8 pool's engine-wide
-    ``quant_step``) are left out: restoring that counter would replay
-    other slots' rounding draws."""
+    per-slot leaf (``pos`` and a hybrid model's recurrent state), shaped
+    as :func:`make_paged_state_insert` takes it.  Leaves without a slot
+    axis (an int8 pool's engine-wide ``quant_step``) are left out:
+    restoring that counter would replay other slots' rounding draws."""
 
     def gather(cache: dict, slot: int) -> dict:
         return {
@@ -631,11 +638,13 @@ class SpecGraphs(DecodeGraphs):
     voks, vstates)``, which live in the graphs' memory pool until the next
     call: the engine reads the tokens and flags in one sync and does every
     rollback from ``vstates`` before it replays anything again.  The round
-    writes the pool, ``pos`` and ``quant_step`` in place, k times a replay."""
+    writes the pool, the per-slot state and ``quant_step`` in place, k
+    times a replay."""
 
     def __init__(self, cfg: ModelConfig, params: dict, cache: dict, *, k: int, capture: bool):
         self.params, self.cache = params, cache
         self.k = k
+        self._state_names = tuple(_spec_state_leaves(cache))
         self.capture = capture
         self.device = cache["pos"].device
         self._round = make_paged_spec_round(cfg, k)
@@ -650,14 +659,14 @@ class SpecGraphs(DecodeGraphs):
 
     def __call__(self, table: np.ndarray, tokens: np.ndarray, *wta: np.ndarray):
         """One round: table (B, W), tokens (B,)[, keys (B, 2), steps (B,)]
-        host arrays → (dtoks, doks, vtoks, voks) (B, k), vstates {"pos": (k,
-        B)} on the device."""
-        dtoks, doks, vtoks, voks, vpos = self._call((table, tokens, *wta))
-        return dtoks, doks, vtoks, voks, {"pos": vpos}
+        host arrays → (dtoks, doks, vtoks, voks) (B, k), vstates {state
+        leaf: (k, ...)} on the device."""
+        dtoks, doks, vtoks, voks, *states = self._call((table, tokens, *wta))
+        return dtoks, doks, vtoks, voks, dict(zip(self._state_names, states))
 
     def _run(self, inputs: tuple) -> tuple[torch.Tensor, ...]:
         dtoks, doks, vtoks, voks, vstates = self._round(self.params, self.cache, *inputs)
-        return dtoks, doks, vtoks, voks, vstates["pos"]
+        return (dtoks, doks, vtoks, voks, *(vstates[n] for n in self._state_names))
 
 
 class DenseGraphs(DecodeGraphs):

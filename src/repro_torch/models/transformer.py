@@ -1,7 +1,8 @@
 """Decoder LM stack: init, the full-sequence forward and loss of the
 training path, the decode step over a dense or a paged cache, the dense
 layout's monolithic prefill and the chunked paged prefill
-(``repro/models/transformer.py``, ``decoder_lm`` family).
+(``repro/models/transformer.py``, the ``decoder_lm`` family and the
+``hybrid`` one: units that mix RG-LRU blocks, ``"rec"``, with attention).
 
 Parameters keep the reference's tree: units stacked on a leading
 ``n_units`` axis (``params["units"]["l0"]["attn"]["wq"]`` is
@@ -27,6 +28,16 @@ step never waits on the host for it: decode seeds from ``quant_step``
 content-derived per-block seeds, each folded with the unit and sublayer
 index exactly as the reference folds them (wrapping uint32 arithmetic,
 held in int64).
+
+Recurrent sublayers keep their O(1) state per slot in two dense leaves of
+every cache layout: ``rec_conv`` (nu, n_rec, B, 3, W) in the model's dtype
+(the conv inputs before the next token) and ``rec_h`` (nu, n_rec, B, W) in
+f32.  The decode step writes them in place, as it writes ``pos``; the
+chunked prefill threads them through a one-slot ``state`` and returns new
+tensors, so a state the engine stashed as a prefix snapshot is never
+written again.  K/V leaves count attention sublayers only (``n_attn``),
+while an int8 write's rounding seed folds in the sublayer's index in the
+whole pattern, as the reference's does.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from repro_torch import random as R
 from repro_torch.device import resolve_device
 from repro_torch.kernels.prng import MASK, mul32
 from . import attention as ATT
+from . import rglru as RG
 from .config import ModelConfig
 from .layers import (
     apply_rope,
@@ -58,16 +70,26 @@ from .layers import (
 PAGE_POOL_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
 
 
+ATTN_KINDS = ("global", "local")
+# the layer kinds each ported family's units may hold
+_FAMILY_KINDS = {"decoder_lm": ATTN_KINDS, "hybrid": ATTN_KINDS + ("rec",)}
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "decoder_lm" or any(
-        k not in ("global", "local") for k in cfg.layer_pattern
-    ):
-        raise NotImplementedError(
-            f"only attention-only decoder_lm models are ported, got "
-            f"{cfg.family} {cfg.layer_pattern}"
-        )
     if cfg.n_experts:
         raise NotImplementedError("MoE blocks are not ported yet")
+    if cfg.family == "ssm" or "ssm" in cfg.layer_pattern:
+        raise NotImplementedError("Mamba-2 (ssm) blocks are not ported yet")
+    kinds = _FAMILY_KINDS.get(cfg.family)
+    if kinds is None or any(k not in kinds for k in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"only decoder_lm and hybrid (rec + attention) models are ported, got "
+            f"{cfg.family} {cfg.layer_pattern}"
+        )
+
+
+def _n_kind(cfg: ModelConfig, kinds: tuple) -> int:
+    return sum(1 for k in cfg.layer_pattern if k in kinds)
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +111,15 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = init_lm_head(gen, cfg.d_model, cfg.vocab, dt)
     params["units"] = {}
-    for i in range(len(cfg.layer_pattern)):
+    for i, kind in enumerate(cfg.layer_pattern):
+        if kind == "rec":
+            params["units"][f"l{i}"] = {
+                "ln1": init_rmsnorm(cfg.d_model, lead, dev),
+                "rec": RG.init_rglru_block(gen, cfg, lead),
+                "ln2": init_rmsnorm(cfg.d_model, lead, dev),
+                "ffn": init_mlp(gen, cfg, lead),
+            }
+            continue
         sub = {
             "ln1": init_rmsnorm(cfg.d_model, lead, dev),
             "attn": ATT.init_attn(gen, cfg, lead),
@@ -101,6 +131,24 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             sub["post_ln2"] = init_rmsnorm(cfg.d_model, lead, dev)
         params["units"][f"l{i}"] = sub
     return params
+
+
+# every block's output projection: the attention's, the MLP's and the
+# RG-LRU block's
+BLOCK_OUTPUTS = ("wo", "w_down", "w_out")
+
+
+def scale_block_outputs(params: dict, gain: float) -> None:
+    """Every block's output projection (``BLOCK_OUTPUTS``) times ``gain``, in
+    place.  recurrentgemma-2b is served so on the card and in its engine
+    tests: at the plain init its tied, scaled embedding dominates the
+    residual stream, and every greedy stream repeats its prompt's last
+    token whatever the recurrent state holds."""
+    for sub in params["units"].values():
+        for blk in sub.values():
+            for name in BLOCK_OUTPUTS:
+                if isinstance(blk, dict) and name in blk:
+                    blk[name].mul_(gain)
 
 
 def _unbind_units(units: dict) -> list[dict]:
@@ -142,13 +190,27 @@ def _attn_block(sub: dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig,
     return x + f
 
 
+def _rec_block(sub: dict, x: torch.Tensor, o: torch.Tensor, cfg: ModelConfig,
+               key=None) -> torch.Tensor:
+    """Residual add of a recurrent block's output, then the norm + MLP
+    tail (its analog draws under ``key``); no post-norms, as the
+    reference's ``rec`` sublayer has none."""
+    x = x + o
+    return x + mlp_apply(sub["ffn"], rmsnorm(sub["ln2"], x, cfg.norm_eps), cfg, key=key)
+
+
 def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConfig, key):
     """One unit of ``cfg.layer_pattern``; sublayer ``i`` draws under
-    ``fold_in(key, i)``, its attention under ``fold_in(·, 0)`` and its MLP
-    under ``fold_in(·, 1)``, as the reference folds them."""
+    ``ki = fold_in(key, i)``, its attention under ``fold_in(ki, 0)`` (a
+    recurrent block under ``ki`` itself) and its MLP under
+    ``fold_in(ki, 1)``, as the reference folds them."""
     for i, kind in enumerate(cfg.layer_pattern):
         sub = up[f"l{i}"]
         ki = None if key is None else R.fold_in(key, i)
+        if kind == "rec":
+            o = RG.rglru_block_apply(sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg, ki)
+            x = _rec_block(sub, x, o, cfg, key=None if ki is None else R.fold_in(ki, 1))
+            continue
         a = ATT.self_attention(
             sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps), positions, cfg,
             kind=kind, key=None if ki is None else R.fold_in(ki, 0),
@@ -214,18 +276,35 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, key=None) -> tuple[torc
 # ---------------------------------------------------------------------------
 
 
+def _state_cache_leaves(cfg: ModelConfig, batch: int, dev) -> dict:
+    """Recurrent per-slot state, O(1) a token, so it stays dense (slot
+    addressed) in the dense and the paged layouts alike: ``rec_conv``
+    (nu, n_rec, B, 3, W) in the model's dtype, ``rec_h`` (nu, n_rec, B, W)
+    in f32.  Empty for a model without recurrent sublayers."""
+    n_rec = _n_kind(cfg, ("rec",))
+    if not n_rec:
+        return {}
+    w = cfg.lru_width or cfg.d_model
+    lead = (cfg.n_units, n_rec, batch)
+    return {
+        "rec_conv": torch.zeros(lead + (RG.CONV_WIDTH - 1, w), dtype=dtype_of(cfg), device=dev),
+        "rec_h": torch.zeros(lead + (w,), dtype=torch.float32, device=dev),
+    }
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     """The dense layout's cache: ``pos`` (B,) int32 and, per K/V, one
-    ``max_len`` window per slot, ``(nu, n_attn, B, max_len, Hkv, Dh)``.
-    An int8 cache (``cfg.kv_cache_dtype == "int8"``) holds int8 codes and
-    the ``(nu, n_attn, B, max_len, Hkv)`` f32 scales ``k_scale`` /
-    ``v_scale`` (ones until written).  The ported family keeps no
-    recurrent state, so there are no other leaves."""
+    ``max_len`` window per slot, ``(nu, n_attn, B, max_len, Hkv, Dh)``
+    (``n_attn`` counts a unit's attention sublayers).  An int8 cache
+    (``cfg.kv_cache_dtype == "int8"``) holds int8 codes and the ``(nu,
+    n_attn, B, max_len, Hkv)`` f32 scales ``k_scale`` / ``v_scale`` (ones
+    until written).  A hybrid model adds its recurrent state leaves
+    (:func:`_state_cache_leaves`)."""
     _check_family(cfg)
     if cfg.kv_cache_dtype not in ("same", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'same' or 'int8', got {cfg.kv_cache_dtype!r}")
     dev = resolve_device(device)
-    n_attn = len(cfg.layer_pattern)
+    n_attn = _n_kind(cfg, ATTN_KINDS)
     shape = (cfg.n_units, n_attn, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if cfg.kv_cache_dtype == "int8":
@@ -236,6 +315,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -
     else:
         cache["k"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
+    cache.update(_state_cache_leaves(cfg, batch, dev))
     return cache
 
 
@@ -251,12 +331,14 @@ def init_paged_decode_cache(
     int8 pools (``cfg.kv_cache_dtype == "int8"``) hold int8 codes, the
     ``(nu, n_attn, P, bs, Hkv)`` f32 scale planes ``k_scale_pages`` /
     ``v_scale_pages``, and ``quant_step``, the device decode-step counter
-    that seeds the decode writes' rounding."""
+    that seeds the decode writes' rounding.  A hybrid model's recurrent
+    state keeps the dense slot layout (:func:`_state_cache_leaves`): it is
+    never shared, and is inserted per admission."""
     _check_family(cfg)
     if cfg.kv_cache_dtype not in ("same", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'same' or 'int8', got {cfg.kv_cache_dtype!r}")
     dev = resolve_device(device)
-    n_attn = len(cfg.layer_pattern)
+    n_attn = _n_kind(cfg, ATTN_KINDS)
     shape = (cfg.n_units, n_attn, n_pages, block_size, cfg.n_kv_heads, cfg.head_dim)
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if cfg.kv_cache_dtype == "int8":
@@ -268,13 +350,15 @@ def init_paged_decode_cache(
     else:
         cache["k_pages"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
         cache["v_pages"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
+    cache.update(_state_cache_leaves(cfg, batch, dev))
     return cache
 
 
 def _layer_seeds(base: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """``(base + u·40503 + i·1299721) mod 2**32`` for every unit ``u`` and
-    sublayer ``i``: (nu, n_layers, *base.shape) int64, built on base's
-    device in a few launches (the reference folds one layer at a time)."""
+    sublayer ``i`` (its index in the whole pattern, recurrent sublayers
+    counted): (nu, n_layers, *base.shape) int64, built on base's device in
+    a few launches (the reference folds one layer at a time)."""
     dev = base.device
     off = (
         torch.arange(cfg.n_units, device=dev, dtype=torch.int64)[:, None] * 40503
@@ -283,13 +367,27 @@ def _layer_seeds(base: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (base.reshape((1, 1) + tuple(base.shape)) + off.reshape(off.shape + (1,) * base.dim())) & MASK
 
 
-def _int8_kw(pool: dict, u: int, i: int, seeds: torch.Tensor, name: str) -> dict:
-    """This layer's scale-plane views and rounding seed(s) for an int8 pool."""
+def _int8_kw(pool: dict, u: int, ia: int, seed: torch.Tensor, name: str) -> dict:
+    """An int8 pool's scale-plane views for unit ``u``'s attention
+    sublayer ``ia`` (its index among the attention sublayers), and the
+    rounding seed(s) ``seed`` of that sublayer."""
     return {
-        "k_scale_pages": pool["k_scale_pages"][u, i],
-        "v_scale_pages": pool["v_scale_pages"][u, i],
-        name: seeds[u, i],
+        "k_scale_pages": pool["k_scale_pages"][u, ia],
+        "v_scale_pages": pool["v_scale_pages"][u, ia],
+        name: seed,
     }
+
+
+def _rec_decode(sub: dict, x: torch.Tensor, cache: dict, u: int, ir: int,
+                cfg: ModelConfig) -> torch.Tensor:
+    """One recurrent sublayer of a decode step: its state read from and
+    written back to ``cache``'s ``rec_conv`` / ``rec_h`` in place."""
+    conv, hst = cache["rec_conv"][u, ir], cache["rec_h"][u, ir]
+    o, new_conv, new_h = RG.rglru_decode_step(
+        sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), conv, hst, cfg)
+    conv.copy_(new_conv)
+    hst.copy_(new_h)
+    return _rec_block(sub, x, o, cfg)
 
 
 def lm_decode_step(
@@ -313,8 +411,9 @@ def lm_decode_step(
     ``pos`` (and an int8 pool's ``quant_step``) advance by one in their own
     storage after their last read, so a captured step (``specs.DecodeGraphs``,
     ``specs.DenseGraphs``) reads the values the engine writes there between
-    steps.  The returned cache is the same dict.  An int8 pool's write of
-    unit ``u``, sublayer ``i`` rounds under
+    steps.  A recurrent sublayer's ``rec_conv`` / ``rec_h`` rows are
+    written in place too.  The returned cache is the same dict.  An int8
+    pool's write of unit ``u``, sublayer ``i`` rounds under
     ``quant_step·2654435761 + u·40503 + i·1299721 mod 2**32``; an int8
     dense cache rounds to nearest.
 
@@ -335,25 +434,30 @@ def lm_decode_step(
     x = embed(params["embed"], token[:, None], cfg)
     for u in range(cfg.n_units):
         up = unit_params(params["units"], u)
+        ia = ir = 0
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
+            if kind == "rec":
+                x = _rec_decode(sub, x, cache, u, ir, cfg)
+                ir += 1
+                continue
             hin = rmsnorm(sub["ln1"], x, cfg.norm_eps)
             if not paged:
-                kw = {n: cache[n][u, i] for n in ("k_scale", "v_scale")} if int8_dense else {}
-                a = ATT.decode_self_attention(sub["attn"], hin, cache["k"][u, i],
-                                              cache["v"][u, i], pos, cfg, kind=kind, **kw)
-                x = _attn_block(sub, x, a, cfg)
-                continue
-            kw = {}
-            if int8_pool and kv_write:
-                kw = _int8_kw(cache, u, i, seeds, "quant_seed")
-            elif int8_pool:
-                kw = {n: cache[n][u, i] for n in ("k_scale_pages", "v_scale_pages")}
-            a = ATT.paged_decode_self_attention(
-                sub["attn"], hin, cache["k_pages"][u, i], cache["v_pages"][u, i],
-                table, pos, cfg, kind=kind, write=kv_write, split_batch=split_batch, **kw,
-            )
+                kw = {n: cache[n][u, ia] for n in ("k_scale", "v_scale")} if int8_dense else {}
+                a = ATT.decode_self_attention(sub["attn"], hin, cache["k"][u, ia],
+                                              cache["v"][u, ia], pos, cfg, kind=kind, **kw)
+            else:
+                kw = {}
+                if int8_pool and kv_write:
+                    kw = _int8_kw(cache, u, ia, seeds[u, i], "quant_seed")
+                elif int8_pool:
+                    kw = {n: cache[n][u, ia] for n in ("k_scale_pages", "v_scale_pages")}
+                a = ATT.paged_decode_self_attention(
+                    sub["attn"], hin, cache["k_pages"][u, ia], cache["v_pages"][u, ia],
+                    table, pos, cfg, kind=kind, write=kv_write, split_batch=split_batch, **kw,
+                )
             x = _attn_block(sub, x, a, cfg)
+            ia += 1
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)
     pos.add_(1)
@@ -378,7 +482,9 @@ def lm_prefill(
     ``cache``, when given (B slots, ``max_len`` wide), is written in place
     and returned, every leaf overwritten whole, ``pos`` included: a
     captured decode step that holds its addresses then serves the prompt
-    (the static engine's waves); otherwise a new cache is allocated."""
+    (the static engine's waves); otherwise a new cache is allocated.  A
+    recurrent sublayer runs :func:`rglru.rglru_prefill` and leaves its conv
+    tail and last hidden state in ``rec_conv`` / ``rec_h``."""
     _check_family(cfg)
     b, s = tokens.shape
     if cache is None:
@@ -388,8 +494,17 @@ def lm_prefill(
     int8 = cfg.kv_cache_dtype == "int8"
     for u in range(cfg.n_units):
         up = unit_params(params["units"], u)
+        ia = ir = 0
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
+            if kind == "rec":
+                o, conv, h_last = RG.rglru_prefill(
+                    sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg)
+                x = _rec_block(sub, x, o, cfg)
+                cache["rec_conv"][u, ir].copy_(conv)
+                cache["rec_h"][u, ir].copy_(h_last)
+                ir += 1
+                continue
             q, k, v = ATT.qkv(sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg)
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
@@ -399,10 +514,11 @@ def lm_prefill(
                 padded = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, max_len - s))
                 if int8:
                     codes, scale = ATT.quantize_kv(padded)
-                    cache[name][u, i].copy_(codes)
-                    cache[f"{name}_scale"][u, i].copy_(scale)
+                    cache[name][u, ia].copy_(codes)
+                    cache[f"{name}_scale"][u, ia].copy_(scale)
                 else:
-                    cache[name][u, i].copy_(padded)
+                    cache[name][u, ia].copy_(padded)
+            ia += 1
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)
     cache["pos"].fill_(s)
@@ -410,9 +526,14 @@ def lm_prefill(
 
 
 def init_prefill_state(cfg: ModelConfig, device=None) -> dict:
-    """Zeroed B=1 per-slot state entering a chunked prefill (``pos`` only:
-    the ported family carries no recurrent state)."""
-    return {"pos": torch.zeros((1,), dtype=torch.int32, device=resolve_device(device))}
+    """Zeroed B=1 per-slot state entering a chunked prefill: ``pos`` and,
+    for a hybrid model, the recurrent leaves, exactly what
+    :func:`lm_prefill_chunk` threads between chunks and the engine's state
+    insert writes at the slot."""
+    dev = resolve_device(device)
+    state = {"pos": torch.zeros((1,), dtype=torch.int32, device=dev)}
+    state.update(_state_cache_leaves(cfg, 1, dev))
+    return state
 
 
 def lm_prefill_chunk(
@@ -431,27 +552,43 @@ def lm_prefill_chunk(
     positions, so a suffix that starts mid-prompt sees exactly what a
     whole-prompt prefill would.  int8 pools round the chunk's i-th block
     under ``quant_seeds[i] + u·40503 + i_layer·1299721 mod 2**32`` (the
-    engine's content-derived block seeds, on the device)."""
+    engine's content-derived block seeds, on the device).
+
+    Recurrent sublayers advance from ``state``'s ``rec_conv`` / ``rec_h``
+    (:func:`rglru.rglru_prefill_chunk`) into new tensors: ``state`` itself
+    is never written, so the boundary snapshot the engine stashes in its
+    prefix index stays as it was."""
     b, c = tokens.shape
     int8_pool = "k_scale_pages" in pool
     if int8_pool:
         if quant_seeds is None:
             raise ValueError("an int8 pool's prefill needs quant_seeds")
         seeds = _layer_seeds(quant_seeds.to(torch.int64), cfg)
+    new_state = {n: v.clone() for n, v in state.items() if n != "pos"}
     x = embed(params["embed"], tokens, cfg)
     for u in range(cfg.n_units):
         up = unit_params(params["units"], u)
+        ia = ir = 0
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
-            kw = _int8_kw(pool, u, i, seeds, "quant_seeds") if int8_pool else {}
+            if kind == "rec":
+                conv, hst = new_state["rec_conv"][u, ir], new_state["rec_h"][u, ir]
+                o, new_conv, new_h = RG.rglru_prefill_chunk(
+                    sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), conv, hst, cfg)
+                conv.copy_(new_conv)
+                hst.copy_(new_h)
+                x = _rec_block(sub, x, o, cfg)
+                ir += 1
+                continue
+            kw = _int8_kw(pool, u, ia, seeds[u, i], "quant_seeds") if int8_pool else {}
             o = ATT.paged_prefill_self_attention(
                 sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps),
-                pool["k_pages"][u, i], pool["v_pages"][u, i],
+                pool["k_pages"][u, ia], pool["v_pages"][u, ia],
                 table_row, q0, cfg, kind=kind, **kw,
             )
             x = _attn_block(sub, x, o, cfg)
+            ia += 1
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)
-    new_state = dict(state)
     new_state["pos"] = torch.full((b,), q0 + c, dtype=torch.int32, device=tokens.device)
     return pool, new_state, logits[:, 0, :]

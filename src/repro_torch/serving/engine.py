@@ -516,6 +516,10 @@ class ServingEngine:
             self._table = np.zeros((b, self._max_blocks), np.int32)
             # host mirror of cache["pos"] (drives the decode window width)
             self._host_pos = np.zeros((b,), np.int64)
+        # a recurrent family resumes a partial prefix hit only at a chunk
+        # boundary whose state snapshot is stashed in the prefix index; an
+        # attention-only family resumes at any matched block
+        self._stateful = "rec" in model_cfg.layer_pattern
         # private device backend: analog-event accounting for THIS
         # engine's traffic; a compute-overriding one (sim_faulty) is also
         # installed process-wide around each tick
@@ -745,6 +749,21 @@ class ServingEngine:
         """The prefill chunk grid for ``bucket`` (0 → whole bucket)."""
         return min(self.cfg.prefill_chunk or bucket, bucket)
 
+    def _resume_tokens(self, n_matched: int, bucket: int) -> int:
+        """How many prompt tokens a partial hit of ``n_matched`` blocks
+        skips.  An attention-only family resumes at the matched depth (a
+        suffix position's hidden state is a function of its token and the
+        K/V it attends).  A recurrent family also needs the carried state,
+        which the chunked prefill stashes at chunk boundaries only, so
+        the depth rounds down to the chunk grid (every registrant shares
+        the grid, and jobs run FIFO, so a grid-boundary block carries its
+        snapshot by the time this request's first chunk runs)."""
+        p = n_matched * self.cfg.kv_block_size
+        if not self._stateful:
+            return p
+        grid = self._chunk_tokens(bucket)
+        return (p // grid) * grid
+
     def _try_reserve_blocks(self, req: Request) -> bool:
         """Admission gate: reserve the request's whole block budget, or
         refuse and leave the allocator untouched.
@@ -791,8 +810,7 @@ class ServingEngine:
             plan["full_hit"] = full
             plan["n_shared"] = len(shared)
             if not full:
-                # attention-only models resume at any matched block
-                plan["resume"] = len(shared) * bs
+                plan["resume"] = self._resume_tokens(len(shared), bucket)
         self._plans[req.rid] = plan
         return True
 
@@ -950,6 +968,18 @@ class ServingEngine:
         del self._jobs[rid]
         self._finish_admission(req, tok0)
 
+    def _resume_state(self, plan: dict, q0: int) -> dict:
+        """The state entering a job's first computed chunk: zeroed for a
+        cold start or an attention-only family, else the boundary snapshot
+        stashed on the block that ends at ``q0`` (raises if it is
+        missing: the resume grid guarantees it)."""
+        if q0 == 0 or not self._stateful:
+            return TF.init_prefill_state(self.mcfg, self.device)
+        payload = self.blocks.payload(plan["hashes"][q0 // self.cfg.kv_block_size - 1][0])
+        if payload is None:
+            raise RuntimeError("missing boundary-state snapshot for a grid-aligned resume")
+        return payload[1]
+
     # -- preemption and eviction --------------------------------------------
 
     @staticmethod
@@ -1090,7 +1120,9 @@ class ServingEngine:
         """Lower a queued job's resume point below its first garbage page;
         it rewrites those pages itself with the bits the dead writer would
         have written (int8 seeds derive from block content).  Only the FIFO
-        head advances ``q0``, so a demoted job has computed nothing yet."""
+        head advances ``q0``, so a demoted job has computed nothing yet.  A
+        recurrent family also walks down the chunk grid to the deepest
+        boundary whose state snapshot is still stashed."""
         if not garbage:
             return
         plan = job["plan"]
@@ -1099,8 +1131,14 @@ class ServingEngine:
         bad = next((i for i in range(frontier) if int(job["row"][i]) in garbage), None)
         if bad is None:
             return
+        q0 = bad * bs
+        if self._stateful:
+            grid = self._chunk_tokens(job["bucket"])
+            q0 = (q0 // grid) * grid
+            while q0 > 0 and self.blocks.payload(plan["hashes"][q0 // bs - 1][0]) is None:
+                q0 -= grid
         plan["full_hit"] = False
-        job["q0"] = bad * bs   # attention-only: any block boundary resumes
+        job["q0"] = q0
         job["state"] = None
 
     def _nan_payload(self) -> dict:
@@ -1170,9 +1208,11 @@ class ServingEngine:
                 # no usable terminal payload (the registrant diverged its
                 # boundary block while this job waited, or the hash only
                 # carried a longer prompt's chunk snapshot): demote to a
-                # minimal block-aligned suffix recompute
+                # minimal suffix recompute, block-aligned, or on the chunk
+                # grid for a recurrent family
                 plan["full_hit"] = False
-                job["q0"] = ((bucket - 1) // bs) * bs
+                grid = self._chunk_tokens(bucket) if self._stateful else bs
+                job["q0"] = ((bucket - 1) // grid) * grid
                 last = plan["n_prompt"] - 1
                 page = int(job["row"][last])
                 if (
@@ -1192,7 +1232,7 @@ class ServingEngine:
                 break
             q0 = job["q0"]
             if job["state"] is None:
-                job["state"] = TF.init_prefill_state(self.mcfg, self.device)
+                job["state"] = self._resume_state(plan, q0)
             grid = self._chunk_tokens(bucket)
             c = min((q0 // grid + 1) * grid, bucket) - q0
             b0, b1 = q0 // bs, -(-(q0 + c) // bs)

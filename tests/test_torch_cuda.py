@@ -214,7 +214,7 @@ def test_cuda_bf16_attention_split_and_tensor_core_paths(
 
 # (H, Hkv, Dh) of the decoder configs with head dims above stablelm-3b's
 HEAD_SHAPES = {"gemma2-2b": (8, 4, 256), "deepseek-coder-33b": (56, 8, 128),
-               "nemotron-4-340b": (96, 8, 192)}
+               "nemotron-4-340b": (96, 8, 192), "recurrentgemma-2b": (10, 1, 256)}
 
 
 @pytest.mark.cuda
@@ -223,9 +223,10 @@ HEAD_SHAPES = {"gemma2-2b": (8, 4, 256), "deepseek-coder-33b": (56, 8, 128),
 @pytest.mark.parametrize("kind,local_window,softcap", [("global", 0, 0.0), ("local", 40, 50.0)])
 def test_cuda_attention_at_the_new_head_shapes(cuda_device, arch, pool, kind, local_window,
                                                softcap):
-    """Both attention kernels at gemma2-2b's, deepseek-coder-33b's and
-    nemotron-4-340b's head shapes (G = 2, 7, 12 at Dh = 256, 128, 192;
-    bs = 16) over bf16 and int8 pools with bf16 queries and f32 pools with
+    """Both attention kernels at gemma2-2b's, deepseek-coder-33b's,
+    nemotron-4-340b's and recurrentgemma-2b's head shapes (G = 2, 7, 12,
+    10 at Dh = 256, 128, 192, 256; Hkv 1 for recurrentgemma's MQA; bs =
+    16) over bf16 and int8 pools with bf16 queries and f32 pools with
     f32 queries, against their plain versions on the same card inputs,
     with the shared-memory plan each shape gets (fewer warps or one ring
     stage where two do not fit).  Decode: B = 3 at W = 12, one slot on a
@@ -282,10 +283,43 @@ def test_cuda_attention_at_the_new_head_shapes(cuda_device, arch, pool, kind, lo
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8", "f32"])
+def test_cuda_attention_past_the_local_window_of_2048(cuda_device, pool):
+    """recurrentgemma-2b's local attention (H 10, Hkv 1, Dh 256, window
+    2048) with slots past the window: decode at positions 2047, 2048 and
+    2600 over 176 pages of 16, and a 64-row prefill chunk at q0 = 2560,
+    each against its plain version."""
+    h, hkv, dh = HEAD_SHAPES["recurrentgemma-2b"]
+    rng = np.random.default_rng(2048)
+    kw = dict(kind="local", local_window=2048, softcap=0.0)
+    bs, w = 16, 176
+    qdt = torch.float32 if pool == "f32" else torch.bfloat16
+    tol = dict(atol=ATOL, rtol=RTOL) if pool == "f32" else dict(atol=BF16_TOL, rtol=BF16_TOL)
+    n_pages = 3 * w + 1
+    if pool == "f32":
+        kp, vp, _, _ = _pool(rng, n_pages, bs, hkv, dh, False)
+        kp, vp, sc = torch.from_numpy(kp).to(cuda_device), torch.from_numpy(vp).to(cuda_device), {}
+    else:
+        kp, vp, sc = _bf16_case(rng, n_pages, bs, hkv, dh, pool == "int8", cuda_device)
+    table = torch.from_numpy((rng.permutation(n_pages - 1)[: 3 * w] + 1).reshape(3, w)
+                             .astype(np.int32)).to(cuda_device)
+    pos = torch.tensor([2047, 2048, 2600], dtype=torch.int32, device=cuda_device)
+    q = torch.from_numpy(rng.standard_normal((3, h, dh)).astype(np.float32)).to(cuda_device, qdt)
+    got = TOPS.paged_attention(q, kp, vp, table, pos, **kw, **sc)
+    torch.testing.assert_close(got, TREF.paged_attention_ref(q, kp, vp, table, pos, **kw, **sc),
+                               **tol)
+    q = torch.from_numpy(rng.standard_normal((64, h, dh)).astype(np.float32)).to(cuda_device, qdt)
+    got = TOPS.paged_prefill_attention(q, kp, vp, table[0], 2560, **kw, **sc)
+    want = TREF.prefill_attention_ref(q, kp, vp, table[0], 2560, **kw, **sc)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", list(HEAD_SHAPES))
 def test_cuda_write_kv_int8_at_the_new_head_shapes(cuda_device, arch):
-    """The fused int8 write at the new configs' kv heads (Hkv 4 or 8 at
-    Dh 256, 128, 192), both modes, bit for bit outside the trash page."""
+    """The fused int8 write at the new configs' kv heads (Hkv 4, 8, 8, 1
+    at Dh 256, 128, 192, 256), both modes, bit for bit outside the trash
+    page."""
     from repro_torch.kernels import stoch_round as SR
 
     _, hkv, dh = HEAD_SHAPES[arch]
@@ -797,9 +831,10 @@ def _tree_to(tree, d):
 
 
 # the FCNN's hidden layers at Fig. 6's batch and at the training batch, an
-# odd shape, and draws from a counter offset across the high word
+# odd shape, draws from a counter offset across the high word, and
+# recurrentgemma-2b's RG-LRU gates at B·S = 8·128 rows of width 2560
 SIGMOID_SHAPES = [(1024, 500, 0), (1024, 300, 0), (128, 500, 0), (128, 300, 0), (7, 33, 0),
-                  (7, 33, 2**32 - 100), (300, 17, 12345)]
+                  (7, 33, 2**32 - 100), (300, 17, 12345), (1024, 2560, 0)]
 
 
 def _sigmoid_case(dev, m, n, seed):
@@ -1347,3 +1382,43 @@ def test_cuda_static_engine_graphs_equal_eager(cuda_device, wta):
     assert g_eng.compile_counts() == {"serve_step": 2} and len(g_eng._decode.captures()) == 2
     assert g_launch["paged_attention"] == g_launch["paged_prefill_attention"] == 0
     assert g_launch["wta_sample"] == (g_eng.metrics().decode_steps if wta else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["same", "int8"])
+def test_cuda_recurrentgemma_engine_equals_cpu(cuda_device, kv):
+    """recurrentgemma-2b's smoke engine at f32 on the card (its decode
+    step captured as graphs) gives the CPU engine's streams on the same
+    weights, over a trace with shared prefixes and chunked prefills, with
+    prefix hits and chunk-grid resumes in both; the card's recurrent state
+    leaves keep their addresses through the run."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_lm, scale_block_outputs
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"), dtype="float32",
+                              kv_cache_dtype=kv)
+    params = init_lm(cfg, seed=4, device="cpu")
+    scale_block_outputs(params, 8.0)
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        def move(tree):
+            return {k: move(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+        p = move(params)
+        eng = ServingEngine(p, cfg, ServeConfig(max_batch=4, max_new_tokens=12, max_len=128,
+                                                kv_block_size=8, prefill_chunk=16, seed=3),
+                            device=dev)
+        addrs = {n: t.data_ptr() for n, t in eng._cache.items()}
+        for prompt in _graph_trace():
+            eng.submit(prompt)
+        runs[dev.type] = (eng, eng.run())
+        assert {n: t.data_ptr() for n, t in eng._cache.items()} == addrs
+    (g_eng, g_out), (c_eng, c_out) = runs["cuda"], runs["cpu"]
+    assert g_eng._decode.capture
+    assert g_out == c_out
+    gm, cm = g_eng.metrics(), c_eng.metrics()
+    assert (gm.prefix_hits, gm.prefix_partial_hits) == (cm.prefix_hits, cm.prefix_partial_hits)
+    assert gm.prefix_hits + gm.prefix_partial_hits > 0

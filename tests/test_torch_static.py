@@ -21,6 +21,7 @@ fragile on random smoke weights (ROADMAP C).  Here:
 
 import dataclasses
 import io
+import time
 from contextlib import redirect_stdout
 
 import jax
@@ -44,6 +45,10 @@ MIXED_PROMPTS = [[5, 6, 7, 1, 2, 3, 4, 9], [1, 2, 3], [9, 8, 7, 6, 5, 4, 3, 2], 
 MIXED_BUDGETS = [6, 9, 3, 12, 5, 7]
 LAYOUT = dict(max_batch=3, max_new_tokens=8, max_len=64, kv_block_size=8)
 INT8_AGREEMENT = 0.95   # tests/test_serving.py::test_int8_paged_matches_int8_dense
+# seconds by which the static engine's submissions are backdated: the
+# TTFT must carry them whatever the clock's origin (perf_counter() counts
+# from boot on Linux, so an absolute reading is no fixed number)
+BACKDATE = 3600.0
 COUNT_FIELDS = ("completed", "total_tokens", "decode_steps", "prefills", "prefill_tokens",
                 "occupancy_mean")
 
@@ -147,14 +152,14 @@ def test_static_engine_byte_identical_to_reference(weights):
     teng = StaticServingEngine(tp, tcfg, ServeConfig(**sc), device="cpu")
     for p, b in zip(MIXED_PROMPTS[:5], MIXED_BUDGETS[:5]):
         jeng.submit(p, b)
-        teng.submit(p, b, submit_time=0.0)
+        teng.submit(p, b, submit_time=time.perf_counter() - BACKDATE)
     assert teng.pending() == 5
     assert teng.run() == jeng.run()
     tm, jm = teng.metrics(), jeng.metrics()
     for field in COUNT_FIELDS[:-2] + ("occupancy_mean",):
         assert getattr(tm, field) == getattr(jm, field), field
     assert teng.compile_counts() == {"serve_step": 2}
-    assert tm.ttft_mean > 1e3   # submitted at perf_counter() == 0
+    assert tm.ttft_mean >= BACKDATE   # submitted BACKDATE seconds ago
     with pytest.raises(ValueError, match="max_len"):
         teng.submit([1] * 60, 8)
 
