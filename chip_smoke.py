@@ -195,6 +195,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
    recurrent one, the first read at each of its four (W shape, read
    kind) held against the plain version on the same x, W and key; step
    ms and peak memory.  Prints its wall time.
+4i. ssm (:func:`ssm_phase`, run after 4h): mamba2-1.3b at full width and
+   depth (48 Mamba-2 mixers, d 2048, d_inner 4096, 64 heads of 64, state
+   128, SSD chunk 256, tied 50280-column embeddings; seed 0, bf16;
+   attention-free, so its paged cache holds no K/V pool, only each slot's
+   ``ssm_conv`` and ``ssm_state``).  (a) Phase 4's trace and
+   ``ServeConfig`` greedy and WTA, each compiled = eager in streams and
+   launches, profiled ticks, no attention kernel and no int8 write
+   launched, ``wta_sample`` = ticks + first tokens; an int8 config
+   (compiled) gives the greedy streams (it has no pool); whether zeroing
+   ``ssm_state`` before a decode step moves the logits and the next
+   token; the device ms a tick of the SSM state update beside its byte
+   bound.  (b) One prompt of 2048 tokens prefilled in chunks of 128
+   against one whole-bucket prefill: the final state and last logits
+   within 1e-3 of their largest magnitude in f32 (gated) and in bf16
+   (printed).  On an f32 copy of its first 12 layers, out_proj x 8 and
+   the D skip 0 (so that the streams read the state): (c) the four
+   shared-prefix prompts with and without sharing (a partial hit resumes
+   at 128 from its snapshot, each read counted), two forced preempts
+   (spill records of the state alone, their bytes, spill and restore ms)
+   and speculation at k = 3 with forced rejections, each equal to its
+   plain serve.  (d) One ``analog_stochastic`` training step at full
+   width and depth: ``crossbar_mac`` 2 reads a layer (96 + 96 prepasses),
+   no ``sigmoid_sample``, the first read at each of its two shapes held
+   against the plain version; step ms and peak memory.  (e), in phase 7:
+   the smoke config in f32, prefill and decode logits card against CPU
+   within REF_ATOL and the engine's greedy streams equal.  Prints its
+   wall time.
 4e. loop (:func:`loop_phase`): (a) ``examples/train_lm_torch.py``'s
    stablelm-100m at batch 8 x 256, full depth, 12 steps through
    ``train.loop.run`` with a checkpoint every 4, clean and again with a
@@ -269,6 +296,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1913,7 +1941,7 @@ def serve_run(params, cfg, prompts, dev, reads: int, graphs: bool) -> dict:
         f"{m.tokens_per_s:.1f} tok/s, TTFT mean {m.ttft_mean * 1e3:.1f} ms p99 "
         f"{m.ttft_p99 * 1e3:.1f} ms, decode step {m.decode_step_ms:.2f} ms over "
         f"{m.decode_steps} steps, occupancy {m.occupancy_mean:.2f}")
-    chunks = launches["prefill"] // attn_layers(cfg)
+    chunks = launches["prefill"] // max(attn_layers(cfg), 1)
     log(f"  [{mode}] prefix hits {m.prefix_hits}, partial hits {m.prefix_partial_hits}, cow forks "
         f"{m.cow_forks}, prefill tokens {m.prefill_tokens} (saved {m.prefill_tokens_saved}), "
         f"launches decode {launches['decode']} prefill {launches['prefill']} write_kv_int8 "
@@ -1928,9 +1956,15 @@ def serve_run(params, cfg, prompts, dev, reads: int, graphs: bool) -> dict:
     assert all(len(o) == 32 and all(0 <= t < cfg.vocab for t in o) for o in outs.values())
     assert m.evictions == {"length": len(prompts)}, m.evictions
     assert m.prefix_hits >= 1 and m.prefix_partial_hits >= 2 and m.cow_forks >= 1
-    assert launches["decode"] > 0 and launches["prefill"] > 0, launches
+    # an attention-free model (mamba2) launches neither attention kernel
+    assert (launches["decode"] > 0 and launches["prefill"] > 0) == (attn_layers(cfg) > 0), \
+        launches
     assert launches["stoch_round"] == 0, launches   # the fused write does the rounding
-    if cfg.kv_cache_dtype == "int8":
+    if cfg.kv_cache_dtype == "int8" and not attn_layers(cfg):
+        # no pool: an int8 config writes nothing and holds no quant_step
+        assert sorted(eng._cache) == ["pos", "ssm_conv", "ssm_state"], sorted(eng._cache)
+        assert launches["write_kv_int8"] == 0, launches
+    elif cfg.kv_cache_dtype == "int8":
         assert eng._cache["k_pages"].dtype == torch.int8
         # one fused K/V write beside every attention launch
         assert launches["write_kv_int8"] == launches["decode"] + launches["prefill"] > 0, launches
@@ -2136,12 +2170,18 @@ def preempt_serve_config(prompts, **kw):
 
 
 def spill_state_bytes(cfg) -> int:
-    """A spill record's per-slot state: ``pos`` and a hybrid model's
+    """A spill record's per-slot state: ``pos``, a hybrid model's
     recurrent state (``rec_conv`` (3, W) in the model's dtype, ``rec_h``
-    (W,) in f32, a recurrent sublayer)."""
+    (W,) in f32, a recurrent sublayer) and an ssm model's (``ssm_conv``
+    (3, C) in the model's dtype, ``ssm_state`` (H, P, N) in f32, a
+    mixer)."""
     item = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
     n_rec = cfg.n_units * cfg.layer_pattern.count("rec")
-    return 4 + n_rec * (cfg.lru_width or cfg.d_model) * (3 * item + 4)
+    n_ssm = cfg.n_units * cfg.layer_pattern.count("ssm")
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    return (4 + n_rec * (cfg.lru_width or cfg.d_model) * (3 * item + 4)
+            + n_ssm * ((cfg.ssm_conv - 1) * conv_ch * item
+                       + cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 4))
 
 
 def spill_record_bytes(cfg, scfg) -> int:
@@ -2308,18 +2348,20 @@ def preempt_check(tag: str, run: dict, want: dict, gate: bool,
     return agree
 
 
-def preempt_invariants(tag: str, run: dict, reasons=("length",)) -> None:
+def preempt_invariants(tag: str, run: dict, reasons=("length",), attention: bool = True) -> None:
     """What every phase 4c run holds: typed done reasons, the allocator
     back to capacity, the spill store empty, one signature for each
     preemption entry point, the pool's addresses kept, no capture from a
-    restore or a poison, and the engine freed."""
+    restore or a poison, the engine freed, and its attention kernels
+    launched (none without ``attention``)."""
     cc = run["compile_counts"]
     assert all(r in reasons for r in run["reasons"].values()), (tag, run["reasons"])
     assert run["free_blocks"][0] == run["free_blocks"][1], (tag, run["free_blocks"])
     assert run["spill_left"] == 0, (tag, run["spill_left"])
     assert run["ptrs_kept"] and run["restore_captures"] == 0, tag
     assert run["left_mib"] < 32, (tag, run["left_mib"])
-    assert run["launches"]["decode"] > 0 and run["launches"]["prefill"] > 0, (tag, run["launches"])
+    assert (run["launches"]["decode"] > 0 and run["launches"]["prefill"] > 0) == attention, \
+        (tag, run["launches"])
     if run["preemptions"]:
         assert cc["page_spill"] == cc["page_restore"] == cc["state_gather"] == 1, (tag, cc)
 
@@ -2618,7 +2660,7 @@ def spec_run(params, cfg, prompts, dev, k: int, tag: str, *, tamper: bool = Fals
     # decode attention: one launch a layer for each of the k draft steps
     # and the verify, one a layer for a plain tick
     assert launches["decode"] == n * ((k + 1) * m.spec_rounds + plain), (tag, launches)
-    assert launches["prefill"] > 0 and launches["stoch_round"] == 0, (tag, launches)
+    assert (launches["prefill"] > 0) == (n > 0) and launches["stoch_round"] == 0, (tag, launches)
     if cfg.kv_cache_dtype == "int8":
         # one fused write beside every writing attention launch (the
         # verify writes nothing)
@@ -3744,14 +3786,17 @@ def gate_cast_ms(params, cfg, tick_device_ms: float) -> dict:
             "f32_copy_gib": f32_gib}
 
 
-def hybrid_sharing(p32, c32, prompts, dev) -> dict:
+def hybrid_sharing(p32, c32, prompts, dev, tag: str = "4h b") -> dict:
     """The trace's four prompts on the shared 128-token prefix (two take a
     partial hit, one a full hit of its twin) through the compiled engine
     with prefix sharing and without: the partial hits resume at 128, a
     chunk boundary, from the state snapshot stashed there (each read
-    counted), and the streams are equal token for token."""
+    counted, its leaves the model's state leaves and ``pos``), and the
+    streams are equal token for token."""
+    from repro_torch.models.transformer import init_prefill_state
     from repro_torch.serving import ServeConfig, ServingEngine
 
+    want_leaves = sorted(init_prefill_state(c32, dev))
     shared = [prompts[i] for i in (2, 3, 8, 9)]
     runs = {}
     for share in (True, False):
@@ -3776,54 +3821,57 @@ def hybrid_sharing(p32, c32, prompts, dev) -> dict:
         runs[share] = {"outs": outs, "snapshot_reads": reads, "partial_hits": m.prefix_partial_hits,
                        "hits": m.prefix_hits, "saved": m.prefill_tokens_saved,
                        "compile_counts": eng.compile_counts()}
-        log(f"  (b) sharing {'on' if share else 'off'}: prefix hits {m.prefix_hits}, partial hits "
+        log(f"  ({tag}) sharing {'on' if share else 'off'}: prefix hits {m.prefix_hits}, partial hits "
             f"{m.prefix_partial_hits}, prefill tokens saved {m.prefill_tokens_saved}; boundary "
             f"snapshots read (q0, leaves) {reads}; compile_counts {eng.compile_counts()}")
         del eng
     on, off = runs[True], runs[False]
     assert on["partial_hits"] >= 1 and on["snapshot_reads"], on
     assert all(q0 % 128 == 0 for q0, _ in on["snapshot_reads"]), on["snapshot_reads"]
-    assert all(leaves == ["pos", "rec_conv", "rec_h"] for _, leaves in on["snapshot_reads"])
+    assert all(leaves == want_leaves for _, leaves in on["snapshot_reads"])
     assert off["partial_hits"] == off["hits"] == 0 and not off["snapshot_reads"], off
-    on["agree"] = preempt_check("4h b", {"outs": on["outs"]}, off["outs"], gate=True,
+    on["agree"] = preempt_check(tag, {"outs": on["outs"]}, off["outs"], gate=True,
                                 against="the unshared f32")
     torch.cuda.empty_cache()
     return runs
 
 
-def hybrid_preempt_spec(p32, c32, prompts, dev) -> dict:
+def hybrid_preempt_spec(p32, c32, prompts, dev, tag: str = "4h c") -> dict:
     """On the f32 copy, each against its own plain serve, token for token:
     the trace with two forced preempts of decoding slots (their pages,
-    ``pos``, ``rec_conv`` and ``rec_h`` spilled and restored), and
-    speculation at k = 3 with every other round's drafts reported wrong
-    (each rejection rolls ``pos`` and the recurrent state back)."""
+    ``pos`` and the state leaves spilled and restored; an attention-free
+    model's records hold no page), and speculation at k = 3 with every
+    other round's drafts reported wrong (each rejection rolls ``pos`` and
+    the state back)."""
     from repro_torch.serving import FaultInjector, ServingEngine
 
     scfg = dataclasses.replace(preempt_serve_config(prompts)[0], num_kv_blocks=0)
     arrivals = {0: [(r, 1) for r in range(len(prompts))]}
-    base = preempt_run(p32, c32, prompts, dev, scfg, "4h c f32) unpreempted", arrivals=arrivals)
+    base = preempt_run(p32, c32, prompts, dev, scfg, f"{tag} f32) unpreempted",
+                       arrivals=arrivals)
     inj = FaultInjector()
     for t in HYBRID_PREEMPT_TICKS:
         inj.at(t, "preempt")
-    run = preempt_run(p32, c32, prompts, dev, scfg, "4h c f32) preempted", arrivals=arrivals,
+    run = preempt_run(p32, c32, prompts, dev, scfg, f"{tag} f32) preempted", arrivals=arrivals,
                       injector=inj)
-    preempt_invariants("4h c", run)
+    preempt_invariants(tag, run, attention=attn_layers(c32) > 0)
     assert run["preemptions"] >= 1 and run["restores_n"] == run["preemptions"], run
     rec, state = spill_record_bytes(c32, scfg), spill_state_bytes(c32)
     assert all(s["bytes"] == rec for s in run["spills"]), (rec, run["spills"])
-    log(f"  (c) a spill record: {rec} bytes, of which the recurrent state and pos {state} "
-        f"({c32.n_units * c32.layer_pattern.count('rec')} blocks' conv tail and h)")
-    run["agree"] = preempt_check("4h c", run, base["outs"], gate=True,
+    log(f"  ({tag}) a spill record: {rec} bytes, of which the state and pos {state} "
+        f"({c32.n_units * sum(k in ('rec', 'ssm') for k in c32.layer_pattern)} blocks' conv "
+        f"tail and state)")
+    run["agree"] = preempt_check(tag, run, base["outs"], gate=True,
                                  against="the unpreempted f32")
     eng = ServingEngine(p32, c32, spec_serve_config(), device=dev)
     for p in prompts:
         eng.submit(p)
     plain = eng.run()
     del eng
-    spec = spec_run(p32, c32, prompts, dev, 3, "4h c f32) k=3 forced rejections", tamper=True)
+    spec = spec_run(p32, c32, prompts, dev, 3, f"{tag} f32) k=3 forced rejections", tamper=True)
     assert spec["tampered_rounds"] >= 1 and spec["rollbacks"] >= 1, spec["rollbacks"]
     assert spec["metrics"]["spec_accepted"] < spec["metrics"]["spec_drafted"]
-    spec["agree"] = preempt_check("4h c spec", spec, plain, gate=True,
+    spec["agree"] = preempt_check(f"{tag} spec", spec, plain, gate=True,
                                   against="the plain f32")
     torch.cuda.empty_cache()
     return {"preempt": {"preemptions": run["preemptions"], "restores": run["restores_n"],
@@ -3835,14 +3883,31 @@ def hybrid_preempt_spec(p32, c32, prompts, dev) -> dict:
 
 
 def hybrid_train(dev) -> dict:
-    """One ``analog_stochastic`` step of recurrentgemma-2b at full width and
-    depth through ``make_train_step`` (batch 8 x 128): finite loss and
-    gradient norm, ``crossbar_mac`` launched 7 reads a attention layer and
-    5 a recurrent one, ``sigmoid_sample`` twice a recurrent layer (its two
-    gates) in the forward; the step's first crossbar read at each of its
-    shapes (HYBRID_CB_SHAPES) held against the plain version on the same
-    x, W and key (:func:`check_reads`), and its first gate draw, bit for
-    bit.  Step ms and peak memory."""
+    """Phase 4h (f): one ``analog_stochastic`` step of recurrentgemma-2b:
+    ``crossbar_mac`` 7 reads an attention layer and 5 a recurrent one,
+    ``sigmoid_sample`` twice a recurrent layer (its two gates), the first
+    read at each of HYBRID_CB_SHAPES checked (:func:`analog_step`)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("recurrentgemma-2b")
+    n_rec = cfg.n_units * cfg.layer_pattern.count("rec")
+    return analog_step(dev, "recurrentgemma-2b", {
+        "sigmoid_sample": 2 * n_rec,
+        "crossbar_mac": HYBRID_CB_ATTN * attn_layers(cfg) + HYBRID_CB_REC * n_rec},
+        HYBRID_CB_SHAPES, "4h f")
+
+
+def analog_step(dev, arch: str, want: dict, shapes, tag: str, timed: bool = False) -> dict:
+    """One ``analog_stochastic`` step of ``arch`` at full width and depth
+    through ``make_train_step`` (batch HYBRID_TRAIN_BATCH): finite loss
+    and gradient norm; ``crossbar_mac`` reads and prepasses each
+    ``want["crossbar_mac"]`` and ``sigmoid_sample`` ``want["sigmoid_sample"]``
+    in the forward (reset just before, read just after); the step's first
+    crossbar read at each of its (W shape, comparator) ``shapes`` held
+    against the plain version on the same x, W and key
+    (:func:`check_reads`; ``timed``: each also timed beside its bound), and
+    its first gate draw, where it draws one, bit for bit.  Step ms and peak
+    memory."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batch
     from repro_torch.kernels import crossbar_mac as CB
@@ -3852,7 +3917,7 @@ def hybrid_train(dev) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
-    cfg = analog_cfg(get_config("recurrentgemma-2b"))
+    cfg = analog_cfg(get_config(arch))
     tcfg = TrainConfig(opt=AdamWConfig(lr=3e-4), total_steps=1)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3861,7 +3926,7 @@ def hybrid_train(dev) -> dict:
     b, s = HYBRID_TRAIN_BATCH
     batch = lm_batch(cfg, batch=b, seq=s, step=0, device=dev)
     torch.cuda.synchronize()
-    log(f"  init recurrentgemma-2b ({cfg.analog.mode}) and its AdamW state in "
+    log(f"  init {arch} ({cfg.analog.mode}) and its AdamW state in "
         f"{time.perf_counter() - t0:.1f} s")
     first = {}
     real = KOPS.sigmoid_sample
@@ -3888,37 +3953,256 @@ def hybrid_train(dev) -> dict:
     launches = {"sigmoid_sample": SS.launches, "crossbar_mac": CB.launches,
                 "crossbar_prepass": CB.prepass_launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    n_rec = cfg.n_units * cfg.layer_pattern.count("rec")
-    want_cb = HYBRID_CB_ATTN * attn_layers(cfg) + HYBRID_CB_REC * n_rec
-    a = first["acc"].reshape(-1, first["acc"].shape[-1])
-    want_y = ref.sigmoid_sample_ref(a.float().contiguous(), first["bias"], beta=first["beta"],
-                                    key=first["key"], offset=first["offset"])
-    want_y = want_y.reshape(first["y"].shape)
-    same = torch.equal(first["y"], want_y)
-    log(f"  analog step: loss {loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, "
+    same, gate_err = True, 0.0
+    if first:
+        a = first["acc"].reshape(-1, first["acc"].shape[-1])
+        want_y = ref.sigmoid_sample_ref(a.float().contiguous(), first["bias"],
+                                        beta=first["beta"], key=first["key"],
+                                        offset=first["offset"]).reshape(first["y"].shape)
+        same = torch.equal(first["y"], want_y)
+        gate_err = float((first["y"] - want_y).abs().max())
+        log(f"  {tag}: the first gate draw {tuple(first['y'].shape)} equal to the plain "
+            f"version's {same} ({float(first['y'].mean()):.4f} fire)")
+    log(f"  {tag} analog step: loss {loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, "
         f"{step_s * 1e3:.1f} ms (the first step: allocations included), peak memory "
-        f"{peak:.2f} GiB; launches {launches} (sigmoid_sample 2 x {n_rec} recurrent layers, "
-        f"crossbar_mac {HYBRID_CB_ATTN} x {attn_layers(cfg)} + {HYBRID_CB_REC} x {n_rec}); the "
-        f"first gate draw {tuple(first['y'].shape)} equal to the plain version's {same} "
-        f"({float(first['y'].mean()):.4f} fire)")
+        f"{peak:.2f} GiB; launches {launches}, expected {want}")
     if not (np.isfinite(loss) and np.isfinite(float(metrics["grad_norm"]))):
         raise AssertionError(f"non-finite analog step: loss {loss}")
-    if launches["sigmoid_sample"] != 2 * n_rec or launches["crossbar_mac"] != want_cb \
-            or launches["crossbar_prepass"] != want_cb:
-        raise AssertionError(f"analog step launched {launches}, expected sigmoid_sample "
-                             f"{2 * n_rec} and crossbar_mac {want_cb}")
+    if launches != dict(want, crossbar_prepass=want["crossbar_mac"]):
+        raise AssertionError(f"{tag} analog step launched {launches}, expected {want}")
     if not same:
-        raise AssertionError("the RG-LRU gate draw differs from sigmoid_sample's plain version")
+        raise AssertionError("the gate draw differs from sigmoid_sample's plain version")
     del state
     torch.cuda.empty_cache()
-    shapes = {(ws, binarize) for _, ws, binarize in reads}
-    if shapes != set(HYBRID_CB_SHAPES):
-        raise AssertionError(f"the analog step read at {sorted(shapes)}, expected "
-                             f"{sorted(HYBRID_CB_SHAPES)}")
-    checked = check_reads(reads, "4h f")
+    got_shapes = {(ws, binarize) for _, ws, binarize in reads}
+    if got_shapes != set(shapes):
+        raise AssertionError(f"the analog step read at {sorted(got_shapes)}, expected "
+                             f"{sorted(shapes)}")
+    checked = check_reads(reads, tag, timed=timed)
     return {"launches": launches, "loss": loss, "step_ms": step_s * 1e3, "peak_gib": peak,
-            "reads": checked, "gate_shape": list(first["y"].shape),
-            "gate_err": float((first["y"] - want_y).abs().max())}
+            "reads": checked, "gate_shape": list(first["y"].shape) if first else None,
+            "gate_err": gate_err}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4i: mamba2-1.3b, the attention-free model (Mamba-2 SSD mixers, no
+# K/V pool).
+# ---------------------------------------------------------------------------
+
+# (b): one prompt prefilled whole (the dense layout's lm_prefill) and in
+# chunks of SSM_PREFILL_CHUNK tokens (each padded to the SSD chunk of 256):
+# the two sum in other orders, so they agree by tolerance, relative to the
+# largest magnitude of the compared tensor (f32 gated, bf16 printed)
+SSM_LONG_PROMPT, SSM_PREFILL_CHUNK = 2048, 128
+SSM_CHUNK_RTOL = 1e-3
+# (c) runs an f32 copy of the first SSM_CUT_LAYERS layers, every mixer's
+# out_proj scaled by HYBRID_GAIN and its D skip zeroed: at the plain init
+# the skip D·x outweighs the state's C·h, so a lost state barely moves a
+# stream (tests/_block_gain.py; (a) measures it at full depth)
+SSM_CUT_LAYERS = 12
+# (d): crossbar reads a layer, in_proj (2048, 8512) and out_proj (4096,
+# 2048), both linear (analog_stochastic projects linearly in a mixer)
+SSM_CB_PER_LAYER = 2
+SSM_CB_SHAPES = (((2048, 8512), False), ((4096, 2048), False))
+
+
+def ssm_phase(dev) -> dict:
+    """Phase 4i: mamba2-1.3b at full width and depth (seed 0, bf16): (a)
+    phase 4's trace and ``ServeConfig`` greedy and WTA, each compiled =
+    eager (:func:`serve_once`), no attention kernel or int8 write, and an
+    int8 config (compiled) giving the greedy streams; whether the streams
+    read the state (:func:`ssm_state_probe`); the device ms of a tick's
+    SSM state update (:func:`ssm_update_ms`); (b) a prompt of 2048 tokens
+    prefilled in chunks of 128 against one whole-bucket prefill
+    (:func:`ssm_chunked_prefill`); on an f32 copy of its first 12 layers
+    that reads its state (out_proj x 8, D skip 0), (c) sharing on = off
+    with partial hits resuming from the stashed snapshot, two forced
+    preempts (spill records of state alone) and speculation with forced
+    rejections, each equal to its plain serve; (d) one
+    ``analog_stochastic`` training step (:func:`ssm_train`).  (e) runs with
+    phase 7 (:func:`reference_ssm`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm, scale_block_outputs
+    from repro_torch.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    # earlier phases leave reference cycles holding device memory (12 GiB
+    # after phase 4h on the H100) that a collection mid-serve would free,
+    # making this phase's memory readings negative and its host times noisy
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  init mamba2-1.3b ({cfg.n_layers} mixers, d{cfg.d_model} d_inner {cfg.d_inner} "
+        f"{cfg.ssm_nheads} heads x {cfg.ssm_headdim} state {cfg.ssm_state} conv {cfg.ssm_conv} "
+        f"SSD chunk {cfg.ssm_chunk} V{cfg.vocab} tied; {n_params / 1e9:.4f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
+    prompts = serve_trace(cfg.vocab)
+    serve_warm_up(params, cfg, prompts, dev)
+    log("  (a) phase 4's trace: bf16 greedy and WTA (compiled = eager), an int8 config")
+    wcfg = dataclasses.replace(cfg, wta_head=True)
+    res = {"same": serve_once(params, cfg, prompts, dev),
+           "wta": serve_once(params, wcfg, prompts, dev)}
+    res["int8"] = serve_run(params, dataclasses.replace(cfg, kv_cache_dtype="int8"), prompts,
+                            dev, 1, graphs=True)
+    same, wta = res["same"]["outs"], res["wta"]["outs"]
+    if res["int8"]["outs"] != same:
+        raise AssertionError("the int8 config's streams differ from bf16's: it has no pool")
+    total = sum(len(o) for o in same.values())
+    agree = sum(a == b for r in same for a, b in zip(same[r], wta[r]))
+    moving = sum(len(set(o)) > 1 for o in same.values())
+    log(f"  mamba2 int8 config = bf16 on {total} tokens; WTA vs greedy tokens: {agree}/{total} "
+        f"equal; {moving}/{len(same)} greedy streams move from token to token")
+    if agree == total:
+        raise AssertionError("the WTA serve emitted the greedy tokens: the sampler did not draw")
+    if moving < len(same) - 1:
+        raise AssertionError("the greedy streams repeat one token: they read no state")
+    res["probe"] = ssm_state_probe(params, cfg, prompts, dev, "bf16 full depth")
+    res["update"] = ssm_update_ms(cfg, res["same"]["profile"]["device_ms"], dev)
+    log(f"  (b) a prompt of {SSM_LONG_PROMPT} tokens: chunks of {SSM_PREFILL_CHUNK} against "
+        f"whole-bucket prefill")
+    res["chunked"] = {"bf16": ssm_chunked_prefill(params, cfg, dev, gate=False)}
+    p32 = first_units(params, cfg.n_units, torch.float32)
+    res["chunked"]["f32"] = ssm_chunked_prefill(p32, dataclasses.replace(cfg, dtype="float32"),
+                                                dev, gate=True)
+    c32 = dataclasses.replace(cfg, n_layers=SSM_CUT_LAYERS, dtype="float32")
+    p32 = first_units(params, SSM_CUT_LAYERS, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    scale_block_outputs(p32, HYBRID_GAIN)
+    p32["units"]["l0"]["mixer"]["d_skip"].zero_()
+    res["probe_f32"] = ssm_state_probe(p32, c32, prompts, dev,
+                                       f"f32, {SSM_CUT_LAYERS} layers, D 0, out_proj x 8")
+    log(f"  (c) prefix sharing, preemption and speculative rollback on the f32 copy of the "
+        f"first {SSM_CUT_LAYERS} layers")
+    res["sharing"] = hybrid_sharing(p32, c32, prompts, dev, tag="4i c")
+    res.update(hybrid_preempt_spec(p32, c32, prompts, dev, tag="4i c"))
+    del p32
+    torch.cuda.empty_cache()
+    log("  (d) one analog_stochastic training step")
+    res["train"] = ssm_train(dev)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 4i wall time {res['wall_s']:.1f} s")
+    return res
+
+
+def ssm_state_probe(params, cfg, prompts, dev, label: str) -> dict:
+    """Whether the streams read the SSM state: each trace prompt prefilled
+    alone (``lm_prefill``), then one decode step of its greedy token with
+    the state as the prefill left it and with ``ssm_state`` zeroed: the
+    largest logit change, and how many prompts' next token moves."""
+    from repro_torch.models import transformer as TF
+
+    moved, deltas = 0, []
+    with torch.no_grad():
+        for p in prompts:
+            toks = torch.tensor([p], dtype=torch.int32, device=dev)
+            cache, lg = TF.lm_prefill(params, toks, cfg, len(p) + 1)
+            tok = lg.argmax(-1).to(torch.int32)
+            zeroed = {n: v.clone() for n, v in cache.items()}
+            zeroed["ssm_state"].zero_()
+            _, a = TF.lm_decode_step(params, cache, tok, cfg)
+            _, b = TF.lm_decode_step(params, zeroed, tok, cfg)
+            deltas.append(float((a.float() - b.float()).abs().max()))
+            moved += int(a.argmax(-1) != b.argmax(-1))
+    log(f"  state probe ({label}): zeroing ssm_state before one decode step moves the logits "
+        f"by max|Δ| {max(deltas):.4f} (median {float(np.median(deltas)):.4f}) and the next "
+        f"greedy token of {moved}/{len(prompts)} prompts")
+    if max(deltas) == 0.0:
+        raise AssertionError(f"({label}) the decode step does not read ssm_state")
+    return {"max_delta": max(deltas), "median_delta": float(np.median(deltas)), "moved": moved,
+            "prompts": len(prompts)}
+
+
+def ssm_update_ms(cfg, tick_device_ms: float, dev) -> dict:
+    """Device ms a full-batch decode tick (B = 8) spends in the mixers'
+    SSM state update, as ``mamba2.mamba_decode_step`` and its caller do
+    it: ``state·decay + x⊗B`` into a new tensor, its read-out ``C·state``,
+    and the copy back into the cache leaf, over every layer's own state,
+    timed alone beside the replayed tick; its byte bound (each layer's
+    state read and written once, ``decay``, ``x``, ``B``, ``C`` and ``y``
+    besides)."""
+    b, h, p, n = 8, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    g = torch.Generator(device=dev).manual_seed(41)
+    states = [torch.randn((b, h, p, n), generator=g, device=dev) for _ in range(cfg.n_layers)]
+    decay = torch.rand((b, h), generator=g, device=dev)
+    xdt = torch.randn((b, h, p), generator=g, device=dev)
+    bmat, cmat = (torch.randn((b, n), generator=g, device=dev) for _ in range(2))
+
+    def update():
+        for st in states:
+            new = st * decay[:, :, None, None] + xdt[..., None] * bmat[:, None, None, :]
+            torch.einsum("bhpn,bn->bhp", new, cmat)
+            st.copy_(new)
+
+    ms = device_ms([update], iters=4)
+    nbytes = cfg.n_layers * 4 * (2 * b * h * p * n + b * h + 2 * b * h * p + 2 * b * n)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  SSM state update a tick: {cfg.n_layers} layers of ({b}, {h}, {p}, {n}) f32 "
+        f"({cfg.n_layers * b * h * p * n * 4 / 2**20:.1f} MiB), {ms:.4f} ms on the device "
+        f"against {tick_device_ms:.3f} ms of the replayed bf16 tick; byte bound {bound:.4f} ms")
+    return {"device_ms": ms, "bound_ms": bound, "tick_device_ms": tick_device_ms,
+            "state_mib": cfg.n_layers * b * h * p * n * 4 / 2**20}
+
+
+def ssm_chunked_prefill(params, cfg, dev, gate: bool) -> dict:
+    """One prompt of SSM_LONG_PROMPT tokens (seeded) through the dense
+    layout's whole-bucket ``lm_prefill`` and through ``lm_prefill_chunk``
+    in chunks of SSM_PREFILL_CHUNK from a zero state: the final
+    ``ssm_state`` and the last logits, each relative to its largest
+    magnitude, within SSM_CHUNK_RTOL when ``gate``, and the same greedy
+    token; the host ms of each (synced)."""
+    from repro_torch.models import transformer as TF
+
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, SSM_LONG_PROMPT)).astype(np.int32)).to(dev)
+    row = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, whole = TF.lm_prefill(params, toks, cfg, SSM_LONG_PROMPT)
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        state = TF.init_prefill_state(cfg, dev)
+        for lo in range(0, SSM_LONG_PROMPT, SSM_PREFILL_CHUNK):
+            _, state, chunked = TF.lm_prefill_chunk(
+                params, toks[:, lo:lo + SSM_PREFILL_CHUNK], cfg, {}, state, row, lo)
+        torch.cuda.synchronize()
+        chunked_ms = (time.perf_counter() - t0) * 1e3
+    out = {"whole_ms": whole_ms, "chunked_ms": chunked_ms,
+           "same_token": int(whole.argmax(-1)) == int(chunked.argmax(-1))}
+    for name, a, b in (("ssm_state", cache["ssm_state"], state["ssm_state"]),
+                       ("ssm_conv", cache["ssm_conv"], state["ssm_conv"]),
+                       ("logits", whole, chunked)):
+        err = float((a.float() - b.float()).abs().max())
+        out[name] = {"max_abs_err": err, "rel": err / float(a.float().abs().max())}
+    log(f"  ({cfg.dtype}) whole-bucket prefill {whole_ms:.1f} ms, {SSM_LONG_PROMPT // SSM_PREFILL_CHUNK} "
+        f"chunks {chunked_ms:.1f} ms; chunked vs whole: "
+        + ", ".join(f"{n} max|Δ| {out[n]['max_abs_err']:.3e} ({out[n]['rel']:.2e} of its max)"
+                    for n in ("ssm_state", "ssm_conv", "logits"))
+        + f"; the same greedy token {out['same_token']}"
+        + (f" (gate {SSM_CHUNK_RTOL} relative)" if gate else " (not gated)"))
+    if gate and (not out["same_token"] or any(
+            out[n]["rel"] > SSM_CHUNK_RTOL for n in ("ssm_state", "ssm_conv", "logits"))):
+        raise AssertionError(f"chunked prefill parts from the whole-bucket prefill ({cfg.dtype})")
+    return out
+
+
+def ssm_train(dev) -> dict:
+    """Phase 4i (d): one ``analog_stochastic`` step of mamba2-1.3b:
+    ``crossbar_mac`` 2 reads a layer (in_proj, out_proj, both linear), no
+    ``sigmoid_sample``, the first read at each of SSM_CB_SHAPES checked and
+    timed beside its bound (:func:`analog_step`)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-1.3b")
+    return analog_step(dev, "mamba2-1.3b", {
+        "sigmoid_sample": 0, "crossbar_mac": SSM_CB_PER_LAYER * cfg.n_layers},
+        SSM_CB_SHAPES, "4i d", timed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4395,11 +4679,14 @@ def recording_reads(into):
         ops.crossbar_mac_sim = real
 
 
-def check_reads(reads: dict, tag: str) -> dict:
+def check_reads(reads: dict, tag: str, timed: bool = False) -> dict:
     """Each read that :func:`recording_reads` kept, through
     ``ops.crossbar_mac`` against ``ops.crossbar_mac_reference`` on the same
     x, W and key: comparator decisions at CB_AGREEMENT, linear reads at the
-    range-scaled linear gate (:func:`scaled_linear_err_over_tol`)."""
+    range-scaled linear gate (:func:`scaled_linear_err_over_tol`).  With
+    ``timed``, each read's device ms (prepass + GEMM, :func:`device_ms`)
+    beside its bound (:func:`crossbar_bound`), its plain version's ms and
+    the f32 product alone (cuBLAS SGEMM, CUDA events)."""
     from repro_torch.kernels import ops
 
     out = {}
@@ -4429,6 +4716,18 @@ def check_reads(reads: dict, tag: str) -> dict:
                 if worst > 1.0:
                     raise AssertionError(f"{tag} crossbar_mac {label}: kernel disagrees with "
                                          f"its plain version")
+            if timed:
+                m, k, n = x.numel() // x.shape[-1], w.shape[0], w.shape[1]
+                x2, wf = x.reshape(m, k), w.float()
+                rec = dict(crossbar_bound(m, k, n),
+                           device_ms=device_ms([lambda: ops.crossbar_mac(x, w, key, cfg, binarize)]),
+                           plain_ms=cuda_ms([lambda: ops.crossbar_mac_reference(
+                               x, w, key, cfg, binarize)], iters=4, warmup=1),
+                           library_ms=cuda_ms([lambda: x2 @ wf]))
+                out[label].update(rec)
+                log(f"  {tag} crossbar_mac {label}: {rec['device_ms']:.4f} ms on the device "
+                    f"against a bound of {rec['bound_ms']:.4f} ({rec['bound_by']}); plain "
+                    f"{rec['plain_ms']:.4f}, SGEMM product only {rec['library_ms']:.4f}")
     return out
 
 
@@ -5057,6 +5356,59 @@ def reference_phase(dev) -> None:
                     raise AssertionError(f"int8 {name} codes disagree card vs CPU")
 
 
+def reference_ssm(dev) -> None:
+    """Phase 4i (e): mamba2's smoke config in f32 (seed 1), the same
+    parameters on the card and on the CPU: two prefill chunks and three
+    greedy decode steps' logits within REF_ATOL, then the paged engine's
+    greedy streams on tests/test_serving.py's mixed trace, equal token for
+    token (the card's engine compiled)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-1.3b"), dtype="float32")
+    host = TF.init_lm(cfg, seed=1, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 40)).astype(np.int32))
+    prompts = [[5, 6, 7, 1, 2, 3, 4, 9], [1, 2, 3], [9, 8, 7, 6, 5, 4, 3, 2], [4] * 20,
+               [11, 12], [7] * 13]
+    logits, streams = {}, {}
+    for d in ("cpu", dev):
+        params = _tree_to(host, d)
+        cache = TF.init_paged_decode_cache(cfg, 2, 12, 16, device=d)
+        row = torch.zeros((1,), dtype=torch.int32, device=d)
+        out = []
+        for b in range(2):
+            state = TF.init_prefill_state(cfg, d)
+            for lo, hi in ((0, 16), (16, 40)):
+                _, state, lg = TF.lm_prefill_chunk(params, toks[b:b + 1, lo:hi].to(d), cfg, {},
+                                                   state, row, lo)
+                out.append(lg)
+            for name, leaf in state.items():
+                cache[name].narrow(0 if name == "pos" else 2, b, 1).copy_(leaf)
+        tok = torch.cat(out[1::2]).argmax(-1).to(torch.int32)
+        for _ in range(3):
+            cache, lg = TF.lm_decode_step(params, cache, tok, cfg, None)   # no pool: no table
+            out.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+        logits[str(d)] = [x.float().cpu() for x in out]
+        eng = ServingEngine(params, cfg, ServeConfig(max_batch=3, max_new_tokens=8, max_len=64,
+                                                     kv_block_size=8, prefill_chunk=8), device=d)
+        for p in prompts:
+            eng.submit(p)
+        streams[str(d)] = eng.run()
+        del eng
+    err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[str(dev)]))
+    agree = sum(a == b for r in streams["cpu"] for a, b in zip(streams["cpu"][r],
+                                                               streams[str(dev)][r]))
+    total = sum(len(o) for o in streams["cpu"].values())
+    log(f"  (4i e) mamba2 smoke f32: prefill and decode logits card vs CPU max|err| {err:.3e} "
+        f"(atol {REF_ATOL}); greedy streams {agree}/{total} tokens equal")
+    if err > REF_ATOL:
+        raise AssertionError("mamba2 card logits disagree with the CPU plain path")
+    if streams["cpu"] != streams[str(dev)]:
+        raise AssertionError("mamba2 greedy streams differ card vs CPU")
+
+
 def dense_card_vs_cpu(host: dict, cfg, toks, dev) -> float:
     """The dense layout's prefill of two prompts (one left-padded) and three
     decode steps, on the card and on the CPU from the same parameters:
@@ -5484,11 +5836,16 @@ def main() -> int:
         "int8, WTA, WTA int8; past the window of 2048; sharing, preemption and rollback of the "
         "recurrent state; one analog training step)")
     hres = hybrid_phase(dev)
+    log("== 4i: mamba2-1.3b at full width and depth (attention-free, no K/V pool: bf16 and "
+        "WTA compiled = eager, an int8 config; chunked against whole prefill; sharing, "
+        "preemption and rollback of the SSM state; one analog training step)")
+    ires = ssm_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
     reference_wta(dev)
     reference_train(dev)
     reference_fcnn(dev)
+    reference_ssm(dev)
 
     launches = dict(sres["same"]["launches"])
     launches["write_kv_int8"] = sres["int8"]["launches"]["write_kv_int8"]
@@ -5570,6 +5927,19 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "sigmoid_sample")["max_abs_err_4h"] = \
         hres["train"]["gate_err"]
     next(k for k in kernels if k["name"] == "crossbar_mac")["reads_4h"] = hres["train"]["reads"]
+    # phase 4i: mamba2-1.3b's runs, each reset just before it and read just
+    # after: no attention kernel and no int8 write in any of them
+    for name, key in (("paged_attention", "decode"), ("paged_prefill_attention", "prefill"),
+                      ("write_kv_int8", "write_kv_int8"), ("wta_sample", "wta_sample")):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_4i"] = {f"mamba2 {run}": ires[run]["launches"][key]
+                              for run in ("same", "int8", "wta")}
+        rec["launches_4i"].update({"mamba2 f32 preempt": ires["preempt"]["launches"][key],
+                                   "mamba2 f32 spec": ires["spec"]["launches"][key]})
+    for name in ("crossbar_mac", "crossbar_prepass", "sigmoid_sample"):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_4i"] = {"mamba2 analog step": ires["train"]["launches"][name]}
+    next(k for k in kernels if k["name"] == "crossbar_mac")["reads_4i"] = ires["train"]["reads"]
     # the R = 3 serve of the same trace and the FCNN's head: their own
     # paths, counted apart
     wta_rec = next(k for k in kernels if k["name"] == "wta_sample")

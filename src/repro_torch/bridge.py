@@ -8,14 +8,15 @@ already a numpy array, and returns the port's tree of tensors on
 imports no jax: the caller converts leaves with ``np.asarray``.  Because
 ``torch.from_numpy`` cannot take ``ml_dtypes.bfloat16``, callers hand bf16
 leaves over as float32; the bridge casts each weight back to
-``cfg.dtype`` (bf16 → f32 → bf16 is lossless).  Norm scales and an RG-LRU
-block's gate biases and decay (``ba``, ``bx``, ``lam``) stay f32, as in
-the reference.
+``cfg.dtype`` (bf16 → f32 → bf16 is lossless).  Norm scales, an RG-LRU
+block's gate biases and decay (``ba``, ``bx``, ``lam``) and a Mamba-2
+mixer's ``a_log``, ``d_skip`` and ``dt_bias`` stay f32, as in the
+reference.
 
 ``paged_cache_from_numpy`` carries a paged decode cache across the same
 way (pages, an int8 pool's scale planes, ``pos``, ``quant_step`` and a
-hybrid model's recurrent state), so tests can run both packages' layers
-on identical pools.
+hybrid or ssm model's state), so tests can run both packages' layers on
+identical pools.
 
 ``train_state_from_numpy`` carries a training state across, of either
 family: parameters (made trainable), AdamW's moments in the optimizer's
@@ -38,7 +39,7 @@ from repro_torch.train import TrainState
 
 
 # leaves the reference keeps in f32 whatever the model's dtype
-F32_LEAVES = ("scale", "ba", "bx", "lam")
+F32_LEAVES = ("scale", "ba", "bx", "lam", "a_log", "d_skip", "dt_bias")
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
@@ -62,7 +63,8 @@ def paged_cache_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     as the port's cache on ``device``: int8 pages stay int8, float pages
     become ``cfg.dtype`` (bf16 leaves handed over as float32, as for
     params), scale planes f32, ``pos`` and ``quant_step`` int32; a hybrid
-    model's ``rec_conv`` becomes ``cfg.dtype`` and ``rec_h`` f32."""
+    model's ``rec_conv`` and an ssm model's ``ssm_conv`` become
+    ``cfg.dtype``, ``rec_h`` and ``ssm_state`` f32."""
     dev = resolve_device(device)
     out = {}
     for name, leaf in tree.items():
@@ -73,12 +75,12 @@ def paged_cache_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
             t = torch.from_numpy(np.array(arr))
         elif name.endswith("_scale_pages"):
             t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        elif name in ("k_pages", "v_pages", "rec_conv"):
+        elif name in ("k_pages", "v_pages", "rec_conv", "ssm_conv"):
             t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtype_of(cfg))
-        elif name == "rec_h":
+        elif name in ("rec_h", "ssm_state"):
             t = torch.from_numpy(np.array(arr, dtype=np.float32))
         else:
-            raise KeyError(f"no paged-cache leaf {name!r} in a decoder_lm or hybrid cache")
+            raise KeyError(f"no paged-cache leaf {name!r} in a decoder_lm, hybrid or ssm cache")
         out[name] = t.to(dev)
     return out
 

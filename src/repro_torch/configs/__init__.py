@@ -1,7 +1,8 @@
 """Per-architecture configs ported so far: the attention-only decoder LMs
 ``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b`` and
 ``nemotron-4-340b``, the hybrid ``recurrentgemma-2b`` (RG-LRU blocks and
-local attention), and the paper's ``fcnn-mnist``; plus the shape suite
+local attention), the attention-free ``mamba2-1.3b`` (Mamba-2 SSD
+mixers), and the paper's ``fcnn-mnist``; plus the shape suite
 (``SHAPES``, ``ShapeSpec``) and each arch's ``skip_shapes``."""
 
 from importlib import import_module
@@ -12,6 +13,7 @@ _MODULES = {
     "deepseek-coder-33b": "deepseek_coder_33b",
     "nemotron-4-340b": "nemotron_4_340b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-1.3b": "mamba2_1_3b",
     "fcnn-mnist": "fcnn_mnist",
 }
 

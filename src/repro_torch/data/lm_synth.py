@@ -35,11 +35,12 @@ def lm_batch(
     cfg, *, batch: int, seq: int, step: int, seed: int = 0, shard: int = 0,
     n_shards: int = 1, device=None,
 ) -> dict:
-    """Batch for one (step, shard) of a token LM (``decoder_lm`` or
-    ``hybrid``): int32 "tokens" and "labels" (B, seq), on ``device`` (the
-    card unless ``"cpu"``)."""
-    if cfg.family not in ("decoder_lm", "hybrid"):
-        raise NotImplementedError(f"lm_batch is ported for decoder_lm and hybrid, got {cfg.family}")
+    """Batch for one (step, shard) of a token LM (``decoder_lm``,
+    ``hybrid`` or ``ssm``): int32 "tokens" and "labels" (B, seq), on
+    ``device`` (the card unless ``"cpu"``)."""
+    if cfg.family not in ("decoder_lm", "hybrid", "ssm"):
+        raise NotImplementedError(
+            f"lm_batch is ported for decoder_lm, hybrid and ssm, got {cfg.family}")
     dev = resolve_device(device)
     key = R.fold_in(R.fold_in(R.PRNGKey(seed), step), shard)
     toks = _tokens(key, batch, seq, cfg.vocab, dev)

@@ -2,8 +2,10 @@
 layout) or the static-batch reference engine against a randomly
 initialized model, greedy or WTA sampling.  ``--arch`` takes every ported
 token-LM config: ``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b``,
-``nemotron-4-340b`` and the hybrid ``recurrentgemma-2b`` (``--smoke`` for
-their small configs), each through every option below.
+``nemotron-4-340b``, the hybrid ``recurrentgemma-2b`` and the
+attention-free ``mamba2-1.3b`` (``--smoke`` for their small configs),
+each through every option below (mamba2's cache has no K/V pool, so
+``--kv-dtype int8`` serves it as the float cache does).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\

@@ -56,20 +56,21 @@ SANITY_REASONS = {
 
 # the dense layout's per-slot K/V leaves, (nu, n_attn, B, max_len, ...)
 DENSE_LEAVES = ("k", "v", "k_scale", "v_scale")
-# a hybrid model's recurrent state, dense per slot in either layout:
-# (nu, n_rec, B, 3, W) and (nu, n_rec, B, W)
-STATE_LEAVES = ("rec_conv", "rec_h")
+# a hybrid or ssm model's state, dense per slot in either layout: (nu,
+# n_rec, B, 3, W) and (nu, n_rec, B, W); (nu, n_ssm, B, K-1, C) and (nu,
+# n_ssm, B, H, P, N)
+STATE_LEAVES = ("rec_conv", "rec_h", "ssm_conv", "ssm_state")
 
 
 def cache_batch_axis(leaf_name: str) -> int:
     """Slot axis of a per-slot cache leaf: ``pos`` is (B,), the dense
-    layout's K/V leaves (nu, n_attn, B, ...), the recurrent state leaves
-    (nu, n_rec, B, ...)."""
+    layout's K/V leaves (nu, n_attn, B, ...), the state leaves (nu, n_rec
+    or n_ssm, B, ...)."""
     if leaf_name == "pos":
         return 0
     if leaf_name in DENSE_LEAVES or leaf_name in STATE_LEAVES:
         return 2
-    raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm or hybrid cache")
+    raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm, hybrid or ssm cache")
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
@@ -112,7 +113,7 @@ def _spec_state_leaves(cache: dict) -> dict:
     """The per-slot leaves a speculative round snapshots and rolls back:
     all but the shared page pool and an int8 pool's engine-wide
     ``quant_step`` (rewinding it would replay rounding draws): ``pos``
-    and, for a hybrid model, ``rec_conv`` and ``rec_h``."""
+    and a hybrid or ssm model's state leaves."""
     return {n: v for n, v in cache.items() if n not in PAGE_POOL_LEAVES and n != "quant_step"}
 
 
@@ -127,8 +128,8 @@ def make_paged_spec_round(cfg: ModelConfig, k: int):
 
     (params, cache, table (B, W), token (B,)[, keys (B, 2), steps (B,)]) →
     (dtoks (B, k), doks (B, k), vtoks (B, k), voks (B, k), vstates
-    {state leaf: (k, ...)}: ``pos`` (k, B), and a hybrid model's
-    recurrent leaves).
+    {state leaf: (k, ...)}: ``pos`` (k, B), and a hybrid or ssm model's
+    state leaves).
 
     Draft: k chained :func:`TF.lm_decode_step` + :func:`sample_tokens`
     calls, each with the slot's own ``(key, steps + j)``, so the drafts are
@@ -292,7 +293,7 @@ def make_page_restore(cfg: ModelConfig):
 
 def make_slot_state_gather(cfg: ModelConfig):
     """(cache, slot) → state_leaves{B=1}: the one-slot view of every
-    per-slot leaf (``pos`` and a hybrid model's recurrent state), shaped
+    per-slot leaf (``pos`` and a hybrid or ssm model's state), shaped
     as :func:`make_paged_state_insert` takes it.  Leaves without a slot
     axis (an int8 pool's engine-wide ``quant_step``) are left out:
     restoring that counter would replay other slots' rounding draws."""

@@ -12,7 +12,8 @@ tokens, or MNIST-surrogate images for ``fcnn-mnist``).
 Takes the reference's flags (``repro/launch/train.py``) and adds
 ``--device``; runs on the card unless ``--device cpu`` is given.
 ``--analog`` trains an LM in RACA analog-stochastic mode (noise-aware
-QAT): every projection goes through the crossbar kernel; ``fcnn-mnist``'s
+QAT): every projection goes through the crossbar kernel (mamba2-1.3b's
+``in_proj`` and ``out_proj`` as linear reads, as in the reference); ``fcnn-mnist``'s
 config is analog already (``--analog`` is refused there).  An LM's
 weights are the port's random init from ``TrainConfig.seed`` (0), an
 FCNN's the reference's ``init_fcnn(PRNGKey(0))``; the seed also seeds the

@@ -1,6 +1,6 @@
 """Model definitions of the port and the family registry
-(``repro/models/__init__.py``): the ``decoder_lm``, ``hybrid`` and ``fcnn``
-families."""
+(``repro/models/__init__.py``): the ``decoder_lm``, ``hybrid``, ``ssm`` and
+``fcnn`` families."""
 
 from __future__ import annotations
 
@@ -27,13 +27,14 @@ def get_model_fns(cfg: ModelConfig) -> ModelFns:
     ``tokens``; the ported family has no patches) and ``decode_step`` the decode
     step over a dense or a paged cache (``transformer.lm_decode_step``);
     the FCNN has neither.  A ``hybrid`` model (RG-LRU blocks beside
-    attention) shares the LM's functions."""
+    attention) and an ``ssm`` one (Mamba-2 mixers) share the LM's
+    functions."""
     if cfg.family == "fcnn":
         return ModelFns(
             init=lambda seed, c, device=None: FC.init_fcnn(R.PRNGKey(seed), c, device),
             loss=FC.fcnn_loss, prefill=None, decode_step=None,
         )
-    if cfg.family in ("decoder_lm", "hybrid"):
+    if cfg.family in ("decoder_lm", "hybrid", "ssm"):
         return ModelFns(
             init=lambda seed, c, device=None: TF.init_lm(c, seed=seed, device=device),
             loss=TF.lm_loss,
@@ -43,7 +44,7 @@ def get_model_fns(cfg: ModelConfig) -> ModelFns:
             decode_step=TF.lm_decode_step,
         )
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported; ported: decoder_lm, hybrid, fcnn")
+        f"family {cfg.family!r} is not ported; ported: decoder_lm, hybrid, ssm, fcnn")
 
 
 __all__ = ["ModelConfig", "ModelFns", "get_model_fns"]

@@ -1,8 +1,9 @@
 """Decoder LM stack: init, the full-sequence forward and loss of the
 training path, the decode step over a dense or a paged cache, the dense
 layout's monolithic prefill and the chunked paged prefill
-(``repro/models/transformer.py``, the ``decoder_lm`` family and the
-``hybrid`` one: units that mix RG-LRU blocks, ``"rec"``, with attention).
+(``repro/models/transformer.py``, the ``decoder_lm`` family, the
+``hybrid`` one: units that mix RG-LRU blocks, ``"rec"``, with attention,
+and the attention-free ``ssm`` one: Mamba-2 mixers, ``"ssm"``).
 
 Parameters keep the reference's tree: units stacked on a leading
 ``n_units`` axis (``params["units"]["l0"]["attn"]["wq"]`` is
@@ -32,12 +33,15 @@ held in int64).
 Recurrent sublayers keep their O(1) state per slot in two dense leaves of
 every cache layout: ``rec_conv`` (nu, n_rec, B, 3, W) in the model's dtype
 (the conv inputs before the next token) and ``rec_h`` (nu, n_rec, B, W) in
-f32.  The decode step writes them in place, as it writes ``pos``; the
-chunked prefill threads them through a one-slot ``state`` and returns new
-tensors, so a state the engine stashed as a prefix snapshot is never
-written again.  K/V leaves count attention sublayers only (``n_attn``),
-while an int8 write's rounding seed folds in the sublayer's index in the
-whole pattern, as the reference's does.
+f32; Mamba-2 mixers in ``ssm_conv`` (nu, n_ssm, B, K-1, C) and
+``ssm_state`` (nu, n_ssm, B, H, P, N) in f32.  The decode step writes them
+in place, as it writes ``pos``; the chunked prefill threads them through a
+one-slot ``state`` and returns new tensors, so a state the engine stashed
+as a prefix snapshot is never written again.  K/V leaves count attention
+sublayers only (``n_attn``), and a model without attention (mamba2) has
+none at all, nor an int8 pool's ``quant_step``, as in the reference;
+an int8 write's rounding seed folds in the sublayer's index in the whole
+pattern, as the reference's does.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from repro_torch import random as R
 from repro_torch.device import resolve_device
 from repro_torch.kernels.prng import MASK, mul32
 from . import attention as ATT
+from . import mamba2 as M2
 from . import rglru as RG
 from .config import ModelConfig
 from .layers import (
@@ -72,18 +77,16 @@ PAGE_POOL_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
 
 ATTN_KINDS = ("global", "local")
 # the layer kinds each ported family's units may hold
-_FAMILY_KINDS = {"decoder_lm": ATTN_KINDS, "hybrid": ATTN_KINDS + ("rec",)}
+_FAMILY_KINDS = {"decoder_lm": ATTN_KINDS, "hybrid": ATTN_KINDS + ("rec",), "ssm": ("ssm",)}
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.n_experts:
         raise NotImplementedError("MoE blocks are not ported yet")
-    if cfg.family == "ssm" or "ssm" in cfg.layer_pattern:
-        raise NotImplementedError("Mamba-2 (ssm) blocks are not ported yet")
     kinds = _FAMILY_KINDS.get(cfg.family)
     if kinds is None or any(k not in kinds for k in cfg.layer_pattern):
         raise NotImplementedError(
-            f"only decoder_lm and hybrid (rec + attention) models are ported, got "
+            f"only decoder_lm, hybrid (rec + attention) and ssm models are ported, got "
             f"{cfg.family} {cfg.layer_pattern}"
         )
 
@@ -112,6 +115,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         params["head"] = init_lm_head(gen, cfg.d_model, cfg.vocab, dt)
     params["units"] = {}
     for i, kind in enumerate(cfg.layer_pattern):
+        if kind == "ssm":
+            params["units"][f"l{i}"] = {
+                "ln1": init_rmsnorm(cfg.d_model, lead, dev),
+                "mixer": M2.init_mamba(gen, cfg, lead),
+            }
+            continue
         if kind == "rec":
             params["units"][f"l{i}"] = {
                 "ln1": init_rmsnorm(cfg.d_model, lead, dev),
@@ -133,9 +142,9 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return params
 
 
-# every block's output projection: the attention's, the MLP's and the
-# RG-LRU block's
-BLOCK_OUTPUTS = ("wo", "w_down", "w_out")
+# every block's output projection: the attention's, the MLP's, the
+# RG-LRU block's and the Mamba-2 mixer's
+BLOCK_OUTPUTS = ("wo", "w_down", "w_out", "out_proj")
 
 
 def scale_block_outputs(params: dict, gain: float) -> None:
@@ -202,11 +211,14 @@ def _rec_block(sub: dict, x: torch.Tensor, o: torch.Tensor, cfg: ModelConfig,
 def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConfig, key):
     """One unit of ``cfg.layer_pattern``; sublayer ``i`` draws under
     ``ki = fold_in(key, i)``, its attention under ``fold_in(ki, 0)`` (a
-    recurrent block under ``ki`` itself) and its MLP under
-    ``fold_in(ki, 1)``, as the reference folds them."""
+    recurrent block or a Mamba-2 mixer under ``ki`` itself) and its MLP
+    under ``fold_in(ki, 1)``, as the reference folds them."""
     for i, kind in enumerate(cfg.layer_pattern):
         sub = up[f"l{i}"]
         ki = None if key is None else R.fold_in(key, i)
+        if kind == "ssm":
+            x = x + M2.mamba_apply(sub["mixer"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg, ki)
+            continue
         if kind == "rec":
             o = RG.rglru_block_apply(sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg, ki)
             x = _rec_block(sub, x, o, cfg, key=None if ki is None else R.fold_in(ki, 1))
@@ -277,19 +289,28 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, key=None) -> tuple[torc
 
 
 def _state_cache_leaves(cfg: ModelConfig, batch: int, dev) -> dict:
-    """Recurrent per-slot state, O(1) a token, so it stays dense (slot
-    addressed) in the dense and the paged layouts alike: ``rec_conv``
+    """Recurrent and SSM per-slot state, O(1) a token, so it stays dense
+    (slot addressed) in the dense and the paged layouts alike: ``rec_conv``
     (nu, n_rec, B, 3, W) in the model's dtype, ``rec_h`` (nu, n_rec, B, W)
-    in f32.  Empty for a model without recurrent sublayers."""
-    n_rec = _n_kind(cfg, ("rec",))
-    if not n_rec:
-        return {}
-    w = cfg.lru_width or cfg.d_model
-    lead = (cfg.n_units, n_rec, batch)
-    return {
-        "rec_conv": torch.zeros(lead + (RG.CONV_WIDTH - 1, w), dtype=dtype_of(cfg), device=dev),
-        "rec_h": torch.zeros(lead + (w,), dtype=torch.float32, device=dev),
-    }
+    in f32; ``ssm_conv`` (nu, n_ssm, B, K-1, C) in the model's dtype,
+    ``ssm_state`` (nu, n_ssm, B, H, P, N) in f32.  Empty for a model
+    without such sublayers."""
+    out = {}
+    n_rec, n_ssm = _n_kind(cfg, ("rec",)), _n_kind(cfg, ("ssm",))
+    if n_rec:
+        w = cfg.lru_width or cfg.d_model
+        lead = (cfg.n_units, n_rec, batch)
+        out["rec_conv"] = torch.zeros(lead + (RG.CONV_WIDTH - 1, w), dtype=dtype_of(cfg),
+                                      device=dev)
+        out["rec_h"] = torch.zeros(lead + (w,), dtype=torch.float32, device=dev)
+    if n_ssm:
+        lead = (cfg.n_units, n_ssm, batch)
+        out["ssm_conv"] = torch.zeros(lead + (cfg.ssm_conv - 1, M2.conv_channels(cfg)),
+                                      dtype=dtype_of(cfg), device=dev)
+        out["ssm_state"] = torch.zeros(
+            lead + (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state), dtype=torch.float32,
+            device=dev)
+    return out
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
@@ -298,8 +319,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -
     (``n_attn`` counts a unit's attention sublayers).  An int8 cache
     (``cfg.kv_cache_dtype == "int8"``) holds int8 codes and the ``(nu,
     n_attn, B, max_len, Hkv)`` f32 scales ``k_scale`` / ``v_scale`` (ones
-    until written).  A hybrid model adds its recurrent state leaves
-    (:func:`_state_cache_leaves`)."""
+    until written).  A hybrid or ssm model adds its state leaves
+    (:func:`_state_cache_leaves`); a model without attention has no K/V
+    leaves, as in the reference."""
     _check_family(cfg)
     if cfg.kv_cache_dtype not in ("same", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'same' or 'int8', got {cfg.kv_cache_dtype!r}")
@@ -307,12 +329,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -
     n_attn = _n_kind(cfg, ATTN_KINDS)
     shape = (cfg.n_units, n_attn, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-    if cfg.kv_cache_dtype == "int8":
+    if n_attn and cfg.kv_cache_dtype == "int8":
         cache["k"] = torch.zeros(shape, dtype=torch.int8, device=dev)
         cache["v"] = torch.zeros(shape, dtype=torch.int8, device=dev)
         cache["k_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
         cache["v_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
-    else:
+    elif n_attn:
         cache["k"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
     cache.update(_state_cache_leaves(cfg, batch, dev))
@@ -331,9 +353,11 @@ def init_paged_decode_cache(
     int8 pools (``cfg.kv_cache_dtype == "int8"``) hold int8 codes, the
     ``(nu, n_attn, P, bs, Hkv)`` f32 scale planes ``k_scale_pages`` /
     ``v_scale_pages``, and ``quant_step``, the device decode-step counter
-    that seeds the decode writes' rounding.  A hybrid model's recurrent
-    state keeps the dense slot layout (:func:`_state_cache_leaves`): it is
-    never shared, and is inserted per admission."""
+    that seeds the decode writes' rounding.  A hybrid or ssm model's state
+    keeps the dense slot layout (:func:`_state_cache_leaves`): it is never
+    shared, and is inserted per admission.  A model without attention
+    (mamba2) has no pool leaves and no ``quant_step``, as in the reference:
+    its cache is ``pos`` and its state, whatever ``kv_cache_dtype`` says."""
     _check_family(cfg)
     if cfg.kv_cache_dtype not in ("same", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'same' or 'int8', got {cfg.kv_cache_dtype!r}")
@@ -341,13 +365,13 @@ def init_paged_decode_cache(
     n_attn = _n_kind(cfg, ATTN_KINDS)
     shape = (cfg.n_units, n_attn, n_pages, block_size, cfg.n_kv_heads, cfg.head_dim)
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-    if cfg.kv_cache_dtype == "int8":
+    if n_attn and cfg.kv_cache_dtype == "int8":
         cache["k_pages"] = torch.zeros(shape, dtype=torch.int8, device=dev)
         cache["v_pages"] = torch.zeros(shape, dtype=torch.int8, device=dev)
         cache["k_scale_pages"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
         cache["v_scale_pages"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
         cache["quant_step"] = torch.zeros((), dtype=torch.int32, device=dev)
-    else:
+    elif n_attn:
         cache["k_pages"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
         cache["v_pages"] = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
     cache.update(_state_cache_leaves(cfg, batch, dev))
@@ -390,6 +414,18 @@ def _rec_decode(sub: dict, x: torch.Tensor, cache: dict, u: int, ir: int,
     return _rec_block(sub, x, o, cfg)
 
 
+def _ssm_decode(sub: dict, x: torch.Tensor, cache: dict, u: int, ism: int,
+                cfg: ModelConfig) -> torch.Tensor:
+    """One Mamba-2 sublayer of a decode step: its state read from and
+    written back to ``cache``'s ``ssm_conv`` / ``ssm_state`` in place."""
+    conv, st = cache["ssm_conv"][u, ism], cache["ssm_state"][u, ism]
+    o, new_conv, new_st = M2.mamba_decode_step(
+        sub["mixer"], rmsnorm(sub["ln1"], x, cfg.norm_eps), conv, st, cfg)
+    conv.copy_(new_conv)
+    st.copy_(new_st)
+    return x + o
+
+
 def lm_decode_step(
     params: dict,
     cache: dict,
@@ -405,14 +441,16 @@ def lm_decode_step(
     block ``table``; a dense cache (``k`` leaves, :func:`init_decode_cache`)
     through each slot's own window (``attention.decode_self_attention``),
     and ``table`` is not used.  The rest of the step is the same code on
-    both layouts.
+    both layouts.  A cache without K/V leaves (mamba2's, either layout)
+    holds only ``pos`` and state, and ``table`` is not used either.
 
     Everything is updated in place: the cache leaves are written, and
     ``pos`` (and an int8 pool's ``quant_step``) advance by one in their own
     storage after their last read, so a captured step (``specs.DecodeGraphs``,
     ``specs.DenseGraphs``) reads the values the engine writes there between
-    steps.  A recurrent sublayer's ``rec_conv`` / ``rec_h`` rows are
-    written in place too.  The returned cache is the same dict.  An int8
+    steps.  A recurrent sublayer's ``rec_conv`` / ``rec_h`` rows and a
+    Mamba-2 sublayer's ``ssm_conv`` / ``ssm_state`` rows are written in
+    place too.  The returned cache is the same dict.  An int8
     pool's write of unit ``u``, sublayer ``i`` rounds under
     ``quant_step·2654435761 + u·40503 + i·1299721 mod 2**32``; an int8
     dense cache rounds to nearest.
@@ -434,9 +472,13 @@ def lm_decode_step(
     x = embed(params["embed"], token[:, None], cfg)
     for u in range(cfg.n_units):
         up = unit_params(params["units"], u)
-        ia = ir = 0
+        ia = ir = ism = 0
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
+            if kind == "ssm":
+                x = _ssm_decode(sub, x, cache, u, ism, cfg)
+                ism += 1
+                continue
             if kind == "rec":
                 x = _rec_decode(sub, x, cache, u, ir, cfg)
                 ir += 1
@@ -484,7 +526,9 @@ def lm_prefill(
     captured decode step that holds its addresses then serves the prompt
     (the static engine's waves); otherwise a new cache is allocated.  A
     recurrent sublayer runs :func:`rglru.rglru_prefill` and leaves its conv
-    tail and last hidden state in ``rec_conv`` / ``rec_h``."""
+    tail and last hidden state in ``rec_conv`` / ``rec_h``; a Mamba-2
+    sublayer runs :func:`mamba2.mamba_prefill` and leaves its conv tail and
+    final SSM state in ``ssm_conv`` / ``ssm_state``."""
     _check_family(cfg)
     b, s = tokens.shape
     if cache is None:
@@ -494,9 +538,17 @@ def lm_prefill(
     int8 = cfg.kv_cache_dtype == "int8"
     for u in range(cfg.n_units):
         up = unit_params(params["units"], u)
-        ia = ir = 0
+        ia = ir = ism = 0
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
+            if kind == "ssm":
+                o, conv, st = M2.mamba_prefill(sub["mixer"], rmsnorm(sub["ln1"], x, cfg.norm_eps),
+                                               cfg)
+                x = x + o
+                cache["ssm_conv"][u, ism].copy_(conv)
+                cache["ssm_state"][u, ism].copy_(st)
+                ism += 1
+                continue
             if kind == "rec":
                 o, conv, h_last = RG.rglru_prefill(
                     sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg)
@@ -527,7 +579,7 @@ def lm_prefill(
 
 def init_prefill_state(cfg: ModelConfig, device=None) -> dict:
     """Zeroed B=1 per-slot state entering a chunked prefill: ``pos`` and,
-    for a hybrid model, the recurrent leaves, exactly what
+    for a hybrid or ssm model, the state leaves, exactly what
     :func:`lm_prefill_chunk` threads between chunks and the engine's state
     insert writes at the slot."""
     dev = resolve_device(device)
@@ -555,9 +607,11 @@ def lm_prefill_chunk(
     engine's content-derived block seeds, on the device).
 
     Recurrent sublayers advance from ``state``'s ``rec_conv`` / ``rec_h``
-    (:func:`rglru.rglru_prefill_chunk`) into new tensors: ``state`` itself
-    is never written, so the boundary snapshot the engine stashes in its
-    prefix index stays as it was."""
+    (:func:`rglru.rglru_prefill_chunk`), Mamba-2 sublayers from its
+    ``ssm_conv`` / ``ssm_state`` (:func:`mamba2.mamba_prefill_chunk`), into
+    new tensors: ``state`` itself is never written, so the boundary
+    snapshot the engine stashes in its prefix index stays as it was.  An
+    attention-free model's ``pool`` is empty."""
     b, c = tokens.shape
     int8_pool = "k_scale_pages" in pool
     if int8_pool:
@@ -568,9 +622,18 @@ def lm_prefill_chunk(
     x = embed(params["embed"], tokens, cfg)
     for u in range(cfg.n_units):
         up = unit_params(params["units"], u)
-        ia = ir = 0
+        ia = ir = ism = 0
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
+            if kind == "ssm":
+                conv, st = new_state["ssm_conv"][u, ism], new_state["ssm_state"][u, ism]
+                o, new_conv, new_st = M2.mamba_prefill_chunk(
+                    sub["mixer"], rmsnorm(sub["ln1"], x, cfg.norm_eps), conv, st, cfg)
+                conv.copy_(new_conv)
+                st.copy_(new_st)
+                x = x + o
+                ism += 1
+                continue
             if kind == "rec":
                 conv, hst = new_state["rec_conv"][u, ir], new_state["rec_h"][u, ir]
                 o, new_conv, new_h = RG.rglru_prefill_chunk(

@@ -516,10 +516,10 @@ class ServingEngine:
             self._table = np.zeros((b, self._max_blocks), np.int32)
             # host mirror of cache["pos"] (drives the decode window width)
             self._host_pos = np.zeros((b,), np.int64)
-        # a recurrent family resumes a partial prefix hit only at a chunk
-        # boundary whose state snapshot is stashed in the prefix index; an
-        # attention-only family resumes at any matched block
-        self._stateful = "rec" in model_cfg.layer_pattern
+        # a recurrent or ssm family resumes a partial prefix hit only at a
+        # chunk boundary whose state snapshot is stashed in the prefix
+        # index; an attention-only family resumes at any matched block
+        self._stateful = any(k in ("rec", "ssm") for k in model_cfg.layer_pattern)
         # private device backend: analog-event accounting for THIS
         # engine's traffic; a compute-overriding one (sim_faulty) is also
         # installed process-wide around each tick
@@ -1147,7 +1147,9 @@ class ServingEngine:
         other rows are zeros, scattered into the trash page by the
         fixed-width ids: a NaN trash page would poison every slot, since a
         masked weight of 0 times NaN is NaN on the V side.  The spill
-        payload's shapes and dtypes, so the restore keeps one signature."""
+        payload's shapes and dtypes, so the restore keeps one signature.
+        A model without attention (mamba2) has no pool leaf: the payload is
+        empty, as the reference's is."""
         out = {}
         for name in SP.PAGE_POOL_LEAVES:
             if name in self._cache:
@@ -1166,7 +1168,9 @@ class ServingEngine:
         finite and the sanity check evicts it with reason ``"nan"``.  Only
         a page of refcount 1 is poisoned, deregistered first as a real
         divergence would be; False when the request has none in its read
-        window yet."""
+        window yet.  Without a pool (mamba2) the page is deregistered and
+        nothing is written, so the logits stay finite and the request runs
+        to its end: the reference's engine does the same."""
         slot, rid = req.slot, req.rid
         pages = self.blocks.owned(rid)
         n_read = max(1, -(-int(self._host_pos[slot]) // self.cfg.kv_block_size))

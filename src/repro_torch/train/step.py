@@ -10,9 +10,11 @@ threefry): the step draws under ``fold_in(state.rng, step)``, microbatch
 i), 13)``: each microbatch's gradients are compressed, with the error
 feedback carried from one to the next, before they are summed.  The
 model's init and loss come from ``models.get_model_fns``: the
-``decoder_lm`` and ``hybrid`` families (analog projections run the
-crossbar kernel on the card; a hybrid model's ``analog_stochastic``
-RG-LRU gates run ``sigmoid_sample``) and the paper's ``fcnn``.  Parameters and moments are updated in
+``decoder_lm``, ``hybrid`` and ``ssm`` families (analog projections run
+the crossbar kernel on the card; a hybrid model's ``analog_stochastic``
+RG-LRU gates run ``sigmoid_sample``; a Mamba-2 mixer's two projections
+read linearly in every analog mode) and the paper's ``fcnn``.
+Parameters and moments are updated in
 place (the reference donates its state to the jitted step): pass each
 state to the step once.
 """

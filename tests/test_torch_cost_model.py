@@ -77,6 +77,23 @@ def test_per_kind_counts_equal(smoke, variant, fn):
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("variant", ["bf16", "wta_head"])
+@pytest.mark.parametrize("fn", COUNT_FNS)
+def test_ssm_counts_equal(smoke, variant, fn):
+    """mamba2-1.3b (the cost model's ``ssm`` branch: the mixer's in and out
+    projections, no attention, no KV rounding) against the reference."""
+    jcfg, tcfg = (dataclasses.replace(c, wta_head=variant == "wta_head") for c in (
+        (jax_smoke if smoke else jax_config)("mamba2-1.3b"),
+        (get_smoke_config if smoke else get_config)("mamba2-1.3b")))
+    assert getattr(TCM, fn)(tcfg).as_dict() == getattr(JCM, fn)(jcfg).as_dict()
+    got = TCM.per_token_weight_matmuls(tcfg)
+    assert got == JCM.per_token_weight_matmuls(jcfg)
+    if not smoke:   # 48 mixers of two projections, then the tied head
+        assert len(got) == 48 * 2 + 1
+        assert got[0] == (2048, 2 * 4096 + 2 * 128 + 64) and got[1] == (4096, 2048)
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 def test_weight_matmuls_equal(smoke):
     jcfg, tcfg = _cfgs(smoke, "bf16")
     assert TCM.per_token_weight_matmuls(tcfg) == JCM.per_token_weight_matmuls(jcfg)

@@ -152,7 +152,7 @@ def test_model_fns_registry():
     lm = get_smoke_config("stablelm-3b")
     assert set(get_model_fns(lm).init(0, lm, "cpu")) == {"embed", "final_norm", "head", "units"}
     with pytest.raises(NotImplementedError):
-        get_model_fns(ModelConfig(name="x", family="ssm"))
+        get_model_fns(ModelConfig(name="x", family="encdec"))
 
 
 # ---------------------------------------------------------------------------

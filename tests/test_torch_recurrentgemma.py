@@ -21,8 +21,8 @@ smoke config in f32, on ``repro``'s init carried across by ``bridge``.
   that folds in ``i``, the sublayer's index in the whole pattern, not its
   index among the attention sublayers: the port's pool equals the
   reference's after a prefill and a decode step.
-- ``mamba2-1.3b`` (``ssm``) and the MoE configs still raise
-  ``NotImplementedError``.
+- The MoE configs still raise ``NotImplementedError`` (mamba2-1.3b, the
+  ``ssm`` family, is ported: ``tests/test_torch_mamba2.py``).
 """
 
 import dataclasses
@@ -282,21 +282,20 @@ def test_int8_pool_seeds_fold_the_pattern_index(weights):
     np.testing.assert_allclose(tcache["rec_h"].numpy(), np.asarray(jcache["rec_h"]), atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "granite-moe-3b-a800m", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "grok-1-314b"])
 def test_unported_families_still_refused(arch):
     """The reference's configs of the families still to port, carried into
     the port's ``ModelConfig``: init, the caches and the forward refuse
-    them, ``ssm`` and MoE each with their own message."""
+    them, MoE with its own message."""
     j = jax_smoke(arch)
     fields = {f.name: getattr(j, f.name) for f in dataclasses.fields(ModelConfig)
               if f.name != "analog"}
     cfg = ModelConfig(**fields)
-    match = "Mamba-2" if j.family == "ssm" else "MoE"
     for fn in (lambda: TTF.init_lm(cfg, device="cpu"),
                lambda: TTF.init_paged_decode_cache(cfg, 1, 4, 8, device="cpu"),
                lambda: TTF.init_decode_cache(cfg, 1, 16, device="cpu"),
                lambda: TTF.lm_forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(NotImplementedError, match="MoE"):
             fn()
     with pytest.raises(KeyError, match="unknown arch"):
         get_config(arch)
