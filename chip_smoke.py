@@ -222,6 +222,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the smoke config in f32, prefill and decode logits card against CPU
    within REF_ATOL and the engine's greedy streams equal.  Prints its
    wall time.
+4j. moe (:func:`moe_phase`, run after 4i): granite-moe-3b-a800m at full
+   width and depth (32 layers, d 1536, H 24 / Hkv 8 / Dh 64, 40 SwiGLU
+   experts of d_ff 512, top-8, GShard capacity dispatch at factor 1.25,
+   tied 49155-column embeddings; seed 0, bf16).  (a) Phase 4's trace and
+   ``ServeConfig`` greedy, int8 and WTA, each compiled = eager in streams
+   and launches, profiled ticks (decode attention 32 a step, prefill 32 a
+   chunk, one int8 write an attention launch, ``wta_sample`` = ticks +
+   first tokens); the device ms a tick of the MoE sublayers apart
+   (router, dispatch, expert products, combine) beside the products'
+   bound; the share of the trace's prefill assignments the capacity
+   drops, counted from the dispatch's ``kept``.  (b) Both attention
+   kernels at granite's head (G 3, Dh 64) and grok-1-314b's (H 48 / Hkv
+   8 / Dh 128, G 6, soft-cap 30) over bf16, int8 and f32 pools, checked,
+   timed beside the byte bound and SDPA (none where soft-capped), the
+   int8 write at Hkv 8 / Dh 64 and 128.  On an f32 copy of granite's first 8
+   layers at the drop-free capacity factor 5.0: (c) sharing on = off with
+   partial hits, a 2048-token prompt prefilled in chunks of 128 against
+   whole (the next token equal, logits within 1e-3 of their largest,
+   nothing dropped; then at factor 1.25, printed), two forced preempts
+   and speculation at k = 3 with forced rejections, each equal to its
+   plain serve.  (d) One ``analog_stochastic`` training step at full
+   width and depth: ``crossbar_mac`` 4 reads a layer (128 + 128
+   prepasses), the router's WTA race 32 ``wta_sample`` launches (its
+   first draw equal to the plain version's), no ``sigmoid_sample``, the
+   first read at each of its two shapes checked and timed; finite loss
+   and aux, step ms, peak memory.  (e) grok-1-314b at full width cut to 4
+   of 64 layers: compiled = eager, init time, peak memory, a profiled
+   replayed tick against its byte bound.  (f), in phase 7: both smoke
+   configs in f32, card against CPU (logits within REF_ATOL, streams
+   equal).  Prints its wall time.
 4e. loop (:func:`loop_phase`): (a) ``examples/train_lm_torch.py``'s
    stablelm-100m at batch 8 x 256, full depth, 12 steps through
    ``train.loop.run`` with a checkpoint every 4, clean and again with a
@@ -283,7 +313,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    so that its sampler calls can be recorded) gives the same streams on
    the card and on the CPU (a divergence is printed with both sides'
    votes at it, and fails); five smoke FCNN training steps and its
-   predictions agree card vs CPU.
+   predictions agree card vs CPU; 4i (e) and 4j (f).
 
 The second-to-last line is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.  With ``--ab DIR`` only phases 1-2 run,
@@ -840,7 +870,8 @@ def geometry_line(geo: dict) -> str:
 
 def head_shape_kernels(gen, dev, errs, heads) -> dict:
     """Both attention kernels at each head of ``heads`` ((arch, (H, Hkv,
-    Dh), local layers), as HEAD_CASES; bs = 16): decode of B = 8 slots over
+    Dh), local layers[, the global layer's attention soft-cap]), as
+    HEAD_CASES; bs = 16): decode of B = 8 slots over
     W = 32 pages and a 128-query prefill chunk at q0 = 128, over bf16 and
     int8 pools with bf16 queries and over an f32 pool with f32 queries,
     and each local layer's decode on the bf16 pool (its window and
@@ -854,17 +885,19 @@ def head_shape_kernels(gen, dev, errs, heads) -> dict:
     from repro_torch.kernels import prefill_attention as PF
     from repro_torch.kernels import ref
 
-    log_ptxas(*(f"prefill_tc_kernel<{t},{d}>" for t in ("bf16", "int8") for d in (128, 192, 256)))
+    log_ptxas(*(f"prefill_tc_kernel<{t},{d}>" for t in ("bf16", "int8")
+                for d in sorted({head[1][2] for head in heads})))
     out = {"decode": [], "prefill": [], "write_kv_int8": []}
 
     def record(key, label, geo, rec):
         out[key].append({"case": label, "geometry": geo, **{k: rec.get(k) for k in CASE_KEYS}})
 
-    for arch, (h, hkv, dh), local in heads:
+    for arch, (h, hkv, dh), local, *extra in heads:
+        cap0 = extra[0] if extra else 0.0
         for pool in ("bf16", "int8", "f32"):
             int8 = pool == "int8"
             to = as_f32_case if pool == "f32" else (lambda c: c)
-            layers = [("global", 0, 0.0, 32, None)]
+            layers = [("global", 0, cap0, 32, None)]
             if pool == "bf16":
                 layers += [("local", *layer) for layer in local]
             for kind, lw, cap, w, pos_range in layers:
@@ -874,7 +907,8 @@ def head_shape_kernels(gen, dev, errs, heads) -> dict:
                 q, kp, vp, table, pos, sc = cases[0]
                 args = (q, kp, vp, table, pos)
                 geo = PA.decode_geometry(8, h, hkv, dh, 16, w, kp.dtype)
-                label = f"{arch} {pool} B=8 W={w}" + (f" {kind} {lw} cap {cap}" if lw else "")
+                label = f"{arch} {pool} B=8 W={w}" + (f" {kind} {lw} cap {cap}" if lw else "") + (
+                    f" soft-cap {cap}" if cap and not lw else "")
                 if pos_range is not None:
                     label += f" at positions {pos_range[0]}-{pos_range[1]}"
                 check(f"decode {label}", PA.paged_attention_cuda(*args, **kw, **sc),
@@ -883,7 +917,7 @@ def head_shape_kernels(gen, dev, errs, heads) -> dict:
                     decode_bound(q, kp, table, pos, sc, lw),
                     [(*c[:-1], {**c[-1], **kw}) for c in cases],
                     PA.paged_attention_cuda, ref.paged_attention_ref,
-                    None if int8 or lw else sdpa_decode,
+                    None if int8 or lw or cap else sdpa_decode,
                     f"decode {label} ({geometry_line(geo)})")
                 record("decode", label, geo, rec)
             cases = [to(prefill_case(gen, dev, 128, 128, h, hkv, dh, 16, 16, int8))
@@ -891,12 +925,14 @@ def head_shape_kernels(gen, dev, errs, heads) -> dict:
             q, kp, vp, table, _, sc = cases[0]
             args = (q, kp, vp, table, 128)
             geo = PF.prefill_geometry(128, h, hkv, dh, 16, q.dtype, kp.dtype)
-            label = f"{arch} {pool} S=128 q0=128"
-            check(f"prefill {label}", PF.paged_prefill_attention_cuda(*args, **sc),
-                  ref.prefill_attention_ref(*args, **sc), errs["prefill"])
-            rec = time_kernel(prefill_bound(q, kp, table, 128, sc), cases,
+            label = f"{arch} {pool} S=128 q0=128" + (f" soft-cap {cap0}" if cap0 else "")
+            kw = dict(softcap=cap0) if cap0 else {}
+            check(f"prefill {label}", PF.paged_prefill_attention_cuda(*args, **kw, **sc),
+                  ref.prefill_attention_ref(*args, **kw, **sc), errs["prefill"])
+            rec = time_kernel(prefill_bound(q, kp, table, 128, sc),
+                              [(*c[:-1], {**c[-1], **kw}) for c in cases],
                               PF.paged_prefill_attention_cuda, ref.prefill_attention_ref,
-                              None if int8 else sdpa_prefill,
+                              None if int8 or cap0 else sdpa_prefill,
                               f"prefill {label} ({geometry_line(geo)})")
             record("prefill", label, geo, rec)
         rec, werr = write_kernels(gen, dev, hkv, dh)
@@ -3597,11 +3633,14 @@ def long_context(params, cfg, dev, lengths=(4500, 5000), buckets=(4608, 5120),
             "decode_step_ms": m.decode_step_ms, "wall_s": wall}
 
 
-def cut_serve(arch: str, n_layers: int, dev) -> dict:
+def cut_serve(arch: str, n_layers: int, dev, profile: bool = False) -> dict:
     """``arch`` at full width and ``n_layers`` layers (seed 0): four
     requests of 20-120 tokens, 8 new tokens each, greedy on a bf16 pool,
     through the compiled engine and eagerly (streams and launches equal);
-    its init time, peak device memory and decode step ms."""
+    its init time, peak device memory and decode step ms.  With
+    ``profile``, the compiled engine's full-batch ticks are profiled
+    (:func:`profile_decode`) beside the tick's byte bound: every weight but
+    the embedding table read once."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import prefill_attention as PF
@@ -3614,10 +3653,16 @@ def cut_serve(arch: str, n_layers: int, dev) -> dict:
     t0 = time.perf_counter()
     params = init_lm(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
+    tick_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)) - (
+        params["embed"]["embedding"].numel() * params["embed"]["embedding"].element_size()
+        if "head" in params else 0)
     log(f"  init {arch} cut to {n_layers} layers ({n_params / 1e9:.2f} B parameters, d"
         f"{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} Dh{cfg.head_dim} ff{cfg.d_ff} "
-        f"V{cfg.vocab}) in {time.perf_counter() - t0:.1f} s")
+        f"V{cfg.vocab}" + (f" {cfg.n_experts} experts top-{cfg.moe_topk}" if cfg.n_experts
+                           else "") + (f" soft-cap {cfg.attn_softcap}" if cfg.attn_softcap
+                                       else "") + f") in {init_s:.1f} s")
     rng = np.random.default_rng(6)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in rng.integers(20, 121, 4)]
     runs = {}
@@ -3636,6 +3681,8 @@ def cut_serve(arch: str, n_layers: int, dev) -> dict:
         log(f"  [{'graphs' if graphs else 'eager'}] {arch}: {m.total_tokens} tokens, decode "
             f"step {m.decode_step_ms:.2f} ms, {m.tokens_per_s:.1f} tok/s, launches decode "
             f"{PA.launches} prefill {PF.launches}")
+        if profile and graphs:
+            runs["profile"] = profile_decode(eng, cfg.vocab, "graphs")
         del eng
     g, e = runs[True], runs[False]
     if g["outs"] != e["outs"] or g["launches"] != e["launches"]:
@@ -3646,9 +3693,17 @@ def cut_serve(arch: str, n_layers: int, dev) -> dict:
         f"memory {peak:.2f} GiB")
     del params
     torch.cuda.empty_cache()
-    return {"n_layers": n_layers, "params_b": n_params / 1e9, "peak_gib": peak,
-            "launches": {"decode": g["launches"][0], "prefill": g["launches"][1]},
-            "decode_step_ms": {"graphs": g["decode_step_ms"], "eager": e["decode_step_ms"]}}
+    out = {"n_layers": n_layers, "params_b": n_params / 1e9, "peak_gib": peak, "init_s": init_s,
+           "launches": {"decode": g["launches"][0], "prefill": g["launches"][1]},
+           "decode_step_ms": {"graphs": g["decode_step_ms"], "eager": e["decode_step_ms"]}}
+    if profile:
+        bound = tick_bytes / HBM_BYTES_PER_S * 1e3
+        prof = runs["profile"]
+        out.update(profile=prof, tick_bytes=tick_bytes, tick_bound_ms=bound)
+        log(f"  {arch} ({n_layers} layers): a replayed tick {prof['device_ms']:.3f} ms on the "
+            f"device, {prof['host_ms']:.3f} ms host, against a byte bound of {bound:.3f} ms "
+            f"({tick_bytes / 1e9:.2f} GB: every weight but the embedding table, once)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3791,8 +3846,9 @@ def hybrid_sharing(p32, c32, prompts, dev, tag: str = "4h b") -> dict:
     partial hit, one a full hit of its twin) through the compiled engine
     with prefix sharing and without: the partial hits resume at 128, a
     chunk boundary, from the state snapshot stashed there (each read
-    counted, its leaves the model's state leaves and ``pos``), and the
-    streams are equal token for token."""
+    counted, its leaves the model's state leaves and ``pos``; an
+    attention-only model resumes at its matched block with ``pos``
+    alone), and the streams are equal token for token."""
     from repro_torch.models.transformer import init_prefill_state
     from repro_torch.serving import ServeConfig, ServingEngine
 
@@ -3827,7 +3883,10 @@ def hybrid_sharing(p32, c32, prompts, dev, tag: str = "4h b") -> dict:
         del eng
     on, off = runs[True], runs[False]
     assert on["partial_hits"] >= 1 and on["snapshot_reads"], on
-    assert all(q0 % 128 == 0 for q0, _ in on["snapshot_reads"]), on["snapshot_reads"]
+    if any(k in ("rec", "ssm") for k in c32.layer_pattern):
+        # a recurrent family resumes on the chunk grid; an attention-only
+        # one at any matched block, from a zero state
+        assert all(q0 % 128 == 0 for q0, _ in on["snapshot_reads"]), on["snapshot_reads"]
     assert all(leaves == want_leaves for _, leaves in on["snapshot_reads"])
     assert off["partial_hits"] == off["hits"] == 0 and not off["snapshot_reads"], off
     on["agree"] = preempt_check(tag, {"outs": on["outs"]}, off["outs"], gate=True,
@@ -3902,18 +3961,21 @@ def analog_step(dev, arch: str, want: dict, shapes, tag: str, timed: bool = Fals
     through ``make_train_step`` (batch HYBRID_TRAIN_BATCH): finite loss
     and gradient norm; ``crossbar_mac`` reads and prepasses each
     ``want["crossbar_mac"]`` and ``sigmoid_sample`` ``want["sigmoid_sample"]``
-    in the forward (reset just before, read just after); the step's first
+    in the forward (reset just before, read just after), and
+    ``wta_sample`` ``want["wta_sample"]`` where ``want`` names it (an MoE
+    router's WTA race, one a layer); the step's first
     crossbar read at each of its (W shape, comparator) ``shapes`` held
     against the plain version on the same x, W and key
     (:func:`check_reads`; ``timed``: each also timed beside its bound), and
-    its first gate draw, where it draws one, bit for bit.  Step ms and peak
-    memory."""
+    its first gate draw and first router draw, where it draws them, bit
+    for bit.  Step ms and peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batch
     from repro_torch.kernels import crossbar_mac as CB
     from repro_torch.kernels import ops as KOPS
     from repro_torch.kernels import ref
     from repro_torch.kernels import sigmoid_sample as SS
+    from repro_torch.kernels import wta_sample as WS
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
@@ -3938,9 +4000,21 @@ def analog_step(dev, arch: str, want: dict, shapes, tag: str, timed: bool = Fals
                          y=y.clone())
         return y
 
+    draw = {}
+    real_draw = KOPS.wta_trial_counts
+
+    def drawn(z, keys, folds, n_trials, vth0, sigma_z, layout):
+        out = real_draw(z, keys, folds, n_trials, vth0, sigma_z, layout)
+        if not draw:
+            draw.update(z=z.detach().clone(), keys=keys.clone(), folds=folds,
+                        kw=dict(n_trials=n_trials, vth0=vth0, sigma_z=sigma_z, layout=layout),
+                        out=tuple(t.clone() for t in out))
+        return out
+
     KOPS.sigmoid_sample = recorded
+    KOPS.wta_trial_counts = drawn
     reads = {}
-    SS.launches = CB.launches = CB.prepass_launches = 0
+    SS.launches = CB.launches = CB.prepass_launches = WS.launches = 0
     try:
         with recording_reads(reads):
             t0 = time.perf_counter()
@@ -3950,8 +4024,12 @@ def analog_step(dev, arch: str, want: dict, shapes, tag: str, timed: bool = Fals
             step_s = time.perf_counter() - t0
     finally:
         KOPS.sigmoid_sample = real
+        KOPS.wta_trial_counts = real_draw
     launches = {"sigmoid_sample": SS.launches, "crossbar_mac": CB.launches,
                 "crossbar_prepass": CB.prepass_launches}
+    if "wta_sample" in want:
+        launches["wta_sample"] = WS.launches
+    aux = float(metrics["aux"]) if "aux" in metrics else None
     peak = torch.cuda.max_memory_allocated() / 2**30
     same, gate_err = True, 0.0
     if first:
@@ -3963,11 +4041,23 @@ def analog_step(dev, arch: str, want: dict, shapes, tag: str, timed: bool = Fals
         gate_err = float((first["y"] - want_y).abs().max())
         log(f"  {tag}: the first gate draw {tuple(first['y'].shape)} equal to the plain "
             f"version's {same} ({float(first['y'].mean()):.4f} fire)")
-    log(f"  {tag} analog step: loss {loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, "
+    router_same = True
+    if draw:
+        want_c, want_d = ref.wta_trial_counts_ref(draw["z"], draw["keys"], draw["folds"],
+                                                  **draw["kw"])
+        router_same = torch.equal(draw["out"][0], want_c) and torch.equal(draw["out"][1], want_d)
+        log(f"  {tag}: the first router draw {tuple(draw['z'].shape)} x {draw['kw']['n_trials']} "
+            f"trials: counts and decisions equal to the plain version's {router_same} "
+            f"({int(draw['out'][0].sum())} votes)")
+    log(f"  {tag} analog step: loss {loss:.4f}" + ("" if aux is None else f" (aux {aux:.6f})")
+        + f", grad norm {float(metrics['grad_norm']):.4f}, "
         f"{step_s * 1e3:.1f} ms (the first step: allocations included), peak memory "
         f"{peak:.2f} GiB; launches {launches}, expected {want}")
-    if not (np.isfinite(loss) and np.isfinite(float(metrics["grad_norm"]))):
-        raise AssertionError(f"non-finite analog step: loss {loss}")
+    if not (np.isfinite(loss) and np.isfinite(float(metrics["grad_norm"]))
+            and (aux is None or np.isfinite(aux))):
+        raise AssertionError(f"non-finite analog step: loss {loss}, aux {aux}")
+    if not router_same:
+        raise AssertionError("the router draw differs from wta_sample's plain version")
     if launches != dict(want, crossbar_prepass=want["crossbar_mac"]):
         raise AssertionError(f"{tag} analog step launched {launches}, expected {want}")
     if not same:
@@ -3981,7 +4071,9 @@ def analog_step(dev, arch: str, want: dict, shapes, tag: str, timed: bool = Fals
     checked = check_reads(reads, tag, timed=timed)
     return {"launches": launches, "loss": loss, "step_ms": step_s * 1e3, "peak_gib": peak,
             "reads": checked, "gate_shape": list(first["y"].shape) if first else None,
-            "gate_err": gate_err}
+            "gate_err": gate_err, "aux": aux,
+            "router_shape": list(draw["z"].shape) if draw else None,
+            "router_err": float((draw["out"][0] - want_c).abs().max()) if draw else None}
 
 
 # ---------------------------------------------------------------------------
@@ -4203,6 +4295,302 @@ def ssm_train(dev) -> dict:
     return analog_step(dev, "mamba2-1.3b", {
         "sigmoid_sample": 0, "crossbar_mac": SSM_CB_PER_LAYER * cfg.n_layers},
         SSM_CB_SHAPES, "4i d", timed=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4j: the MoE family (granite-moe-3b-a800m at full depth, grok-1-314b
+# cut in depth).
+# ---------------------------------------------------------------------------
+
+# (c): an f32 copy of granite's first MOE_CUT_LAYERS layers at the drop-free
+# capacity factor E / k (an expert then holds every token of a group), so
+# that chunked and whole prefill, sharing and preemption route alike
+MOE_CUT_LAYERS = 8
+MOE_DROP_FREE = 5.0
+# (c): one prompt prefilled whole and in chunks of MOE_PREFILL_CHUNK tokens:
+# the f32 logits within MOE_CHUNK_RTOL of their largest magnitude (gated at
+# the drop-free factor, printed at the published one)
+MOE_LONG_PROMPT, MOE_PREFILL_CHUNK = 2048, 128
+MOE_CHUNK_RTOL = 1e-3
+# (d): crossbar reads a layer: q, k, v and o; the experts are digital
+# einsums in both packages and the router a WTA race (one wta_sample launch
+# a layer); the reads' (W shape, comparator) kinds
+MOE_CB_PER_LAYER = 4
+MOE_CB_SHAPES = (((1536, 512), False), ((1536, 1536), False))
+# (e): grok-1-314b's layers on one card
+GROK_CUT_LAYERS = 4
+
+
+def moe_phase(dev) -> dict:
+    """Phase 4j: granite-moe-3b-a800m at full width and depth (seed 0,
+    bf16): (a) phase 4's trace and ``ServeConfig`` greedy, int8 and WTA,
+    each compiled = eager (:func:`serve_once`), the device ms of a tick's
+    MoE sublayers apart (:func:`moe_sublayer_ms`) and the share of the
+    trace's prefill assignments its capacity drops
+    (:func:`moe_drop_share`); (b) both attention kernels and the int8
+    write at granite's head (H 24 / Hkv 8 / Dh 64) and grok's (H 48 /
+    Hkv 8 / Dh 128, soft-cap 30) (:func:`head_shape_kernels`); on an f32
+    copy of granite's first MOE_CUT_LAYERS layers at the drop-free factor,
+    (c) sharing on = off with partial hits, a 2048-token prompt prefilled
+    in chunks of 128 = whole (:func:`moe_chunked_prefill`; then at the
+    published factor, printed), two forced preempts and speculation with
+    forced rejections, each equal to its plain serve; (d) one
+    ``analog_stochastic`` training step (:func:`moe_train`); (e)
+    grok-1-314b at full width cut to GROK_CUT_LAYERS layers, compiled =
+    eager, profiled (:func:`cut_serve`).  (f) runs with phase 7
+    (:func:`reference_moe`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("granite-moe-3b-a800m")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  init granite-moe-3b-a800m ({cfg.n_layers}L d{cfg.d_model} H{cfg.n_heads}/"
+        f"{cfg.n_kv_heads} Dh{cfg.head_dim}, {cfg.n_experts} {cfg.mlp} experts of d_ff "
+        f"{cfg.d_ff} top-{cfg.moe_topk}, capacity factor {cfg.capacity_factor}, V{cfg.vocab} "
+        f"tied; {n_params / 1e9:.4f} B parameters, {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB) in {time.perf_counter() - t0:.1f} s")
+    prompts = serve_trace(cfg.vocab)
+    serve_warm_up(params, cfg, prompts, dev)
+    log("  (a) phase 4's trace: bf16 greedy, int8 pool, WTA (compiled = eager)")
+    res = {"same": serve_once(params, cfg, prompts, dev),
+           "int8": serve_once(params, dataclasses.replace(cfg, kv_cache_dtype="int8"), prompts,
+                              dev),
+           "wta": serve_once(params, dataclasses.replace(cfg, wta_head=True), prompts, dev)}
+    same, wta, int8 = res["same"]["outs"], res["wta"]["outs"], res["int8"]["outs"]
+    total = sum(len(o) for o in same.values())
+    agree = sum(a == b for r in same for a, b in zip(same[r], wta[r]))
+    agree8 = sum(a == b for r in same for a, b in zip(same[r], int8[r]))
+    moving = sum(len(set(o)) > 1 for o in same.values())
+    log(f"  granite WTA vs greedy tokens: {agree}/{total} equal; int8 vs bf16 pool "
+        f"{agree8}/{total} (not gated); {moving}/{len(same)} greedy streams move from token to "
+        f"token")
+    if agree == total:
+        raise AssertionError("the WTA serve emitted the greedy tokens: the sampler did not draw")
+    res["sublayers"] = moe_sublayer_ms(params, cfg, res["same"]["profile"]["device_ms"], dev)
+    res["drops"] = moe_drop_share(params, cfg, prompts, dev)
+    log("  (b) both attention kernels and the int8 write at granite's and grok's heads")
+    grok = get_config("grok-1-314b")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    errs = {"decode": [], "prefill": [], "write_kv_int8": []}
+    res["heads"] = head_shape_kernels(gen, dev, errs, [
+        ("granite-moe-3b-a800m", (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim), []),
+        ("grok-1-314b", (grok.n_heads, grok.n_kv_heads, grok.head_dim), [], grok.attn_softcap)])
+    res["head_errs"] = errs
+    c32 = dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS, dtype="float32",
+                              capacity_factor=MOE_DROP_FREE)
+    p32 = first_units(params, MOE_CUT_LAYERS, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    log(f"  (c) on an f32 copy of the first {MOE_CUT_LAYERS} layers at capacity factor "
+        f"{MOE_DROP_FREE} (drop-free): sharing, chunked = whole prefill, preemption, "
+        f"speculative rollback")
+    res["sharing"] = hybrid_sharing(p32, c32, prompts, dev, tag="4j c")
+    res["chunked"] = {
+        "free": moe_chunked_prefill(p32, c32, dev, gate=True),
+        "published": moe_chunked_prefill(
+            p32, dataclasses.replace(c32, capacity_factor=cfg.capacity_factor), dev, gate=False)}
+    res.update(hybrid_preempt_spec(p32, c32, prompts, dev, tag="4j c"))
+    del p32
+    torch.cuda.empty_cache()
+    log("  (d) one analog_stochastic training step")
+    res["train"] = moe_train(dev)
+    log(f"  (e) grok-1-314b at full width, cut to {GROK_CUT_LAYERS} of {grok.n_layers} layers")
+    res["grok"] = cut_serve("grok-1-314b", GROK_CUT_LAYERS, dev, profile=True)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 4j wall time {res['wall_s']:.1f} s")
+    return res
+
+
+def moe_sublayer_ms(params, cfg, tick_device_ms: float, dev) -> dict:
+    """Device ms a full-batch decode tick (B = 8, one token a slot) spends
+    in each part of the MoE blocks over every layer: the router (f32
+    logits, softmax, top-k), the dispatch (slots, gather of the padded
+    (E, B, C, D) buffer), the expert products and the combine, each over
+    all the layers' own weights, captured alone and timed as a replay
+    (:func:`replay_ms`), as the tick runs them; the products' byte bound
+    (every expert's weights read once: the padded dispatch computes every
+    expert's C slots) and their FLOPs, of which the real rows' share."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.transformer import unit_params
+
+    b = 8
+    g = torch.Generator(device=dev).manual_seed(43)
+    x = torch.randn((b, 1, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    cap = MOE._capacity(1, cfg)
+    layers = [unit_params(params["units"], u)["l0"]["moe"] for u in range(cfg.n_units)]
+    with torch.no_grad():
+        routes = [MOE.route(p, x, cfg) for p in layers]
+        disps = [MOE._dispatch_group(x, r[1], r[2], cap, cfg, with_frac=False) for r in routes]
+        outs = [MOE._experts(p, d.xg, cfg) for p, d in zip(layers, disps)]
+        stages = {
+            "router": lambda: [MOE.route(p, x, cfg) for p in layers],
+            "dispatch": lambda: [MOE._dispatch_group(x, r[1], r[2], cap, cfg, with_frac=False)
+                                 for r in routes],
+            "experts": lambda: [MOE._experts(p, d.xg, cfg) for p, d in zip(layers, disps)],
+            "combine": lambda: [MOE._combine_group(o, d.gate_slot, r[2], d.pos, d.kept)
+                                for o, d, r in zip(outs, disps, routes)],
+        }
+        ms = {k: replay_ms(fn, dev) for k, fn in stages.items()}
+    n_w = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    nbytes = cfg.n_layers * n_w * cfg.n_experts * cfg.d_model * cfg.d_ff * 2
+    rows = cfg.n_experts * b * cap
+    flops = cfg.n_layers * 2 * rows * cfg.d_model * cfg.d_ff * n_w
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    used = len({int(e) for e in routes[0][2].flatten()})
+    log(f"  MoE sublayers a tick ({cfg.n_layers} layers, B = {b}, capacity {cap}: "
+        f"(E, B, C, D) = ({cfg.n_experts}, {b}, {cap}, {cfg.d_model}), {rows} rows of which "
+        f"{b * cfg.moe_topk} real; the first layer's tokens use {used} of {cfg.n_experts} "
+        f"experts), device ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; together {sum(ms.values()):.3f} of the replayed tick's {tick_device_ms:.3f}; the "
+        f"expert products' bound {bound:.4f} ms ({nbytes / 1e9:.2f} GB of expert weights, "
+        f"{flops / 1e9:.0f} GFLOP)")
+    return {"device_ms": ms, "tick_device_ms": tick_device_ms, "experts_bound_ms": bound,
+            "experts_bytes": nbytes, "experts_gflop": flops / 1e9, "rows": rows,
+            "real_rows": b * cfg.moe_topk}
+
+
+def replay_ms(fn, dev, iters: int = 8) -> float:
+    """Mean ms of one replay of ``fn``'s launches captured as a CUDA graph
+    (warmed up and captured on the engine's side stream), by CUDA events
+    over ``iters`` replays: the device time of a captured sequence of
+    small kernels, without the host's time between its launches."""
+    from repro_torch.launch.specs import capture_stream
+
+    side = capture_stream(dev.index or 0)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    ms = cuda_ms([graph.replay], iters=iters, warmup=1)
+    del graph
+    return ms
+
+
+@contextlib.contextmanager
+def counting_drops(into: list):
+    """Within the block, append (assignments, kept) of every MoE dispatch
+    to ``into``, read from the dispatch's ``kept``."""
+    from repro_torch.models import moe as MOE
+
+    real = MOE._dispatch_group
+
+    def dispatch(*a, **kw):
+        out = real(*a, **kw)
+        into.append((out.kept.numel(), int(out.kept.sum())))
+        return out
+
+    MOE._dispatch_group = dispatch
+    try:
+        yield
+    finally:
+        MOE._dispatch_group = real
+
+
+def moe_drop_share(params, cfg, prompts, dev) -> dict:
+    """The share of the trace's prefill assignments that the published
+    capacity factor drops, each prompt prefilled as the engine prefills
+    it (chunks of 128, each its own capacity group) and in one whole-prompt
+    chunk, counted from the dispatch's ``kept``."""
+    from repro_torch.models import transformer as TF
+
+    out = {}
+    with torch.no_grad():
+        for tag, chunk in (("chunks of 128", 128), ("whole prompt", None)):
+            seen: list = []
+            with counting_drops(seen):
+                for p in prompts:
+                    n_pages = -(-len(p) // 16)
+                    pool = TF.init_paged_decode_cache(cfg, 1, 1 + n_pages, 16, device=dev)
+                    row = torch.arange(1, 1 + n_pages, dtype=torch.int32, device=dev)
+                    toks = torch.tensor([p], dtype=torch.int32, device=dev)
+                    state = TF.init_prefill_state(cfg, dev)
+                    step = chunk or len(p)
+                    for lo in range(0, len(p), step):
+                        _, state, _ = TF.lm_prefill_chunk(params, toks[:, lo:lo + step], cfg,
+                                                          pool, state, row, lo)
+                    del pool
+            n = sum(a for a, _ in seen)
+            kept = sum(k for _, k in seen)
+            out[tag] = {"assignments": n, "dropped": n - kept, "share": (n - kept) / n}
+    torch.cuda.empty_cache()
+    log(f"  prefill assignments dropped at capacity factor {cfg.capacity_factor} over the "
+        f"trace's {len(prompts)} prompts: "
+        + "; ".join(f"{k}: {v['dropped']} of {v['assignments']} ({v['share']:.4%})"
+                    for k, v in out.items()))
+    return out
+
+
+def moe_chunked_prefill(params, cfg, dev, gate: bool) -> dict:
+    """One prompt of MOE_LONG_PROMPT tokens (seeded) through
+    ``lm_prefill_chunk`` whole (one chunk, one capacity group) and in
+    chunks of MOE_PREFILL_CHUNK, each into its own pool: the last logits
+    relative to their largest magnitude (within MOE_CHUNK_RTOL and the
+    same greedy token when ``gate``), the share of assignments each
+    drops, and each's host ms (synced)."""
+    from repro_torch.models import transformer as TF
+
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (1, MOE_LONG_PROMPT)).astype(np.int32)).to(dev)
+    n_pages = MOE_LONG_PROMPT // 16
+    row = torch.arange(1, 1 + n_pages, dtype=torch.int32, device=dev)
+    out, logits = {}, {}
+    with torch.no_grad():
+        for tag, step in (("whole", MOE_LONG_PROMPT), ("chunked", MOE_PREFILL_CHUNK)):
+            pool = TF.init_paged_decode_cache(cfg, 1, 1 + n_pages, 16, device=dev)
+            state = TF.init_prefill_state(cfg, dev)
+            seen: list = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counting_drops(seen):
+                for lo in range(0, MOE_LONG_PROMPT, step):
+                    _, state, lg = TF.lm_prefill_chunk(params, toks[:, lo:lo + step], cfg,
+                                                       pool, state, row, lo)
+            torch.cuda.synchronize()
+            n, kept = sum(a for a, _ in seen), sum(k for _, k in seen)
+            out[tag] = {"ms": (time.perf_counter() - t0) * 1e3, "drop_share": (n - kept) / n}
+            logits[tag] = lg.float()
+            del pool
+    err = float((logits["whole"] - logits["chunked"]).abs().max())
+    out["rel"] = err / float(logits["whole"].abs().max())
+    out["same_token"] = int(logits["whole"].argmax(-1)) == int(logits["chunked"].argmax(-1))
+    log(f"  ({cfg.dtype}, {cfg.n_layers} layers, capacity factor {cfg.capacity_factor}) a "
+        f"{MOE_LONG_PROMPT}-token prompt whole {out['whole']['ms']:.1f} ms, in "
+        f"{MOE_LONG_PROMPT // MOE_PREFILL_CHUNK} chunks {out['chunked']['ms']:.1f} ms; assignments "
+        f"dropped whole {out['whole']['drop_share']:.4%}, chunked "
+        f"{out['chunked']['drop_share']:.4%}; last logits chunked vs whole max|Δ| {err:.3e} "
+        f"({out['rel']:.2e} of its max); the same next token {out['same_token']}"
+        + (f" (gate {MOE_CHUNK_RTOL} relative)" if gate else " (not gated)"))
+    if gate and (not out["same_token"] or out["rel"] > MOE_CHUNK_RTOL
+                 or out["whole"]["drop_share"] or out["chunked"]["drop_share"]):
+        raise AssertionError("drop-free chunked prefill parts from the whole-bucket prefill")
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train(dev) -> dict:
+    """Phase 4j (d): one ``analog_stochastic`` step of granite-moe-3b-a800m:
+    ``crossbar_mac`` 4 reads a layer (q, k, v, o, all linear), the router's
+    WTA race one ``wta_sample`` launch a layer (its first draw bit for bit
+    against the plain version), no ``sigmoid_sample``, the first read at
+    each of MOE_CB_SHAPES checked and timed beside its bound
+    (:func:`analog_step`)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-moe-3b-a800m")
+    return analog_step(dev, "granite-moe-3b-a800m", {
+        "sigmoid_sample": 0, "crossbar_mac": MOE_CB_PER_LAYER * cfg.n_layers,
+        "wta_sample": cfg.n_layers}, MOE_CB_SHAPES, "4j d", timed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5409,6 +5797,60 @@ def reference_ssm(dev) -> None:
         raise AssertionError("mamba2 greedy streams differ card vs CPU")
 
 
+def reference_moe(dev) -> None:
+    """Phase 4j (f): granite's and grok's smoke configs in f32 (seed 1), the
+    same parameters on the card and on the CPU: two prefill chunks into
+    the paged pool and three greedy decode steps, logits within REF_ATOL,
+    then the paged engine's greedy streams on tests/test_serving.py's
+    mixed trace, equal token for token (the card's engine compiled)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 40)).astype(np.int32))
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    prompts = [[5, 6, 7, 1, 2, 3, 4, 9], [1, 2, 3], [9, 8, 7, 6, 5, 4, 3, 2], [4] * 20,
+               [11, 12], [7] * 13]
+    for arch in ("granite-moe-3b-a800m", "grok-1-314b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        host = TF.init_lm(cfg, seed=1, device="cpu")
+        logits, streams = {}, {}
+        for d in ("cpu", dev):
+            params = _tree_to(host, d)
+            cache = TF.init_paged_decode_cache(cfg, 2, 9, 16, device=d)
+            out = []
+            for b in range(2):
+                state = TF.init_prefill_state(cfg, d)
+                for lo, hi in ((0, 16), (16, 40)):
+                    _, state, lg = TF.lm_prefill_chunk(params, toks[b:b + 1, lo:hi].to(d), cfg,
+                                                       cache, state, table[b].to(d), lo)
+                    out.append(lg)
+            cache["pos"].fill_(40)
+            tok = torch.cat(out[1::2]).argmax(-1).to(torch.int32)
+            for _ in range(3):
+                cache, lg = TF.lm_decode_step(params, cache, tok, cfg, table.to(d))
+                out.append(lg)
+                tok = lg.argmax(-1).to(torch.int32)
+            logits[str(d)] = [x.float().cpu() for x in out]
+            eng = ServingEngine(params, cfg, ServeConfig(max_batch=3, max_new_tokens=8,
+                                                         max_len=64, kv_block_size=8,
+                                                         prefill_chunk=8), device=d)
+            for p in prompts:
+                eng.submit(p)
+            streams[str(d)] = eng.run()
+            del eng
+        err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[str(dev)]))
+        agree = sum(a == b for r in streams["cpu"] for a, b in zip(streams["cpu"][r],
+                                                                   streams[str(dev)][r]))
+        total = sum(len(o) for o in streams["cpu"].values())
+        log(f"  (4j f) {arch} smoke f32: prefill and decode logits card vs CPU max|err| "
+            f"{err:.3e} (atol {REF_ATOL}); greedy streams {agree}/{total} tokens equal")
+        if err > REF_ATOL:
+            raise AssertionError(f"{arch} card logits disagree with the CPU plain path")
+        if streams["cpu"] != streams[str(dev)]:
+            raise AssertionError(f"{arch} greedy streams differ card vs CPU")
+
+
 def dense_card_vs_cpu(host: dict, cfg, toks, dev) -> float:
     """The dense layout's prefill of two prompts (one left-padded) and three
     decode steps, on the card and on the CPU from the same parameters:
@@ -5840,12 +6282,18 @@ def main() -> int:
         "WTA compiled = eager, an int8 config; chunked against whole prefill; sharing, "
         "preemption and rollback of the SSM state; one analog training step)")
     ires = ssm_phase(dev)
+    log("== 4j: granite-moe-3b-a800m at full width and depth (40 experts top-8, GShard capacity "
+        "dispatch: bf16, int8, WTA compiled = eager; its MoE sublayers a tick; the drop share), "
+        "granite's and grok's heads, sharing / chunked prefill / preemption / rollback on a "
+        "drop-free f32 copy, one analog step with the WTA router, grok-1-314b cut to 4 layers")
+    jres = moe_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
     reference_wta(dev)
     reference_train(dev)
     reference_fcnn(dev)
     reference_ssm(dev)
+    reference_moe(dev)
 
     launches = dict(sres["same"]["launches"])
     launches["write_kv_int8"] = sres["int8"]["launches"]["write_kv_int8"]
@@ -5940,6 +6388,28 @@ def main() -> int:
         rec = next(k for k in kernels if k["name"] == name)
         rec["launches_4i"] = {"mamba2 analog step": ires["train"]["launches"][name]}
     next(k for k in kernels if k["name"] == "crossbar_mac")["reads_4i"] = ires["train"]["reads"]
+    # phase 4j: granite's and grok's runs, each reset just before it and
+    # read just after, and the two heads' cases
+    jheads = jres["heads"]
+    for name, key in (("paged_attention", "decode"), ("paged_prefill_attention", "prefill"),
+                      ("write_kv_int8", "write_kv_int8"), ("wta_sample", "wta_sample")):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_4j"] = {f"granite {run}": jres[run]["launches"][key]
+                              for run in ("same", "int8", "wta")}
+        rec["launches_4j"].update({"granite f32 preempt": jres["preempt"]["launches"][key],
+                                   "granite f32 spec": jres["spec"]["launches"][key]})
+        if key in ("decode", "prefill"):
+            rec["launches_4j"]["grok cut"] = jres["grok"]["launches"][key]
+        if key in jheads:
+            rec["cases"].extend(jheads[key])
+            rec["max_abs_err_4j"] = max(jres["head_errs"][key])
+    for name in ("crossbar_mac", "crossbar_prepass", "sigmoid_sample", "wta_sample"):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec.setdefault("launches_4j", {})["granite analog step"] = \
+            jres["train"]["launches"][name]
+    next(k for k in kernels if k["name"] == "crossbar_mac")["reads_4j"] = jres["train"]["reads"]
+    next(k for k in kernels if k["name"] == "wta_sample")["router_err_4j"] = \
+        jres["train"]["router_err"]
     # the R = 3 serve of the same trace and the FCNN's head: their own
     # paths, counted apart
     wta_rec = next(k for k in kernels if k["name"] == "wta_sample")

@@ -9,9 +9,9 @@ imports no jax: the caller converts leaves with ``np.asarray``.  Because
 ``torch.from_numpy`` cannot take ``ml_dtypes.bfloat16``, callers hand bf16
 leaves over as float32; the bridge casts each weight back to
 ``cfg.dtype`` (bf16 → f32 → bf16 is lossless).  Norm scales, an RG-LRU
-block's gate biases and decay (``ba``, ``bx``, ``lam``) and a Mamba-2
-mixer's ``a_log``, ``d_skip`` and ``dt_bias`` stay f32, as in the
-reference.
+block's gate biases and decay (``ba``, ``bx``, ``lam``), a Mamba-2
+mixer's ``a_log``, ``d_skip`` and ``dt_bias`` and an MoE block's
+``router`` stay f32, as in the reference.
 
 ``paged_cache_from_numpy`` carries a paged decode cache across the same
 way (pages, an int8 pool's scale planes, ``pos``, ``quant_step`` and a
@@ -39,7 +39,7 @@ from repro_torch.train import TrainState
 
 
 # leaves the reference keeps in f32 whatever the model's dtype
-F32_LEAVES = ("scale", "ba", "bx", "lam", "a_log", "d_skip", "dt_bias")
+F32_LEAVES = ("scale", "ba", "bx", "lam", "a_log", "d_skip", "dt_bias", "router")
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:

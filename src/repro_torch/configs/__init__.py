@@ -2,7 +2,8 @@
 ``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b`` and
 ``nemotron-4-340b``, the hybrid ``recurrentgemma-2b`` (RG-LRU blocks and
 local attention), the attention-free ``mamba2-1.3b`` (Mamba-2 SSD
-mixers), and the paper's ``fcnn-mnist``; plus the shape suite
+mixers), the mixtures of experts ``granite-moe-3b-a800m`` and
+``grok-1-314b``, and the paper's ``fcnn-mnist``; plus the shape suite
 (``SHAPES``, ``ShapeSpec``) and each arch's ``skip_shapes``."""
 
 from importlib import import_module
@@ -14,6 +15,8 @@ _MODULES = {
     "nemotron-4-340b": "nemotron_4_340b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "grok-1-314b": "grok_1_314b",
     "fcnn-mnist": "fcnn_mnist",
 }
 

@@ -36,11 +36,11 @@ def lm_batch(
     n_shards: int = 1, device=None,
 ) -> dict:
     """Batch for one (step, shard) of a token LM (``decoder_lm``,
-    ``hybrid`` or ``ssm``): int32 "tokens" and "labels" (B, seq), on
+    ``moe_lm``, ``hybrid`` or ``ssm``): int32 "tokens" and "labels" (B, seq), on
     ``device`` (the card unless ``"cpu"``)."""
-    if cfg.family not in ("decoder_lm", "hybrid", "ssm"):
+    if cfg.family not in ("decoder_lm", "moe_lm", "hybrid", "ssm"):
         raise NotImplementedError(
-            f"lm_batch is ported for decoder_lm, hybrid and ssm, got {cfg.family}")
+            f"lm_batch is ported for decoder_lm, moe_lm, hybrid and ssm, got {cfg.family}")
     dev = resolve_device(device)
     key = R.fold_in(R.fold_in(R.PRNGKey(seed), step), shard)
     toks = _tokens(key, batch, seq, cfg.vocab, dev)

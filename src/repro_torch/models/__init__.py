@@ -1,6 +1,6 @@
 """Model definitions of the port and the family registry
-(``repro/models/__init__.py``): the ``decoder_lm``, ``hybrid``, ``ssm`` and
-``fcnn`` families."""
+(``repro/models/__init__.py``): the ``decoder_lm``, ``moe_lm``, ``hybrid``,
+``ssm`` and ``fcnn`` families."""
 
 from __future__ import annotations
 
@@ -26,15 +26,15 @@ def get_model_fns(cfg: ModelConfig) -> ModelFns:
     monolithic prefill (``transformer.lm_prefill``, a batch dict with
     ``tokens``; the ported family has no patches) and ``decode_step`` the decode
     step over a dense or a paged cache (``transformer.lm_decode_step``);
-    the FCNN has neither.  A ``hybrid`` model (RG-LRU blocks beside
-    attention) and an ``ssm`` one (Mamba-2 mixers) share the LM's
-    functions."""
+    the FCNN has neither.  A ``moe_lm`` model (mixture-of-experts MLPs),
+    a ``hybrid`` one (RG-LRU blocks beside attention) and an ``ssm`` one
+    (Mamba-2 mixers) share the LM's functions."""
     if cfg.family == "fcnn":
         return ModelFns(
             init=lambda seed, c, device=None: FC.init_fcnn(R.PRNGKey(seed), c, device),
             loss=FC.fcnn_loss, prefill=None, decode_step=None,
         )
-    if cfg.family in ("decoder_lm", "hybrid", "ssm"):
+    if cfg.family in ("decoder_lm", "moe_lm", "hybrid", "ssm"):
         return ModelFns(
             init=lambda seed, c, device=None: TF.init_lm(c, seed=seed, device=device),
             loss=TF.lm_loss,
@@ -44,7 +44,7 @@ def get_model_fns(cfg: ModelConfig) -> ModelFns:
             decode_step=TF.lm_decode_step,
         )
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported; ported: decoder_lm, hybrid, ssm, fcnn")
+        f"family {cfg.family!r} is not ported; ported: decoder_lm, moe_lm, hybrid, ssm, fcnn")
 
 
 __all__ = ["ModelConfig", "ModelFns", "get_model_fns"]

@@ -1,8 +1,9 @@
 """Unified model configuration, copied field for field from
 ``repro/models/config.py`` so a config built for one package reads the
 same in the other.  Family-specific fields default to inert values; the
-port so far runs two families: ``decoder_lm`` (serving and training) and
-``fcnn``, the paper's network (training and RACA inference).
+port runs the ``decoder_lm``, ``moe_lm``, ``hybrid`` and ``ssm`` families
+(serving and training) and ``fcnn``, the paper's network (training and
+RACA inference); ``encdec`` and ``vlm`` are not ported.
 """
 
 from __future__ import annotations

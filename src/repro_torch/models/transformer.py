@@ -2,8 +2,10 @@
 training path, the decode step over a dense or a paged cache, the dense
 layout's monolithic prefill and the chunked paged prefill
 (``repro/models/transformer.py``, the ``decoder_lm`` family, the
-``hybrid`` one: units that mix RG-LRU blocks, ``"rec"``, with attention,
-and the attention-free ``ssm`` one: Mamba-2 mixers, ``"ssm"``).
+``moe_lm`` one: attention blocks whose MLP is a mixture of experts
+(``moe.py``), the ``hybrid`` one: units that mix RG-LRU blocks,
+``"rec"``, with attention, and the attention-free ``ssm`` one: Mamba-2
+mixers, ``"ssm"``).
 
 Parameters keep the reference's tree: units stacked on a leading
 ``n_units`` axis (``params["units"]["l0"]["attn"]["wq"]`` is
@@ -55,6 +57,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.prng import MASK, mul32
 from . import attention as ATT
 from . import mamba2 as M2
+from . import moe as MOE
 from . import rglru as RG
 from .config import ModelConfig
 from .layers import (
@@ -77,17 +80,16 @@ PAGE_POOL_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
 
 ATTN_KINDS = ("global", "local")
 # the layer kinds each ported family's units may hold
-_FAMILY_KINDS = {"decoder_lm": ATTN_KINDS, "hybrid": ATTN_KINDS + ("rec",), "ssm": ("ssm",)}
+_FAMILY_KINDS = {"decoder_lm": ATTN_KINDS, "moe_lm": ATTN_KINDS,
+                 "hybrid": ATTN_KINDS + ("rec",), "ssm": ("ssm",)}
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError("MoE blocks are not ported yet")
     kinds = _FAMILY_KINDS.get(cfg.family)
     if kinds is None or any(k not in kinds for k in cfg.layer_pattern):
         raise NotImplementedError(
-            f"only decoder_lm, hybrid (rec + attention) and ssm models are ported, got "
-            f"{cfg.family} {cfg.layer_pattern}"
+            f"only decoder_lm, moe_lm, hybrid (rec + attention) and ssm models are ported, "
+            f"got {cfg.family} {cfg.layer_pattern}"
         )
 
 
@@ -133,8 +135,11 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             "ln1": init_rmsnorm(cfg.d_model, lead, dev),
             "attn": ATT.init_attn(gen, cfg, lead),
             "ln2": init_rmsnorm(cfg.d_model, lead, dev),
-            "ffn": init_mlp(gen, cfg, lead),
         }
+        if cfg.n_experts > 0:
+            sub["moe"] = MOE.init_moe(gen, cfg, lead)
+        else:
+            sub["ffn"] = init_mlp(gen, cfg, lead)
         if cfg.post_norms:
             sub["post_ln1"] = init_rmsnorm(cfg.d_model, lead, dev)
             sub["post_ln2"] = init_rmsnorm(cfg.d_model, lead, dev)
@@ -142,8 +147,8 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return params
 
 
-# every block's output projection: the attention's, the MLP's, the
-# RG-LRU block's and the Mamba-2 mixer's
+# every block's output projection: the attention's, the MLP's (an MoE
+# block's experts' too), the RG-LRU block's and the Mamba-2 mixer's
 BLOCK_OUTPUTS = ("wo", "w_down", "w_out", "out_proj")
 
 
@@ -185,18 +190,26 @@ def unit_params(units: dict, u: int) -> dict:
 
 
 def _attn_block(sub: dict, x: torch.Tensor, a: torch.Tensor, cfg: ModelConfig,
-                key=None) -> torch.Tensor:
+                key=None, with_aux: bool = False) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Residual add of the attention output, then the norm + MLP tail (its
-    analog draws under ``key``).  With ``cfg.post_norms`` the attention
-    output and the MLP output are each normed (``post_ln1``, ``post_ln2``)
-    before their residual adds, as gemma2's blocks are."""
+    analog draws under ``key``); returns (x, aux).  An MoE block's tail is
+    ``moe.moe_apply`` and ``aux`` its load-balancing loss when
+    ``with_aux``, else None (the serving paths drop it, as the reference's
+    do); a dense MLP's ``aux`` is None.  With ``cfg.post_norms`` the
+    attention output and the MLP output are each normed (``post_ln1``,
+    ``post_ln2``) before their residual adds, as gemma2's blocks are."""
     if cfg.post_norms:
         a = rmsnorm(sub["post_ln1"], a, cfg.norm_eps)
     x = x + a
-    f = mlp_apply(sub["ffn"], rmsnorm(sub["ln2"], x, cfg.norm_eps), cfg, key=key)
+    h = rmsnorm(sub["ln2"], x, cfg.norm_eps)
+    aux = None
+    if "moe" in sub:
+        f, aux = MOE.moe_apply(sub["moe"], h, cfg, key=key, with_aux=with_aux)
+    else:
+        f = mlp_apply(sub["ffn"], h, cfg, key=key)
     if cfg.post_norms:
         f = rmsnorm(sub["post_ln2"], f, cfg.norm_eps)
-    return x + f
+    return x + f, aux
 
 
 def _rec_block(sub: dict, x: torch.Tensor, o: torch.Tensor, cfg: ModelConfig,
@@ -209,10 +222,13 @@ def _rec_block(sub: dict, x: torch.Tensor, o: torch.Tensor, cfg: ModelConfig,
 
 
 def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConfig, key):
-    """One unit of ``cfg.layer_pattern``; sublayer ``i`` draws under
-    ``ki = fold_in(key, i)``, its attention under ``fold_in(ki, 0)`` (a
-    recurrent block or a Mamba-2 mixer under ``ki`` itself) and its MLP
-    under ``fold_in(ki, 1)``, as the reference folds them."""
+    """One unit of ``cfg.layer_pattern``; returns (x, the unit's aux loss:
+    its MoE blocks' in f32, summed in order, or None without any; the
+    reference's ``0 + a`` is ``a``).  Sublayer ``i`` draws
+    under ``ki = fold_in(key, i)``, its attention under ``fold_in(ki, 0)``
+    (a recurrent block or a Mamba-2 mixer under ``ki`` itself) and its MLP
+    or MoE router under ``fold_in(ki, 1)``, as the reference folds them."""
+    aux = None
     for i, kind in enumerate(cfg.layer_pattern):
         sub = up[f"l{i}"]
         ki = None if key is None else R.fold_in(key, i)
@@ -227,21 +243,30 @@ def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConf
             sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps), positions, cfg,
             kind=kind, key=None if ki is None else R.fold_in(ki, 0),
         )
-        x = _attn_block(sub, x, a, cfg, key=None if ki is None else R.fold_in(ki, 1))
-    return x
+        x, aux_i = _attn_block(sub, x, a, cfg, key=None if ki is None else R.fold_in(ki, 1),
+                               with_aux=True)
+        if aux_i is not None:
+            aux = aux_i if aux is None else aux + aux_i
+    return x, aux
 
 
 def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, key=None):
     """All units, unit ``u`` under ``fold_in(key, u)``; returns (final-norm
-    hidden states, aux loss 0).  ``cfg.remat_policy`` is not honoured: every
+    hidden states, aux loss: the units' f32 sums added in order from 0, as
+    the reference's scan carries it; 0 without MoE blocks).
+    ``cfg.remat_policy`` is not honoured: every
     unit's activations stay live for the backward (stablelm-3b at full
     width and batch 8 × 128 fits the card so), so the crossbar kernel runs
     once per projection and step, where the reference's rematerialized
     backward runs it again.  It changes no number."""
+    aux = None
     for u, up in enumerate(_unbind_units(params["units"])):
         ku = None if key is None else R.fold_in(key, u)
-        x = _unit_fwd(x, up, positions, cfg, ku)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux_u = _unit_fwd(x, up, positions, cfg, ku)
+        if aux_u is not None:
+            aux = aux_u if aux is None else aux + aux_u
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -498,7 +523,7 @@ def lm_decode_step(
                     sub["attn"], hin, cache["k_pages"][u, ia], cache["v_pages"][u, ia],
                     table, pos, cfg, kind=kind, write=kv_write, split_batch=split_batch, **kw,
                 )
-            x = _attn_block(sub, x, a, cfg)
+            x, _ = _attn_block(sub, x, a, cfg)
             ia += 1
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)
@@ -561,7 +586,7 @@ def lm_prefill(
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
             o = ATT.attend_full(q, k, v, positions[0], positions[0], kind, cfg)
-            x = _attn_block(sub, x, o.reshape(b, s, -1) @ sub["attn"]["wo"].to(x.dtype), cfg)
+            x, _ = _attn_block(sub, x, o.reshape(b, s, -1) @ sub["attn"]["wo"].to(x.dtype), cfg)
             for name, rows in (("k", k), ("v", v)):
                 padded = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, max_len - s))
                 if int8:
@@ -649,7 +674,7 @@ def lm_prefill_chunk(
                 pool["k_pages"][u, ia], pool["v_pages"][u, ia],
                 table_row, q0, cfg, kind=kind, **kw,
             )
-            x = _attn_block(sub, x, o, cfg)
+            x, _ = _attn_block(sub, x, o, cfg)
             ia += 1
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)

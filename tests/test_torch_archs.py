@@ -1,17 +1,21 @@
 """The port's other decoder-only configs against ``repro`` on the CPU:
 ``gemma2-2b`` (local + global units of two attention sublayers, both
 soft-caps, post-block norms, tied and scaled embeddings),
-``deepseek-coder-33b`` (GQA 56 / 8, RoPE base 1e5) and
-``nemotron-4-340b`` (GQA, squared-ReLU MLP).
+``deepseek-coder-33b`` (GQA 56 / 8, RoPE base 1e5),
+``nemotron-4-340b`` (GQA, squared-ReLU MLP), and the mixtures of experts
+``granite-moe-3b-a800m`` (40 SwiGLU experts, top-8, Dh 64) and
+``grok-1-314b`` (8 GeGLU experts, top-2, attention soft-cap 30).
 
 Each arch's full and smoke configs equal the reference's field for field;
 the smoke loss of bridged f32 weights equals the reference's within
-``LOSS_ATOL`` (both packages sum the same f32 products in another order);
+``LOSS_ATOL`` (both packages sum the same f32 products in another order),
+and so does an MoE model's load-balancing ``aux`` (0 for a dense one);
 and the port's own prefill + decode logits, over the dense cache and over
 the paged pool, equal its ``lm_forward`` within ``LOGIT_ATOL`` (the
 decode readouts sum in another order than ``attend_full``; on the paged
 path the suffix chunk and the decode step run the kernels' plain
-versions).
+versions; the MoE smoke configs' capacity factors drop no token, so a
+prefill, a chunk and a decode step route as the forward does).
 """
 
 import dataclasses
@@ -30,7 +34,8 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import SHAPES, get_config, get_smoke_config, skip_shapes
 from repro_torch.models import transformer as TTF
 
-ARCHS = ["gemma2-2b", "deepseek-coder-33b", "nemotron-4-340b"]
+ARCHS = ["gemma2-2b", "deepseek-coder-33b", "nemotron-4-340b", "granite-moe-3b-a800m",
+         "grok-1-314b"]
 LOSS_ATOL = 1e-5
 LOGIT_ATOL = 1e-4
 
@@ -81,6 +86,8 @@ def test_init_tree_matches_reference(arch):
         assert tuple(flat_t[k].shape) == tuple(v.shape), k
         assert str(flat_t[k].dtype).split(".")[-1] == str(v.dtype), k
     assert any("post_ln" in k for k in flat_t) == cfg.post_norms
+    assert any("/moe/" in k for k in flat_t) == (cfg.n_experts > 0)
+    assert any("/ffn/" in k for k in flat_t) == (cfg.n_experts == 0)
     rng = np.random.default_rng(3)
     tree = jax.tree.map(lambda v: rng.standard_normal(v.shape).astype(np.float32), jp)
     bridged = {"/".join(k): v for k, v in _flatten(params_from_numpy(tree, cfg, device="cpu"))}
@@ -103,12 +110,15 @@ def test_smoke_loss_and_grads_match_reference(arch):
     jcfg, jp, tcfg, tp = _f32_pair(arch)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 24)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    jl, _ = jax.jit(lambda p, b: JTF.lm_loss(p, b, jcfg, None))(
+    jl, jm = jax.jit(lambda p, b: JTF.lm_loss(p, b, jcfg, None))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     for leaf in jax.tree.leaves(tp):
         leaf.requires_grad_(True)
-    tl, _ = TTF.lm_loss(tp, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
+    tl, tm = TTF.lm_loss(tp, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
     np.testing.assert_allclose(float(tl.detach()), float(jl), atol=LOSS_ATOL, rtol=0)
+    np.testing.assert_allclose(float(tm["aux"].detach()), float(jm["aux"]), atol=LOSS_ATOL,
+                               rtol=0)
+    assert (float(jm["aux"]) > 0) == (jcfg.n_experts > 0)
     tl.backward()
     grads = [leaf.grad for _, leaf in _flatten(tp)]
     assert all(g is not None and torch.isfinite(g).all() for g in grads)

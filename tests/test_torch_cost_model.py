@@ -94,6 +94,29 @@ def test_ssm_counts_equal(smoke, variant, fn):
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("variant", ["bf16", "int8", "wta_head"])
+@pytest.mark.parametrize("fn", COUNT_FNS)
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "grok-1-314b"])
+def test_moe_counts_equal(arch, fn, variant, smoke):
+    """The cost model's ``moe_lm`` branch (the router and the top-k
+    experts a token dispatches to, beside attention) against the
+    reference, and its per-token weight matmuls."""
+    kw = {"kv_cache_dtype": "int8" if variant == "int8" else "same",
+          "wta_head": variant == "wta_head"}
+    jcfg, tcfg = (dataclasses.replace(c, **kw) for c in (
+        (jax_smoke if smoke else jax_config)(arch),
+        (get_smoke_config if smoke else get_config)(arch)))
+    assert getattr(TCM, fn)(tcfg).as_dict() == getattr(JCM, fn)(jcfg).as_dict()
+    got = TCM.per_token_weight_matmuls(tcfg)
+    assert got == JCM.per_token_weight_matmuls(jcfg)
+    if not smoke:   # q, k, v, o, the router, k experts of three projections; the head
+        d, f = tcfg.d_model, tcfg.d_ff
+        unit = 4 + 1 + 3 * tcfg.moe_topk
+        assert len(got) == tcfg.n_layers * unit + 1
+        assert got[4] == (d, tcfg.n_experts) and got[5:8] == ((d, f), (f, d), (d, f))
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 def test_weight_matmuls_equal(smoke):
     jcfg, tcfg = _cfgs(smoke, "bf16")
     assert TCM.per_token_weight_matmuls(tcfg) == JCM.per_token_weight_matmuls(jcfg)

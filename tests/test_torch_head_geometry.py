@@ -7,9 +7,11 @@ head shape; the CUDA sources compute the same bytes and refuse a launch
 that does not fit.  These tests pin what the kernels need to launch: at
 most ``MAX_SMEM_BYTES`` of dynamic shared memory and at least one
 resident CTA an SM, at stablelm-3b's, gemma2-2b's, deepseek-coder-33b's,
-nemotron-4-340b's and recurrentgemma-2b's head shapes over bf16, int8 and
-f32 pools (bs = 16, B = 8, W = 32, prefill S = 128), and across Dh in
-{80, 128, 192, 256} and G in {1, 2, 7, 10, 12}.  stablelm-3b's plan stays
+nemotron-4-340b's, recurrentgemma-2b's, granite-moe-3b-a800m's (H 24 /
+Hkv 8 / Dh 64: G = 3) and grok-1-314b's (H 48 / Hkv 8 / Dh 128: G = 6)
+head shapes over bf16, int8 and f32 pools (bs = 16, B = 8, W = 32,
+prefill S = 128), and across Dh in {64, 80, 128, 192, 256} and G in
+{1, 2, 3, 6, 7, 10, 12}.  stablelm-3b's plan stays
 the one measured before (four warps of two stages; 84296 and 45384
 bytes).  recurrentgemma-2b's MQA head (H 10, Hkv 1, Dh 256: G = 10 query
 rows on one K/V head) splits each slot's keys four ways, so decode at
@@ -24,7 +26,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import prefill_attention as PF
 
 ARCHS = ["stablelm-3b", "gemma2-2b", "deepseek-coder-33b", "nemotron-4-340b",
-         "recurrentgemma-2b"]
+         "recurrentgemma-2b", "granite-moe-3b-a800m", "grok-1-314b"]
 POOLS = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}
 
 
@@ -54,8 +56,8 @@ def test_every_config_head_shape_launches(arch, pool):
 
 
 @pytest.mark.parametrize("pool", list(POOLS))
-@pytest.mark.parametrize("g", [1, 2, 7, 10, 12])
-@pytest.mark.parametrize("dh", [80, 128, 192, 256])
+@pytest.mark.parametrize("g", [1, 2, 3, 6, 7, 10, 12])
+@pytest.mark.parametrize("dh", [64, 80, 128, 192, 256])
 def test_head_dims_and_groups_launch(dh, g, pool):
     _check(8 * g, 8, dh, POOLS[pool])
 

@@ -21,8 +21,11 @@ smoke config in f32, on ``repro``'s init carried across by ``bridge``.
   that folds in ``i``, the sublayer's index in the whole pattern, not its
   index among the attention sublayers: the port's pool equals the
   reference's after a prefill and a decode step.
-- The MoE configs still raise ``NotImplementedError`` (mamba2-1.3b, the
-  ``ssm`` family, is ported: ``tests/test_torch_mamba2.py``).
+- The families still to port, ``vlm`` (llava-next-34b) and ``encdec``
+  (whisper-small), raise ``NotImplementedError`` naming the family
+  (mamba2-1.3b, the ``ssm`` family, is ported:
+  ``tests/test_torch_mamba2.py``; the ``moe_lm`` family:
+  ``tests/test_torch_moe.py``).
 """
 
 import dataclasses
@@ -282,11 +285,11 @@ def test_int8_pool_seeds_fold_the_pattern_index(weights):
     np.testing.assert_allclose(tcache["rec_h"].numpy(), np.asarray(jcache["rec_h"]), atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-small"])
 def test_unported_families_still_refused(arch):
     """The reference's configs of the families still to port, carried into
     the port's ``ModelConfig``: init, the caches and the forward refuse
-    them, MoE with its own message."""
+    them, each naming its family."""
     j = jax_smoke(arch)
     fields = {f.name: getattr(j, f.name) for f in dataclasses.fields(ModelConfig)
               if f.name != "analog"}
@@ -295,7 +298,7 @@ def test_unported_families_still_refused(arch):
                lambda: TTF.init_paged_decode_cache(cfg, 1, 4, 8, device="cpu"),
                lambda: TTF.init_decode_cache(cfg, 1, 16, device="cpu"),
                lambda: TTF.lm_forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)):
-        with pytest.raises(NotImplementedError, match="MoE"):
+        with pytest.raises(NotImplementedError, match=f"got {cfg.family} "):
             fn()
     with pytest.raises(KeyError, match="unknown arch"):
         get_config(arch)
