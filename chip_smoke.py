@@ -252,6 +252,41 @@ Phases, each fatal on failure (non-zero exit, no result line):
    replayed tick against its byte bound.  (f), in phase 7: both smoke
    configs in f32, card against CPU (logits within REF_ATOL, streams
    equal).  Prints its wall time.
+4k. encdec (:func:`encdec_phase`, run after 4j): whisper-small at full
+   width and depth (12 + 12 layers, d 768, H 12 of 64, GELU d_ff 3072,
+   tied 51865-column head; seed 0, bf16), served by the dense step alone,
+   as the reference serves it.  ``wta_sample`` at its head, (4, 51865)
+   and the first token's (1, 51865), counts and decisions equal to the
+   plain version's.  (a) 8 requests of 1500 std-1 frame embeddings (30 s
+   of audio) and a 4-token prompt, each prefilled alone (B = 1, max_len
+   448), inserted into a slot of a 4-wide dense cache by
+   ``make_cache_insert``, decoded to 64 new tokens through
+   ``DenseGraphs`` in two waves; greedy and WTA, each compiled and eager
+   with equal streams and launches (``wta_sample`` one a step and one a
+   first token, no attention kernel); prefill and step ms, tokens/s, peak
+   memory, a profiled replayed step against its byte bound, the f32 casts
+   of ``ck`` / ``cv`` a step; whether zeroing them moves the logits and
+   the next token.  (b) An f32 copy: prefill + 8 decode steps against
+   ``decode_train``'s forward, logits within 1e-4 of their largest,
+   greedy tokens equal.  (c) One ``analog_stochastic`` step at batch 8 x
+   128: ``crossbar_mac`` 6 reads an encoder layer and 10 a decoder layer
+   (192 + 192 prepasses), no ``sigmoid_sample`` or ``wta_sample``, the
+   first read at each of its three shapes checked and timed; finite
+   loss, step ms, peak memory.  (d), in phase 7: the smoke config in f32,
+   card against CPU.  Prints its wall time.
+4l. vlm (:func:`vlm_phase`, run after 4k): llava-next-34b at full width
+   (d 7168, H 56 / Hkv 8 / Dh 128, SwiGLU d_ff 20480, V 64000) cut to 8 of
+   60 layers (seed 0, bf16).  (a) Served as a token LM, as the reference
+   serves it (:func:`cut_serve`): compiled = eager, decode attention 8 a
+   step and prefill 8 a chunk, init time, peak memory, a profiled tick
+   against its byte bound.  (b) Two requests of 576 patch embeddings
+   (x 0.02) and 448 prompt tokens through the dense prefill with
+   ``patches`` (1024 positions) and 8 decode steps, against
+   ``lm_forward(..., prefix_embeds)``: bf16 logits within 2^-5 of their
+   largest; on an f32 copy of the first 2 layers within 1e-4, greedy
+   tokens equal.  (c), in phase 7: the smoke config in f32, card against
+   CPU (the patch prefix's logits, the paged engine's streams).  Prints
+   its wall time.
 4e. loop (:func:`loop_phase`): (a) ``examples/train_lm_torch.py``'s
    stablelm-100m at batch 8 x 256, full depth, 12 steps through
    ``train.loop.run`` with a checkpoint every 4, clean and again with a
@@ -313,7 +348,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    so that its sampler calls can be recorded) gives the same streams on
    the card and on the CPU (a divergence is printed with both sides'
    votes at it, and fails); five smoke FCNN training steps and its
-   predictions agree card vs CPU; 4i (e) and 4j (f).
+   predictions agree card vs CPU; 4i (e), 4j (f), 4k (d) and 4l (c).
 
 The second-to-last line is the ``kernels`` JSON record; the last is
 ``{"ok": true, "device": {...}}``.  With ``--ab DIR`` only phases 1-2 run,
@@ -4594,6 +4629,392 @@ def moe_train(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4k: whisper-small, the encoder-decoder (served by the dense step
+# alone, as in the reference).
+# ---------------------------------------------------------------------------
+
+# (a): 8 requests of 1500 std-1 frame embeddings (30 s of audio) and a
+# 4-token decoder prompt, in two waves over a 4-slot dense cache of
+# Whisper's decoder length, 64 new tokens each
+ENCDEC_REQUESTS, ENCDEC_SLOTS = 8, 4
+ENCDEC_PROMPT, ENCDEC_NEW = 4, 64
+ENCDEC_MAX_LEN = 448
+# (b): an f32 copy's prefill and decode steps against decode_train's
+# forward over the same tokens, both on the card with TF32 off; the decode
+# readout sums in another order than attend_full, so the logits agree
+# within this fraction of their largest magnitude, and the greedy tokens
+# exactly
+ENCDEC_F32_STEPS = 8
+ENCDEC_F32_RTOL = 1e-4
+# (c): every projection reads the crossbar: 6 an encoder layer (q, k, v, o;
+# w_up through the comparator, its output the activation; w_down), 10 a
+# decoder layer (4 self-attention, 4 cross-attention, the MLP's 2); the
+# tied head stays digital
+ENCDEC_CB_ENC, ENCDEC_CB_DEC = 6, 10
+ENCDEC_CB_SHAPES = (((768, 768), False), ((768, 3072), True), ((3072, 768), False))
+
+
+def encdec_phase(dev) -> dict:
+    """Phase 4k: whisper-small at full width and depth (12 + 12 layers, d
+    768, H 12 of 64, GELU d_ff 3072, tied 51865-column head; seed 0,
+    bf16): ``wta_sample`` at its head against the plain version; (a) the
+    dense server greedy and WTA, each compiled and eager
+    (:func:`encdec_serve`), a profiled replayed step against its byte
+    bound, the f32 casts of the cross cache a step, and whether zeroing
+    ``ck`` / ``cv`` moves the step (:func:`encdec_cross_probe`); (b) an
+    f32 copy's prefill + decode against ``decode_train``
+    (:func:`encdec_f32`); (c) one ``analog_stochastic`` training step
+    (:func:`analog_step`).  (d) runs with phase 7 (:func:`reference_encdec`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model_fns
+    from repro_torch.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-small")
+    t0 = time.perf_counter()
+    params = get_model_fns(cfg).init(0, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  init whisper-small ({cfg.enc_layers} + {cfg.dec_layers} layers d{cfg.d_model} "
+        f"H{cfg.n_heads} Dh{cfg.head_dim} {cfg.mlp} ff{cfg.d_ff} V{cfg.vocab} tied; "
+        f"{n_params / 1e9:.4f} B parameters) in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    errs = []
+    cases = []
+    for n, dt, what in ((ENCDEC_SLOTS, torch.bfloat16, "a decode step"),
+                        (1, torch.bfloat16, "a first token")):
+        case = wta_sample_case(gen, dev, n, cfg.vocab, dt, layout="per slot")
+        check_wta_sample(f"({n}, {cfg.vocab}) T=32 per-slot keys, step (whisper-small, "
+                         f"{what})", *case, 32, errs)
+        cases.append({"case": f"({n}, {cfg.vocab}) T=32 bf16, checked", "columns": cfg.vocab})
+    frames = torch.randn((ENCDEC_REQUESTS, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (ENCDEC_REQUESTS, ENCDEC_PROMPT), generator=gen,
+                            device=dev, dtype=torch.int32)
+    with torch.no_grad():   # first uses (cuBLAS handles, kernels' modules) before the timings
+        cache, _ = get_model_fns(cfg).prefill(params, {"frames": frames[:1],
+                                                       "tokens": prompts[:1]}, cfg, ENCDEC_MAX_LEN)
+        get_model_fns(cfg).decode_step(params, cache, prompts[:1, 0], cfg)
+        del cache
+    res = {"wta_cases": cases, "wta_errs": errs}
+    log(f"  (a) {ENCDEC_REQUESTS} requests of {cfg.enc_seq} std-1 frames and {ENCDEC_PROMPT} "
+        f"prompt tokens, {ENCDEC_NEW} new tokens each, {ENCDEC_SLOTS} slots of "
+        f"{ENCDEC_MAX_LEN}: greedy and WTA, compiled and eager")
+    for mode, wta in (("greedy", False), ("wta", True)):
+        runs = {g: encdec_serve(params, cfg, frames, prompts, dev, graphs=g, wta=wta)
+                for g in (True, False)}
+        g, e = runs[True], runs[False]
+        if g["streams"] != e["streams"] or g["launches"] != e["launches"]:
+            raise AssertionError(f"4k {mode}: compiled and eager serves differ "
+                                 f"({g['launches']} against {e['launches']})")
+        want_wta = ENCDEC_REQUESTS + ENCDEC_REQUESTS // ENCDEC_SLOTS * (ENCDEC_NEW - 1) if wta \
+            else 0
+        if g["launches"] != {"decode": 0, "prefill": 0, "stoch_round": 0, "write_kv_int8": 0,
+                             "wta_sample": want_wta}:
+            raise AssertionError(f"4k {mode}: launches {g['launches']}, expected wta_sample "
+                                 f"{want_wta} and no attention kernel")
+        moving = sum(len(set(s)) > 1 for s in g["streams"])
+        log(f"  4k {mode}: compiled = eager on {len(g['streams'])} streams (launches "
+            f"{g['launches']}); {moving} streams move from token to token")
+        res[mode] = {"graphs": {k: v for k, v in g.items() if k != "streams"},
+                     "eager": {k: v for k, v in e.items() if k != "streams"},
+                     "launches": g["launches"], "streams": g["streams"]}
+    agree = sum(a == b for s, t in zip(res["greedy"]["streams"], res["wta"]["streams"])
+                for a, b in zip(s, t))
+    log(f"  4k WTA vs greedy tokens: {agree}/{ENCDEC_REQUESTS * ENCDEC_NEW} equal")
+    if agree == ENCDEC_REQUESTS * ENCDEC_NEW:
+        raise AssertionError("the WTA serve emitted the greedy tokens: the sampler did not draw")
+    res["probe"] = encdec_cross_probe(params, cfg, frames, prompts, dev)
+    log(f"  (b) an f32 copy: prefill + {ENCDEC_F32_STEPS} decode steps against decode_train")
+    res["f32"] = encdec_f32(params, cfg, frames, prompts, dev)
+    del params
+    torch.cuda.empty_cache()
+    log("  (c) one analog_stochastic training step")
+    res["train"] = analog_step(dev, "whisper-small", {
+        "sigmoid_sample": 0, "wta_sample": 0,
+        "crossbar_mac": ENCDEC_CB_ENC * cfg.enc_layers + ENCDEC_CB_DEC * cfg.dec_layers},
+        ENCDEC_CB_SHAPES, "4k c", timed=True)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 4k wall time {res['wall_s']:.1f} s")
+    return res
+
+
+def encdec_serve(params, cfg, frames, prompts, dev, *, graphs: bool, wta: bool) -> dict:
+    """Phase 4k (a): the requests in waves of ENCDEC_SLOTS.  Each is
+    prefilled alone (B = 1: encode, cross K/V, prompt) through
+    ``get_model_fns(cfg).prefill``, its first token sampled by
+    ``make_sample0`` (its own key, step 0), and inserted into its slot of
+    one dense cache with ``make_cache_insert``; then ENCDEC_NEW - 1 decode
+    steps through ``DenseGraphs`` (captured on its first call, replayed
+    after; or eager on the same buffers).  The streams, the launches
+    (reset just before, read just after), the median prefill and decode
+    step ms, tokens/s over both waves and the peak memory; compiled, a
+    profiled replayed step beside its byte bound, and the device ms of the
+    step's f32 casts of ``ck`` / ``cv`` alone."""
+    from repro_torch import random as R
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import get_model_fns
+    from repro_torch.optim import tree_leaves
+
+    wcfg = dataclasses.replace(cfg, wta_head=wta)
+    prefill = get_model_fns(wcfg).prefill
+    sample0 = SP.make_sample0(wcfg)
+    insert = SP.make_cache_insert(wcfg)
+    b = ENCDEC_SLOTS
+    torch.cuda.reset_peak_memory_stats()
+    cache = SP.init_decode_cache(wcfg, b, ENCDEC_MAX_LEN, device=dev)
+    dec = SP.DenseGraphs(wcfg, params, {b: cache}, capture=graphs)
+    base = R.PRNGKey(29)
+    streams, prefill_ms, step_ms = [], [], []
+    reset_kernel_counters()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    with torch.no_grad():
+        for w0 in range(0, len(prompts), b):
+            toks = np.zeros(b, np.int32)
+            for slot in range(b):
+                r = w0 + slot
+                t0 = time.perf_counter()
+                one, logits = prefill(params, {"frames": frames[r:r + 1],
+                                               "tokens": prompts[r:r + 1]}, wcfg, ENCDEC_MAX_LEN)
+                tok = sample0(logits, R.fold_in(base, r))
+                insert(cache, one, slot)
+                toks[slot] = int(tok[0])
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            keys = np.array([R.fold_in(base, w0 + s) for s in range(b)], np.int64)
+            out = [toks]
+            for t in range(1, ENCDEC_NEW):
+                t0 = time.perf_counter()
+                (tok,) = dec(out[-1], *((keys, np.full(b, t, np.int64)) if wta else ()))
+                out.append(tok.cpu().numpy())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            streams += np.stack(out, 1).tolist()
+    wall = time.perf_counter() - t_all
+    launches = kernel_counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tag = f"[{'graphs' if graphs else 'eager'}] {'wta' if wta else 'greedy'}"
+    rec = {"streams": streams, "launches": launches,
+           "prefill_ms": float(np.median(prefill_ms)), "first_prefill_ms": prefill_ms[0],
+           "decode_step_ms": float(np.median(step_ms)),
+           "tokens_per_s": len(streams) * ENCDEC_NEW / wall, "peak_gib": peak}
+    log(f"  4k {tag}: prefill {rec['prefill_ms']:.2f} ms a request (median; the first "
+        f"{prefill_ms[0]:.1f}), decode step {rec['decode_step_ms']:.3f} ms (median, B = {b}), "
+        f"{rec['tokens_per_s']:.1f} tok/s over both waves, peak memory {peak:.2f} GiB")
+    if graphs:
+        entry = dec.entries[(b,)]
+        prof = profiled_call(entry.graph.replay, n=5)
+        # the step reads every decoder weight but the cross-attention's wk /
+        # wv (ck / cv hold their products since the prefill)
+        dec = params["dec"]
+        unread = [dec["cross_attn"]["wk"], dec["cross_attn"]["wv"]]
+        dec_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(dec)) - sum(
+            t.numel() * t.element_size() for t in unread)
+        emb = params["embed"]["embedding"]
+        cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+        nbytes = dec_bytes + emb.numel() * emb.element_size() + cache_bytes
+        cast_ms = replay_ms(lambda: [cache["ck"].float(), cache["cv"].float()], dev)
+        # a cast reads each element once in the model's dtype, writes it once in f32
+        cast_bytes = sum(cache[n].numel() * (cache[n].element_size() + 4) for n in ("ck", "cv"))
+        rec.update(profile=prof, step_bytes=nbytes, step_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   cross_cast_ms=cast_ms, cross_cast_bytes=cast_bytes,
+                   cross_cast_bound_ms=cast_bytes / HBM_BYTES_PER_S * 1e3)
+        log(f"  4k {tag}: a replayed step {prof['device_ms']:.3f} ms on the device "
+            f"({prof['kernels']:.0f} kernels), against a byte bound of "
+            f"{rec['step_bound_ms']:.3f} ms ({nbytes / 1e9:.3f} GB: the decoder's weights but "
+            f"cross_attn wk / wv, the tied embedding and the cache, once); its kernels by "
+            f"device time (that trace):")
+        for name, ms, count in prof["top"]:
+            log(f"    {ms:8.3f} ms/call  {count:6.1f}x  {name}")
+        log(f"  4k {tag}: the f32 casts of ck / cv alone {cast_ms:.3f} ms a step (their "
+            f"bytes' bound {rec['cross_cast_bound_ms']:.3f} ms: {cast_bytes / 1e9:.3f} GB, "
+            f"read in bf16 and written in f32 once)")
+    del dec, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def encdec_cross_probe(params, cfg, frames, prompts, dev) -> dict:
+    """Whether the decode step reads the cross cache: each of the first
+    ENCDEC_SLOTS requests prefilled alone, then one decode step of its
+    greedy token with ``ck`` / ``cv`` as the prefill left them and zeroed:
+    the largest logit change, and how many next tokens move."""
+    from repro_torch.models import encdec as ED
+
+    moved, deltas = 0, []
+    with torch.no_grad():
+        for r in range(ENCDEC_SLOTS):
+            cache, lg = ED.encdec_prefill(params, frames[r:r + 1], prompts[r:r + 1], cfg,
+                                          ENCDEC_MAX_LEN)
+            tok = lg.argmax(-1).to(torch.int32)
+            zeroed = {n: v.clone() for n, v in cache.items()}
+            zeroed["ck"].zero_()
+            zeroed["cv"].zero_()
+            _, a = ED.encdec_decode_step(params, cache, tok, cfg)
+            _, b = ED.encdec_decode_step(params, zeroed, tok, cfg)
+            deltas.append(float((a.float() - b.float()).abs().max()))
+            moved += int(a.argmax(-1) != b.argmax(-1))
+    log(f"  4k probe: zeroing ck / cv before one decode step moves the logits by max|Δ| "
+        f"{max(deltas):.4f} (median {float(np.median(deltas)):.4f}) and the next greedy token "
+        f"of {moved}/{ENCDEC_SLOTS} requests")
+    if max(deltas) == 0.0:
+        raise AssertionError("4k: the decode step does not read the cross cache")
+    return {"max_delta": max(deltas), "median_delta": float(np.median(deltas)), "moved": moved,
+            "requests": ENCDEC_SLOTS}
+
+
+def encdec_f32(params, cfg, frames, prompts, dev) -> dict:
+    """Phase 4k (b): an f32 copy, two requests prefilled together and
+    ENCDEC_F32_STEPS greedy decode steps, against ``decode_train``'s full
+    forward over the prompts and the generated tokens (on ``encode`` of
+    the same frames): logits within ENCDEC_F32_RTOL of their largest
+    magnitude, greedy tokens equal."""
+    from repro_torch.models import encdec as ED
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_float(params)
+    fr, pr = frames[:2], prompts[:2]
+    with torch.no_grad():
+        cache, lg = ED.encdec_prefill(p32, fr, pr, c32, ENCDEC_PROMPT + ENCDEC_F32_STEPS)
+        logits, toks = [lg], [lg.argmax(-1).to(torch.int32)]
+        for _ in range(ENCDEC_F32_STEPS):
+            cache, lg = ED.encdec_decode_step(p32, cache, toks[-1], c32)
+            logits.append(lg)
+            toks.append(lg.argmax(-1).to(torch.int32))
+        seq = torch.cat([pr, torch.stack(toks[:-1], 1)], dim=1)
+        full = ED.decode_train(p32, seq, ED.encode(p32, fr, c32), c32)[:, ENCDEC_PROMPT - 1:]
+    got = torch.stack(logits, 1)
+    err, scale = float((got - full).abs().max()), float(full.abs().max())
+    same = torch.equal(full.argmax(-1).to(torch.int32), torch.stack(toks, 1))
+    log(f"  4k (b) f32: prefill + {ENCDEC_F32_STEPS} decode steps against decode_train: "
+        f"max|Δ logit| {err:.3e} of max|logit| {scale:.3f} ({err / scale:.2e}, gate "
+        f"{ENCDEC_F32_RTOL}); greedy tokens equal {same}")
+    if err > ENCDEC_F32_RTOL * scale or not same:
+        raise AssertionError("4k (b): the f32 prefill + decode disagrees with decode_train")
+    del p32, cache
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "max_logit": scale, "tokens_equal": same}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4l: llava-next-34b, the vision-language model (a decoder LM with a
+# patch prefix), cut in depth.
+# ---------------------------------------------------------------------------
+
+VLM_CUT_LAYERS = 8
+# (b): 576 patches (the base 336 px tile) and a 448-token prompt: 1024
+# positions, one KV chunk of attend_full; 8 decode steps make 1032, which
+# splits into one chunk of 1032
+VLM_PROMPT, VLM_DECODE = 448, 8
+# a bf16 prefill and decode against lm_forward: each layer's output
+# rounds to bf16 after sums in other orders (the decode readout against
+# attend_full, GEMMs of other M), so the logits agree within 8 bf16 ulps of
+# their largest magnitude; the greedy tokens are gated on an f32 copy of
+# the first VLM_F32_LAYERS layers, within VLM_F32_RTOL
+VLM_BF16_RTOL = 2.0**-5
+VLM_F32_LAYERS = 2
+VLM_F32_RTOL = 1e-4
+
+
+def vlm_phase(dev) -> dict:
+    """Phase 4l: llava-next-34b at full width (d 7168, H 56 / Hkv 8 / Dh
+    128, SwiGLU d_ff 20480, V 64000) cut to VLM_CUT_LAYERS of 60 layers
+    (seed 0, bf16): (a) served as a token LM (:func:`cut_serve`: compiled =
+    eager, decode attention 8 a step, prefill 8 a chunk, profiled); (b)
+    the patch prefix through the dense prefill and decode steps against
+    ``lm_forward`` with the prefix (:func:`vlm_prefix`), in bf16 and on an
+    f32 copy of the first VLM_F32_LAYERS layers.  (c) runs with phase 7
+    (:func:`reference_vlm`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (a) served as a token LM, cut to {VLM_CUT_LAYERS} layers")
+    res = {"cut": cut_serve("llava-next-34b", VLM_CUT_LAYERS, dev, profile=True)}
+    dec, pre = res["cut"]["launches"]["decode"], res["cut"]["launches"]["prefill"]
+    if dec % VLM_CUT_LAYERS or pre % VLM_CUT_LAYERS or not dec or not pre:
+        raise AssertionError(f"4l: attention launches {dec} decode, {pre} prefill: not "
+                             f"{VLM_CUT_LAYERS} a step and a chunk")
+    log(f"  4l: decode attention {dec // VLM_CUT_LAYERS} steps x {VLM_CUT_LAYERS} layers, "
+        f"prefill {pre // VLM_CUT_LAYERS} chunks x {VLM_CUT_LAYERS}")
+    cfg = dataclasses.replace(get_config("llava-next-34b"), n_layers=VLM_CUT_LAYERS)
+    params = init_lm(cfg, seed=0, device=dev)
+    log(f"  (b) the patch prefix: {cfg.n_patches} patches and {VLM_PROMPT} prompt tokens, "
+        f"{VLM_DECODE} decode steps")
+    res["prefix"] = vlm_prefix(params, cfg, dev, VLM_BF16_RTOL, gate_tokens=False)
+    c32 = dataclasses.replace(cfg, n_layers=VLM_F32_LAYERS, dtype="float32")
+    p32 = first_units(params, VLM_F32_LAYERS, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    res["prefix_f32"] = vlm_prefix(p32, c32, dev, VLM_F32_RTOL, gate_tokens=True)
+    del p32
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 4l wall time {res['wall_s']:.1f} s")
+    return res
+
+
+def vlm_prefix(params, cfg, dev, rtol: float, gate_tokens: bool) -> dict:
+    """Phase 4l (b): two requests of ``cfg.n_patches`` seeded patch
+    embeddings (x 0.02, as ``lm_batch`` draws them) and VLM_PROMPT prompt
+    tokens through ``get_model_fns(cfg).prefill`` with ``patches`` into a
+    dense cache, then VLM_DECODE greedy decode steps, against
+    ``lm_forward(..., prefix_embeds)`` over the prompts and the generated
+    tokens: logits within ``rtol`` of their largest magnitude; the greedy
+    tokens equal where ``gate_tokens`` (printed otherwise).  The attention
+    kernels launch nowhere here (the dense path)."""
+    from repro_torch.models import get_model_fns
+    from repro_torch.models import transformer as TF
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    patches = torch.randn((2, cfg.n_patches, cfg.d_model), generator=gen, device=dev) * 0.02
+    prompt = torch.randint(0, cfg.vocab, (2, VLM_PROMPT), generator=gen, device=dev,
+                           dtype=torch.int32)
+    s = cfg.n_patches + VLM_PROMPT
+    fns = get_model_fns(cfg)
+    reset_kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, lg = fns.prefill(params, {"tokens": prompt, "patches": patches}, cfg,
+                                s + VLM_DECODE)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if cache["pos"].tolist() != [s, s]:
+            raise AssertionError(f"4l: pos {cache['pos'].tolist()} after the prefill, not {s}")
+        logits, toks = [lg], [lg.argmax(-1).to(torch.int32)]
+        for _ in range(VLM_DECODE):
+            cache, lg = fns.decode_step(params, cache, toks[-1], cfg)
+            logits.append(lg)
+            toks.append(lg.argmax(-1).to(torch.int32))
+        seq = torch.cat([prompt, torch.stack(toks[:-1], 1)], dim=1)
+        full, _ = TF.lm_forward(params, seq, cfg, None, patches)
+        full = full[:, s - 1:]
+    launches = kernel_counters()
+    got = torch.stack(logits, 1).float()
+    full = full.float()
+    err, scale = float((got - full).abs().max()), float(full.abs().max())
+    same = torch.equal(full.argmax(-1).to(torch.int32), torch.stack(toks, 1))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    label = f"{cfg.n_layers} layers {cfg.dtype}"
+    log(f"  4l (b) {label}: prefill of {s} positions {prefill_ms:.1f} ms; prefill + "
+        f"{VLM_DECODE} decode steps against lm_forward with the prefix: max|Δ logit| "
+        f"{err:.3e} of max|logit| {scale:.3f} ({err / scale:.2e}, gate {rtol:.2e}); greedy "
+        f"tokens equal {same}" + ("" if gate_tokens else " (not gated)")
+        + f"; peak memory {peak:.2f} GiB; launches {launches}")
+    if err > rtol * scale or (gate_tokens and not same):
+        raise AssertionError(f"4l (b) {label}: the prefix prefill + decode disagrees with "
+                             f"lm_forward")
+    if any(launches.values()):
+        raise AssertionError(f"4l (b): the dense path launched {launches}")
+    return {"max_abs_err": err, "max_logit": scale, "tokens_equal": same,
+            "prefill_ms": prefill_ms, "positions": s, "peak_gib": peak, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the stochastic-rounding and WTA vote-count entry points.
 # ---------------------------------------------------------------------------
 
@@ -5210,13 +5631,13 @@ def loop_phase_c(dev, ckpt_root: Path) -> dict:
     with contextlib.redirect_stdout(buf):
         served = LS.main([*args, "--ckpt-dir", str(d)])
     launches = launches_since(before)
-    real = LS.init_lm
-    LS.init_lm = lambda c, seed=0, device=None: params
+    real = LS.get_model_fns
+    LS.get_model_fns = lambda c: real(c)._replace(init=lambda seed, c2, device=None: params)
     try:
         with contextlib.redirect_stdout(io.StringIO()):
             direct = LS.main(args)
     finally:
-        LS.init_lm = real
+        LS.get_model_fns = real
     shutil.rmtree(d, ignore_errors=True)
     loaded = "loaded checkpoint step 7" in buf.getvalue()
     n = sum(map(len, served))
@@ -5315,7 +5736,7 @@ def check_serving_report(report: dict) -> dict:
             "paged_vs_dense": pvd, "engines": report["engines"]}
 
 
-def profiled_call(fn, n: int = 10, tries: int = 3) -> dict:
+def profiled_call(fn, n: int = 10, tries: int = 3, k: int = 8) -> dict:
     """Device ms of one call of ``fn`` (every kernel and copy it puts on
     the card, summed from the profiler over ``n`` calls), its kernels and
     host-to-device copies a call.  The public wrappers copy a Python seed
@@ -5327,7 +5748,9 @@ def profiled_call(fn, n: int = 10, tries: int = 3) -> dict:
     the edges of its window (seen late in a long process: one call's
     kernel and copy of ten), which then fall on a marker.  A trace whose
     counts are not whole multiples of ``n`` is taken again, up to
-    ``tries`` times, then raises."""
+    ``tries`` times, then raises.  ``top`` lists the ``k`` event names
+    that take most of the checked trace's device time: (name, ms a call,
+    events a call)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -5359,8 +5782,13 @@ def profiled_call(fn, n: int = 10, tries: int = 3) -> dict:
         h2d = sum("HtoD" in e.name for e in events)
         seen.append((kernels, h2d))
         if kernels > 0 and kernels % n == 0 and h2d % n == 0:
+            by_name: dict[str, list] = {}
+            for e in events:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+            top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:k]
             return {"device_ms": sum(e.time_range.elapsed_us() for e in events) / 1e3 / n,
-                    "kernels": kernels / n, "h2d": h2d / n}
+                    "kernels": kernels / n, "h2d": h2d / n,
+                    "top": [(name[:90], sum(ms) / n, len(ms) / n) for name, ms in top]}
     raise AssertionError(f"the profiler lost events in {tries} traces of {n} calls "
                          f"(kernels, host-to-device copies): {seen}")
 
@@ -5851,6 +6279,90 @@ def reference_moe(dev) -> None:
             raise AssertionError(f"{arch} greedy streams differ card vs CPU")
 
 
+def reference_encdec(dev) -> None:
+    """Phase 4k (d): whisper-small's smoke config in f32 (seed 1), the same
+    parameters on the card and on the CPU: two requests' std-1 frames and
+    6-token prompts prefilled together and 8 greedy decode steps, logits
+    within REF_ATOL, greedy streams equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import encdec as ED
+
+    cfg = dataclasses.replace(get_smoke_config("whisper-small"), dtype="float32")
+    host = ED.init_encdec(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(2)
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.enc_seq, cfg.d_model))
+                              .astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 6)).astype(np.int32))
+    logits, streams = {}, {}
+    with torch.no_grad():
+        for d in ("cpu", dev):
+            params = _tree_to(host, d)
+            cache, lg = ED.encdec_prefill(params, frames.to(d), toks.to(d), cfg, 32)
+            out, tok = [lg], lg.argmax(-1).to(torch.int32)
+            stream = [tok.cpu()]
+            for _ in range(8):
+                cache, lg = ED.encdec_decode_step(params, cache, tok, cfg)
+                out.append(lg)
+                tok = lg.argmax(-1).to(torch.int32)
+                stream.append(tok.cpu())
+            logits[str(d)] = [x.float().cpu() for x in out]
+            streams[str(d)] = torch.stack(stream, 1).tolist()
+    err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[str(dev)]))
+    log(f"  (4k d) whisper-small smoke f32: prefill and decode logits card vs CPU max|err| "
+        f"{err:.3e} (atol {REF_ATOL}); greedy streams equal {streams['cpu'] == streams[str(dev)]}")
+    if err > REF_ATOL:
+        raise AssertionError("whisper-small card logits disagree with the CPU plain path")
+    if streams["cpu"] != streams[str(dev)]:
+        raise AssertionError("whisper-small greedy streams differ card vs CPU")
+
+
+def reference_vlm(dev) -> None:
+    """Phase 4l (c): llava-next-34b's smoke config in f32 (seed 1), the same
+    parameters on the card and on the CPU: two requests of 8 std-1 patch
+    embeddings and 24 prompt tokens through the dense prefill and 3 greedy
+    decode steps, logits within REF_ATOL; then the paged engine's greedy
+    streams (a token LM, no patches) on tests/test_serving.py's mixed
+    trace, equal token for token (the card's engine compiled)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("llava-next-34b"), dtype="float32")
+    host = TF.init_lm(cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(3)
+    patches = torch.from_numpy(rng.standard_normal((2, cfg.n_patches, cfg.d_model))
+                               .astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    prompts = [[5, 6, 7, 1, 2, 3, 4, 9], [1, 2, 3], [9, 8, 7, 6, 5, 4, 3, 2], [4] * 20,
+               [11, 12], [7] * 13]
+    logits, streams = {}, {}
+    for d in ("cpu", dev):
+        params = _tree_to(host, d)
+        with torch.no_grad():
+            cache, lg = TF.lm_prefill(params, toks.to(d), cfg, 48, prefix_embeds=patches.to(d))
+            out, tok = [lg], lg.argmax(-1).to(torch.int32)
+            for _ in range(3):
+                cache, lg = TF.lm_decode_step(params, cache, tok, cfg)
+                out.append(lg)
+                tok = lg.argmax(-1).to(torch.int32)
+        logits[str(d)] = [x.float().cpu() for x in out]
+        eng = ServingEngine(params, cfg, ServeConfig(max_batch=3, max_new_tokens=8, max_len=64,
+                                                     kv_block_size=8, prefill_chunk=8),
+                            device=d)
+        for p in prompts:
+            eng.submit(p)
+        streams[str(d)] = eng.run()
+        del eng
+    err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[str(dev)]))
+    log(f"  (4l c) llava-next-34b smoke f32: prefix prefill and decode logits card vs CPU "
+        f"max|err| {err:.3e} (atol {REF_ATOL}); paged greedy streams equal "
+        f"{streams['cpu'] == streams[str(dev)]}")
+    if err > REF_ATOL:
+        raise AssertionError("llava-next-34b card logits disagree with the CPU plain path")
+    if streams["cpu"] != streams[str(dev)]:
+        raise AssertionError("llava-next-34b greedy streams differ card vs CPU")
+
+
 def dense_card_vs_cpu(host: dict, cfg, toks, dev) -> float:
     """The dense layout's prefill of two prompts (one left-padded) and three
     decode steps, on the card and on the CPU from the same parameters:
@@ -6287,6 +6799,13 @@ def main() -> int:
         "granite's and grok's heads, sharing / chunked prefill / preemption / rollback on a "
         "drop-free f32 copy, one analog step with the WTA router, grok-1-314b cut to 4 layers")
     jres = moe_phase(dev)
+    log("== 4k: whisper-small at full width and depth (encoder-decoder, the dense serve step: "
+        "greedy and WTA compiled = eager, the cross cache probed; an f32 copy against "
+        "decode_train; one analog training step)")
+    kres4 = encdec_phase(dev)
+    log("== 4l: llava-next-34b at full width cut to 8 layers (served as a token LM; the patch "
+        "prefix through the dense prefill and decode against lm_forward)")
+    lres4 = vlm_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
     reference_wta(dev)
@@ -6294,6 +6813,8 @@ def main() -> int:
     reference_fcnn(dev)
     reference_ssm(dev)
     reference_moe(dev)
+    reference_encdec(dev)
+    reference_vlm(dev)
 
     launches = dict(sres["same"]["launches"])
     launches["write_kv_int8"] = sres["int8"]["launches"]["write_kv_int8"]
@@ -6410,6 +6931,26 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "crossbar_mac")["reads_4j"] = jres["train"]["reads"]
     next(k for k in kernels if k["name"] == "wta_sample")["router_err_4j"] = \
         jres["train"]["router_err"]
+    # phases 4k and 4l: whisper's dense serves and analog step, llava's
+    # token-LM serve and its prefix runs, each reset just before it and
+    # read just after (the dense paths launch no attention kernel)
+    for name, key in (("paged_attention", "decode"), ("paged_prefill_attention", "prefill"),
+                      ("write_kv_int8", "write_kv_int8"), ("wta_sample", "wta_sample")):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_4k"] = {f"whisper {mode} {run}": kres4[mode][run]["launches"][key]
+                              for mode in ("greedy", "wta") for run in ("graphs", "eager")}
+        rec["launches_4l"] = {"llava prefix": lres4["prefix"]["launches"][key],
+                              "llava f32 prefix": lres4["prefix_f32"]["launches"][key]}
+        if key in ("decode", "prefill"):
+            rec["launches_4l"]["llava cut"] = lres4["cut"]["launches"][key]
+    for name in ("crossbar_mac", "crossbar_prepass", "sigmoid_sample", "wta_sample"):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec.setdefault("launches_4k", {})["whisper analog step"] = \
+            kres4["train"]["launches"][name]
+    next(k for k in kernels if k["name"] == "crossbar_mac")["reads_4k"] = kres4["train"]["reads"]
+    wta_rec = next(k for k in kernels if k["name"] == "wta_sample")
+    wta_rec["cases"].extend(kres4["wta_cases"])
+    wta_rec["max_abs_err_4k"] = max(kres4["wta_errs"])
     # the R = 3 serve of the same trace and the FCNN's head: their own
     # paths, counted apart
     wta_rec = next(k for k in kernels if k["name"] == "wta_sample")

@@ -1,8 +1,9 @@
 """Parameters and paged caches from the JAX package, as numpy arrays.
 
 ``params_from_numpy`` takes ``repro``'s parameter tree (``init_lm``'s
-nested dicts, units stacked on a leading axis, or ``init_fcnn``'s flat
-``{"w0", "b0", ...}``, f32 by the FCNN config's dtype) with every leaf
+nested dicts, units stacked on a leading axis, ``init_encdec``'s ``enc``
+and ``dec`` stacks beside ``embed`` and ``dec_pos``, or ``init_fcnn``'s
+flat ``{"w0", "b0", ...}``, f32 by the FCNN config's dtype) with every leaf
 already a numpy array, and returns the port's tree of tensors on
 ``device``.  It
 imports no jax: the caller converts leaves with ``np.asarray``.  Because
@@ -16,10 +17,12 @@ mixer's ``a_log``, ``d_skip`` and ``dt_bias`` and an MoE block's
 ``paged_cache_from_numpy`` carries a paged decode cache across the same
 way (pages, an int8 pool's scale planes, ``pos``, ``quant_step`` and a
 hybrid or ssm model's state), so tests can run both packages' layers on
-identical pools.
+identical pools; ``encdec_cache_from_numpy`` carries the encoder-decoder's
+dense cache (``k``, ``v``, ``ck``, ``cv``, ``pos``), so they can run both
+packages' decode steps on one cache.
 
-``train_state_from_numpy`` carries a training state across, of either
-family: parameters (made trainable), AdamW's moments in the optimizer's
+``train_state_from_numpy`` carries a training state across, of any
+family's tree: parameters (made trainable), AdamW's moments in the optimizer's
 state dtype, the step counters and the threefry key data, so both
 packages step from the same state.
 """
@@ -81,6 +84,25 @@ def paged_cache_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
             t = torch.from_numpy(np.array(arr, dtype=np.float32))
         else:
             raise KeyError(f"no paged-cache leaf {name!r} in a decoder_lm, hybrid or ssm cache")
+        out[name] = t.to(dev)
+    return out
+
+
+def encdec_cache_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """``repro``'s ``init_encdec_cache`` dict (or a prefill's or decode
+    step's cache), leaves already numpy, as the port's on ``device``:
+    ``k``, ``v``, ``ck``, ``cv`` in ``cfg.dtype`` (bf16 leaves handed over
+    as float32), ``pos`` int32."""
+    dev = resolve_device(device)
+    out = {}
+    for name, leaf in tree.items():
+        arr = np.asarray(leaf)
+        if name == "pos":
+            t = torch.from_numpy(np.array(arr, dtype=np.int32))
+        elif name in ("k", "v", "ck", "cv"):
+            t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtype_of(cfg))
+        else:
+            raise KeyError(f"no leaf {name!r} in an encdec decode cache")
         out[name] = t.to(dev)
     return out
 

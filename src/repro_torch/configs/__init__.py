@@ -1,10 +1,12 @@
-"""Per-architecture configs ported so far: the attention-only decoder LMs
-``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b`` and
-``nemotron-4-340b``, the hybrid ``recurrentgemma-2b`` (RG-LRU blocks and
-local attention), the attention-free ``mamba2-1.3b`` (Mamba-2 SSD
-mixers), the mixtures of experts ``granite-moe-3b-a800m`` and
-``grok-1-314b``, and the paper's ``fcnn-mnist``; plus the shape suite
-(``SHAPES``, ``ShapeSpec``) and each arch's ``skip_shapes``."""
+"""Per-architecture configs, every one of the reference's: the
+attention-only decoder LMs ``stablelm-3b``, ``gemma2-2b``,
+``deepseek-coder-33b`` and ``nemotron-4-340b``, the hybrid
+``recurrentgemma-2b`` (RG-LRU blocks and local attention), the
+attention-free ``mamba2-1.3b`` (Mamba-2 SSD mixers), the mixtures of
+experts ``granite-moe-3b-a800m`` and ``grok-1-314b``, the encoder-decoder
+``whisper-small``, the vision-language ``llava-next-34b`` (a decoder LM
+with a prepended patch prefix), and the paper's ``fcnn-mnist``; plus the
+shape suite (``SHAPES``, ``ShapeSpec``) and each arch's ``skip_shapes``."""
 
 from importlib import import_module
 
@@ -17,6 +19,8 @@ _MODULES = {
     "mamba2-1.3b": "mamba2_1_3b",
     "granite-moe-3b-a800m": "granite_moe_3b",
     "grok-1-314b": "grok_1_314b",
+    "whisper-small": "whisper_small",
+    "llava-next-34b": "llava_next_34b",
     "fcnn-mnist": "fcnn_mnist",
 }
 

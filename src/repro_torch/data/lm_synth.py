@@ -35,13 +35,20 @@ def lm_batch(
     cfg, *, batch: int, seq: int, step: int, seed: int = 0, shard: int = 0,
     n_shards: int = 1, device=None,
 ) -> dict:
-    """Batch for one (step, shard) of a token LM (``decoder_lm``,
-    ``moe_lm``, ``hybrid`` or ``ssm``): int32 "tokens" and "labels" (B, seq), on
-    ``device`` (the card unless ``"cpu"``)."""
-    if cfg.family not in ("decoder_lm", "moe_lm", "hybrid", "ssm"):
-        raise NotImplementedError(
-            f"lm_batch is ported for decoder_lm, moe_lm, hybrid and ssm, got {cfg.family}")
+    """Batch for one (step, shard): int32 "tokens" and "labels" (B, seq),
+    on ``device`` (the card unless ``"cpu"``).  A ``vlm`` model's batch
+    adds f32 "patches" (B, n_patches, d) · 0.02, drawn under ``fold_in(key,
+    101)``; an ``encdec`` model's adds f32 "frames" (B, seq, d) · 0.1,
+    under ``fold_in(key, 102)``, as the reference draws them."""
+    if cfg.family == "fcnn":
+        raise NotImplementedError("lm_batch draws token batches; an fcnn model takes mnist_batch")
     dev = resolve_device(device)
     key = R.fold_in(R.fold_in(R.PRNGKey(seed), step), shard)
     toks = _tokens(key, batch, seq, cfg.vocab, dev)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        out["patches"] = R.normal(R.fold_in(key, 101), (batch, cfg.n_patches, cfg.d_model),
+                                  dev) * 0.02
+    if cfg.family == "encdec":
+        out["frames"] = R.normal(R.fold_in(key, 102), (batch, seq, cfg.d_model), dev) * 0.1
+    return out

@@ -347,7 +347,9 @@ def _crossbar_forward(x2d, wf, seed: int, cfg, binarize: bool, fn) -> torch.Tens
         s = range_scale(wf)
         w_in = wf / s
         if binarize:
-            sigma = torch.tensor(PROBIT_SCALE, dtype=torch.float32, device=dev) / (cfg.beta * s)
+            # filled on the device: a host tensor copied there would wait
+            # for the stream, one sync a comparator read
+            sigma = torch.full((), PROBIT_SCALE, dtype=torch.float32, device=dev) / (cfg.beta * s)
         else:
             sigma = torch.full((), cfg.linear_sigma, dtype=torch.float32, device=dev)
     else:  # physical noise: σ comes from ΣWq, this one is not read

@@ -2,10 +2,16 @@
 layout) or the static-batch reference engine against a randomly
 initialized model, greedy or WTA sampling.  ``--arch`` takes every ported
 token-LM config: ``stablelm-3b``, ``gemma2-2b``, ``deepseek-coder-33b``,
-``nemotron-4-340b``, the hybrid ``recurrentgemma-2b`` and the
-attention-free ``mamba2-1.3b`` (``--smoke`` for their small configs),
-each through every option below (mamba2's cache has no K/V pool, so
-``--kv-dtype int8`` serves it as the float cache does).
+``nemotron-4-340b``, the hybrid ``recurrentgemma-2b``, the
+attention-free ``mamba2-1.3b``, the mixtures of experts
+``granite-moe-3b-a800m`` and ``grok-1-314b``, and ``llava-next-34b``,
+served as a token LM without patches as the reference's engine serves it
+(``--smoke`` for their small configs), each through every option below
+(mamba2's cache has no K/V pool, so ``--kv-dtype int8`` serves it as the
+float cache does).  ``whisper-small`` stops at the engine's refusal (with
+``--static`` too), as the reference's launcher does: an encoder-decoder
+needs frames, and is served by the dense step alone
+(``specs.make_serve_step``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         [--smoke] [--device cpu] [--requests 4] [--new-tokens 16] \\
@@ -46,7 +52,7 @@ import numpy as np
 from repro_torch.checkpoint import latest_step, load_checkpoint
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.backend import FaultConfig
-from repro_torch.models.transformer import init_lm
+from repro_torch.models import get_model_fns
 from repro_torch.serving import (
     DegradationPolicy,
     ServeConfig,
@@ -154,7 +160,7 @@ def main(argv=None) -> list:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, wta_head=args.wta, kv_cache_dtype=args.kv_dtype)
-    params = init_lm(cfg, seed=args.seed, device=args.device)
+    params = get_model_fns(cfg).init(args.seed, cfg, args.device)
     if args.ckpt_dir:
         step = latest_step(args.ckpt_dir)
         if step is not None:

@@ -1,7 +1,11 @@
 """The serving entry points the engine drives (``repro/launch/specs.py``):
 the paged layout's, and the dense layout's (:func:`init_decode_cache`,
 :func:`make_cache_insert`, :func:`make_serve_step`, compiled as
-:class:`DenseGraphs`).
+:class:`DenseGraphs`), which serve the encoder-decoder too: its cache
+(:func:`init_decode_cache` at ``cfg.enc_seq`` frames) holds cross K/V
+beside the self-attention K/V, slot axis 1 (:func:`cache_batch_axis`),
+and its step is ``encdec.encdec_decode_step``.  The paged entry points
+refuse it, as the reference's do.
 
 Each ``make_*`` returns a plain function on tensors that updates the pool
 in place, where the reference jits and donates.  The decode step is the
@@ -36,7 +40,8 @@ import torch
 from repro_torch.core import wta as W
 from repro_torch.kernels import backend as BK
 from repro_torch.kernels import ops as KOPS
-from repro_torch.models import ModelConfig
+from repro_torch.models import ModelConfig, get_model_fns
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 
 PAGE_POOL_LEAVES = TF.PAGE_POOL_LEAVES
@@ -62,21 +67,43 @@ DENSE_LEAVES = ("k", "v", "k_scale", "v_scale")
 STATE_LEAVES = ("rec_conv", "rec_h", "ssm_conv", "ssm_state")
 
 
-def cache_batch_axis(leaf_name: str) -> int:
-    """Slot axis of a per-slot cache leaf: ``pos`` is (B,), the dense
-    layout's K/V leaves (nu, n_attn, B, ...), the state leaves (nu, n_rec
-    or n_ssm, B, ...)."""
+# the encoder-decoder's dense cache: (L, B, max_len or enc_len, Hkv, Dh)
+ENCDEC_LEAVES = ("k", "v", "ck", "cv")
+
+
+def cache_batch_axis(cfg: ModelConfig, leaf_name: str) -> int:
+    """Slot axis of a per-slot cache leaf: ``pos`` is (B,); a token LM's
+    dense K/V leaves are (nu, n_attn, B, ...) and its state leaves (nu,
+    n_rec or n_ssm, B, ...); an encoder-decoder's leaves are (L, B, ...)."""
     if leaf_name == "pos":
         return 0
+    if cfg.family == "encdec":
+        if leaf_name in ENCDEC_LEAVES:
+            return 1
+        raise KeyError(f"no per-slot leaf {leaf_name!r} in an encdec cache")
     if leaf_name in DENSE_LEAVES or leaf_name in STATE_LEAVES:
         return 2
-    raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm, hybrid or ssm cache")
+    raise KeyError(f"no per-slot leaf {leaf_name!r} in a decoder_lm, vlm, hybrid or ssm cache")
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """The dense layout's cache for a live batch (``TF.init_decode_cache``)."""
-    _check_token_lm(cfg)
+    """The dense layout's cache for a live batch: a token LM's
+    (``TF.init_decode_cache``), or an encoder-decoder's with cross K/V
+    of ``cfg.enc_seq`` frames (``encdec.init_encdec_cache``)."""
+    if cfg.family == "encdec":
+        return ED.init_encdec_cache(cfg, batch, max_len, cfg.enc_seq, device)
+    if cfg.family == "fcnn":
+        raise ValueError("an fcnn model has no decode cache")
     return TF.init_decode_cache(cfg, batch, max_len, device)
+
+
+def init_paged_decode_cache(cfg: ModelConfig, batch: int, n_pages: int, block_size: int,
+                            device=None) -> dict:
+    """The paged pool and per-slot leaves (``TF.init_paged_decode_cache``);
+    a token LM's alone."""
+    if cfg.family == "encdec":
+        raise ValueError("paged KV cache is token-LM only (no encdec)")
+    return TF.init_paged_decode_cache(cfg, batch, n_pages, block_size, device)
 
 
 def make_cache_insert(cfg: ModelConfig):
@@ -88,7 +115,8 @@ def make_cache_insert(cfg: ModelConfig):
 
     def insert(batch_cache: dict, one_cache: dict, slot: int) -> dict:
         for name, leaf in batch_cache.items():
-            leaf.narrow(cache_batch_axis(name), slot, 1).copy_(one_cache[name].to(leaf.dtype))
+            leaf.narrow(cache_batch_axis(cfg, name), slot, 1).copy_(
+                one_cache[name].to(leaf.dtype))
         return batch_cache
 
     return insert
@@ -99,11 +127,14 @@ def make_serve_step(cfg: ModelConfig):
     (cache, token (B,) int32), the cache written and ``pos`` advanced in
     place.  With ``cfg.wta_head`` the token is :func:`sample_tokens`' WTA
     vote: ``key`` one key pair for the whole batch, or (B, 2) per-slot
-    keys with ``steps`` (B,) folded in."""
-    _check_token_lm(cfg)
+    keys with ``steps`` (B,) folded in.  The step is the family's
+    (``models.get_model_fns``): a token LM's or an encoder-decoder's."""
+    decode_step = get_model_fns(cfg).decode_step
+    if decode_step is None:
+        raise ValueError(f"family {cfg.family!r} cannot decode")
 
     def serve_step(params, cache, token, key=None, steps=None):
-        cache, logits = TF.lm_decode_step(params, cache, token, cfg)
+        cache, logits = decode_step(params, cache, token, cfg)
         return cache, sample_tokens(cfg, logits, key, steps)
 
     return serve_step
@@ -175,7 +206,7 @@ def make_paged_spec_round(cfg: ModelConfig, k: int):
         # row (j, s) of the verify holds slot s's state before input j
         view = {n: v for n, v in cache.items() if n not in states[0] and n != "quant_step"}
         for n in states[0]:
-            view[n] = torch.cat([st[n] for st in states[:-1]], dim=cache_batch_axis(n))
+            view[n] = torch.cat([st[n] for st in states[:-1]], dim=cache_batch_axis(cfg, n))
         inputs = torch.cat([token[None], dtoks[:-1]]).reshape(-1)
         _, logits = TF.lm_decode_step(params, view, inputs, cfg, table.repeat(k, 1),
                                       kv_write=False, split_batch=b)
@@ -206,7 +237,7 @@ def make_spec_rollback(cfg: ModelConfig):
 
     def rollback(cache: dict, vstates: dict, idx: int, slot: int) -> dict:
         for name, st in vstates.items():
-            ax = cache_batch_axis(name)
+            ax = cache_batch_axis(cfg, name)
             cache[name].narrow(ax, slot, 1).copy_(st[idx].narrow(ax, slot, 1))
         return cache
 
@@ -222,6 +253,7 @@ def make_paged_suffix_prefill(cfg: ModelConfig):
     batched decode of the other slots (the engine writes ``state`` at the
     slot once, on completion).  int8 pools need ``quant_seeds``: one
     content-derived uint32 seed per block the chunk covers, on the device."""
+    _check_token_lm(cfg)
 
     def suffix_chunk(params, cache: dict, state: dict, tokens, table_row, q0: int,
                      quant_seeds=None):
@@ -237,11 +269,12 @@ def make_paged_suffix_prefill(cfg: ModelConfig):
 def make_paged_state_insert(cfg: ModelConfig):
     """(cache, state_leaves{B=1}, slot) → cache: write a prefilled request's
     per-slot leaves at ``slot`` (the pool is untouched)."""
+    _check_token_lm(cfg)
 
     def insert(cache: dict, state_leaves: dict, slot: int) -> dict:
         for name, upd in state_leaves.items():
             leaf = cache[name]
-            leaf.narrow(cache_batch_axis(name), slot, 1).copy_(upd.to(leaf.dtype))
+            leaf.narrow(cache_batch_axis(cfg, name), slot, 1).copy_(upd.to(leaf.dtype))
         return cache
 
     return insert
@@ -267,6 +300,7 @@ def make_page_spill(cfg: ModelConfig):
     pages ``ids`` of every page-pool leaf, gathered into new tensors (the
     device half of a preemption; the pool is only read).  An int8 pool
     spills its scale planes with its codes, so a restore is bit-exact."""
+    _check_token_lm(cfg)
 
     def spill(cache: dict, ids: torch.Tensor) -> dict:
         idx = ids.to(cache["pos"].device, torch.int64)
@@ -281,6 +315,7 @@ def make_page_restore(cfg: ModelConfig):
     (the inverse of :func:`make_page_spill`).  Ids the engine does not want
     written point at the trash page, which nothing reads, so repeats of it
     are harmless."""
+    _check_token_lm(cfg)
 
     def restore(cache: dict, ids: torch.Tensor, payload: dict) -> dict:
         for name, rows in payload.items():
@@ -297,12 +332,14 @@ def make_slot_state_gather(cfg: ModelConfig):
     as :func:`make_paged_state_insert` takes it.  Leaves without a slot
     axis (an int8 pool's engine-wide ``quant_step``) are left out:
     restoring that counter would replay other slots' rounding draws."""
+    _check_token_lm(cfg)
 
     def gather(cache: dict, slot: int) -> dict:
         return {
-            name: leaf.narrow(cache_batch_axis(name), slot, 1)
+            name: leaf.narrow(cache_batch_axis(cfg, name), slot, 1)
             for name, leaf in cache.items()
-            if name not in PAGE_POOL_LEAVES and leaf.ndim and leaf.ndim > cache_batch_axis(name)
+            if name not in PAGE_POOL_LEAVES and leaf.ndim
+            and leaf.ndim > cache_batch_axis(cfg, name)
         }
 
     return gather
@@ -401,6 +438,7 @@ def make_paged_serve_step(
     a non-finite row, ``SANE_SATURATED`` for max|logit| above
     ``sat_threshold``, ``SANE_ENTROPY_COLLAPSE`` for softmax entropy below
     ``entropy_floor`` (checked only when the floor is positive)."""
+    _check_token_lm(cfg)
 
     def serve_step(params, cache, table, token, key=None, steps=None):
         cache, logits = TF.lm_decode_step(params, cache, token, cfg, table)

@@ -1,6 +1,8 @@
 """Training launcher: the fault-tolerant loop (``train/loop.py``:
 checkpoints, auto-resume, straggler monitor) over synthetic batches (LM
-tokens, or MNIST-surrogate images for ``fcnn-mnist``).
+tokens, with ``lm_batch``'s patch embeddings for ``llava-next-34b`` and
+its frame embeddings for ``whisper-small``, or MNIST-surrogate images for
+``fcnn-mnist``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
         [--smoke] [--analog] [--device cpu] [--steps 100] [--batch 8] \\
@@ -13,9 +15,12 @@ Takes the reference's flags (``repro/launch/train.py``) and adds
 ``--device``; runs on the card unless ``--device cpu`` is given.
 ``--analog`` trains an LM in RACA analog-stochastic mode (noise-aware
 QAT): every projection goes through the crossbar kernel (mamba2-1.3b's
-``in_proj`` and ``out_proj`` as linear reads, as in the reference); ``fcnn-mnist``'s
-config is analog already (``--analog`` is refused there).  An LM's
-weights are the port's random init from ``TrainConfig.seed`` (0), an
+``in_proj`` and ``out_proj`` as linear reads, as in the reference;
+whisper-small's encoder, decoder and cross-attention projections, its
+tied head digital); ``fcnn-mnist``'s
+config is analog already (``--analog`` is refused there).  An LM's and
+the encoder-decoder's weights are the port's random init from
+``TrainConfig.seed`` (0), an
 FCNN's the reference's ``init_fcnn(PRNGKey(0))``; the seed also seeds the
 step keys.  ``fcnn-mnist --smoke`` (64 inputs) trains on the first 64
 pixels of each image, as the reference's tests feed that config.
@@ -70,6 +75,9 @@ def main(argv=None) -> None:
     fcnn = cfg.family == "fcnn"
     if args.analog and fcnn:
         ap.error("--analog: the fcnn config runs in analog-stochastic mode already")
+    if cfg.family == "encdec" and args.seq > cfg.max_seq:
+        # the decoder's learned positions end there (the smoke config's at 64)
+        ap.error(f"--seq {args.seq}: {cfg.name}'s decoder has {cfg.max_seq} positions")
     if args.analog:
         cfg = dataclasses.replace(cfg, analog=AnalogConfig(
             mode="analog_stochastic",

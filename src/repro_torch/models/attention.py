@@ -1,5 +1,6 @@
 """Attention (``repro/models/attention.py``): the full-sequence
-self-attention of the training path and of the dense prefill, the dense
+self-attention of the training path and of the dense prefill, the
+encoder-decoder's cross-attention (:func:`cross_attention`), the dense
 decode attention (:func:`attend_one_token`, :func:`decode_self_attention`)
 and the paged attention of the serving path.
 
@@ -133,19 +134,47 @@ def self_attention(
     cfg: ModelConfig,
     kind: str = "global",
     key=None,
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence causal self-attention with RoPE: (B, S, D).  Keys:
-    ``split(key)`` into the q/k/v projections' key and w_o's."""
+    """Full-sequence self-attention (causal, local, or with ``kind="none"``
+    bidirectional), with RoPE unless ``use_rope`` is false: (B, S, D).
+    Keys: ``split(key)`` into the q/k/v projections' key and w_o's."""
     b, s, _ = x.shape
     kq = ko = None
     if key is not None:
         kq, ko = R.split(key)
     q, k, v = qkv(p, x, cfg, kq)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     qpos = positions[0] if positions.dim() == 2 else positions
     out = attend_full(q, k, v, qpos, qpos, kind, cfg).reshape(b, s, -1)
     return A.analog_matmul(_proj_cfg(cfg), ko, out, p["wo"])
+
+
+def cross_attention(
+    p: dict,
+    x: torch.Tensor,        # (B, S, D) decoder stream
+    enc_out: torch.Tensor,  # (B, T, D) encoder output
+    cfg: ModelConfig,
+    key=None,
+) -> torch.Tensor:
+    """Decoder cross-attention over the encoder's output, no mask and no
+    RoPE: q from ``x``, k and v from ``enc_out``, then w_o; (B, S, D).
+    Keys: ``split(key, 4)``, one a projection in that order."""
+    b, s, _ = x.shape
+    t = enc_out.shape[1]
+    acfg = _proj_cfg(cfg)
+    keys = (None,) * 4 if key is None else R.split(key, 4)
+    q = A.analog_matmul(acfg, keys[0], x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = A.analog_matmul(acfg, keys[1], enc_out, p["wk"]).reshape(b, t, cfg.n_kv_heads,
+                                                                 cfg.head_dim)
+    v = A.analog_matmul(acfg, keys[2], enc_out, p["wv"]).reshape(b, t, cfg.n_kv_heads,
+                                                                 cfg.head_dim)
+    qpos = torch.arange(s, device=x.device)
+    kpos = torch.arange(t, device=x.device)
+    out = attend_full(q, k, v, qpos, kpos, "none", cfg).reshape(b, s, -1)
+    return A.analog_matmul(acfg, keys[3], out, p["wo"])
 
 
 def _write_at(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -220,15 +249,19 @@ def decode_self_attention(
     kind: str = "global",
     k_scale: Optional[torch.Tensor] = None,  # (B, Smax, Hkv) f32, int8 caches
     v_scale: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
 ) -> torch.Tensor:
     """One token's attention against the dense cache: write this step's
     K/V at ``pos`` in place (an int8 cache: its nearest-rounded codes and
     scales, :func:`quantize_kv`), then attend over the whole ``Smax``
-    window (:func:`attend_one_token`).  Returns (B, 1, D) after w_o."""
+    window (:func:`attend_one_token`).  Returns (B, 1, D) after w_o.
+    ``use_rope=False`` is the encoder-decoder's decoder, which has learned
+    positions instead."""
     int8_cache = k_cache.dtype == torch.int8
     q, k, v = qkv(p, x, cfg)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
     if int8_cache:
         k8, ks = quantize_kv(k)
         v8, vs = quantize_kv(v)

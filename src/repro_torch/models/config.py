@@ -1,9 +1,10 @@
 """Unified model configuration, copied field for field from
 ``repro/models/config.py`` so a config built for one package reads the
 same in the other.  Family-specific fields default to inert values; the
-port runs the ``decoder_lm``, ``moe_lm``, ``hybrid`` and ``ssm`` families
-(serving and training) and ``fcnn``, the paper's network (training and
-RACA inference); ``encdec`` and ``vlm`` are not ported.
+port runs the ``decoder_lm``, ``moe_lm``, ``hybrid``, ``ssm`` and ``vlm``
+families (serving and training), ``encdec`` (the dense serve step and
+training) and ``fcnn``, the paper's network (training and RACA
+inference).
 """
 
 from __future__ import annotations

@@ -4,8 +4,11 @@ layout's monolithic prefill and the chunked paged prefill
 (``repro/models/transformer.py``, the ``decoder_lm`` family, the
 ``moe_lm`` one: attention blocks whose MLP is a mixture of experts
 (``moe.py``), the ``hybrid`` one: units that mix RG-LRU blocks,
-``"rec"``, with attention, and the attention-free ``ssm`` one: Mamba-2
-mixers, ``"ssm"``).
+``"rec"``, with attention, the attention-free ``ssm`` one: Mamba-2
+mixers, ``"ssm"``, and the ``vlm`` one: a decoder LM whose forward, loss
+and dense prefill take precomputed patch embeddings before the tokens;
+its paged prefill and its decode step serve it as a token LM, as the
+reference's engine does).
 
 Parameters keep the reference's tree: units stacked on a leading
 ``n_units`` axis (``params["units"]["l0"]["attn"]["wq"]`` is
@@ -79,17 +82,20 @@ PAGE_POOL_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
 
 
 ATTN_KINDS = ("global", "local")
-# the layer kinds each ported family's units may hold
-_FAMILY_KINDS = {"decoder_lm": ATTN_KINDS, "moe_lm": ATTN_KINDS,
+# the layer kinds each family of this stack may hold in its units
+_FAMILY_KINDS = {"decoder_lm": ATTN_KINDS, "moe_lm": ATTN_KINDS, "vlm": ATTN_KINDS,
                  "hybrid": ATTN_KINDS + ("rec",), "ssm": ("ssm",)}
 
 
 def _check_family(cfg: ModelConfig) -> None:
+    """The decoder stack runs the token LMs alone: an ``encdec`` model is
+    ``encdec.py``'s, an ``fcnn`` one ``fcnn.py``'s."""
     kinds = _FAMILY_KINDS.get(cfg.family)
     if kinds is None or any(k not in kinds for k in cfg.layer_pattern):
         raise NotImplementedError(
-            f"only decoder_lm, moe_lm, hybrid (rec + attention) and ssm models are ported, "
-            f"got {cfg.family} {cfg.layer_pattern}"
+            f"the decoder stack runs decoder_lm, moe_lm, vlm, hybrid (rec + attention) and ssm "
+            f"models, got {cfg.family} {cfg.layer_pattern}"
+            + ("; an encdec model is models/encdec.py's" if cfg.family == "encdec" else "")
         )
 
 
@@ -165,13 +171,13 @@ def scale_block_outputs(params: dict, gain: float) -> None:
                     blk[name].mul_(gain)
 
 
-def _unbind_units(units: dict) -> list[dict]:
+def unbind_units(units: dict) -> list[dict]:
     """Every unit's parameter views, from one ``unbind`` per stacked leaf:
     its backward stacks the units' gradients once, where per-unit indexing
     would add a zero-filled full-size gradient per unit."""
     if not isinstance(units, dict):
         return units.unbind(0)
-    parts = {k: _unbind_units(v) for k, v in units.items()}
+    parts = {k: unbind_units(v) for k, v in units.items()}
     n = len(next(iter(parts.values())))
     return [{k: p[u] for k, p in parts.items()} for u in range(n)]
 
@@ -260,7 +266,7 @@ def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelC
     once per projection and step, where the reference's rematerialized
     backward runs it again.  It changes no number."""
     aux = None
-    for u, up in enumerate(_unbind_units(params["units"])):
+    for u, up in enumerate(unbind_units(params["units"])):
         ku = None if key is None else R.fold_in(key, u)
         x, aux_u = _unit_fwd(x, up, positions, cfg, ku)
         if aux_u is not None:
@@ -270,10 +276,20 @@ def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelC
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
-def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, key=None):
-    """(logits (B, S, V), aux) for tokens (B, S)."""
+def _with_prefix(x: torch.Tensor, prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """A ``vlm`` model's patch embeddings (B, P, D), cast to the stream's
+    dtype, before the token embeddings (B, S, D)."""
+    if prefix_embeds is None:
+        return x
+    return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+
+def lm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, key=None,
+               prefix_embeds: Optional[torch.Tensor] = None):
+    """(logits (B, S', V), aux) for tokens (B, S); S' = P + S with a
+    ``vlm`` patch prefix (B, P, D), positions running over all S'."""
     _check_family(cfg)
-    x = embed(params["embed"], tokens, cfg)
+    x = _with_prefix(embed(params["embed"], tokens, cfg), prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     x, aux = backbone(params, x, positions, cfg, key)
@@ -298,10 +314,16 @@ def cross_entropy(
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig, key=None) -> tuple[torch.Tensor, dict]:
-    """(loss, metrics) for a batch {"tokens", "labels", optional "mask"};
-    analog projections draw under ``key`` (digital when ``None``)."""
-    logits, aux = lm_forward(params, batch["tokens"], cfg, key)
-    loss, metrics = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    """(loss, metrics) for a batch {"tokens", "labels", optional "mask" and
+    "patches"}; analog projections draw under ``key`` (digital when
+    ``None``).  With patches the loss is taken on the text positions, the
+    last ``labels.shape[1]``."""
+    patches = batch.get("patches")
+    logits, aux = lm_forward(params, batch["tokens"], cfg, key, patches)
+    labels = batch["labels"]
+    if patches is not None:
+        logits = logits[:, -labels.shape[1]:, :]
+    loss, metrics = cross_entropy(logits, labels, batch.get("mask"))
     total = loss + aux
     metrics["aux"] = aux
     metrics["loss"] = total
@@ -539,6 +561,7 @@ def lm_prefill(
     cfg: ModelConfig,
     max_len: int,
     cache: Optional[dict] = None,
+    prefix_embeds: Optional[torch.Tensor] = None,
 ) -> tuple[dict, torch.Tensor]:
     """The dense layout's monolithic prefill: run the whole prompt and fill
     a dense cache (:func:`init_decode_cache`) with its K/V, padded to
@@ -553,12 +576,14 @@ def lm_prefill(
     recurrent sublayer runs :func:`rglru.rglru_prefill` and leaves its conv
     tail and last hidden state in ``rec_conv`` / ``rec_h``; a Mamba-2
     sublayer runs :func:`mamba2.mamba_prefill` and leaves its conv tail and
-    final SSM state in ``ssm_conv`` / ``ssm_state``."""
+    final SSM state in ``ssm_conv`` / ``ssm_state``.  A ``vlm`` patch
+    prefix (B, P, D) runs before the tokens: the cache holds P + S rows
+    and ``pos`` is P + S."""
     _check_family(cfg)
-    b, s = tokens.shape
     if cache is None:
-        cache = init_decode_cache(cfg, b, max_len, tokens.device)
-    x = embed(params["embed"], tokens, cfg)
+        cache = init_decode_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    x = _with_prefix(embed(params["embed"], tokens, cfg), prefix_embeds)
+    b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     int8 = cfg.kv_cache_dtype == "int8"
     for u in range(cfg.n_units):

@@ -104,7 +104,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import backend as BK
 from repro_torch.kernels import ops as KOPS
 from repro_torch.launch import specs as SP
-from repro_torch.models import ModelConfig
+from repro_torch.models import ModelConfig, get_model_fns
 from repro_torch.models import transformer as TF
 from repro_torch.serving.scheduler import (
     BlockAllocator,
@@ -479,6 +479,16 @@ class ServingMetrics:
         return out
 
 
+def _refuse_unservable(model_cfg: ModelConfig) -> None:
+    """Both engines serve token LMs alone: a family that cannot decode, and
+    the encoder-decoder (served by the dense step alone,
+    ``specs.make_serve_step``), are refused with the reference's messages."""
+    if get_model_fns(model_cfg).prefill is None:
+        raise ValueError(f"family {model_cfg.family!r} cannot decode")
+    if model_cfg.family == "encdec":
+        raise ValueError("encdec serving needs frames; token-LM only")
+
+
 class ServingEngine:
     """Continuous-batching engine over the paged pool or the dense cache
     (greedy or WTA sampling)."""
@@ -486,7 +496,9 @@ class ServingEngine:
     def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None, *,
                  graphs: Optional[bool] = None):
         """``graphs``: capture the decode step as CUDA graphs; ``None`` means
-        on when the device is CUDA, ``False`` runs it eagerly there."""
+        on when the device is CUDA, ``False`` runs it eagerly there.
+        Families it cannot serve are refused (:func:`_refuse_unservable`)."""
+        _refuse_unservable(model_cfg)
         cfg.validate(model_cfg.kv_cache_dtype)
         self.device = resolve_device(device)
         if graphs is None:
@@ -735,7 +747,7 @@ class ServingEngine:
         if not self.paged:
             return SP.init_decode_cache(self.mcfg, self.cfg.max_batch, self.cfg.max_len,
                                         device=self.device)
-        return TF.init_paged_decode_cache(
+        return SP.init_paged_decode_cache(
             self.mcfg, self.cfg.max_batch, self.cfg.pool_blocks(self.mcfg.kv_cache_dtype),
             self.cfg.kv_block_size, device=self.device,
         )
@@ -1727,10 +1739,13 @@ class StaticServingEngine:
     Its decode step is the dense layout's (``specs.DenseGraphs``): on the
     card one CUDA graph per wave width, over one persistent cache of that
     width that each wave's prefill writes in place, so the graph replays
-    across waves; eager on the CPU."""
+    across waves; eager on the CPU.  It refuses what :class:`ServingEngine`
+    refuses, at construction (the reference's static engine fails on an
+    encoder-decoder only in its first prefill)."""
 
     def __init__(self, params, model_cfg: ModelConfig, cfg: ServeConfig, device=None, *,
                  graphs: Optional[bool] = None):
+        _refuse_unservable(model_cfg)
         self.device = resolve_device(device)
         if graphs is None:
             graphs = self.device.type == "cuda"

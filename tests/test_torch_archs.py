@@ -4,7 +4,9 @@ soft-caps, post-block norms, tied and scaled embeddings),
 ``deepseek-coder-33b`` (GQA 56 / 8, RoPE base 1e5),
 ``nemotron-4-340b`` (GQA, squared-ReLU MLP), and the mixtures of experts
 ``granite-moe-3b-a800m`` (40 SwiGLU experts, top-8, Dh 64) and
-``grok-1-314b`` (8 GeGLU experts, top-2, attention soft-cap 30).
+``grok-1-314b`` (8 GeGLU experts, top-2, attention soft-cap 30), and
+``llava-next-34b`` (the ``vlm`` family; its patch prefix is
+``tests/test_torch_vlm.py``'s: here it runs as a token LM).
 
 Each arch's full and smoke configs equal the reference's field for field;
 the smoke loss of bridged f32 weights equals the reference's within
@@ -35,7 +37,7 @@ from repro_torch.configs import SHAPES, get_config, get_smoke_config, skip_shape
 from repro_torch.models import transformer as TTF
 
 ARCHS = ["gemma2-2b", "deepseek-coder-33b", "nemotron-4-340b", "granite-moe-3b-a800m",
-         "grok-1-314b"]
+         "grok-1-314b", "llava-next-34b"]
 LOSS_ATOL = 1e-5
 LOGIT_ATOL = 1e-4
 

@@ -255,7 +255,9 @@ def test_serve_reads_params_only_checkpoint(tmp_path, capsys, monkeypatch):
         assert np.array_equal(np.asarray(x.astype(jnp.float32)), np.asarray(y.astype(jnp.float32)))
     served = LS.main([*SERVE_ARGS, "--ckpt-dir", str(tmp_path)])
     assert "loaded checkpoint step 4" in capsys.readouterr().out
-    monkeypatch.setattr(LS, "init_lm", lambda cfg, seed=0, device=None: tp)
+    model_fns = LS.get_model_fns
+    monkeypatch.setattr(LS, "get_model_fns", lambda cfg: model_fns(cfg)._replace(
+        init=lambda seed, c, device=None: tp))
     assert LS.main(SERVE_ARGS) == served and sum(map(len, served)) == 18
 
 

@@ -284,7 +284,7 @@ def test_cache_insert_into_each_slot(kv):
         one = {}
         for name, leaf in jbatch.items():
             shape = list(leaf.shape)
-            shape[SP.cache_batch_axis(name)] = 1
+            shape[SP.cache_batch_axis(tcfg, name)] = 1
             if leaf.dtype == jnp.int8:
                 one[name] = rng.integers(-127, 128, shape).astype(np.int8)
             elif name == "pos":
@@ -309,7 +309,7 @@ def test_decode_cache_batch_axis_contract():
         want = JSP.init_decode_cache(jcfg, 5, 24)
         assert cache["pos"].shape == (5,) and cache["pos"].dtype == torch.int32
         for name, leaf in cache.items():
-            ax = SP.cache_batch_axis(name)
+            ax = SP.cache_batch_axis(tcfg, name)
             assert leaf.shape[ax] == 5, (name, leaf.shape, ax)
             assert ax == JSP.cache_batch_axis(jcfg, name)
             assert tuple(leaf.shape) == want[name].shape
@@ -317,4 +317,4 @@ def test_decode_cache_batch_axis_contract():
         assert tuple(cache["k"].shape) == (tcfg.n_units, n_attn, 5, 24, tcfg.n_kv_heads,
                                            tcfg.head_dim)
     with pytest.raises(KeyError):
-        SP.cache_batch_axis("k_pages")
+        SP.cache_batch_axis(tcfg, "k_pages")

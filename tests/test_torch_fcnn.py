@@ -151,8 +151,12 @@ def test_model_fns_registry():
         "w0": (64, 32), "b0": (32,), "w1": (32, 10), "b1": (10,)}
     lm = get_smoke_config("stablelm-3b")
     assert set(get_model_fns(lm).init(0, lm, "cpu")) == {"embed", "final_norm", "head", "units"}
-    with pytest.raises(NotImplementedError):
-        get_model_fns(ModelConfig(name="x", family="encdec"))
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        get_model_fns(ModelConfig(name="x", family="tpu_only"))
+    from repro_torch.models import encdec as ED
+
+    ed = get_model_fns(get_smoke_config("whisper-small"))
+    assert ed.loss is ED.encdec_loss and ed.decode_step is ED.encdec_decode_step
 
 
 # ---------------------------------------------------------------------------

@@ -355,11 +355,11 @@ def test_cache_batch_axis_contract(arch, kv):
         for name, leaf in cache.items():
             if name in TSP.PAGE_POOL_LEAVES or name == "quant_step":
                 continue
-            ax = TSP.cache_batch_axis(name)
+            ax = TSP.cache_batch_axis(cfg, name)
             assert ax == JSP.cache_batch_axis(jcfg, name), name
             assert leaf.shape[ax] == b, (name, tuple(leaf.shape), ax)
             seen.add(name)
     assert {"pos"} < seen
     assert ("ssm_state" in seen) == (arch == "mamba2-1.3b")
     with pytest.raises(KeyError):
-        TSP.cache_batch_axis("k_pages")
+        TSP.cache_batch_axis(cfg, "k_pages")

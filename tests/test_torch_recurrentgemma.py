@@ -21,11 +21,12 @@ smoke config in f32, on ``repro``'s init carried across by ``bridge``.
   that folds in ``i``, the sublayer's index in the whole pattern, not its
   index among the attention sublayers: the port's pool equals the
   reference's after a prefill and a decode step.
-- The families still to port, ``vlm`` (llava-next-34b) and ``encdec``
-  (whisper-small), raise ``NotImplementedError`` naming the family
-  (mamba2-1.3b, the ``ssm`` family, is ported:
-  ``tests/test_torch_mamba2.py``; the ``moe_lm`` family:
-  ``tests/test_torch_moe.py``).
+- The decoder stack refuses ``encdec`` (whisper-small), naming the
+  family and its module (``tests/test_torch_encdec.py`` holds that
+  module), and inits ``vlm`` (llava-next-34b,
+  ``tests/test_torch_vlm.py``); mamba2-1.3b, the ``ssm`` family, is
+  ``tests/test_torch_mamba2.py``'s, the ``moe_lm`` family
+  ``tests/test_torch_moe.py``'s.
 """
 
 import dataclasses
@@ -287,18 +288,24 @@ def test_int8_pool_seeds_fold_the_pattern_index(weights):
 
 @pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-small"])
 def test_unported_families_still_refused(arch):
-    """The reference's configs of the families still to port, carried into
-    the port's ``ModelConfig``: init, the caches and the forward refuse
-    them, each naming its family."""
+    """The last two families are ported now, each by its own module: the
+    decoder stack still refuses the encoder-decoder, naming the family
+    and its module (``models/encdec.py`` runs it), and llava-next-34b's
+    config, carried from the reference field for field, resolves in the
+    port and inits through the decoder stack (``vlm``)."""
     j = jax_smoke(arch)
     fields = {f.name: getattr(j, f.name) for f in dataclasses.fields(ModelConfig)
               if f.name != "analog"}
     cfg = ModelConfig(**fields)
-    for fn in (lambda: TTF.init_lm(cfg, device="cpu"),
-               lambda: TTF.init_paged_decode_cache(cfg, 1, 4, 8, device="cpu"),
-               lambda: TTF.init_decode_cache(cfg, 1, 16, device="cpu"),
-               lambda: TTF.lm_forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)):
-        with pytest.raises(NotImplementedError, match=f"got {cfg.family} "):
-            fn()
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_config(arch)
+    assert dataclasses.asdict(get_smoke_config(arch)) == dataclasses.asdict(cfg)
+    if arch == "whisper-small":
+        for fn in (lambda: TTF.init_lm(cfg, device="cpu"),
+                   lambda: TTF.init_paged_decode_cache(cfg, 1, 4, 8, device="cpu"),
+                   lambda: TTF.init_decode_cache(cfg, 1, 16, device="cpu"),
+                   lambda: TTF.lm_forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)):
+            with pytest.raises(NotImplementedError, match=f"got {cfg.family} .*models/encdec.py"):
+                fn()
+        return
+    params = TTF.init_lm(cfg, device="cpu")
+    assert tuple(params["units"]["l0"]["attn"]["wk"].shape) == (2, 64, 32)
+    assert TTF.init_decode_cache(cfg, 1, 16, device="cpu")["k"].shape == (2, 1, 1, 16, 2, 16)
