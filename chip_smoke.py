@@ -192,7 +192,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step at full width and depth: ``sigmoid_sample`` launched twice a
    recurrent layer (the RG-LRU gates), the first draw equal to the plain
    version's, ``crossbar_mac`` 7 reads an attention layer and 5 a
-   recurrent one, the first read at each of its four (W shape, read
+   recurrent one, each count twice over the step (the backward recomputes
+   every unit, ``remat_policy`` "nothing"), the first read at each of its four (W shape, read
    kind) held against the plain version on the same x, W and key; step
    ms and peak memory.  Prints its wall time.
 4i. ssm (:func:`ssm_phase`, run after 4h): mamba2-1.3b at full width and
@@ -216,7 +217,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (spill records of the state alone, their bytes, spill and restore ms)
    and speculation at k = 3 with forced rejections, each equal to its
    plain serve.  (d) One ``analog_stochastic`` training step at full
-   width and depth: ``crossbar_mac`` 2 reads a layer (96 + 96 prepasses),
+   width and depth: ``crossbar_mac`` 2 reads a layer, twice over the step
+   (192 + 192 prepasses),
    no ``sigmoid_sample``, the first read at each of its two shapes held
    against the plain version; step ms and peak memory.  (e), in phase 7:
    the smoke config in f32, prefill and decode logits card against CPU
@@ -243,8 +245,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    nothing dropped; then at factor 1.25, printed), two forced preempts
    and speculation at k = 3 with forced rejections, each equal to its
    plain serve.  (d) One ``analog_stochastic`` training step at full
-   width and depth: ``crossbar_mac`` 4 reads a layer (128 + 128
-   prepasses), the router's WTA race 32 ``wta_sample`` launches (its
+   width and depth: ``crossbar_mac`` 4 reads a layer, twice over the step
+   (256 + 256 prepasses), the router's WTA race 64 ``wta_sample`` launches (its
    first draw equal to the plain version's), no ``sigmoid_sample``, the
    first read at each of its two shapes checked and timed; finite loss
    and aux, step ms, peak memory.  (e) grok-1-314b at full width cut to 4
@@ -269,8 +271,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the next token.  (b) An f32 copy: prefill + 8 decode steps against
    ``decode_train``'s forward, logits within 1e-4 of their largest,
    greedy tokens equal.  (c) One ``analog_stochastic`` step at batch 8 x
-   128: ``crossbar_mac`` 6 reads an encoder layer and 10 a decoder layer
-   (192 + 192 prepasses), no ``sigmoid_sample`` or ``wta_sample``, the
+   128: ``crossbar_mac`` 6 reads an encoder layer and 10 a decoder layer,
+   twice over the step (each layer is checkpointed: 384 + 384 prepasses), no ``sigmoid_sample`` or ``wta_sample``, the
    first read at each of its three shapes checked and timed; finite
    loss, step ms, peak memory.  (d), in phase 7: the smoke config in f32,
    card against CPU.  Prints its wall time.
@@ -287,6 +289,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    tokens equal.  (c), in phase 7: the smoke config in f32, card against
    CPU (the patch prefix's logits, the paged engine's streams).  Prints
    its wall time.
+4m. dry run (:func:`dryrun_phase`, run after 4l): (a) the meta counts of
+   ``launch/dryrun.py`` against the card at three stablelm-3b cells that
+   fit it: a digital train step at 8 x 128 (``remat_policy`` "nothing",
+   one microbatch), the dense prefill at 4 x 2048, the dense decode step
+   at 8 x 4096 (``dryrun.measure_step``): the inputs' bytes and the
+   step's peak over the allocation before it each within 10% of the
+   allocator's (``memory_allocated``, ``max_memory_allocated``; the step
+   run once before), ``FlopCounterMode`` on the card equal to the meta
+   count; the step's ms beside its roofline bound (printed).  (b)
+   ``remat_policy`` on the card: one forward and backward of stablelm-3b
+   at 8 x 128 under "full", "dots" and "nothing", ``analog_stochastic``:
+   losses equal, every gradient within 1e-6 of its leaf's largest,
+   ``crossbar_mac`` reads and prepasses exactly 224 ("full") and 448;
+   digital: the peaks ordered "nothing" < "dots" < "full" (analog: every
+   projection is a crossbar read, no product "dots" keeps, so "dots" and
+   "nothing" below "full"); the peaks and ms printed.  (c) The seam:
+   ``ops.stoch_round`` on the card bit-equal to ``stoch_round_reference``
+   on the card at steps 1 and 0.25 over a (4, 1000, 300) and a 2048²
+   input, its gradient the in-range mask, timed at 2048² beside its
+   bound; ``ops.wta_counts`` against ``wta_counts_reference`` on the card
+   in more than 0.9995 of counts.
 4e. loop (:func:`loop_phase`): (a) ``examples/train_lm_torch.py``'s
    stablelm-100m at batch 8 x 256, full depth, 12 steps through
    ``train.loop.run`` with a checkpoint every 4, clean and again with a
@@ -328,8 +351,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    at the shifted operating point).
 6. train: RACA analog training (``--analog``) of stablelm-3b at full width
    and depth, batch 8 x 128, 3 steps through ``make_train_step``: finite
-   losses, parameters changed, ``crossbar_mac`` launched 224 reads and
-   224 prepasses per step (reset just before, read just after); step
+   losses, parameters changed, ``crossbar_mac`` launched 448 reads and
+   448 prepasses per step (224 in the forward, again in the backward's
+   recompute; reset just before, read just after); step
    time, tokens/s, peak memory and a profiled step's split.
 6b. FCNN: fcnn-mnist [784, 500, 300, 10] trained at full width through
    ``make_train_step`` (300 steps of batch 128, lr 3e-3, f32 moments,
@@ -421,6 +445,7 @@ F32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
 CB_AGREEMENT = 0.9995
 # stablelm-3b analog training: 7 crossbar reads per layer and forward
 # (wq wk wv wo w_down linear, w_up w_gate binarized), none in the backward
+# but the forward's again where it recomputes the unit (remat_factor)
 CB_PER_LAYER = 7
 TRAIN_STEPS = 3
 # Smoke-size analog training, card vs CPU: the comparator decisions may
@@ -3996,9 +4021,10 @@ def analog_step(dev, arch: str, want: dict, shapes, tag: str, timed: bool = Fals
     through ``make_train_step`` (batch HYBRID_TRAIN_BATCH): finite loss
     and gradient norm; ``crossbar_mac`` reads and prepasses each
     ``want["crossbar_mac"]`` and ``sigmoid_sample`` ``want["sigmoid_sample"]``
-    in the forward (reset just before, read just after), and
-    ``wta_sample`` ``want["wta_sample"]`` where ``want`` names it (an MoE
-    router's WTA race, one a layer); the step's first
+    in the forward, and ``wta_sample`` ``want["wta_sample"]`` where
+    ``want`` names it (an MoE router's WTA race, one a layer), all times
+    :func:`remat_factor` over the step (reset just before, read just
+    after: the backward recomputes each unit); the step's first
     crossbar read at each of its (W shape, comparator) ``shapes`` held
     against the plain version on the same x, W and key
     (:func:`check_reads`; ``timed``: each also timed beside its bound), and
@@ -4015,6 +4041,7 @@ def analog_step(dev, arch: str, want: dict, shapes, tag: str, timed: bool = Fals
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
     cfg = analog_cfg(get_config(arch))
+    want = {k: v * remat_factor(cfg) for k, v in want.items()}
     tcfg = TrainConfig(opt=AdamWConfig(lr=3e-4), total_steps=1)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5015,6 +5042,222 @@ def vlm_prefix(params, cfg, dev, rtol: float, gate_tokens: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4m: the dry run's counts on the card, remat_policy, the seam.
+# ---------------------------------------------------------------------------
+
+# (a): each meta count within this fraction of the allocator's
+DRYRUN_MEM_RTOL = 0.10
+# (b): a gradient under "dots" or "nothing" against "full", relative to
+# its leaf's largest |g|
+REMAT_GRAD_RTOL = 1e-6
+# (c): the seam's inputs and the WTA agreement (tests/test_kernels.py:57)
+SEAM_SHAPES = ((4, 1000, 300), (2048, 2048))
+SEAM_AGREEMENT = 0.9995
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 4m (a)-(c); see the module's docstring."""
+    t_phase = time.perf_counter()
+    res = {"calibrate": dryrun_calibrate(dev), "remat": remat_on_card(dev),
+           "seam": seam_phase(dev)}
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 4m wall time {res['wall_s']:.1f} s")
+    return res
+
+
+def dryrun_calibrate(dev) -> dict:
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.train import TrainConfig
+
+    cfg = get_config("stablelm-3b")
+    out = {}
+    for shape in (ShapeSpec("train_8x128", 128, 8, "train"),
+                  ShapeSpec("prefill_4x2048", 2048, 4, "prefill"),
+                  ShapeSpec("decode_8x4096", 4096, 8, "decode")):
+        t0 = time.perf_counter()
+        # a train step's AdamW rounding takes seconds: one timed step
+        r = D.measure_step(cfg, shape, TrainConfig(microbatches=1), dev,
+                           iters=1 if shape.kind == "train" else 3)
+        torch.cuda.empty_cache()
+        meta, card = r["meta"], r["card"]
+        err = {k: abs(meta[k] - card[k]) / card[k] for k in ("args_bytes", "temp_bytes")}
+        bound = RL.roofline_terms({"cost": {"flops": meta["flops"],
+                                            "bytes accessed": meta["bytes_accessed"]},
+                                   "collectives": None, "model_flops_per_chip": 0.0})
+        rec = {"meta": meta, "card": card, "rel_err": err, "ms": r["ms"],
+               "compute_ms": bound["compute_s"] * 1e3, "memory_ms": bound["memory_s"] * 1e3}
+        out[shape.name] = rec
+        log(f"  (4m a) stablelm-3b {shape.name}: args {meta['args_bytes']} B meta against "
+            f"{card['args_bytes']} allocated (err {err['args_bytes']:.4f}); temp "
+            f"{meta['temp_bytes']} B meta against {card['temp_bytes']} peak (err "
+            f"{err['temp_bytes']:.4f}); FLOPs {meta['flops']:.6e} meta, {card['flops']:.6e} on "
+            f"the card; step {r['ms']:.3f} ms against the roofline's compute "
+            f"{rec['compute_ms']:.3f} ms and unfused memory {rec['memory_ms']:.3f} ms (counted "
+            f"bytes {meta['bytes_accessed']:.6e}); {time.perf_counter() - t0:.1f} s")
+        if max(err.values()) > DRYRUN_MEM_RTOL:
+            raise AssertionError(f"4m a {shape.name}: meta bytes off the allocator's by more "
+                                 f"than {DRYRUN_MEM_RTOL}: {err}")
+        if meta["flops"] != card["flops"]:
+            raise AssertionError(f"4m a {shape.name}: FLOPs {meta['flops']} on meta, "
+                                 f"{card['flops']} on the card")
+    return out
+
+
+def remat_on_card(dev) -> dict:
+    """(4m b): one forward and backward of stablelm-3b at 8 x 128 under
+    each ``remat_policy``, analog_stochastic and digital."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import get_model_fns
+    from repro_torch.optim import tree_leaves
+
+    base = get_config("stablelm-3b")
+    fns = get_model_fns(base)
+    params = fns.init(0, base, dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = lm_batch(base, batch=8, seq=128, step=0, device=dev)
+    out = {}
+    # the embedding's backward accumulates with atomics unless asked not to:
+    # a run-to-run difference that is not the policy's
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("analog_stochastic", "digital"):
+            out[mode] = remat_runs(fns, params, leaves, batch, base, mode)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    del params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_runs(fns, params, leaves, batch, base, mode: str) -> dict:
+    """(4m b) for one mode: the three policies, gated."""
+    from repro_torch.kernels import crossbar_mac as CB
+
+    cfg = analog_cfg(base) if mode != "digital" else base
+    key = (0, 11) if mode != "digital" else None
+    ref_grads, runs = None, {}
+    for policy in ("full", "dots", "nothing"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        CB.launches = CB.prepass_launches = 0
+        t0 = time.perf_counter()
+        loss, _ = fns.loss(params, batch, c, key)
+        held = torch.cuda.memory_allocated() - before
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - before
+        rec = {"loss": float(loss.detach()), "peak_gib": peak / 2**30, "peak": peak,
+               "held": held, "ms": ms,
+               "crossbar_mac": CB.launches, "crossbar_prepass": CB.prepass_launches}
+        if ref_grads is None:
+            ref_grads = grads
+        else:
+            rec["grad_err"] = max(float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                                  for g, r in zip(grads, ref_grads))
+        del loss, grads
+        runs[policy] = rec
+        log(f"  (4m b) {mode} {policy}: loss {rec['loss']:.6f}, held for the backward "
+            f"{held} B, peak over the parameters {peak} B ({rec['peak_gib']:.2f} GiB), "
+            f"{ms:.1f} ms (host clock, forward and backward), "
+            f"crossbar_mac {rec['crossbar_mac']} reads and {rec['crossbar_prepass']} "
+            f"prepasses" + (f", worst gradient err {rec['grad_err']:.3e} of its leaf's "
+                            f"largest" if "grad_err" in rec else ""))
+    del ref_grads
+    full = runs["full"]
+    for policy in ("dots", "nothing"):
+        r = runs[policy]
+        if r["loss"] != full["loss"] or r["grad_err"] > REMAT_GRAD_RTOL:
+            raise AssertionError(f"4m b {mode} {policy}: loss {r['loss']} against "
+                                 f"{full['loss']}, gradient err {r['grad_err']}")
+    reads = CB_PER_LAYER * base.n_layers if mode != "digital" else 0
+    for policy, r in runs.items():
+        want = reads * (1 if policy == "full" else 2)
+        if r["crossbar_mac"] != want or r["crossbar_prepass"] != want:
+            raise AssertionError(f"4m b {mode} {policy}: crossbar_mac {r['crossbar_mac']} "
+                                 f"reads, {r['crossbar_prepass']} prepasses, expected {want}")
+    # digital: each product "dots" keeps is held and adds to the peak;
+    # analog: every projection is a crossbar read, no product, so "dots"
+    # keeps what "nothing" keeps
+    for what in ("held", "peak"):
+        b = {p: r[what] for p, r in runs.items()}
+        ordered = (b["nothing"] < b["dots"] < b["full"] if mode == "digital"
+                   else max(b["nothing"], b["dots"]) < b["full"])
+        if not ordered:
+            raise AssertionError(f"4m b {mode}: {what} bytes out of order {b}")
+    return runs
+
+
+def seam_phase(dev) -> dict:
+    """(4m c): the generic ``ops.stoch_round`` and ``ops.wta_counts``
+    through the seam, against their plain versions on the card."""
+    from repro_torch.kernels import ops, prng
+    from repro_torch.kernels import stoch_round as SR
+    from repro_torch.kernels import wta_counts as WTA
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    out = {"stoch_round": {}}
+    SR.launches = 0
+    for shape in SEAM_SHAPES:
+        for step, lo, hi in ((1.0, -127.0, 127.0), (0.25, -8.0, 8.0)):
+            x = (torch.randn(shape, generator=gen, device=dev) * hi / 3).requires_grad_(True)
+            key = (7, 20241216)
+            y = ops.stoch_round(x, key, step=step, lo=lo, hi=hi)
+            want = ops.stoch_round_reference(x.detach(), key, step=step, lo=lo, hi=hi)
+            g = torch.randn(shape, generator=gen, device=dev)
+            (gx,) = torch.autograd.grad(y, x, g)
+            mask = ((x >= lo) & (x <= hi)).to(g.dtype)
+            same, grad_same = torch.equal(y, want), torch.equal(gx, g * mask)
+            label = f"{'x'.join(map(str, shape))} step {step}"
+            out["stoch_round"][label] = {"equal": same, "grad_equal": grad_same}
+            log(f"  (4m c) ops.stoch_round {label}: equal to stoch_round_reference {same}, "
+                f"gradient the in-range mask {grad_same}")
+            if not (same and grad_same):
+                raise AssertionError(f"4m c stoch_round {label}: kernel or gradient differs")
+    out["stoch_round_launches"] = SR.launches
+    if SR.launches != 2 * len(SEAM_SHAPES):
+        raise AssertionError(f"4m c stoch_round launched {SR.launches}, expected "
+                             f"{2 * len(SEAM_SHAPES)}")
+    # the kernel behind a spin (its seed on the card), and the public op
+    # with its host work: it copies the key's seed to the card each call
+    x = torch.randn((2048, 2048), generator=gen, device=dev)
+    kw = dict(step=2.0 / 31, lo=-1.0, hi=1.0)
+    seed = torch.tensor([prng.key_to_seed((1, 2))], device=dev)
+    rec = dict(bound_record(x.numel() * 8, 0),
+               device_ms=device_ms([lambda: SR.stoch_round_cuda(x, seed, **kw)]),
+               op_ms=cuda_ms([lambda: ops.stoch_round(x, (1, 2), **kw)]),
+               plain_ms=cuda_ms([lambda: ops.stoch_round_reference(x, (1, 2), **kw)], iters=4,
+                                warmup=1))
+    out["stoch_round_timing"] = rec
+    log(f"  (4m c) stoch_round 2048x2048 (the generic op's kernel): {rec['device_ms']:.4f} ms on "
+        f"the device against a bound of {rec['bound_ms']:.4f} ({rec['bound_by']}); "
+        f"ops.stoch_round {rec['op_ms']:.4f} ms a call, host included; plain version "
+        f"{rec['plain_ms']:.4f}")
+    z = torch.randn((8, 50304), generator=gen, device=dev) * WTA_SIGMA
+    wkw = dict(n_trials=32, vth0=WTA_VTH0, sigma_z=WTA_SIGMA)
+    WTA.launches = 0
+    got = ops.wta_counts(z, 20241217, **wkw)
+    launches = WTA.launches
+    want = ops.wta_counts_reference(z, 20241217, **wkw)
+    agree = float((got == want).float().mean())
+    out["wta_counts"] = {"agreement": agree, "launches": launches}
+    log(f"  (4m c) ops.wta_counts (8, 50304) T=32 against wta_counts_reference on the card: "
+        f"{agree:.6f} of counts equal (gate {SEAM_AGREEMENT}), launches {launches}")
+    if agree <= SEAM_AGREEMENT or launches != 1:
+        raise AssertionError(f"4m c wta_counts: agreement {agree}, launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the stochastic-rounding and WTA vote-count entry points.
 # ---------------------------------------------------------------------------
 
@@ -5215,6 +5458,15 @@ def analog_cfg(cfg):
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
 
 
+def remat_factor(cfg) -> int:
+    """How many times a training step runs each unit's forward, and so each
+    of its crossbar reads and gate draws: twice under ``remat_policy``
+    "nothing" (every config's) and "dots", whose backward recomputes the
+    unit; once under "full"; twice for an encoder-decoder, which
+    checkpoints every layer whatever the policy (``models/encdec.py``)."""
+    return 2 if cfg.family == "encdec" or cfg.remat_policy != "full" else 1
+
+
 def train_phase(dev) -> dict:
     """``make_train_step`` on stablelm-3b at full width and depth in analog
     mode, the launcher's defaults (batch 8 x 128, lr 3e-4, warmup 100,
@@ -5255,8 +5507,10 @@ def train_phase(dev) -> dict:
     changed = not torch.equal(before, probe[:, :64, :64])
     steady = times[1:] or times
     step_s = sum(steady) / len(steady)
+    want = CB_PER_LAYER * cfg.n_layers * remat_factor(cfg) * TRAIN_STEPS
     log(f"  {TRAIN_STEPS} steps: crossbar_mac launches {launches} "
-        f"({launches / TRAIN_STEPS:.0f} per step = {CB_PER_LAYER} x {cfg.n_layers} layers), "
+        f"({launches / TRAIN_STEPS:.0f} per step = {CB_PER_LAYER} x {cfg.n_layers} layers x "
+        f"{remat_factor(cfg)}, the backward recomputing each unit), "
         f"prepass launches {prepasses}, "
         f"step {step_s:.3f} s (steps after the first), {8 * 128 / step_s:.1f} tokens/s, "
         f"peak memory {peak / 2**30:.2f} GiB, parameters changed {changed}")
@@ -5264,9 +5518,9 @@ def train_phase(dev) -> dict:
         raise AssertionError(f"non-finite training loss: {losses}")
     if not changed:
         raise AssertionError("the training steps did not change the parameters")
-    if launches != CB_PER_LAYER * cfg.n_layers * TRAIN_STEPS or prepasses != launches:
+    if launches != want or prepasses != launches:
         raise AssertionError(f"crossbar_mac launched {launches} reads and {prepasses} "
-                             f"prepasses, expected {CB_PER_LAYER * cfg.n_layers * TRAIN_STEPS} each")
+                             f"prepasses, expected {want} each")
     profile = profile_train_step(step_fn, state, batches[TRAIN_STEPS])
     return {"launches": launches, "prepass_launches": prepasses, "losses": losses,
             "step_s": step_s, "peak": peak, "profile": profile}
@@ -5447,7 +5701,7 @@ def loop_phase_a(dev, analog: bool, ckpt_root: Path) -> dict:
     if not all(np.isfinite([res["losses"][0], res["losses"][1]])):
         raise AssertionError(f"(a) {tag}: non-finite loss {res['losses']}")
     if analog:
-        per_step = CB_PER_LAYER * cfg.n_layers
+        per_step = CB_PER_LAYER * cfg.n_layers * remat_factor(cfg)
         steps_run = len(cstats["losses"]), len(fstats["losses"])
         want = tuple(per_step * n for n in steps_run)
         got = (claunch.get("crossbar_mac", 0), flaunch.get("crossbar_mac", 0))
@@ -6806,6 +7060,10 @@ def main() -> int:
     log("== 4l: llava-next-34b at full width cut to 8 layers (served as a token LM; the patch "
         "prefix through the dense prefill and decode against lm_forward)")
     lres4 = vlm_phase(dev)
+    log("== 4m: the dry run's meta counts against the card (stablelm-3b train 8 x 128, prefill "
+        "4 x 2048, decode 8 x 4096), remat_policy on the card, the generic stoch_round and "
+        "wta_counts_reference through the seam")
+    mres = dryrun_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
     reference_wta(dev)
@@ -6948,6 +7206,18 @@ def main() -> int:
         rec.setdefault("launches_4k", {})["whisper analog step"] = \
             kres4["train"]["launches"][name]
     next(k for k in kernels if k["name"] == "crossbar_mac")["reads_4k"] = kres4["train"]["reads"]
+    # phase 4m: the remat runs' crossbar launches and the seam's, each reset
+    # just before it and read just after
+    for name in ("crossbar_mac", "crossbar_prepass"):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_4m"] = {f"stablelm {mode} {policy}": run[name]
+                              for mode, runs in mres["remat"].items()
+                              for policy, run in runs.items()}
+    sr_rec = next(k for k in kernels if k["name"] == "stoch_round")
+    sr_rec["launches_4m"] = {"ops.stoch_round": mres["seam"]["stoch_round_launches"]}
+    sr_rec["generic_2048"] = mres["seam"]["stoch_round_timing"]
+    next(k for k in kernels if k["name"] == "wta_counts")["launches_4m"] = {
+        "ops.wta_counts": mres["seam"]["wta_counts"]["launches"]}
     wta_rec = next(k for k in kernels if k["name"] == "wta_sample")
     wta_rec["cases"].extend(kres4["wta_cases"])
     wta_rec["max_abs_err_4k"] = max(kres4["wta_errs"])

@@ -6,7 +6,9 @@ attention-free ``mamba2-1.3b`` (Mamba-2 SSD mixers), the mixtures of
 experts ``granite-moe-3b-a800m`` and ``grok-1-314b``, the encoder-decoder
 ``whisper-small``, the vision-language ``llava-next-34b`` (a decoder LM
 with a prepended patch prefix), and the paper's ``fcnn-mnist``; plus the
-shape suite (``SHAPES``, ``ShapeSpec``) and each arch's ``skip_shapes``."""
+shape suite (``SHAPES``, ``ShapeSpec``), each arch's ``skip_shapes``, and
+the dry run's cells (``ASSIGNED_ARCHS`` in the reference's order,
+:func:`cells`)."""
 
 from importlib import import_module
 
@@ -23,6 +25,22 @@ _MODULES = {
     "llava-next-34b": "llava_next_34b",
     "fcnn-mnist": "fcnn_mnist",
 }
+
+
+# the assigned pool in the reference's order (``repro/configs/__init__.py``),
+# which the dry run's report keeps
+ASSIGNED_ARCHS = [
+    "llava-next-34b",
+    "whisper-small",
+    "stablelm-3b",
+    "gemma2-2b",
+    "deepseek-coder-33b",
+    "nemotron-4-340b",
+    "granite-moe-3b-a800m",
+    "grok-1-314b",
+    "recurrentgemma-2b",
+    "mamba2-1.3b",
+]
 
 
 def _mod(name: str):
@@ -44,3 +62,16 @@ def skip_shapes(name: str) -> dict:
 
 
 from .shapes import SHAPES, ShapeSpec  # noqa: E402,F401
+
+
+def cells(include_skipped: bool = False) -> list[tuple]:
+    """Every (arch, shape, skip reason or None) dry-run cell: the assigned
+    archs by the shape suite, the skipped cells only when asked for."""
+    out = []
+    for arch in ASSIGNED_ARCHS:
+        skips = skip_shapes(arch)
+        for shape in SHAPES:
+            if shape in skips and not include_skipped:
+                continue
+            out.append((arch, shape, skips.get(shape)))
+    return out

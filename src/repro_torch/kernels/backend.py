@@ -2,7 +2,7 @@
 (``repro/kernels/backend.py``).
 
 The public wrappers of :mod:`repro_torch.kernels.ops` (``crossbar_mac``,
-``wta_counts``, ``stoch_round_serving``, ``paged_attention``,
+``wta_counts``, ``stoch_round``, ``stoch_round_serving``, ``paged_attention``,
 ``paged_prefill_attention``) do not call their implementations directly:
 they ask the process-wide active :class:`DeviceBackend`.  Behind it the
 rule of ``ops.py`` holds unchanged: a CUDA tensor goes to the hand-written
@@ -195,6 +195,9 @@ class DeviceBackend:
     def wta_counts(self, z, seed, *, n_trials, vth0, sigma_z):
         raise NotImplementedError
 
+    def stoch_round(self, x, key, *, step, lo, hi):
+        raise NotImplementedError
+
     def stoch_round_serving(self, x, seeds, *, step, lo, hi):
         raise NotImplementedError
 
@@ -217,6 +220,9 @@ class SimBackend(DeviceBackend):
 
     def wta_counts(self, z, seed, *, n_trials, vth0, sigma_z):
         return _ops().wta_counts_sim(z, seed, n_trials=n_trials, vth0=vth0, sigma_z=sigma_z)
+
+    def stoch_round(self, x, key, *, step, lo, hi):
+        return _ops().stoch_round_sim(x, key, step=step, lo=lo, hi=hi)
 
     def stoch_round_serving(self, x, seeds, *, step, lo, hi):
         return _ops().stoch_round_serving_sim(x, seeds, step=step, lo=lo, hi=hi)
@@ -438,7 +444,7 @@ class FaultySimBackend(SimBackend):
         vth0, sigma_z = self.wta_readout_params(vth0, sigma_z)
         return _ops().wta_counts_sim(z, seed, n_trials=n_trials, vth0=vth0, sigma_z=sigma_z)
 
-    # stoch_round_serving and paged_(prefill_)attention are digital-domain
+    # stoch_round, stoch_round_serving and paged_(prefill_)attention are digital-domain
     # ops (counters, SRAM attention): the inherited sim paths.
 
 

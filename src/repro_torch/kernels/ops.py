@@ -6,8 +6,9 @@ pool's fused write (the quantizer and the page scatters of
 leaves to XLA: the WTA trials of ``repro/core/wta.py`` (:50-83) and the
 stochastic Sigmoid neurons of ``repro/core/neurons.py`` (:52-84).
 
-The public ``crossbar_mac``, ``wta_counts``, ``stoch_round_serving``,
-``paged_attention`` and ``paged_prefill_attention`` ask the process-wide
+The public ``crossbar_mac``, ``wta_counts``, ``stoch_round``,
+``stoch_round_serving``, ``paged_attention`` and
+``paged_prefill_attention`` ask the process-wide
 device backend first (``backend.get_backend()``, ``ops.py:183-195,
 316-331, 386-406, 450-470, 571-580`` of the reference), whose Sim routes
 to the ``*_sim`` functions below; a fault backend perturbs their
@@ -193,6 +194,57 @@ def stoch_round_serving_sim(
     return fn(x2d, seeds, step=step, lo=lo, hi=hi).reshape(shape)
 
 
+class _StochRound(torch.autograd.Function):
+    """Forward: the kernel on the card, its plain version on the CPU.
+    Backward: straight through inside the range, ``g·[lo ≤ x ≤ hi]``
+    (``repro/kernels/ops.py:533-535``)."""
+
+    @staticmethod
+    def forward(ctx, x2d, seed, step, lo, hi):
+        ctx.save_for_backward(x2d)
+        ctx.lo, ctx.hi = lo, hi
+        fn = SR.stoch_round_cuda if x2d.is_cuda else ref.stoch_round_ref
+        return fn(x2d, _seed_tensor(seed, x2d.device), step=step, lo=lo, hi=hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x2d,) = ctx.saved_tensors
+        return g * ((x2d >= ctx.lo) & (x2d <= ctx.hi)).to(g.dtype), None, None, None, None
+
+
+def stoch_round(x: torch.Tensor, key, *, step: float, lo: float, hi: float) -> torch.Tensor:
+    """Unbiased stochastic rounding of ``x`` onto ``{lo + k·step} ∩ [lo,
+    hi]`` under the threefry ``key``, with a straight-through gradient;
+    through the active device backend (:func:`stoch_round_sim`)."""
+    return _backend.get_backend().stoch_round(x, key, step=step, lo=lo, hi=hi)
+
+
+def stoch_round_sim(x: torch.Tensor, key, *, step: float, lo: float, hi: float) -> torch.Tensor:
+    """The Sim backend's rounding: f32 of ``x``'s shape over its rows
+    ``x.reshape(-1, N)``, under ``key_to_seed(key)`` at the counter ``row ·
+    n_padded + col`` (``n_padded``: N rounded up to 512), as the
+    reference's padded ``stoch_round_pallas`` draws it
+    (``repro/kernels/stoch_round.py:93``); one launch on the card."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1]).to(torch.float32).contiguous()
+    return _StochRound.apply(x2d, prng.key_to_seed(key), step, lo, hi).reshape(shape)
+
+
+def stoch_round_reference(x: torch.Tensor, key, *, step: float, lo: float,
+                          hi: float) -> torch.Tensor:
+    """The reference's ``stoch_round_reference``: rows padded to 256 and
+    columns to 512, the plain version on the padded array, cut back; on
+    any device, no kernel and no gradient.  What the card's kernel is held
+    against."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1]).to(torch.float32)
+    m, n = x2d.shape
+    xp = torch.nn.functional.pad(x2d, (0, -n % 512, 0, -m % 256))
+    out = ref.stoch_round_ref(xp, _seed_tensor(prng.key_to_seed(key), x.device),
+                              step=step, lo=lo, hi=hi)
+    return out[:m, :n].reshape(shape)
+
+
 def quantize_kv_int8(x: torch.Tensor, seeds) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization with unbiased stochastic
     rounding: ``x`` (..., Dh) → (codes int8 (..., Dh), scale f32 (...,)),
@@ -267,6 +319,19 @@ def wta_counts_sim(
     seed = _seed_tensor(seed, z.device)
     fn = WTA.wta_counts_cuda if z.is_cuda else ref.wta_counts_ref
     out = fn(z2d, seed, n_trials=n_trials, vth0=vth0, sigma_z=sigma_z)
+    return out.reshape(lead + (c,))
+
+
+def wta_counts_reference(
+    z: torch.Tensor, seed, *, n_trials: int, vth0: float, sigma_z: float
+) -> torch.Tensor:
+    """:func:`wta_counts_sim`'s counts by the plain version on any device,
+    no kernel (``repro/kernels/ops.py:361-378``): what the card's kernel is
+    held against."""
+    lead, c = z.shape[:-1], z.shape[-1]
+    z2d = z.reshape(-1, c).to(torch.float32).contiguous()
+    out = ref.wta_counts_ref(z2d, _seed_tensor(seed, z.device), n_trials=n_trials, vth0=vth0,
+                             sigma_z=sigma_z)
     return out.reshape(lead + (c,))
 
 
@@ -404,6 +469,8 @@ class _CrossbarMAC(torch.autograd.Function):
     def forward(ctx, x2d, w, seed, cfg, binarize):
         ctx.save_for_backward(x2d, w)
         ctx.cfg, ctx.binarize = cfg, binarize
+        if x2d.is_meta:  # the dry run's shapes: no read
+            return x2d.new_empty((x2d.shape[0], w.shape[1]), dtype=torch.float32)
         fn = CB.crossbar_mac_cuda if x2d.is_cuda else ref.crossbar_mac_ref
         return _crossbar_forward(x2d, w.to(torch.float32), seed, cfg, binarize, fn)
 

@@ -24,7 +24,13 @@ steps and one read-only verify of the drafted run, compiled as
 :class:`SpecGraphs` (one CUDA graph per (window width, k)), and
 :func:`make_spec_rollback` rewinds one slot's ``pos`` in place.  The
 dense step attends over every slot's whole ``max_len`` window, so its
-graphs are keyed by batch width alone.  Absent still: sharding.
+graphs are keyed by batch width alone.
+
+The dry run's inputs (``repro/launch/specs.py:34-124, 702-707, 883-922``):
+:func:`input_specs` and the ``*_specs`` helpers build every input leaf of
+a cell's step on the ``meta`` device, the counterpart of the reference's
+``jax.eval_shape``: shapes and dtypes, no allocation and no draw.
+Absent still: sharding (``launch/sharding.py`` holds the policy alone).
 """
 
 from __future__ import annotations
@@ -37,12 +43,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs import SHAPES, ShapeSpec, get_config
 from repro_torch.core import wta as W
 from repro_torch.kernels import backend as BK
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models import ModelConfig, get_model_fns
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
+from repro_torch.models.layers import dtype_of
 
 PAGE_POOL_LEAVES = TF.PAGE_POOL_LEAVES
 
@@ -138,6 +146,104 @@ def make_serve_step(cfg: ModelConfig):
         return cache, sample_tokens(cfg, logits, key, steps)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# The dry run's input specs: every leaf on the meta device.
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+WHISPER_DEC_PROMPT = 448  # decoder prompt length for encdec prefill cells
+
+
+def _spec(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """A train cell's batch: int32 ``tokens`` and ``labels`` (B, S), a
+    ``vlm`` model's ``patches`` (B, n_patches, D) and an ``encdec`` one's
+    ``frames`` (B, S, D) in the model's dtype."""
+    b, s = shape.global_batch, shape.seq_len
+    out = {"tokens": _spec((b, s), torch.int32), "labels": _spec((b, s), torch.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = _spec((b, cfg.n_patches, cfg.d_model), dtype_of(cfg))
+    if cfg.family == "encdec":
+        out["frames"] = _spec((b, s, cfg.d_model), dtype_of(cfg))
+    return out
+
+
+def prefill_batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """A prefill cell's batch: ``tokens`` (B, S) (and a ``vlm`` model's
+    ``patches``); an ``encdec`` one encodes S frames and runs a decoder
+    prompt of :data:`WHISPER_DEC_PROMPT` tokens (a smoke config with
+    fewer decoder positions, ``max_seq``, runs that many)."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        prompt = min(WHISPER_DEC_PROMPT, cfg.max_seq)
+        return {"frames": _spec((b, s, cfg.d_model), dtype_of(cfg)),
+                "tokens": _spec((b, prompt), torch.int32)}
+    out = {"tokens": _spec((b, s), torch.int32)}
+    if cfg.family == "vlm":
+        out["patches"] = _spec((b, cfg.n_patches, cfg.d_model), dtype_of(cfg))
+    return out
+
+
+def decode_cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """A decode cell's dense cache: B slots of ``seq_len`` positions
+    (:func:`init_decode_cache`)."""
+    return init_decode_cache(cfg, shape.global_batch, shape.seq_len, META)
+
+
+def paged_decode_cache_specs(cfg: ModelConfig, batch: int, n_pages: int,
+                             block_size: int) -> dict:
+    return init_paged_decode_cache(cfg, batch, n_pages, block_size, META)
+
+
+def params_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree, shapes and dtypes only (the init's meta path)."""
+    return get_model_fns(cfg).init(0, cfg, META)
+
+
+def train_state_specs(cfg: ModelConfig, tcfg):
+    """The ``TrainState``: parameters, AdamW moments and, with
+    ``compress_grads``, the error feedback, on meta."""
+    from repro_torch.train import init_train_state
+
+    return init_train_state(0, cfg, tcfg, device=META)
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec):
+    """(params, batch) → (cache, last logits): the family's dense prefill
+    into a cache of ``seq_len`` positions (plus a ``vlm`` model's
+    patches)."""
+    fns = get_model_fns(cfg)
+    max_len = shape.seq_len + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+    def prefill_step(params, batch):
+        return fns.prefill(params, batch, cfg, max_len)
+
+    return prefill_step
+
+
+def cell_inputs(cfg: ModelConfig, shape: ShapeSpec, tcfg) -> dict:
+    """A cell's step inputs on meta: train ``state``, ``batch``; prefill
+    ``params``, ``batch``; decode ``params``, ``cache``, ``token``."""
+    if shape.kind == "train":
+        return {"state": train_state_specs(cfg, tcfg), "batch": train_batch_specs(cfg, shape)}
+    if shape.kind == "prefill":
+        return {"params": params_specs(cfg), "batch": prefill_batch_specs(cfg, shape)}
+    return {"params": params_specs(cfg), "cache": decode_cache_specs(cfg, shape),
+            "token": _spec((shape.global_batch,), torch.int32)}
+
+
+def input_specs(arch: str, shape_name: str, tcfg=None) -> dict:
+    """The dry run's entry: an (arch, shape) cell's step kind, config,
+    shape, train config and :func:`cell_inputs`."""
+    from repro_torch.train import TrainConfig
+
+    cfg, shape, tcfg = get_config(arch), SHAPES[shape_name], tcfg or TrainConfig()
+    return dict(cell_inputs(cfg, shape, tcfg), kind=shape.kind, cfg=cfg, shape=shape, tcfg=tcfg)
 
 
 def _spec_state_leaves(cache: dict) -> dict:

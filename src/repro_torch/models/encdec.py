@@ -17,10 +17,11 @@ once (``transformer.unbind_units``), the decode step indexes views.
 Keys follow the reference: encoder layer ``li`` draws under
 ``fold_in(key, li)``, decoder layer ``li`` under ``fold_in(key, li +
 1000)``, and that one key goes to the layer's self-attention, its
-cross-attention and its MLP alike.  The reference wraps each scan body
-in ``jax.checkpoint``; rematerialisation changes no number, and the port
-keeps every layer's activations for the backward, as its decoder LM
-does.
+cross-attention and its MLP alike.  Each layer runs under
+``layers.remat("nothing", ...)`` whatever ``cfg.remat_policy`` says, as
+the reference wraps each scan body in a plain ``jax.checkpoint``: the
+backward runs every layer's forward again (its crossbar reads too), and
+no number moves.
 
 Serving is the dense step alone, as in the reference (its engine and
 paged entry points refuse this family): :func:`encdec_prefill` encodes
@@ -45,7 +46,8 @@ from repro_torch import random as R
 from repro_torch.device import resolve_device
 from . import attention as ATT
 from .config import ModelConfig
-from .layers import dtype_of, init_embedding, init_mlp, init_rmsnorm, mlp_apply, rmsnorm
+from .layers import (dtype_of, init_embedding, init_generator, init_mlp, init_rmsnorm, mlp_apply,
+                     randn, remat, rmsnorm)
 from .transformer import cross_entropy, unbind_units, unit_params
 
 
@@ -63,12 +65,12 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     drawn from one ``torch.Generator``: the reference's leaves, shapes and
     dtypes, other numbers than ``jax.random``'s."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = init_generator(seed, dev)
     dt = dtype_of(cfg)
     d = cfg.d_model
     enc = (cfg.enc_layers,)
     dec = (cfg.dec_layers,)
-    dec_pos = torch.randn((cfg.max_seq, d), generator=gen, device=dev, dtype=torch.float32)
+    dec_pos = randn(gen, (cfg.max_seq, d))
     return {
         "embed": init_embedding(gen, cfg.vocab, d, dt),
         "dec_pos": (dec_pos * 0.01).to(dt),
@@ -102,10 +104,24 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, key=None) -> to
     eps = cfg.norm_eps
     for li, lp in enumerate(unbind_units(params["enc"])):
         ki = None if key is None else R.fold_in(key, li)
-        x = x + ATT.self_attention(lp["attn"], rmsnorm(lp["ln1"], x, eps), positions, cfg,
-                                   kind="none", key=ki, use_rope=False)
-        x = x + mlp_apply(lp["ffn"], rmsnorm(lp["ln2"], x, eps), cfg, ki)
+        x = remat("nothing", _enc_layer, x, lp, positions, cfg, ki)
     return rmsnorm(params["enc_norm"], x, eps)
+
+
+def _enc_layer(x, lp: dict, positions, cfg: ModelConfig, ki) -> torch.Tensor:
+    eps = cfg.norm_eps
+    x = x + ATT.self_attention(lp["attn"], rmsnorm(lp["ln1"], x, eps), positions, cfg,
+                               kind="none", key=ki, use_rope=False)
+    return x + mlp_apply(lp["ffn"], rmsnorm(lp["ln2"], x, eps), cfg, ki)
+
+
+def _dec_layer(x, lp: dict, positions, enc_out, cfg: ModelConfig, ki) -> torch.Tensor:
+    eps = cfg.norm_eps
+    x = x + ATT.self_attention(lp["self_attn"], rmsnorm(lp["ln1"], x, eps), positions, cfg,
+                               kind="global", key=ki, use_rope=False)
+    x = x + ATT.cross_attention(lp["cross_attn"], rmsnorm(lp["ln_x"], x, eps), enc_out, cfg,
+                                key=ki)
+    return x + mlp_apply(lp["ffn"], rmsnorm(lp["ln2"], x, eps), cfg, ki)
 
 
 def _embed_dec(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -128,11 +144,7 @@ def decode_train(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor, cfg:
     eps = cfg.norm_eps
     for li, lp in enumerate(unbind_units(params["dec"])):
         ki = None if key is None else R.fold_in(key, li + 1000)
-        x = x + ATT.self_attention(lp["self_attn"], rmsnorm(lp["ln1"], x, eps), positions, cfg,
-                                   kind="global", key=ki, use_rope=False)
-        x = x + ATT.cross_attention(lp["cross_attn"], rmsnorm(lp["ln_x"], x, eps), enc_out, cfg,
-                                    key=ki)
-        x = x + mlp_apply(lp["ffn"], rmsnorm(lp["ln2"], x, eps), cfg, ki)
+        x = remat("nothing", _dec_layer, x, lp, positions, enc_out, cfg, ki)
     return _tied_head(params, rmsnorm(params["dec_norm"], x, eps))
 
 

@@ -3,16 +3,21 @@
 Parameters are plain dicts of tensors with the reference's leaf names and
 layouts, so a parameter tree bridged from ``repro`` drops in unchanged.
 Init functions draw from a caller-owned ``torch.Generator`` on the target
-device; they give other numbers than ``jax.random`` from the same seed,
-which is why the tests bridge the reference's parameters instead.
+device (:func:`init_generator`); they give other numbers than
+``jax.random`` from the same seed, which is why the tests bridge the
+reference's parameters instead.  On the ``meta`` device, which has no
+generator, an init builds every leaf's shape and dtype and draws nothing
+(the dry run's parameter specs).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch import random as R
 from repro_torch.core import analog as A
@@ -23,12 +28,32 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def normal_init(
-    gen: torch.Generator, shape: Sequence[int], fan: int, dtype: torch.dtype
-) -> torch.Tensor:
+class MetaGenerator:
+    """What an init draws from on the ``meta`` device, where torch has no
+    generator: :func:`randn` then allocates and draws nothing."""
+
+    device = torch.device("meta")
+
+
+def init_generator(seed: int, device: torch.device):
+    """The init's generator on ``device``, seeded; a :class:`MetaGenerator`
+    on ``meta``."""
+    if device.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def randn(gen, shape: Sequence[int]) -> torch.Tensor:
+    """f32 N(0, 1) of ``shape`` from ``gen`` on its device; on ``meta`` the
+    shape alone."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    return torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+
+
+def normal_init(gen, shape: Sequence[int], fan: int, dtype: torch.dtype) -> torch.Tensor:
     """N(0, 1/fan) drawn in f32, then cast (the reference's init rule)."""
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * fan**-0.5).to(dtype)
+    return (randn(gen, shape) * fan**-0.5).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -172,3 +197,42 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None) -> torch.Ten
             h = act(up)
         down_cfg = acfg
     return A.analog_matmul(down_cfg, k3, h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation (``cfg.remat_policy``: what a unit saves for the backward).
+# ---------------------------------------------------------------------------
+
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable: a product without
+# batch dimensions.  Attention's batched einsums (aten.bmm) are not such a
+# product, and a custom autograd.Function (the crossbar read, the stochastic
+# Sigmoid) is not a product at all: XLA sees the reference's Pallas calls so.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    # a custom Function's forward runs with grad mode off: its own products
+    # (the CPU plain version's) are the Function's, not the unit's
+    if func in _DOTS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(policy: str, fn, *args):
+    """``fn(*args)`` under the reference's ``remat_policy``: ``"full"``
+    saves every activation; ``"nothing"`` saves the inputs alone and runs
+    ``fn`` again in the backward; ``"dots"`` saves the outputs of its
+    products without batch dimensions (``aten.mm``, ``aten.addmm``) and
+    recomputes the rest.  The recompute draws the same analog noise (every
+    draw is threefry on a key passed in ``args``, none comes from torch's
+    generator, whose state is therefore not stashed), so no number moves;
+    a kernel ``fn`` launches is launched again in the backward.  Under
+    ``no_grad`` ``fn`` simply runs."""
+    if policy not in ("full", "dots", "nothing"):
+        raise ValueError(f"remat_policy must be 'full', 'dots' or 'nothing', got {policy!r}")
+    if policy == "full" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch import random as R
 from repro_torch.core import analog as A
 from .config import ModelConfig
-from .layers import dtype_of, init_rmsnorm, normal_init, rmsnorm
+from .layers import dtype_of, init_rmsnorm, normal_init, randn, rmsnorm
 
 
 def conv_channels(cfg: ModelConfig) -> int:
@@ -54,7 +54,7 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int] = ())
     lead = tuple(lead)
     dev = gen.device
     proj_out = 2 * di + 2 * cfg.ssm_state + h  # z, x, B, C, dt
-    conv_w = torch.randn(lead + (cfg.ssm_conv, conv_channels(cfg)), generator=gen, device=dev)
+    conv_w = randn(gen, lead + (cfg.ssm_conv, conv_channels(cfg)))
 
     def f32(values: torch.Tensor) -> torch.Tensor:
         return values.to(torch.float32).expand(lead + (h,)).clone()

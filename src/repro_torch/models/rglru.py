@@ -43,7 +43,7 @@ from repro_torch import random as R
 from repro_torch.core import analog as A
 from repro_torch.core import neurons
 from .config import ModelConfig
-from .layers import dtype_of, normal_init
+from .layers import dtype_of, normal_init, randn
 
 _C_EXP = 8.0
 CONV_WIDTH = 4
@@ -57,7 +57,7 @@ def init_rglru_block(gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int]
     dt = dtype_of(cfg)
     lead = tuple(lead)
     dev = gen.device
-    conv_w = torch.randn(lead + (CONV_WIDTH, w), generator=gen, device=dev) * 0.1
+    conv_w = randn(gen, lead + (CONV_WIDTH, w)) * 0.1
 
     def f32(values: torch.Tensor) -> torch.Tensor:
         return values.to(torch.float32).expand(lead + (w,)).clone()

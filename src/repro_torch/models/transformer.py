@@ -68,11 +68,13 @@ from .layers import (
     dtype_of,
     embed,
     init_embedding,
+    init_generator,
     init_lm_head,
     init_mlp,
     init_rmsnorm,
     logits_out,
     mlp_apply,
+    remat,
     rmsnorm,
 )
 
@@ -112,7 +114,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Seeded random parameters on ``device`` (the card unless ``"cpu"``)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = init_generator(seed, dev)
     dt = dtype_of(cfg)
     lead = (cfg.n_units,)
     params: dict = {
@@ -259,16 +261,15 @@ def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConf
 def backbone(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, key=None):
     """All units, unit ``u`` under ``fold_in(key, u)``; returns (final-norm
     hidden states, aux loss: the units' f32 sums added in order from 0, as
-    the reference's scan carries it; 0 without MoE blocks).
-    ``cfg.remat_policy`` is not honoured: every
-    unit's activations stay live for the backward (stablelm-3b at full
-    width and batch 8 × 128 fits the card so), so the crossbar kernel runs
-    once per projection and step, where the reference's rematerialized
-    backward runs it again.  It changes no number."""
+    the reference's scan carries it; 0 without MoE blocks).  Each unit runs
+    under ``cfg.remat_policy`` (``layers.remat``), as the reference's scan
+    body: under ``"nothing"`` and ``"dots"`` the backward runs the unit's
+    forward again, and every crossbar read of it is launched twice a
+    step.  It changes no number."""
     aux = None
     for u, up in enumerate(unbind_units(params["units"])):
         ku = None if key is None else R.fold_in(key, u)
-        x, aux_u = _unit_fwd(x, up, positions, cfg, ku)
+        x, aux_u = remat(cfg.remat_policy, _unit_fwd, x, up, positions, cfg, ku)
         if aux_u is not None:
             aux = aux_u if aux is None else aux + aux_u
     if aux is None:

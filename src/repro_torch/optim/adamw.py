@@ -59,13 +59,14 @@ def tree_leaves(tree: dict) -> list[torch.Tensor]:
 
 def tree_unflatten(tree: dict, leaves: list) -> dict:
     """``tree``'s nested dicts with its leaves replaced by ``leaves``, in
-    :func:`tree_leaves` order."""
-    it = iter(leaves)
+    :func:`tree_leaves` order.  No closure that refers to itself: such a
+    cycle would keep ``leaves`` (a step's gradients) alive until Python's
+    cyclic collector runs."""
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        return {k: build(node[k]) if isinstance(node[k], dict) else next(it) for k in sorted(node)}
 
-    return build(tree)
+def _build(node: dict, it) -> dict:
+    return {k: _build(node[k], it) if isinstance(node[k], dict) else next(it) for k in sorted(node)}
 
 
 def _map(fn, tree: dict) -> dict:

@@ -1422,3 +1422,51 @@ def test_cuda_recurrentgemma_engine_equals_cpu(cuda_device, kv):
     gm, cm = g_eng.metrics(), c_eng.metrics()
     assert (gm.prefix_hits, gm.prefix_partial_hits) == (cm.prefix_hits, cm.prefix_partial_hits)
     assert gm.prefix_hits + gm.prefix_partial_hits > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 100, 300), (333, 1030)])
+@pytest.mark.parametrize("step,lo,hi", [(1.0, -127.0, 127.0), (0.25, -8.0, 8.0)])
+def test_cuda_generic_stoch_round_equals_reference(cuda_device, shape, step, lo, hi):
+    """The generic ``ops.stoch_round`` (through the seam, one launch) is
+    bit-equal to ``stoch_round_reference`` on the card, and its gradient is
+    the in-range mask."""
+    from repro_torch.kernels import stoch_round as SR
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * hi / 3).requires_grad_(True)
+    before = SR.launches
+    y = TOPS.stoch_round(x, (3, 9), step=step, lo=lo, hi=hi)
+    assert SR.launches == before + 1
+    assert torch.equal(y, TOPS.stoch_round_reference(x.detach(), (3, 9), step=step, lo=lo, hi=hi))
+    g = torch.randn(shape, generator=gen, device=cuda_device)
+    (gx,) = torch.autograd.grad(y, x, g)
+    assert torch.equal(gx, g * ((x >= lo) & (x <= hi)).to(g.dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_wta_counts_agree_with_reference(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    z = torch.randn((37, 300), generator=gen, device=cuda_device) * 2.0
+    kw = dict(n_trials=16, vth0=0.5, sigma_z=1.0)
+    got = TOPS.wta_counts(z, 77, **kw)
+    want = TOPS.wta_counts_reference(z, 77, **kw)
+    assert float((got == want).float().mean()) > 0.9995
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,seq,batch", [("train", 16, 4), ("prefill", 64, 2),
+                                            ("decode", 32, 2)])
+def test_cuda_dryrun_counts_match_the_allocator(cuda_device, kind, seq, batch):
+    """The dry run's meta counts of a smoke step against the card: input
+    bytes and the step's peak within 10% of the allocator's, FLOPs equal."""
+    from repro_torch.configs import ShapeSpec, get_smoke_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train import TrainConfig
+
+    r = D.measure_step(get_smoke_config("stablelm-3b"), ShapeSpec(kind, seq, batch, kind),
+                       TrainConfig(microbatches=2 if kind == "train" else 1), cuda_device)
+    meta, card = r["meta"], r["card"]
+    assert meta["flops"] == card["flops"] > 0
+    for k in ("args_bytes", "temp_bytes"):
+        assert abs(meta[k] - card[k]) <= 0.1 * card[k], (k, meta, card)

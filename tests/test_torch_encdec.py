@@ -20,7 +20,8 @@ Tolerances, and why:
   decode readout sums in another order than ``attend_full``).
 
 The reference wraps its scan bodies in ``jax.checkpoint`` whatever
-``remat_policy`` says, and interpret-mode Pallas cannot be rematerialised
+``remat_policy`` says (the port checkpoints each layer so too), and
+interpret-mode Pallas cannot be rematerialised
 (ROADMAP C): its analog gradients run here with ``jax.checkpoint``
 patched to the identity for that call alone.  On the digital gradients
 the patch moves nothing by more than f32 rounding (XLA fuses the
@@ -311,7 +312,9 @@ def test_analog_stochastic_step_reads(monkeypatch):
     ``make_train_step``: 6 crossbar reads an encoder layer (q, k, v, o
     linear; ``w_up`` a comparator; ``w_down`` linear) and 10 a decoder
     layer (4 self-attention, 4 cross-attention, the MLP's 2), in that
-    order; no ``sigmoid_sample``; the tied head stays digital."""
+    order; then the backward's recompute of every layer, the decoder's
+    first (each layer is checkpointed, as the reference's scan bodies
+    are); no ``sigmoid_sample``; the tied head stays digital."""
     from repro_torch.kernels import ops as KOPS
     from repro_torch.train import make_train_step
 
@@ -333,7 +336,8 @@ def test_analog_stochastic_step_reads(monkeypatch):
     lin, cmp_, down = ((64, 64), False), ((64, 128), True), ((128, 64), False)
     enc = [lin] * 4 + [cmp_, down]
     dec = [lin] * 8 + [cmp_, down]
-    assert calls == enc * tc.enc_layers + dec * tc.dec_layers
+    fwd, bwd = enc * tc.enc_layers + dec * tc.dec_layers, dec * tc.dec_layers + enc * tc.enc_layers
+    assert calls == fwd + bwd
     assert not sig
 
 

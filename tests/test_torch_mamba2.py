@@ -378,7 +378,8 @@ def test_analog_stochastic_train_step_reads_both_projections(monkeypatch):
     """One ``analog_stochastic`` step through ``train/step.py``: finite
     loss and a finite non-zero gradient norm; the forward reads the
     crossbar twice a layer (``in_proj``, ``out_proj``), both linear, and
-    draws no ``sigmoid_sample``."""
+    draws no ``sigmoid_sample``; the backward reads them again, since it
+    recomputes every unit (``remat_policy`` "nothing", the default)."""
     _, tc = _cfgs("analog_stochastic")
     calls, sig = [], []
     real = KOPS.crossbar_mac
@@ -395,7 +396,8 @@ def test_analog_stochastic_train_step_reads_both_projections(monkeypatch):
                             .astype(np.int32))
     state, m = make_train_step(tc, tcfg)(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     assert np.isfinite(float(m["loss"]))
-    assert calls == [((64, 296), False), ((128, 64), False)] * tc.n_layers
+    assert tc.remat_policy == "nothing"
+    assert calls == [((64, 296), False), ((128, 64), False)] * tc.n_layers * 2
     assert not sig
     assert np.isfinite(float(m["grad_norm"])) and float(m["grad_norm"]) > 0
 

@@ -388,7 +388,8 @@ def test_analog_stochastic_step_reads_attention_and_races_the_router(monkeypatch
     ``train/step.py``: finite loss and ``aux``; the crossbar reads q, k, v
     and o of every layer (the experts are digital einsums, as in the
     reference); one WTA race a layer routes its tokens; no
-    ``sigmoid_sample``."""
+    ``sigmoid_sample``; the backward reads and races again, since it
+    recomputes every unit (``remat_policy`` "nothing", the default)."""
     _, tc = _cfgs(mode="analog_stochastic")
     calls, sig, races = [], [], []
     real = KOPS.crossbar_mac
@@ -412,8 +413,9 @@ def test_analog_stochastic_step_reads_attention_and_races_the_router(monkeypatch
     state, m = make_train_step(tc, tcfg)(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["aux"])) and float(m["aux"]) > 0
     d, hq, hkv = tc.d_model, tc.n_heads * tc.head_dim, tc.n_kv_heads * tc.head_dim
+    assert tc.remat_policy == "nothing"
     assert calls == [((d, hq), False), ((d, hkv), False), ((d, hkv), False),
-                     ((hq, d), False)] * tc.n_layers
-    assert races == [(2 * 16, tc.n_experts)] * tc.n_layers
+                     ((hq, d), False)] * tc.n_layers * 2
+    assert races == [(2 * 16, tc.n_experts)] * tc.n_layers * 2
     assert not sig
     assert np.isfinite(float(m["grad_norm"])) and float(m["grad_norm"]) > 0

@@ -151,7 +151,8 @@ def test_analog_stochastic_train_step_samples_the_gates(monkeypatch):
     """One ``analog_stochastic`` step through ``train/step.py``: finite
     loss, a finite non-zero gradient norm, and the RG-LRU gates drawn
     through ``ops.sigmoid_sample`` twice per recurrent sublayer in the
-    forward."""
+    forward, and again in the backward, which recomputes every unit
+    (``remat_policy`` "nothing", the default)."""
     _, tc = _cfgs("analog_stochastic")
     calls = []
     real = KOPS.sigmoid_sample
@@ -168,7 +169,8 @@ def test_analog_stochastic_train_step_samples_the_gates(monkeypatch):
     state, m = make_train_step(tc, tcfg)(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     assert np.isfinite(float(m["loss"]))
     n_rec = tc.layer_pattern.count("rec") * tc.n_units
-    assert calls == [(2, 16, tc.lru_width)] * (2 * n_rec)
+    assert tc.remat_policy == "nothing"
+    assert calls == [(2, 16, tc.lru_width)] * (2 * n_rec) * 2
     assert np.isfinite(float(m["grad_norm"])) and float(m["grad_norm"]) > 0
 
 

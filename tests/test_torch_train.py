@@ -5,8 +5,9 @@ rounded bf16 moments, micro-batching, and loss going down.
 The reference runs its analog modes with ``AnalogConfig(use_pallas="on")``
 (the interpret-mode Pallas kernel, the TPU's semantics) and, for that,
 ``remat_policy="full"``: jax cannot rematerialise interpret mode's
-callbacks.  Rematerialisation changes no number, and the port does not
-rematerialise.
+callbacks.  Rematerialisation changes no number: the port recomputes
+each unit under the config's ``"nothing"`` (``tests/test_torch_remat.py``
+holds the three policies bit-equal).
 
 Tolerances, and why:
 
