@@ -156,6 +156,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    write on the dense path, ``wta_sample`` = ticks + first tokens (dense
    WTA), = decode steps (static WTA).  Phase 7 also holds the dense
    layout's logits card against CPU.
+   Then phase 4n (:func:`mesh_phase`), the serving mesh at 1 × 1: a
+   one-rank NCCL group (no TCP port) and a ``cuda`` mesh; the trace
+   served as phase 4 serves it (bf16 pool, int8 pool, WTA R = 1; graphs
+   on) with ``ServeConfig(mesh=...)``: streams byte-identical to phase
+   4's, each kernel's launches equal to phase 4's, and the replayed
+   tick's graph the same nodes by type; the tick's host and device ms
+   beside phase 4's, and host ms a tick in turns against an unsharded
+   engine (:func:`mesh_turns`); a k = 4 speculative serve at 1 × 1 equal to 4d
+   (a)'s streams and launches; ``bench_sharded_decode`` (the smoke
+   model, 1 × 1, capacity ratio 1.0) through the section's check (phase
+   4e (d) validates the whole report, this section in it); and
+   ``serve.py --sharded`` for three requests in a subprocess.
 4g. decoders (:func:`decoders_phase`, run after phase 6b): gemma2-2b at
    full width and depth (26 layers, local + global units, soft-caps,
    post-norms, tied 256000-column embeddings; seed 0) serves phase 4's
@@ -387,6 +399,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1851,6 +1864,9 @@ def serve_phase(dev, w_invariant: bool) -> dict:
     log("== 4f: the dense KV layout and the static engine (stablelm-3b, compiled: one graph "
         "per batch width)")
     res["dense"] = dense_phase(params, cfg, prompts, dev, res)
+    log("== 4n: the serving mesh at 1 x 1 (a one-rank NCCL group; bf16, int8, WTA and k = 4 "
+        "against phases 4 and 4d; the bench's sharded_decode; serve.py --sharded)")
+    res["mesh"] = mesh_phase(params, cfg, prompts, dev, res)
     same, int8 = res["same"]["outs"], res["int8"]["outs"]
     agree = sum(a == b for r in same for a, b in zip(same[r], int8[r]))
     total = sum(len(o) for o in same.values())
@@ -2005,7 +2021,7 @@ def serve_once(params, cfg, prompts, dev, reads: int = 1) -> dict:
     return out
 
 
-def serve_run(params, cfg, prompts, dev, reads: int, graphs: bool) -> dict:
+def serve_run(params, cfg, prompts, dev, reads: int, graphs: bool, mesh=None) -> dict:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import prefill_attention as PF
     from repro_torch.kernels import stoch_round as SR
@@ -2015,7 +2031,7 @@ def serve_run(params, cfg, prompts, dev, reads: int, graphs: bool) -> dict:
     scfg = ServeConfig(
         max_batch=8, max_len=512, kv_block_size=16, prefill_chunk=128,
         max_new_tokens=32, prefill_buckets=(32, 64, 120, 128, 200, 256, 320), seed=0,
-        n_redundant_reads=reads,
+        n_redundant_reads=reads, mesh=mesh,
     )
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
@@ -2091,6 +2107,125 @@ def serve_run(params, cfg, prompts, dev, reads: int, graphs: bool) -> dict:
             "profile": prof, "decode_step_ms": m.decode_step_ms, "compile_counts": counts,
             "memory": mem,
             "captures": [[list(k), ms] for k, ms in captures]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4n: the serving mesh at 1 x 1.
+# ---------------------------------------------------------------------------
+
+
+def mesh_phase(params, cfg, prompts, dev, res: dict) -> dict:
+    """Phase 4n; see the module's docstring.  Every gate raises."""
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import bench_serving as TBS
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models.transformer import init_lm
+
+    t0 = time.perf_counter()
+    out = {}
+    with LM.process_group("cuda"):
+        mesh = LM.make_host_mesh(model=1, data=1)
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        log(f"  mesh {LM.mesh_shape(mesh)} on {mesh.device_type}, backend {dist.get_backend()}")
+        for key, c in (("same", cfg), ("int8", dataclasses.replace(cfg, kv_cache_dtype="int8")),
+                       ("wta", dataclasses.replace(cfg, wta_head=True))):
+            run = serve_run(params, c, prompts, dev, 1, graphs=True, mesh=mesh)
+            base = res[key]
+            bad = [r for r in sorted(base["outs"]) if run["outs"].get(r) != base["outs"][r]]
+            if bad or sorted(run["outs"]) != sorted(base["outs"]):
+                raise AssertionError(f"4n {key}: 1 x 1 streams differ from phase 4's in {bad}")
+            if run["launches"] != base["launches"]:
+                raise AssertionError(f"4n {key}: launches {run['launches']} against phase 4's "
+                                     f"{base['launches']}")
+            nodes, want = run["profile"]["graph_nodes"], base["profile"]["graph_nodes"]
+            if (nodes["nodes"], nodes["by_type"]) != (want["nodes"], want["by_type"]):
+                raise AssertionError(f"4n {key}: the replayed tick's graph has {nodes}, phase "
+                                     f"4's {want}")
+            if run["compile_counts"] != base["compile_counts"]:
+                raise AssertionError(f"4n {key}: compile_counts {run['compile_counts']} against "
+                                     f"{base['compile_counts']}")
+            prof, bprof = run["profile"], base["profile"]
+            log(f"  4n {key}: streams = phase 4's ({sum(map(len, run['outs'].values()))} tokens), "
+                f"launches = phase 4's {run['launches']}, graph {nodes['nodes']} nodes = phase "
+                f"4's; replayed tick host {prof['host_ms']:.3f} ms (phase 4 "
+                f"{bprof['host_ms']:.3f}), device {prof['device_ms']:.3f} ms (phase 4 "
+                f"{bprof['device_ms']:.3f}), {prof['kernels']:.0f} kernels a tick (phase 4 "
+                f"{bprof['kernels']:.0f})")
+            out[key] = {"launches": run["launches"], "graph_nodes": nodes,
+                        "host_ms": prof["host_ms"], "device_ms": prof["device_ms"],
+                        "base_host_ms": bprof["host_ms"], "base_device_ms": bprof["device_ms"],
+                        "decode_step_ms": run["decode_step_ms"],
+                        "base_decode_step_ms": base["decode_step_ms"]}
+        spec = spec_run(params, cfg, prompts, dev, 4, "4n) 1 x 1 greedy k=4", mesh=mesh)
+        want = res["spec"]["runs"]["a"]
+        if spec["outs"] != want["outs"] or spec["launches"] != want["launches"]:
+            raise AssertionError(f"4n spec: 1 x 1 streams or launches {spec['launches']} differ "
+                                 f"from 4d (a)'s {want['launches']}")
+        out["spec"] = {"launches": spec["launches"], "decode_step_ms":
+                       spec["metrics"]["decode_step_ms"]}
+        log(f"  4n spec: streams and launches = 4d (a)'s; decode step "
+            f"{spec['metrics']['decode_step_ms']:.2f} ms (4d (a) "
+            f"{want['metrics']['decode_step_ms']:.2f})")
+        out["turns"] = mesh_turns(params, cfg, prompts, dev, mesh)
+        small = get_smoke_config("stablelm-3b")
+        shd = TBS.bench_sharded_decode(small, init_lm(small, seed=0, device=dev), n_req=8)
+        TBS._check_sharded({"sharded_decode": shd})
+        assert shd["mesh"] == {"data": 1, "model": 1} and shd["capacity_ratio"] == 1.0, shd
+        out["bench"] = shd
+        log(f"  4n bench sharded_decode: {shd}")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "stablelm-3b", "--sharded",
+         "--requests", "3", "--new-tokens", "8"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), capture_output=True,
+        text=True, timeout=300)
+    text = proc.stdout + proc.stderr
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("serving mesh", "served"))]
+    log(f"  4n serve.py --sharded (rc {proc.returncode}, {time.perf_counter() - t1:.1f} s): "
+        + " | ".join(lines))
+    if proc.returncode or "serving mesh: {'data': 1, 'model': 1}" not in text \
+            or "served 3 requests" not in text:
+        raise AssertionError(f"4n serve.py --sharded failed:\n{text[-4000:]}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 4n wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def mesh_turns(params, cfg, prompts, dev, mesh, n_ticks: int = 5, rounds: int = 10) -> dict:
+    """Host ms per full-batch replayed tick in turns (no profiler), the
+    unsharded engine against the 1 x 1 mesh's: 8 slots decoding from the
+    trace's prompts, each tick ending in the engine's own sync, the order
+    swapped every round."""
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    engines = {}
+    for name, m in (("mesh=None", None), ("1x1", mesh)):
+        eng = ServingEngine(params, cfg, ServeConfig(max_batch=8, max_len=512, kv_block_size=16,
+                                                     prefill_chunk=128, seed=0, mesh=m),
+                            device=dev)
+        for p in prompts[:8]:
+            eng.submit(p[:100], max_new_tokens=2 * rounds * n_ticks + 4)
+        while eng._job_fifo or eng.sched.queued():
+            eng.tick()
+        eng.tick()
+        engines[name] = eng
+    torch.cuda.synchronize()
+    ms = {k: [] for k in engines}
+    for r in range(rounds):
+        for name in (list(engines) if r % 2 == 0 else list(engines)[::-1]):
+            t0 = time.perf_counter()
+            for _ in range(n_ticks):
+                engines[name].tick()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / n_ticks)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"  4n host ms per full-batch tick in turns ({rounds} x {n_ticks} ticks): "
+        + "; ".join(f"{k} {[round(x, 2) for x in v]} (median {med[k]:.2f})"
+                    for k, v in ms.items()))
+    del engines
+    torch.cuda.empty_cache()
+    return {"runs": ms, "median": med}
 
 
 # The degraded serve's fault schedule: the comparator offset the canary
@@ -2682,7 +2817,7 @@ def spec_probe(params, cfg, prompts, dev, k: int = 4) -> dict:
 
 
 def spec_run(params, cfg, prompts, dev, k: int, tag: str, *, tamper: bool = False,
-             injector=None) -> dict:
+             injector=None, mesh=None) -> dict:
     """One phase 4d serve through the compiled engine at ``speculate_k = k``
     (every request at once): streams, speculation metrics, launches (reset
     just before, read just after), ``compile_counts()``, round captures and
@@ -2695,11 +2830,13 @@ def spec_run(params, cfg, prompts, dev, k: int, tag: str, *, tamper: bool = Fals
     from repro_torch.kernels import wta_sample as WS
     from repro_torch.serving import ServingEngine
 
-    scfg = spec_serve_config(speculate_k=k, fault_injector=injector)
+    from repro_torch import parallel as PX
+
+    scfg = spec_serve_config(speculate_k=k, fault_injector=injector, mesh=mesh)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     eng = ServingEngine(params, cfg, scfg, device=dev)
-    ptrs = {n: v.data_ptr() for n, v in eng._cache.items()}
+    ptrs = {n: v.data_ptr() for n, v in PX.local(eng._cache).items()}
     rb_captures, calls = spec_instrument(eng, tamper)
     for p in prompts:
         eng.submit(p)
@@ -2724,7 +2861,7 @@ def spec_run(params, cfg, prompts, dev, k: int, tag: str, *, tamper: bool = Fals
                "ttft_p99", "decode_steps", "total_tokens", "preemptions", "restores")},
            "launches": launches, "compile_counts": counts, "captures": caps, "wall_s": wall,
            "tampered_rounds": calls["n"] // 2, "rollbacks": len(rb_captures),
-           "ptrs_kept": ptrs == {n_: v.data_ptr() for n_, v in eng._cache.items()},
+           "ptrs_kept": ptrs == {n_: v.data_ptr() for n_, v in PX.local(eng._cache).items()},
            "free_blocks": (eng.blocks.available, eng.blocks.capacity), "plain_ticks": plain}
     del eng
     torch.cuda.empty_cache()
@@ -5956,7 +6093,7 @@ def loop_phase_d(dev) -> dict:
 
 def check_serving_report(report: dict) -> dict:
     """The serving bench's report through each of ``validate_report``'s
-    checks (the reference's, less ``sharded_decode``), gated, but for the
+    checks (the reference's, ``sharded_decode``'s at 1 x 1 among them), gated, but for the
     speculative section's tokens/s floor, which is printed.  The floor is
     a claim about dispatch: the reference's plain tick on its CPU is one
     jitted call whose dispatch dominates it, and a round amortises that
@@ -5982,6 +6119,10 @@ def check_serving_report(report: dict) -> dict:
         + f"; speculative tokens/s {spec['plain']['tokens_per_s']} -> "
           f"{spec['spec']['tokens_per_s']}, ratio {spec['tokens_per_s_ratio']}, acceptance "
           f"{spec['acceptance']}, streams identical {spec['tokens_match']}")
+    shd = report["sharded_decode"]
+    log(f"  (d) sharded_decode: mesh {shd['mesh']}, streams identical {shd['tokens_match']}, "
+        f"admitted {shd['admitted_single']} -> {shd['admitted_sharded']}, capacity ratio "
+        f"{shd['capacity_ratio']}")
     pvd = report["paged_vs_dense"]
     log("  (d) paged vs dense decode step ms: " + ", ".join(
         f"L{r['max_len']} dense {r['dense']['decode_step_ms']} paged "
@@ -7243,6 +7384,14 @@ def main() -> int:
         rec = next(k for k in kernels if k["name"] == name)
         rec["launches_preempt"] = {run: pre[run]["launches"][key]
                                    for run in ("a", "b", "c", "d_same", "d_int8")}
+    # phase 4n: the 1 x 1 mesh's serves, each reset just before it and
+    # read just after
+    mres4 = sres["mesh"]
+    for name, key in (("paged_attention", "decode"), ("paged_prefill_attention", "prefill"),
+                      ("write_kv_int8", "write_kv_int8"), ("wta_sample", "wta_sample")):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_4n"] = {f"1x1 {run}": mres4[run]["launches"][key]
+                              for run in ("same", "int8", "wta", "spec")}
     # phase 4d: each speculative run's launches, reset just before it and
     # read just after
     spec = sres["spec"]["runs"]

@@ -6,11 +6,13 @@ the Table I energy accounting and the fault-tolerance loop.
 
 The reference's traces, protocol, sections and report keys, through the
 port's engines (``repro_torch.serving``) on the card, or on the CPU with
-``--device cpu``.  Its ``sharded_decode`` section waits for the port's
-sharding and is not in the schema.  A section takes ``(cfg, params)`` as
+``--device cpu``.  A section takes ``(cfg, params)`` as
 the reference's do and serves on the device the parameters live on, so a
 test can hand both packages the same weights; :func:`run` initialises
 with the port's own seeded init (``transformer.init_lm``, seed 0).
+``sharded_decode`` serves on a ``(data, model)`` mesh over the open
+process group (a one-rank group when none is open: a 1 × 1 mesh, whose
+capacity ratio is 1.0; under ``torchrun`` every rank on the data axis).
 
 Timings are host wall clock around each engine's own device syncs
 (``ServingMetrics``): tokens/s, TTFT and decode-step ms move with the
@@ -48,9 +50,9 @@ from repro_torch.serving import (
     StaticServingEngine,
 )
 
-# Keys every report must carry: the reference's schema but
-# ``sharded_decode`` (sharding is not ported).  validate_report() runs on
-# the freshly written JSON in main(), and on any report with --validate.
+# Keys every report must carry, the reference's schema.  validate_report()
+# runs on the freshly written JSON in main(), and on any report with
+# --validate.
 REPORT_SCHEMA = {
     "engines": dict,
     "paged_vs_dense": list,
@@ -58,6 +60,7 @@ REPORT_SCHEMA = {
     "int8_capacity_sweep": dict,
     "prefix_sharing": dict,
     "partial_prefix": dict,
+    "sharded_decode": dict,
     "preemption": dict,
     "speculative_decode": dict,
     "energy_per_token": dict,
@@ -81,6 +84,11 @@ _PARTIAL_KEYS = {
     "n_requests", "prompt_len", "shared_prefix_len", "prefill_chunk",
     "off", "on", "prefill_token_reduction", "late_ttft_ratio",
     "tokens_match",
+}
+_SHARDED_KEYS = {
+    "mesh", "devices", "single", "sharded", "tokens_match",
+    "per_device_kv_blocks", "admitted_single", "admitted_sharded",
+    "capacity_ratio",
 }
 _PREEMPTION_KEYS = {
     "n_batch", "n_interactive", "burst_tick", "on", "off",
@@ -173,6 +181,19 @@ def _check_tables(report: dict) -> None:
         raise ValueError(
             "partial_prefix: prefill-token reduction "
             f"{report['partial_prefix']['prefill_token_reduction']} < 3.0"
+        )
+
+
+def _check_sharded(report: dict) -> None:
+    """Sharded decode: its keys and identical streams."""
+    missing = _SHARDED_KEYS - set(report["sharded_decode"])
+    if missing:
+        raise ValueError(
+            f"sharded_decode missing keys {sorted(missing)}"
+        )
+    if report["sharded_decode"]["tokens_match"] is not True:
+        raise ValueError(
+            "sharded_decode: mesh-sharded vs single-device decode diverged"
         )
 
 
@@ -378,13 +399,13 @@ def _check_fault_tolerance(report: dict) -> None:
 
 # the checks in the reference's order; validate_report stops at the first
 # failure
-CHECKS = (_check_schema, _check_tables, _check_preemption, _check_speculative,
-          _check_energy, _check_fault_tolerance)
+CHECKS = (_check_schema, _check_tables, _check_sharded, _check_preemption,
+          _check_speculative, _check_energy, _check_fault_tolerance)
 
 
 def validate_report(report: dict) -> None:
     """Raise ValueError unless ``report`` matches the schema and every
-    gate of the reference's ``validate_report`` but ``sharded_decode``'s."""
+    gate of the reference's ``validate_report``."""
     for check in CHECKS:
         check(report)
 
@@ -781,6 +802,81 @@ def bench_int8_capacity(cfg, params, num_kv_blocks: int = 9) -> dict:
     return out
 
 
+def bench_sharded_decode(cfg, params, n_req: int = 8) -> dict:
+    """Sharded paged decode over the ``(data, model)`` mesh of the open
+    process group, every rank on the data axis (``model=1``: data-axis
+    sharding keeps every reduction order, so the token identity is exact).
+    Two claims, as the reference's:
+
+    * safety: the same arrival trace through the unsharded engine and the
+      sharded one gives IDENTICAL streams (``tokens_match``;
+      validate_report fails the run otherwise);
+    * capacity: at a FIXED per-device block budget the sharded pool's
+      page axis spreads over data, so admission capacity grows with the
+      data axis at constant bytes per device: requests admitted on the
+      first tick at ``num_kv_blocks = per_device · data``.
+
+    With no group open it opens a one-rank group: a 1 × 1 mesh, whose
+    identity check is the byte-identity contract and whose capacity ratio
+    is 1.0."""
+    from repro_torch.launch import mesh as LM
+
+    dev = _device(params)
+    serve = dict(
+        max_batch=4, max_new_tokens=8, max_len=64,
+        kv_layout="paged", kv_block_size=8,
+    )
+    trace = make_trace(
+        seed=3, n_req=n_req, mean_gap_ticks=1.0,
+        prompt_len_range=(2, 12), new_tokens_range=(3, 9), vocab=cfg.vocab,
+    )
+    with LM.process_group(dev.type):
+        mesh = LM.make_host_mesh(model=1, device=dev.type)
+        data, model = (int(n) for n in mesh.shape)
+        out: dict = {"mesh": {"data": data, "model": model}, "devices": data * model}
+        streams = {}
+        for label, m in (("single", None), ("sharded", mesh)):
+            eng = _engine(params, cfg, ServeConfig(**serve, mesh=m))
+            drive_continuous(eng, trace)
+            streams[label] = {
+                r.rid: r.output for r in eng.sched.all_requests()
+                if r.state is RequestState.DONE
+            }
+            met = eng.metrics()
+            out[label] = {
+                "tokens_per_s": round(met.tokens_per_s, 1),
+                "decode_step_ms": round(met.decode_step_ms, 3),
+                "completed": met.completed,
+            }
+            del eng
+        out["tokens_match"] = streams["single"] == streams["sharded"]
+        # admission capacity at a FIXED per-device budget: the sharded pool
+        # holds per_device·data pages at the same bytes per device
+        per_device = 8
+        out["per_device_kv_blocks"] = per_device
+        prompt = [1, 2, 3]  # bucket 8 + budget 8 -> 2 blocks per request
+        for label, m, blocks in (
+            ("admitted_single", None, per_device),
+            ("admitted_sharded", mesh, per_device * data),
+        ):
+            eng = _engine(params, cfg, ServeConfig(
+                **dict(serve, max_batch=32), num_kv_blocks=blocks,
+                enable_prefix_sharing=False, mesh=m,
+            ))
+            for _ in range(32):
+                eng.submit(prompt, 8)
+            eng.tick()
+            out[label] = sum(
+                1 for r in eng.sched.all_requests()
+                if r.state is not RequestState.QUEUED
+            )
+            del eng
+    out["capacity_ratio"] = round(
+        out["admitted_sharded"] / max(out["admitted_single"], 1), 2
+    )
+    return out
+
+
 def bench_preemption(cfg, params, n_each: int = 3) -> dict:
     """Bursty two-class trace: batch jobs saturate the slots, then an
     interactive burst arrives mid-decode at higher priority.
@@ -1128,9 +1224,8 @@ def bench_fault_tolerance(cfg, params, n_req: int = 8) -> dict:
 
 
 def run(device=None, dry_run: bool = False) -> tuple[list[tuple[str, float, str]], dict]:
-    """Every section but ``sharded_decode`` at the reference's protocol
-    (``dry_run``: its tiny traces on the smoke model); returns the CSV rows
-    and the report."""
+    """Every section at the reference's protocol (``dry_run``: its tiny
+    traces on the smoke model); returns the CSV rows and the report."""
     dev = resolve_device(device)
     base = get_smoke_config("stablelm-3b")
     if dry_run:
@@ -1358,6 +1453,22 @@ def run(device=None, dry_run: bool = False) -> tuple[list[tuple[str, float, str]
             f"ladder_max={fa['degraded_mode_max']}"
             f"->final={fa['degraded_mode_final']} "
             f"served={fa['all_served']}",
+        )
+    )
+    # sharded paged decode over the open group's mesh: token identity
+    # against the unsharded engine, admission capacity over the data axis
+    shd = bench_sharded_decode(
+        pvd_cfg, pvd_params, n_req=6 if dry_run else 8
+    )
+    report["sharded_decode"] = shd
+    rows.append(
+        (
+            "serve_sharded_decode",
+            0.0,
+            f"mesh=({shd['mesh']['data']},{shd['mesh']['model']}) "
+            f"admitted={shd['admitted_single']}->{shd['admitted_sharded']} "
+            f"capacity={shd['capacity_ratio']:.2f}x "
+            f"match={shd['tokens_match']}",
         )
     )
     return rows, report

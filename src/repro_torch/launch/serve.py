@@ -22,7 +22,7 @@ needs frames, and is served by the dense step alone
         [--device-backend sim_faulty [--stuck-rate R] [--drift-nu NU] \
          [--read-sigma-inflation I] [--comparator-offset O] [--fault-seed S]] \
         [--canary-interval N] [--tile-retire-threshold T] [--degrade] \
-        [--ckpt-dir ckpts/stablelm-3b]
+        [--ckpt-dir ckpts/stablelm-3b] [--sharded [--mesh-model N]]
 
 Runs on the card unless ``--device cpu`` is given.  On the card the
 engine's decode step is compiled: one CUDA graph per decode window width
@@ -39,6 +39,13 @@ as the reference does: a params-only checkpoint (``save_checkpoint(dir,
 step, params)``, leaf names such as ``embed/embedding``).  A training
 loop's checkpoint holds a ``TrainState`` (names under ``.params/``) and
 raises ``KeyError`` here, in both packages.
+
+``--sharded`` serves on a ``(data, model)`` mesh (``launch/mesh.py``):
+``--mesh-model`` ranks on the model axis, the rest of the process group
+on the data axis.  Run alone it opens a one-rank group (a 1 × 1 mesh,
+byte-identical to the unsharded engine and captured as CUDA graphs on the
+card); under ``torchrun --nproc-per-node N`` each rank serves the same
+requests on its shards and rank 0 prints.  The paged layout only.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import latest_step, load_checkpoint
 from repro_torch.configs import get_config, get_smoke_config
@@ -156,7 +164,29 @@ def main(argv=None) -> list:
                          "redundant reads -> shed batch admissions) driven "
                          "by canary failures and sanity evictions")
     ap.add_argument("--ckpt-dir")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the paged pool and the decode step over a (data, model) "
+                         "mesh of the process group's ranks (one rank when run alone; "
+                         "more under torchrun)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model-axis size of the serving mesh (--sharded); the other "
+                         "ranks go to the data axis")
     args = ap.parse_args(argv)
+    if not args.sharded:
+        return _serve(args, None)
+    from repro_torch.launch import mesh as LM
+
+    dev = torch.device("cuda" if args.device is None else args.device).type
+    with LM.process_group(dev):
+        mesh = LM.make_host_mesh(model=args.mesh_model, device=dev)
+        if torch.distributed.get_rank() == 0:
+            print(f"serving mesh: {LM.mesh_shape(mesh)}")
+        return _serve(args, mesh)
+
+
+def _serve(args, mesh) -> list:
+    quiet = mesh is not None and torch.distributed.get_rank() != 0
+    print_ = (lambda *a, **k: None) if quiet else print
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, wta_head=args.wta, kv_cache_dtype=args.kv_dtype)
@@ -165,7 +195,7 @@ def main(argv=None) -> list:
         step = latest_step(args.ckpt_dir)
         if step is not None:
             params = load_checkpoint(args.ckpt_dir, step, params)  # params-only checkpoints
-            print(f"loaded checkpoint step {step}")
+            print_(f"loaded checkpoint step {step}")
     fault_cfg = None
     if args.device_backend == "sim_faulty":
         fault_cfg = FaultConfig(
@@ -199,6 +229,7 @@ def main(argv=None) -> list:
             enable_preemption=not args.no_preemption,
             spill_budget_bytes=args.spill_budget_bytes,
             speculate_k=args.speculate_k,
+            mesh=mesh,
         ),
         device=args.device,
     )
@@ -217,7 +248,7 @@ def main(argv=None) -> list:
     m = eng.metrics()
     total = sum(len(o) for o in outs)
     layout = "dense" if args.static else args.kv_layout
-    print(
+    print_(
         f"served {len(outs)} requests, {total} tokens in {dt:.2f}s on "
         f"{eng.device} ({total / max(dt, 1e-9):.1f} tok/s, ttft "
         f"{m.ttft_mean * 1e3:.0f}ms p99 {m.ttft_p99 * 1e3:.0f}ms, "
@@ -227,19 +258,19 @@ def main(argv=None) -> list:
         f"engine={'static' if args.static else 'continuous'}, "
         f"sampler={f'wta R={args.n_redundant_reads}' if args.wta else 'greedy'})"
     )
-    print(
+    print_(
         f"preemptions {m.preemptions} (restores {m.restores}, spill drops "
         f"{m.spill_drops}); done reasons "
         + ", ".join(f"{k}={v}" for k, v in sorted(m.evictions.items()))
     )
     if m.spec_rounds:
-        print(
+        print_(
             f"speculation k={args.speculate_k}: {m.spec_rounds} rounds, "
             f"{m.spec_accepted}/{m.spec_drafted} drafts accepted "
             f"({m.spec_acceptance:.2f}), {m.spec_tokens_per_round:.2f} tokens a round"
         )
     if m.canary_probes or m.degraded_mode or m.degraded_transitions:
-        print(
+        print_(
             f"fault tolerance: degraded_mode {m.degraded_mode}, "
             f"canary {m.canary_failures}/{m.canary_probes} failed, "
             f"retired tiles {m.retired_tiles}, "
@@ -247,7 +278,7 @@ def main(argv=None) -> list:
             f"transitions {len(m.degraded_transitions)}"
         )
     for pr, row in sorted(m.latency_by_class.items()):
-        print(
+        print_(
             f"class {pr}: n={row['n']} ttft p50/p99 {row['ttft_p50_ms']:.0f}/"
             f"{row['ttft_p99_ms']:.0f}ms, latency p50/p99 "
             f"{row['latency_p50_ms']:.0f}/{row['latency_p99_ms']:.0f}ms"
@@ -255,7 +286,7 @@ def main(argv=None) -> list:
     if m.analog:
         a = m.analog
         tc = a["tokens_computed"]
-        print(
+        print_(
             f"energy (Table I pricing, {a['backend']} backend): "
             f"computed {tc['total']} tokens "
             f"(prefill {tc['prefill']}, decode {tc['decode']}, "
@@ -266,8 +297,8 @@ def main(argv=None) -> list:
             f"({a['adc1b']['tops_per_w_effective']:.2f} TOPS/W)"
         )
     for o in outs:
-        print("  ->", o)
-    print(f"compile counts {eng.compile_counts()}")
+        print_("  ->", o)
+    print_(f"compile counts {eng.compile_counts()}")
     return outs
 
 

@@ -16,11 +16,16 @@ Every rule is divisibility-guarded: a mesh axis that does not divide its
 dimension is dropped (replicated).  A spec is a tuple with one entry per
 dimension: a mesh-axis name, a tuple of two or more names, or ``None``
 (a one-name tuple is written as the name, as ``PartitionSpec`` keeps
-it).  A mesh is axis names with sizes: a mapping, or any object with
-``axis_names`` and ``devices.shape`` (the reference's fake mesh).  No device and no DTensor
-here: the placements (``param_shardings`` and the rest) come with the
-DTensor mesh.  The parameter trees carry the reference's leaf names, so
-the path rules apply unchanged.
+it).  A mesh is axis names with sizes: a mapping, any object with
+``axis_names`` and ``devices.shape`` (the reference's fake mesh), or a
+DTensor ``DeviceMesh``.  The parameter trees carry the reference's leaf
+names, so the path rules apply unchanged.
+
+The placements (:func:`param_shardings`, :func:`state_shardings`,
+:func:`batch_shardings`, :func:`cache_shardings`) are those specs on a
+``DeviceMesh``, through ``parallel.placements``: one
+``parallel.Sharding`` (mesh, a placement per mesh axis) per leaf.  So a
+leaf's local shard and :func:`per_device_bytes` cannot disagree.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import math
 import re
 from typing import Any, Mapping, Optional
 
+from repro_torch import parallel as PX
 from repro_torch.models import ModelConfig
 
 FSDP_THRESHOLD = 8_000_000_000  # params; above this, shard states over data
@@ -37,9 +43,12 @@ _FSDP = "__fsdp__"  # placeholder resolved per config
 
 
 def mesh_axis_sizes(mesh: Any) -> dict:
-    """{axis name: size} of a mapping or of a mesh-like object."""
+    """{axis name: size} of a mapping, a mesh-like object or a
+    ``DeviceMesh``."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
@@ -237,3 +246,39 @@ def per_device_bytes(tree: Any, specs: Any, sizes: dict) -> int:
     if isinstance(tree, dict):
         return sum(per_device_bytes(v, specs[k], sizes) for k, v in tree.items())
     return tree.numel() * tree.element_size() // spec_shards(specs, sizes)
+
+
+# ---------------------------------------------------------------------------
+# Placements on a DeviceMesh: the specs above through parallel.placements.
+# ---------------------------------------------------------------------------
+
+
+def _shardings(specs: Any, mesh) -> Any:
+    """A ``parallel.Sharding`` per spec of a (nested) dict of specs."""
+    if isinstance(specs, dict):
+        return {k: _shardings(v, mesh) for k, v in specs.items()}
+    if specs is None:
+        return None
+    return PX.Sharding(mesh, PX.placements(specs, mesh.mesh_dim_names))
+
+
+def param_shardings(params: dict, mesh, cfg: ModelConfig) -> dict:
+    """A placement per parameter leaf (:func:`param_partition_specs`)."""
+    return _shardings(param_partition_specs(params, mesh, cfg), mesh)
+
+
+def state_shardings(state, mesh, cfg: ModelConfig) -> dict:
+    """A ``TrainState``'s placements (:func:`state_partition_specs`):
+    {"params", "m", "v", "error"}."""
+    return _shardings(state_partition_specs(state, mesh, cfg), mesh)
+
+
+def batch_shardings(batch: dict, mesh, batch_size: int) -> dict:
+    """Each batch leaf's leading dim over :func:`batch_axes`."""
+    return _shardings(batch_partition_specs(batch, mesh, batch_size), mesh)
+
+
+def cache_shardings(cache: dict, mesh, cfg: ModelConfig, batch_size: int) -> dict:
+    """A placement per decode-cache leaf, dense and paged layouts
+    (:func:`cache_partition_specs`)."""
+    return _shardings(cache_partition_specs(cache, mesh, cfg, batch_size), mesh)

@@ -30,7 +30,16 @@ The dry run's inputs (``repro/launch/specs.py:34-124, 702-707, 883-922``):
 :func:`input_specs` and the ``*_specs`` helpers build every input leaf of
 a cell's step on the ``meta`` device, the counterpart of the reference's
 ``jax.eval_shape``: shapes and dtypes, no allocation and no draw.
-Absent still: sharding (``launch/sharding.py`` holds the policy alone).
+
+Sharded serving (:func:`make_sharded_paged_entry_points`,
+``repro/launch/specs.py:376-560``): the same entry points over a
+``(data, model)`` DTensor mesh, one process per rank.  The cache leaves
+and parameters are DTensors placed by :func:`paged_cache_shardings` and
+replicated; each entry point unwraps them with ``to_local()`` (the same
+storage, no copy) and runs the port's kernels on the local shards, with
+explicit ``torch.distributed`` collectives on the mesh's per-axis groups
+around them (``parallel.PoolShards``): DTensor has no sharding rule for
+the hand-written kernels, and none is registered.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import parallel as PX
 from repro_torch.configs import SHAPES, ShapeSpec, get_config
 from repro_torch.core import wta as W
 from repro_torch.kernels import backend as BK
@@ -567,6 +577,312 @@ def make_paged_serve_step(
     return serve_step
 
 
+# ---------------------------------------------------------------------------
+# Sharded serving: the paged entry points on a (data, model) DTensor mesh.
+# ---------------------------------------------------------------------------
+
+
+def paged_cache_shardings(cfg: ModelConfig, mesh, batch: int, n_pages: int,
+                          block_size: int) -> dict:
+    """A ``parallel.Sharding`` per paged-cache leaf on ``mesh``: the page
+    axis over "data", kv heads over "model", per-slot leaves' slot axis
+    over "data", each divisibility-guarded (``sharding.cache_partition_specs``,
+    ``repro/launch/specs.py:376-385``)."""
+    from repro_torch.launch import sharding as SH
+
+    specs = paged_decode_cache_specs(cfg, batch, n_pages, block_size)
+    return SH.cache_shardings(specs, mesh, cfg, batch)
+
+
+def init_sharded_paged_decode_cache(cfg: ModelConfig, shardings: dict, batch: int,
+                                    n_pages: int, block_size: int, device=None) -> dict:
+    """:func:`init_paged_decode_cache` placed sharded from the start: each
+    leaf a DTensor of ``shardings``' layout whose local shard alone is
+    allocated (zeros; an int8 pool's scale planes ones, as unsharded)."""
+    out = {}
+    for name, spec in paged_decode_cache_specs(cfg, batch, n_pages, block_size).items():
+        sh = shardings[name]
+        fill = 1 if name in ("k_scale_pages", "v_scale_pages") else 0
+        local = torch.full(sh.local_shape(spec.shape), fill, dtype=spec.dtype, device=device)
+        out[name] = PX.place_local(local, sh, spec.shape)
+    return out
+
+
+class MeshSlots:
+    """One rank's place on the serving mesh as the sharded entry points
+    use it: ``ps`` (``parallel.PoolShards``: sizes, coordinates, groups,
+    which of slots / pages / kv heads are split), the rank's slot range
+    ``[slot0, slot0 + b_local)``, and each per-slot state leaf's dimension
+    split over "model" (``None``: whole on every rank)."""
+
+    def __init__(self, mesh, cache_sh: dict, batch: int):
+        from torch.distributed.tensor import Shard
+
+        names = tuple(mesh.mesh_dim_names or ())
+        sizes = dict(zip(names, mesh.shape))
+        if not {"data", "model"} <= set(names) or any(
+                sizes[n] > 1 for n in names if n not in ("data", "model")):
+            raise ValueError(f"serving mesh needs ('data', 'model') axes, got {sorted(names)}")
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank sits the serving mesh out: it has no shard to serve")
+        di, mi = names.index("data"), names.index("model")
+
+        data, model = sizes["data"], sizes["model"]
+
+        def split(sh, i):
+            return mesh.shape[i] > 1 and isinstance(sh.placements[i], Shard)
+
+        def dim(sh, i):
+            return sh.placements[i].dim if split(sh, i) else None
+
+        pool = cache_sh.get("k_pages")
+        self.ps = PX.PoolShards(
+            data=data, model=model, d=coord[di], m=coord[mi],
+            data_group=mesh.get_group("data") if data > 1 else None,
+            model_group=mesh.get_group("model") if model > 1 else None,
+            slots=split(cache_sh["pos"], di),
+            pages=pool is not None and split(pool, di),
+            heads=pool is not None and split(pool, mi),
+        )
+        # a mesh of size-1 axes runs the unsharded code: no context, no
+        # collective, the unsharded step's kernels in its order
+        self.ctx = None if data == model == 1 else self.ps
+        self.b_local = batch // data if self.ps.slots else batch
+        self.slot0 = self.ps.d * self.b_local if self.ps.slots else 0
+        self.model_dim = {n: dim(sh, mi) for n, sh in cache_sh.items()
+                          if n not in PAGE_POOL_LEAVES and n != "quant_step"}
+
+    def owner(self, slot: int) -> Optional[int]:
+        """``slot``'s index in this rank's shard, or ``None`` if another
+        data rank holds it."""
+        ls = slot - self.slot0
+        return ls if 0 <= ls < self.b_local else None
+
+    def from_owner(self, t: torch.Tensor, owner: int) -> torch.Tensor:
+        """Data rank ``owner``'s ``t`` on every rank (``t`` of the same
+        shape everywhere)."""
+        if self.ps.data == 1:
+            return t
+        return PX.all_gather(t[None], self.ps.data_group, self.ps.data, 0)[owner]
+
+    def own_model(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's model block of a whole per-slot leaf ``t``."""
+        md = self.model_dim.get(name)
+        if md is None:
+            return t
+        n = t.shape[md] // self.ps.model
+        return t.narrow(md, self.ps.m * n, n)
+
+    def whole_model(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        md = self.model_dim.get(name)
+        return t if md is None else PX.all_gather(t, self.ps.model_group, self.ps.model, md)
+
+    def state_view(self, cache: dict) -> dict:
+        """The cache a step runs on: the local shards, with every per-slot
+        leaf split over "model" gathered whole (this rank's slots)."""
+        return {n: self.whole_model(n, t) for n, t in cache.items()}
+
+    def state_back(self, cache: dict, view: dict) -> None:
+        """Write a step's per-slot leaves back into the model-split shards
+        (the others were written in place)."""
+        for n, md in self.model_dim.items():
+            if md is not None and n in view:
+                cache[n].copy_(self.own_model(n, view[n]))
+
+
+def make_sharded_paged_entry_points(
+    cfg: ModelConfig, mesh, *, batch: int, n_pages: int, block_size: int,
+    speculate_k: int = 0, n_redundant: int = 1, sat_threshold: float = 1e6,
+    entropy_floor: float = 0.0,
+) -> dict:
+    """The paged serving entry points on a ``(data, model)`` DTensor mesh
+    (``repro/launch/specs.py:388-560``), as the reference's docstring lays
+    them out:
+
+    * the pool's page axis is split over "data" and its kv heads over
+      "model" (divisibility-guarded: a dimension an axis does not divide
+      is whole on every rank), so the pool's capacity grows with the data
+      axis at constant bytes per device;
+    * per-slot inputs (table (B, W), tokens (B,), keys (B, 2), step
+      counters (B,)) and the per-slot leaves (``pos``, and ``rec_conv``,
+      ``rec_h``, ``ssm_conv``, ``ssm_state`` on their slot axis,
+      :func:`cache_batch_axis`) are split over "data", guarded on B; the
+      state leaves over "model" too where ``cache_partition_specs`` says;
+    * parameters are replicated, and so are the B = 1 prefill arguments,
+      the chunk logits and every spill payload.
+
+    Every rank runs the engine's host bookkeeping (scheduler, allocator,
+    prefix index, block table) on the same trace, so the table is global;
+    the entry points supply what GSPMD inserts in the reference: each
+    paged layer gathers its whole pool over "data" and writes every slot's
+    new rows (gathered over "data") into it, keeping its own pages
+    (``models.attention._sharded_paged_decode``); a rank attends its kv
+    heads and the head outputs are gathered over "model" before the
+    replicated w_o; sampled tokens, flags and drafted runs are gathered
+    over "data", so every rank's bookkeeping reads the same tokens.  An
+    axis of size 1 issues no collective: on a 1 × 1 mesh each entry point
+    unwraps its DTensors and runs the unsharded function, the same kernels
+    in the same order.
+
+    Per-tick inputs arrive as this rank's rows (the engine slices the
+    host arrays with ``shardings``' placements); the cache and parameters
+    as DTensors.  Returns ``{"serve_step", "suffix_prefill",
+    "state_insert", "page_copy", "page_spill", "page_restore",
+    "state_gather", "shardings"}`` (plus ``"spec_round"`` and
+    ``"spec_rollback"`` with ``speculate_k > 0``); ``shardings`` maps
+    ``params`` (every parameter leaf's layout), ``cache`` (one per leaf),
+    ``table``, ``slot_vec``, ``slot_keys`` and ``replicated`` to
+    ``parallel.Sharding`` layouts."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    _check_token_lm(cfg)
+    cache_sh = paged_cache_shardings(cfg, mesh, batch, n_pages, block_size)
+    ms = MeshSlots(mesh, cache_sh, batch)
+    names = tuple(mesh.mesh_dim_names)
+    rep = PX.Sharding(mesh, (Replicate(),) * len(names))
+    rows = PX.Sharding(mesh, tuple(Shard(0) if n == "data" and ms.ps.slots else Replicate()
+                                   for n in names))
+    L = PX.local
+
+    def slot_outputs(*ts):
+        return tuple(ms.ps.gather_slots(t) for t in ts)
+
+    base_step = make_paged_serve_step(cfg, n_redundant=n_redundant, sat_threshold=sat_threshold,
+                                      entropy_floor=entropy_floor)
+
+    def serve_step(params, cache, table, token, key=None, steps=None):
+        c = L(cache)
+        view = ms.state_view(c)
+        with PX.use_pool_shards(ms.ctx):
+            _, tok, sane = base_step(L(params), view, table, token, key, steps)
+        ms.state_back(c, view)
+        return (cache, *slot_outputs(tok, sane))
+
+    base_prefill = make_paged_suffix_prefill(cfg)
+
+    def suffix_prefill(params, cache, state, tokens, table_row, q0, quant_seeds=None):
+        with PX.use_pool_shards(ms.ctx):
+            _, new_state, logits = base_prefill(L(params), L(cache), state, tokens, table_row,
+                                                q0, quant_seeds)
+        return cache, new_state, logits
+
+    def state_insert(cache, state_leaves, slot):
+        ls = ms.owner(slot)
+        if ls is not None:
+            c = L(cache)
+            for name, upd in state_leaves.items():
+                leaf = c[name]
+                leaf.narrow(cache_batch_axis(cfg, name), ls, 1).copy_(
+                    ms.own_model(name, upd).to(leaf.dtype))
+        return cache
+
+    def page_copy(cache, src, dst):
+        c = L(cache)
+        for name in PAGE_POOL_LEAVES:
+            if name not in c:
+                continue
+            leaf = c[name]                       # (nu, n_attn, P_l, bs, ...)
+            if not ms.ps.pages:
+                leaf[:, :, dst] = leaf[:, :, src]
+                continue
+            pl, d = leaf.shape[2], ms.ps.d
+            row = leaf[:, :, src - d * pl] if src // pl == d else torch.zeros_like(leaf[:, :, 0])
+            row = ms.from_owner(row, src // pl) if src // pl != dst // pl else row
+            if dst // pl == d:
+                leaf[:, :, dst - d * pl] = row
+        return cache
+
+    def page_spill(cache, ids):
+        c = L(cache)
+        idx = ids.to(c["pos"].device, torch.int64)
+        out = {}
+        for name in PAGE_POOL_LEAVES:
+            if name not in c:
+                continue
+            leaf = c[name]
+            if ms.ps.pages:
+                pl = leaf.shape[2]
+                owner = idx // pl
+                mine = (owner == ms.ps.d).reshape((1, 1, -1) + (1,) * (leaf.dim() - 3))
+                rows = torch.where(mine, leaf[:, :, (idx - ms.ps.d * pl).clamp(0, pl - 1)],
+                                   torch.zeros((), dtype=leaf.dtype, device=leaf.device))
+                every = PX.all_gather(rows[None], ms.ps.data_group, ms.ps.data, 0)
+                rows = every[owner, :, :, torch.arange(idx.numel(), device=idx.device)]
+                rows = rows.movedim(0, 2)
+            else:
+                rows = leaf[:, :, idx]
+            out[name] = ms.ps.gather_heads(rows, 4)
+        return out
+
+    def page_restore(cache, ids, payload):
+        c = L(cache)
+        for name, rows in payload.items():
+            leaf = c[name]
+            idx = ids.to(leaf.device, torch.int64)
+            rows = ms.ps.own_heads(rows.to(leaf.device, leaf.dtype), 4)
+            if ms.ps.pages:
+                pl = leaf.shape[2]
+                mine = idx // pl == ms.ps.d
+                idx, rows = idx[mine] - ms.ps.d * pl, rows[:, :, mine]
+            leaf.index_copy_(2, idx, rows)
+        return cache
+
+    def state_gather(cache, slot):
+        c = L(cache)
+        ls = ms.owner(slot)
+        out = {}
+        for name, leaf in c.items():
+            if name in PAGE_POOL_LEAVES or not leaf.ndim or leaf.ndim <= cache_batch_axis(cfg, name):
+                continue
+            ax = cache_batch_axis(cfg, name)
+            row = leaf.narrow(ax, 0 if ls is None else ls, 1)
+            if ms.ps.slots:
+                if ls is None:
+                    row = torch.zeros_like(row)
+                row = ms.from_owner(row, slot // ms.b_local)
+            out[name] = ms.whole_model(name, row)
+        return out
+
+    out = {
+        "serve_step": serve_step,
+        "suffix_prefill": suffix_prefill,
+        "state_insert": state_insert,
+        "page_copy": page_copy,
+        "page_spill": page_spill,
+        "page_restore": page_restore,
+        "state_gather": state_gather,
+        "shardings": {"params": rep, "cache": cache_sh, "table": rows,
+                      "slot_vec": rows, "slot_keys": rows, "replicated": rep},
+    }
+    if speculate_k:
+        base_round = make_paged_spec_round(cfg, speculate_k)
+
+        def spec_round(params, cache, table, token, keys=None, steps=None):
+            c = L(cache)
+            view = ms.state_view(c)
+            with PX.use_pool_shards(ms.ctx):
+                dtoks, doks, vtoks, voks, vstates = base_round(L(params), view, table, token,
+                                                               keys, steps)
+            ms.state_back(c, view)
+            # vstates stay this rank's slots, every model block: the
+            # rollback writes its own slots from them
+            return (*slot_outputs(dtoks, doks, vtoks, voks), vstates)
+
+        def spec_rollback(cache, vstates, idx, slot):
+            ls = ms.owner(slot)
+            if ls is not None:
+                c = L(cache)
+                for name, st in vstates.items():
+                    ax = cache_batch_axis(cfg, name)
+                    c[name].narrow(ax, ls, 1).copy_(ms.own_model(name, st[idx].narrow(ax, ls, 1)))
+            return cache
+
+        out["spec_round"] = spec_round
+        out["spec_rollback"] = spec_rollback
+    return out
+
+
 def analog_call_profile(
     entry: str, *, tokens: int = 1, batch: int = 1, k: int = 0, redundant: int = 0,
 ) -> dict:
@@ -680,17 +996,25 @@ class DecodeGraphs:
     them: the engine drops the whole object when the backend's fault state
     moves.  Kernel wrappers count
     launches in Python, which a replay does not run: each entry keeps the
-    counts its capture made (``launches``) and adds them on every replay."""
+    counts its capture made (``launches``) and adds them on every replay.
+
+    On a serving mesh ``step`` is the sharded step
+    (:func:`make_sharded_paged_entry_points`) and ``rows`` this rank's
+    slots: each call's host arrays are cut to them before staging."""
+
+    rows: Optional[slice] = None   # this rank's slots on a serving mesh
 
     def __init__(self, cfg: ModelConfig, params: dict, cache: dict, *, n_redundant: int = 1,
-                 capture: bool, sat_threshold: float = 1e6, entropy_floor: float = 0.0):
+                 capture: bool, sat_threshold: float = 1e6, entropy_floor: float = 0.0,
+                 step=None, rows: Optional[slice] = None):
         self.params, self.cache = params, cache
         self.reads = n_redundant
         self.capture = capture
         self.device = cache["pos"].device
-        self._step = make_paged_serve_step(cfg, n_redundant=n_redundant,
-                                           sat_threshold=sat_threshold,
-                                           entropy_floor=entropy_floor)
+        self._step = step or make_paged_serve_step(cfg, n_redundant=n_redundant,
+                                                   sat_threshold=sat_threshold,
+                                                   entropy_floor=entropy_floor)
+        self.rows = rows
         self.entries: dict[tuple[int, int], _Entry] = {}
         self._pool = torch.cuda.graph_pool_handle() if capture else None
 
@@ -706,6 +1030,8 @@ class DecodeGraphs:
         return self._call((table, tokens, *wta))
 
     def _call(self, srcs: tuple) -> tuple:
+        if self.rows is not None:
+            srcs = tuple(a[self.rows] for a in srcs)
         key = self._key(srcs)
         entry = self.entries.get(key)
         if entry is None:
@@ -786,13 +1112,15 @@ class SpecGraphs(DecodeGraphs):
     writes the pool, the per-slot state and ``quant_step`` in place, k
     times a replay."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, cache: dict, *, k: int, capture: bool):
+    def __init__(self, cfg: ModelConfig, params: dict, cache: dict, *, k: int, capture: bool,
+                 round=None, rows: Optional[slice] = None):
         self.params, self.cache = params, cache
         self.k = k
         self._state_names = tuple(_spec_state_leaves(cache))
         self.capture = capture
         self.device = cache["pos"].device
-        self._round = make_paged_spec_round(cfg, k)
+        self._round = round or make_paged_spec_round(cfg, k)
+        self.rows = rows
         self.entries: dict[tuple[int, int], _Entry] = {}
         self._pool = torch.cuda.graph_pool_handle() if capture else None
 

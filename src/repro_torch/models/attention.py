@@ -31,6 +31,11 @@ hand-written CUDA kernels for CUDA tensors, their plain PyTorch versions
 for CPU tensors.  int8 pools carry per-(page, row, kv head) f32 scale
 planes beside the codes; one fused write quantizes a layer's K/V rows and
 scatters codes and scales in place.
+
+On a serving mesh (``parallel.use_pool_shards``, installed by the sharded
+entry points of ``launch/specs.py``) the paged layers run on this rank's
+shards of the slots, pages and kv heads, with the collectives that gather
+them (:func:`_sharded_paged_decode`, :func:`_sharded_paged_prefill`).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
 from repro_torch.core import analog as A
 from repro_torch.kernels import ops as KOPS
@@ -76,6 +82,28 @@ def qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None):
     return q, k, v
 
 
+def _maybe_expand(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
+    """The head-layout knobs (``repro/models/attention.py:86-115``):
+    ``gqa_repeat_kv`` repeats each KV head over its query group, and
+    ``attn_pad_heads`` pads the query heads with zeros up to that count.
+    KV is repeated at the original head count, before any padding, so the
+    q → kv grouping holds, and padding implies the repeated layout (the
+    padded KV heads are zeros beside the padded queries).  Both are the
+    identity on the real heads; the caller slices the padded ones away."""
+    h, hkv = q.shape[2], k.shape[2]
+    pad = cfg.attn_pad_heads - h if cfg.attn_pad_heads > h else 0
+    if (cfg.gqa_repeat_kv or pad) and hkv < h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+        hkv = h
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+        if hkv == h:
+            k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    return q, k, v
+
+
 def attend_full(
     q: torch.Tensor,      # (B, S, H, Dh)
     k: torch.Tensor,      # (B, T, Hkv, Dh)
@@ -88,9 +116,11 @@ def attend_full(
     """Online-softmax attention over KV chunks of ``cfg.attn_kv_chunk``
     keys: (B, S, H, Dh) in q's dtype.  The mask is built per chunk from
     positions; scores and probabilities in ``cfg.attn_probs_dtype``,
-    accumulation in f32, as the reference's ``attend_full``."""
-    if cfg.attn_pad_heads or cfg.gqa_repeat_kv:
-        raise NotImplementedError("attn_pad_heads / gqa_repeat_kv are not ported")
+    accumulation in f32, as the reference's ``attend_full``.  The head
+    knobs (:func:`_maybe_expand`) apply first; padded heads are sliced
+    away from the output."""
+    h_orig = q.shape[2]
+    q, k, v = _maybe_expand(q, k, v, cfg)
     b, s, h, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -124,7 +154,7 @@ def attend_full(
         acc = acc * scale[..., None] + torch.einsum("bkgsc,bckd->bkgsd", p, vc).float()
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)[:, :, :h_orig].to(q.dtype)
 
 
 def self_attention(
@@ -304,7 +334,8 @@ def paged_prefill_self_attention(
     int8 pools quantize each chunk block under its own content-derived seed
     (``quant_seeds[i]`` for the chunk's i-th block), so any writer of the
     same block content writes bit-identical codes and scales; the scale
-    planes are written in place beside the codes."""
+    planes are written in place beside the codes.  Under a serving mesh
+    the pool is this rank's shard: :func:`_sharded_paged_prefill`."""
     int8_pool = k_pages.dtype == torch.int8
     b, c, _ = x.shape
     bs = k_pages.shape[1]
@@ -313,6 +344,11 @@ def paged_prefill_self_attention(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     b0 = q0 // bs
+    px = PX.pool_shards()
+    if px is not None:
+        out = _sharded_paged_prefill(px, q, k, v, k_pages, v_pages, table_row, q0, cfg, kind,
+                                     k_scale_pages, v_scale_pages, quant_seeds)
+        return out.to(x.dtype).reshape(b, c, -1) @ p["wo"].to(x.dtype)
     if int8_pool:
         # one fused launch writes every block of the chunk: block i (its
         # bs·Hkv rows, zero-padded past c) draws under quant_seeds[i]
@@ -357,11 +393,19 @@ def paged_decode_self_attention(
     and left untouched (an int8 pool passes its scale planes, no seed).
     ``split_batch`` launches the card's kernel with the cluster split it
     would choose for that batch width (the draft's), so that a verify row
-    sums in its draft row's order; the plain version ignores it."""
+    sums in its draft row's order; the plain version ignores it.
+
+    Under a serving mesh (``parallel.use_pool_shards``) the slots, pages
+    and kv heads are this rank's shards: :func:`_sharded_paged_decode`."""
     int8_pool = k_pages.dtype == torch.int8
     q, k, v = qkv(p, x, cfg)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    px = PX.pool_shards()
+    if px is not None:
+        out = _sharded_paged_decode(px, q, k, v, k_pages, v_pages, table, pos, cfg, kind,
+                                    k_scale_pages, v_scale_pages, quant_seed, write, split_batch)
+        return A.analog_matmul(_proj_cfg(cfg), None, out.to(x.dtype), p["wo"])
     if write and int8_pool:
         KOPS.write_kv_int8(k, v, k_pages, v_pages, k_scale_pages, v_scale_pages, quant_seed,
                            table=table, pos=pos)
@@ -375,3 +419,79 @@ def paged_decode_self_attention(
         v_scale=v_scale_pages if int8_pool else None, split_batch=split_batch,
     ).reshape(x.shape[0], 1, -1)
     return A.analog_matmul(_proj_cfg(cfg), None, out.to(x.dtype), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# The paged layers on a serving mesh: this rank's shards of the slots (over
+# "data"), of the pool's pages (over "data") and of its kv heads (over
+# "model"), with the collectives the reference's GSPMD inserts.
+# ---------------------------------------------------------------------------
+
+
+def _sharded_paged_decode(px, q, k, v, k_pages, v_pages, table, pos, cfg, kind,
+                          k_scale_pages, v_scale_pages, quant_seed, write, split_batch):
+    """One layer's decode over this rank's slots (B_l rows of ``q``, ``k``,
+    ``v``, ``table``, ``pos``) and pool shard: (B_l, 1, H·Dh) f32.
+
+    The layer's pool is gathered whole over "data" (every page, this
+    rank's kv heads).  Each step's new K/V rows are gathered over "data",
+    so every rank writes every slot's row into its gathered copy (int8:
+    the fused write under the step's seed, as unsharded; with the heads
+    split, the same codes quantized whole and this rank's heads
+    scattered), then copies its own pages back.  Its slots attend over
+    the gathered pool with their query heads of its kv heads, and the
+    head outputs are gathered over "model"."""
+    int8 = k_pages.dtype == torch.int8
+    mine = [k_pages, v_pages] + ([k_scale_pages, v_scale_pages] if int8 else [])
+    whole = [px.gather_pages(t) for t in mine]
+    if write:
+        k_all, v_all = px.gather_slots(k), px.gather_slots(v)
+        t_all, p_all = px.gather_slots(table), px.gather_slots(pos)
+        if int8 and not px.heads:
+            KOPS.write_kv_int8(k_all, v_all, *whole, quant_seed, table=t_all, pos=p_all)
+        else:
+            rows = KOPS.quantize_kv_pair_int8(k_all, v_all, quant_seed) if int8 else (k_all, v_all)
+            # quantize_kv_pair_int8 gives (k codes, k scales, v codes, v scales)
+            order = (rows[0], rows[2], rows[1], rows[3]) if int8 else rows
+            for pages, new in zip(whole, order):
+                paged_write(pages, px.own_heads(new, 2), t_all, p_all)
+        for w, t in zip(whole, mine):
+            px.keep_own_pages(w, t)
+    out = KOPS.paged_attention(
+        px.own_heads(q[:, 0], 1).contiguous(), whole[0], whole[1], table, pos,
+        kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,
+        k_scale=whole[2] if int8 else None, v_scale=whole[3] if int8 else None,
+        split_batch=split_batch,
+    )
+    return px.gather_heads(out, 1).reshape(q.shape[0], 1, -1)
+
+
+def _sharded_paged_prefill(px, q, k, v, k_pages, v_pages, table_row, q0, cfg, kind,
+                           k_scale_pages, v_scale_pages, quant_seeds):
+    """One layer of a suffix chunk (one request, on every rank alike)
+    over this rank's pool shard: (c, H, Dh) f32.  The layer's pool is
+    gathered over "data", the chunk's blocks written into the gathered
+    copy (this rank's kv heads), its own pages copied back; the chunk
+    attends with its query heads of this rank's kv heads, gathered over
+    "model" after."""
+    int8 = k_pages.dtype == torch.int8
+    bs = k_pages.shape[1]
+    b0 = q0 // bs
+    mine = [k_pages, v_pages] + ([k_scale_pages, v_scale_pages] if int8 else [])
+    whole = [px.gather_pages(t) for t in mine]
+    if int8 and not px.heads:
+        KOPS.write_kv_int8(k, v, *whole, quant_seeds, table_row=table_row, b0=b0)
+    else:
+        kb, vb = chunk_to_blocks(k, bs), chunk_to_blocks(v, bs)
+        rows = KOPS.quantize_kv_pair_int8(kb, vb, quant_seeds) if int8 else (kb, vb)
+        order = (rows[0], rows[2], rows[1], rows[3]) if int8 else rows
+        for pages, new in zip(whole, order):
+            paged_write_chunk(pages, px.own_heads(new, 2), table_row, b0)
+    for w, t in zip(whole, mine):
+        px.keep_own_pages(w, t)
+    out = KOPS.paged_prefill_attention(
+        px.own_heads(q[0], 1).contiguous(), whole[0], whole[1], table_row, q0,
+        kind=kind, local_window=cfg.local_window, softcap=cfg.attn_softcap,
+        k_scale=whole[2] if int8 else None, v_scale=whole[3] if int8 else None,
+    )
+    return px.gather_heads(out, 1)

@@ -85,8 +85,21 @@ window, one CUDA graph per batch width on the card
 speculation, fault backend or injector: :class:`ServeConfig` refuses each
 of them with the reference's message.  :class:`StaticServingEngine` is
 the reference's pre-continuous-batching engine on that step, kept as the
-equivalence oracle and occupancy baseline.  Sharding is not ported, and
-``mesh`` is not a field of :class:`ServeConfig`.
+equivalence oracle and occupancy baseline.
+
+Sharded serving (``ServeConfig(mesh=...)``, a ``(data, model)`` DTensor
+mesh from ``launch.mesh``; the paged layout only): the entry points are
+``specs.make_sharded_paged_entry_points``'.  The parameters are placed
+once, replicated; the pool is placed sharded from the start (pages over
+data, kv heads over model), and each tick's per-slot inputs are cut to
+this rank's slots with the entry points' placements.  The mesh is SPMD,
+one process per rank: every rank runs this engine on the same trace, so
+the block table, allocator and prefix index stay host-global and
+identical on every rank, and the decode step hands every rank every
+slot's tokens.  A request's deadline reads each rank's own clock, so a
+mesh wider than one rank refuses ``deadline_ms``.  Only a mesh of size-1
+axes captures CUDA graphs (its step is the unsharded step, with no
+collective to capture); a wider one runs eagerly.
 """
 
 from __future__ import annotations
@@ -99,6 +112,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
 from repro_torch.device import resolve_device
 from repro_torch.kernels import backend as BK
@@ -125,6 +139,12 @@ def _to_host(leaves: dict) -> dict:
     """Host copies of device leaves (copies on the CPU too: a spill record
     must not alias the live cache)."""
     return {k: v.to("cpu", copy=True) for k, v in leaves.items()}
+
+
+def _place_tree(tree: dict, sh) -> dict:
+    """Every tensor leaf of ``tree`` as a DTensor of layout ``sh``."""
+    return {k: _place_tree(v, sh) if isinstance(v, dict) else PX.place(v, sh)
+            for k, v in tree.items()}
 
 
 def _default_buckets(max_len: int) -> tuple[int, ...]:
@@ -222,6 +242,15 @@ class ServeConfig:
     # records drop, and their requests recompute their prompt and replay
     # their published tokens through decode
     spill_budget_bytes: Optional[int] = None
+    # paged layout only: a DeviceMesh with ("data", "model") axes
+    # (launch.mesh).  The pool's page axis is split over data (its capacity
+    # grows with the data axis at constant bytes per device) and its kv
+    # heads over model; per-slot inputs are split over data; the block
+    # table, allocator and prefix index stay host-global, so sharing and
+    # copy-on-write work across shards.  A dimension an axis does not
+    # divide is whole on every rank.  A 1 × 1 mesh is byte-identical to
+    # mesh=None
+    mesh: Optional[Any] = None
     # self-speculative decoding depth: k > 0 makes each decode tick one
     # fused round that drafts k chained tokens per slot and verifies the
     # run read-only in one k·B-row step, accepting up to the first
@@ -314,6 +343,17 @@ class ServeConfig:
                 "fault_injector drives the paged allocator/pipeline; the "
                 "dense layout is the fault-free byte-identity oracle"
             )
+        if self.mesh is not None:
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    "mesh sharding is a paged-layout knob; the dense "
+                    "layout is the single-device byte-identity oracle"
+                )
+            names = set(getattr(self.mesh, "mesh_dim_names", None) or ())
+            if not {"data", "model"} <= names:
+                raise ValueError(
+                    f"serving mesh needs ('data', 'model') axes, got {sorted(names)}"
+                )
         if self.speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {self.speculate_k}")
         if self.speculate_k:
@@ -543,6 +583,16 @@ class ServingEngine:
         # change the token)
         self._redundant_base = cfg.n_redundant_reads if model_cfg.wta_head else 1
         self.spec_k = cfg.speculate_k if self.paged else 0
+        self.mesh = cfg.mesh if self.paged else None
+        self._rows = None   # this rank's slots on a serving mesh
+        if self.mesh is not None:
+            # the parameters, replicated on the mesh, placed once here
+            self._shardings = self._sharded_entry_points()["shardings"]
+            self.params = _place_tree(params, self._shardings["params"])
+            self._rows = PX.local_slices(self._shardings["slot_vec"], (b,))[0]
+            if graphs and any(n > 1 for n in self.mesh.shape):
+                # a collective inside a captured graph is not worth its risk
+                graphs = False
         # the cache exists before the decode step is first captured, and
         # never moves: the graphs hold its addresses
         self._cache = self._init_cache()
@@ -612,12 +662,26 @@ class ServingEngine:
         window width; dropping back reuses the healthy ones)."""
         step = self._serve_steps.get(n_redundant)
         if step is None:
+            sharded = (self._sharded_entry_points(n_redundant)["serve_step"]
+                       if self.mesh is not None else None)
             step = self._serve_steps[n_redundant] = SP.DecodeGraphs(
                 self.mcfg, self.params, self._cache, n_redundant=n_redundant,
                 capture=self._graphs, sat_threshold=self.cfg.logit_sat_threshold,
-                entropy_floor=self.cfg.logit_entropy_floor,
+                entropy_floor=self.cfg.logit_entropy_floor, step=sharded, rows=self._rows,
             )
         return step
+
+    def _sharded_entry_points(self, n_redundant: Optional[int] = None) -> dict:
+        """``specs.make_sharded_paged_entry_points`` on this engine's mesh, at
+        ``n_redundant`` reads (the base factor by default)."""
+        cfg = self.cfg
+        return SP.make_sharded_paged_entry_points(
+            self.mcfg, self.mesh, batch=cfg.max_batch,
+            n_pages=cfg.pool_blocks(self.mcfg.kv_cache_dtype), block_size=cfg.kv_block_size,
+            speculate_k=self.spec_k, sat_threshold=cfg.logit_sat_threshold,
+            entropy_floor=cfg.logit_entropy_floor,
+            n_redundant=self._redundant_base if n_redundant is None else n_redundant,
+        )
 
     def _build_entry_points(self) -> None:
         """(Re)build every entry point: at construction, and whenever the
@@ -644,21 +708,35 @@ class ServingEngine:
             self._insert = SP.EagerEntry(SP.make_cache_insert(self.mcfg))
             return
         self._decode = self._get_serve_step(self._redundant_base)
+        if self.mesh is not None:
+            # the same entry points on the mesh (pool pages over data, kv
+            # heads over model, per-slot inputs over data, parameters
+            # replicated); the compile discipline is the unsharded one
+            eps = self._sharded_entry_points()
+        else:
+            eps = {"suffix_prefill": SP.make_paged_suffix_prefill(self.mcfg),
+                   "state_insert": SP.make_paged_state_insert(self.mcfg),
+                   "page_copy": SP.make_page_copy(self.mcfg),
+                   "page_spill": SP.make_page_spill(self.mcfg),
+                   "page_restore": SP.make_page_restore(self.mcfg),
+                   "state_gather": SP.make_slot_state_gather(self.mcfg)}
+            if self.spec_k:
+                eps["spec_round"] = None
+                eps["spec_rollback"] = SP.make_spec_rollback(self.mcfg)
         if self.spec_k:
             self._spec_graphs = SP.SpecGraphs(self.mcfg, self.params, self._cache,
-                                              k=self.spec_k, capture=self._graphs)
+                                              k=self.spec_k, capture=self._graphs,
+                                              round=eps["spec_round"], rows=self._rows)
             # the round as the engine calls it (a test may wrap it)
             self._spec_round = self._spec_graphs
-            self._spec_rollback = SP.EagerEntry(SP.make_spec_rollback(self.mcfg))
-        self._suffix_prefill = SP.EagerEntry(
-            SP.make_paged_suffix_prefill(self.mcfg), static=("bucket",)
-        )
-        self._state_insert = SP.EagerEntry(SP.make_paged_state_insert(self.mcfg))
-        self._page_copy = SP.EagerEntry(SP.make_page_copy(self.mcfg))
+            self._spec_rollback = SP.EagerEntry(eps["spec_rollback"])
+        self._suffix_prefill = SP.EagerEntry(eps["suffix_prefill"], static=("bucket",))
+        self._state_insert = SP.EagerEntry(eps["state_insert"])
+        self._page_copy = SP.EagerEntry(eps["page_copy"])
         self._sample0 = SP.EagerEntry(SP.make_sample0(self.mcfg))
-        self._page_spill = SP.EagerEntry(SP.make_page_spill(self.mcfg))
-        self._page_restore = SP.EagerEntry(SP.make_page_restore(self.mcfg))
-        self._state_gather = SP.EagerEntry(SP.make_slot_state_gather(self.mcfg))
+        self._page_spill = SP.EagerEntry(eps["page_spill"])
+        self._page_restore = SP.EagerEntry(eps["page_restore"])
+        self._state_gather = SP.EagerEntry(eps["state_gather"])
 
     def _make_prefill(self):
         """The dense layout's monolithic one-request prefill: (params,
@@ -717,6 +795,11 @@ class ServingEngine:
                 f"prompt length {n} exceeds largest prefill bucket "
                 f"{max(self.cfg.buckets())}"
             )
+        if deadline_ms is not None and self.mesh is not None and self.mesh.size() > 1:
+            # each rank would expire it on its own clock: their bookkeeping
+            # would part, and their collectives with it
+            raise ValueError("deadline_ms reads each rank's clock; a serving mesh wider than "
+                             "one rank takes no deadlines")
         budget = self.cfg.max_new_tokens if max_new_tokens is None else max_new_tokens
         if budget < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {budget}")
@@ -747,10 +830,13 @@ class ServingEngine:
         if not self.paged:
             return SP.init_decode_cache(self.mcfg, self.cfg.max_batch, self.cfg.max_len,
                                         device=self.device)
-        return SP.init_paged_decode_cache(
-            self.mcfg, self.cfg.max_batch, self.cfg.pool_blocks(self.mcfg.kv_cache_dtype),
-            self.cfg.kv_block_size, device=self.device,
-        )
+        args = (self.mcfg, self.cfg.max_batch, self.cfg.pool_blocks(self.mcfg.kv_cache_dtype),
+                self.cfg.kv_block_size)
+        if self.mesh is not None:
+            # placed sharded from the start: each rank allocates its shard
+            return SP.init_sharded_paged_decode_cache(args[0], self._shardings["cache"],
+                                                      *args[1:], device=self.device)
+        return SP.init_paged_decode_cache(*args, device=self.device)
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         """Host → device copy of a per-tick input (never a view of host

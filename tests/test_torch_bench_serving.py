@@ -10,9 +10,9 @@ reduction, preemptions and restores, and each package's own token-
 identity flags.  Timings (tokens/s, TTFT, step ms) are the host's and
 differ.
 
-``validate_report`` is the reference's but ``sharded_decode``: it passes
-the reference's committed report (``BENCH_serving.json``, less that
-section) and refuses each drift of it with the reference's message.  The
+``validate_report`` is the reference's: it passes the reference's
+committed report (``BENCH_serving.json``) and refuses each drift of it
+with the reference's message.  The
 port's CPU dry-run report passes every check but one: the speculative
 section's floor (tokens/s with speculation at least plain decode's).  That floor is a claim about a compiled step: on
 the card a round is one graph replay, as the reference's is one jitted
@@ -137,10 +137,12 @@ def dry_report(tmp_path_factory):
 
 
 def test_dry_run_report_passes_every_cpu_check(dry_report):
-    """The report has every key of the reference's schema but
-    ``sharded_decode``, and passes each of ``validate_report``'s checks
-    but the speculative floor; the speculative streams are identical."""
-    assert set(dry_report) == set(JBS.REPORT_SCHEMA) - {"sharded_decode"}
+    """The report has every key of the reference's schema, and passes
+    each of ``validate_report``'s checks but the speculative floor; the
+    speculative streams are identical, and so are the sharded ones (a
+    1 × 1 mesh over a one-rank group)."""
+    assert set(dry_report) == set(JBS.REPORT_SCHEMA)
+    assert dry_report["sharded_decode"]["mesh"] == {"data": 1, "model": 1}
     assert set(TBS.REPORT_SCHEMA) == set(dry_report)
     assert dry_report["dry_run"] is True
     for check in TBS.CHECKS:
@@ -174,6 +176,8 @@ def _drifts():
         ("prefix diverged", setp(("prefix_sharing", "tokens_match"), False)),
         ("partial diverged", setp(("partial_prefix", "tokens_match"), False)),
         ("partial floor", setp(("partial_prefix", "prefill_token_reduction"), 2.9)),
+        ("sharded keys", lambda r: r["sharded_decode"].pop("capacity_ratio")),
+        ("sharded diverged", setp(("sharded_decode", "tokens_match"), False)),
         ("preemption diverged", setp(("preemption", "tokens_match"), False)),
         ("no preemption", setp(("preemption", "on", "preemptions"), 0)),
         ("p99 not better", lambda r: r["preemption"]["on"]["interactive"].__setitem__(
@@ -196,12 +200,11 @@ def _drifts():
 
 @pytest.fixture(scope="module")
 def committed():
-    """The reference's committed report, and the same less ``sharded_decode``."""
+    """The reference's committed report, for each package's check."""
     full = json.loads((ROOT / "BENCH_serving.json").read_text())
     JBS.validate_report(full)
-    port = {k: v for k, v in full.items() if k != "sharded_decode"}
-    TBS.validate_report(port)
-    return full, port
+    TBS.validate_report(full)
+    return full, full
 
 
 @pytest.mark.parametrize("label,edit", _drifts(), ids=[d[0] for d in _drifts()])

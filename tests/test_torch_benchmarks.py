@@ -16,9 +16,9 @@ names, and the same numbers within stated bounds.
 
 Fig. 6 is held in ``test_torch_benchmarks_fig6.py`` (the reference's
 Fig. 6 alone takes most of a minute on a CPU, even cut).  The serving
-bench runs its dry-run protocol here for its row names (the reference's
-but ``serve_sharded_decode``); its numbers are held against the
-reference's in ``test_torch_bench_serving.py``.
+bench runs its dry-run protocol here for its row names (the reference's);
+its numbers are held against the reference's in
+``test_torch_bench_serving.py``.
 """
 
 import io
@@ -47,14 +47,13 @@ FIG5_TV_ATOL, FIG5_RATE_ATOL = 0.01, 0.02
 TAGS = {"fig4": JS, "fig5": JW, "table1": J4, "kernels": JK}
 FIG6_NAMES = ["fcnn_train"] + [f"fig6_raca_votes{v}" for v in (1, 4, 16, 64)] + [
     "fig6b_vth0_zero_votes16", "fig6b_vth0_cal_votes16", "fig6a_detuned_beta2_votes16"]
-# benchmarks/bench_serving.py's dry-run rows, in order, but its
-# serve_sharded_decode (sharding is not ported)
+# benchmarks/bench_serving.py's dry-run rows, in order
 SERVING_NAMES = ["serve_cb_greedy", "serve_cb_wta_T8", "serve_static_greedy",
                  "serve_occupancy_gain", "serve_paged_vs_dense_L128",
                  "serve_paged_vs_dense_L512", "serve_paged_int8_L128", "serve_paged_int8_L512",
                  "serve_int8_capacity", "serve_prefix_sharing", "serve_partial_prefix",
                  "serve_preemption", "serve_speculative_decode", "serve_energy_per_token",
-                 "serve_fault_tolerance"]
+                 "serve_fault_tolerance", "serve_sharded_decode"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -94,7 +93,7 @@ def test_same_rows_and_names(rows):
     benches, under the same ``tag/name``, as ``name,us_per_call,derived``
     (Fig. 6's names are the reference's, held against its rows in
     ``test_torch_benchmarks_fig6.py``; serving's are the reference's dry
-    run's but the sharded row)."""
+    run's)."""
     ref, port, text = rows
     ref = {**ref, "fig6": [(n, 0.0, "") for n in FIG6_NAMES],
            "serving": [(n, 0.0, "") for n in SERVING_NAMES]}

@@ -1470,3 +1470,43 @@ def test_cuda_dryrun_counts_match_the_allocator(cuda_device, kind, seq, batch):
     assert meta["flops"] == card["flops"] > 0
     for k in ("args_bytes", "temp_bytes"):
         assert abs(meta[k] - card[k]) <= 0.1 * card[k], (k, meta, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,wta", [("same", False), ("int8", False), ("same", True)],
+                         ids=["bf16", "int8", "wta"])
+def test_cuda_sharded_1x1_equals_unsharded(cuda_device, kv, wta):
+    """A 1 × 1 mesh over a one-rank NCCL group serves the paged engine
+    with captured graphs: streams, launches, captures and caches equal to
+    ``mesh=None``'s, bit for bit (the step issues no collective)."""
+    import dataclasses
+
+    from repro_torch import parallel as PX
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config("stablelm-3b"), kv_cache_dtype=kv, wta_head=wta)
+    params = init_lm(cfg, seed=0, device=cuda_device)
+    prompts, budgets = _dense_trace()
+    runs = {}
+    with LM.process_group("cuda"):
+        mesh = LM.make_host_mesh(model=1, data=1)
+        for m in (None, mesh):
+            eng = ServingEngine(params, cfg, ServeConfig(max_batch=3, max_new_tokens=8,
+                                                         max_len=64, kv_block_size=8, mesh=m),
+                                device=cuda_device)
+            for p, b in zip(prompts, budgets):
+                eng.submit(p, b)
+            before = TOPS.launch_counts()
+            out = eng.run()
+            after = TOPS.launch_counts()
+            runs[m is None] = (eng, out, {k: after[k] - before[k] for k in after})
+    (b_eng, b_out, b_launch), (s_eng, s_out, s_launch) = runs[True], runs[False]
+    assert s_out == b_out and s_launch == b_launch and s_launch["paged_attention"] > 0
+    assert s_eng.compile_counts() == b_eng.compile_counts()
+    assert [k for k, _ in s_eng._decode.captures()] == [k for k, _ in b_eng._decode.captures()]
+    assert s_eng._decode.captures()
+    for name, leaf in s_eng._cache.items():
+        assert torch.equal(PX.local(leaf), b_eng._cache[name]), name

@@ -9,7 +9,7 @@ ROADMAP C), byte for byte, as ``tests/test_torch_wta.py`` compares them;
 ladder transitions, canary probes and failures, redundant-read events and
 ``compile_counts()`` must be equal.
 
-Left out: the reference's 1×1-mesh cases (no sharding yet).
+The reference's 1×1-mesh cases are held in ``tests/test_torch_sharded_serving.py``.
 """
 
 import dataclasses

@@ -13,8 +13,9 @@ only the tokens it computed, and speculation's gross counts keep their
 documented relation to plain decode's, with ``repro``'s counts
 (``tests/test_energy_accounting.py``).
 
-Left out: the reference's 1×1-mesh case (no sharding yet; red on jax 0.9
-in the reference itself, ROADMAP C).
+The reference's 1×1-mesh case (red on jax 0.9 in the reference itself,
+ROADMAP C) is ``tests/test_torch_sharded_serving.py``'s
+``test_counts_invariant_to_1x1_mesh``.
 """
 
 import dataclasses

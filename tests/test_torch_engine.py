@@ -120,12 +120,13 @@ def test_entry_points_refuse_to_run_silently_on_the_cpu():
 
 
 def test_unported_knobs_are_refused():
-    """Knobs the reference has and the port does not (sharding's ``mesh``)
-    are not fields of ``ServeConfig``; WTA sampling, int8 pools, degraded
-    serving, speculation and the dense layout are served
-    (``tests/test_torch_wta.py``, ``tests/test_torch_int8.py``,
+    """Every knob of the reference's ``ServeConfig`` is served: WTA
+    sampling, int8 pools, degraded serving, speculation and the dense
+    layout (``tests/test_torch_wta.py``, ``tests/test_torch_int8.py``,
     ``tests/test_torch_degraded.py``, ``tests/test_torch_spec.py``,
-    ``tests/test_torch_static.py``)."""
+    ``tests/test_torch_static.py``), and sharding's ``mesh``
+    (``tests/test_torch_sharded_serving.py``), which refuses what is not
+    a ``(data, model)`` mesh with the reference's message."""
     cfg = get_smoke_config("stablelm-3b")
     params = init_lm(cfg, device="cpu")
     eng = ServingEngine(params, dataclasses.replace(cfg, wta_head=True),
@@ -135,8 +136,8 @@ def test_unported_knobs_are_refused():
     dense = ServingEngine(params, cfg, ServeConfig(max_len=32, kv_layout="dense"), device="cpu")
     rid = dense.submit([1, 2, 3], 2)
     assert len(dense.run()[rid]) == 2
-    with pytest.raises(TypeError):
-        ServeConfig(mesh=object())
+    with pytest.raises(ValueError, match=r"serving mesh needs \('data', 'model'\) axes"):
+        ServingEngine(params, cfg, ServeConfig(max_len=32, mesh=object()), device="cpu")
 
 
 def test_serve_step_sanity_codes():
