@@ -168,6 +168,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    model, 1 × 1, capacity ratio 1.0) through the section's check (phase
    4e (d) validates the whole report, this section in it); and
    ``serve.py --sharded`` for three requests in a subprocess.
+4o. training on a mesh (:func:`train_mesh_phase`, right after 4m):
+   stablelm-3b at full width cut to MESH_TRAIN_LAYERS layers,
+   ``analog_stochastic``, 8 x 128, on a one-rank NCCL group and a 1 x 1
+   ``cuda`` mesh, so that every step runs through DTensor and the
+   crossbar reads launch on whole operands (``parallel.on_whole``).  (a)
+   ``train.loop.run`` for MESH_TRAIN_STEPS steps unsharded and with
+   ``mesh=``: losses bit-equal, ``crossbar_mac`` reads and prepasses
+   CB_PER_LAYER x layers x 2 (remat) a step in each, each step's seconds
+   beside the unsharded's (DTensor's host overhead).  (b) the unsharded
+   loop's checkpoint loaded onto the mesh (``load_checkpoint(...,
+   shardings=)``): the next step's loss bit-equal to the unsharded final
+   state's next step.  (c) the dry run at 1 x 1: ``dryrun.count_step`` of the
+   digital train step at 8 x 128 on a fake one-rank group against
+   ``dryrun.measure_step`` on the NCCL mesh: args and temp within
+   DRYRUN_MEM_RTOL of the allocator, FLOPs equal, nothing sent.  (d)
+   ``train.py --smoke --sharded --steps 2`` in its own process, started
+   with the phase and read at its end (the full 3B launcher would write
+   three checkpoints of ~34 GB).  Checkpoints go
+   to build/ckpts and are removed.  Prints its wall time.
 4g. decoders (:func:`decoders_phase`, run after phase 6b): gemma2-2b at
    full width and depth (26 layers, local + global units, soft-caps,
    post-norms, tied 256000-column embeddings; seed 0) serves phase 4's
@@ -362,7 +381,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    read-noise inflation (within its agreement bound of the plain version
    at the shifted operating point).
 6. train: RACA analog training (``--analog``) of stablelm-3b at full width
-   and depth, batch 8 x 128, 3 steps through ``make_train_step``: finite
+   and depth, batch 8 x 128, TRAIN_STEPS (2) steps through ``make_train_step``: finite
    losses, parameters changed, ``crossbar_mac`` launched 448 reads and
    448 prepasses per step (224 in the forward, again in the backward's
    recompute; reset just before, read just after); step
@@ -460,7 +479,7 @@ CB_AGREEMENT = 0.9995
 # (wq wk wv wo w_down linear, w_up w_gate binarized), none in the backward
 # but the forward's again where it recomputes the unit (remat_factor)
 CB_PER_LAYER = 7
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 # Smoke-size analog training, card vs CPU: the comparator decisions may
 # flip where z + noise sits within f32 rounding of 0 (gate: >= 99.9% of the
 # binary activations equal); a flipped hidden unit moves one token's loss
@@ -5663,6 +5682,163 @@ def train_phase(dev) -> dict:
             "step_s": step_s, "peak": peak, "profile": profile}
 
 
+# 4o: stablelm-3b at full width cut to this many of its 32 layers: the
+# phase writes two checkpoints of the state and reads one back
+MESH_TRAIN_LAYERS = 2
+MESH_TRAIN_STEPS = 2
+
+
+def mesh_loop(cfg, tcfg, dev, ckpt_dir: Path, mesh=None) -> tuple:
+    """``loop.run`` of MESH_TRAIN_STEPS steps at 8 x 128 (unsharded, or on
+    ``mesh``): (its final state, {its losses, each step's seconds, its
+    kernel launches, its saves})."""
+    import shutil
+
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import LoopConfig, run
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    lcfg = LoopConfig(steps=MESH_TRAIN_STEPS, ckpt_dir=str(ckpt_dir), ckpt_every=100,
+                      log_every=100)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    state, stats = run(cfg, tcfg, lcfg, lambda s: lm_batch(cfg, batch=8, seq=128, step=s,
+                                                           device=dev),
+                       device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    launched = launches_since(before)
+    return state, {"losses": [loss for _, loss in stats["losses"]], "step_s": stats["step_s"],
+                   "launches": launched, "saves": stats["saves"]}
+
+
+def train_mesh_phase(dev) -> dict:
+    """Phase 4o; see the module's docstring.  Every gate raises."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import specs as SP
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    # (d) the launcher in its own process (a one-rank NCCL group of its own),
+    # beside (a)-(c): its process start and imports overlap them
+    ck = ROOT / "build" / "ckpts" / "4o_launcher"
+    shutil.rmtree(ck, ignore_errors=True)
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "stablelm-3b", "--smoke",
+         "--sharded", "--steps", "2", "--ckpt-dir", str(ck)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    cut = dataclasses.replace(get_config("stablelm-3b"), n_layers=MESH_TRAIN_LAYERS)
+    cfg = analog_cfg(cut)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=3e-4), total_steps=TRAIN_STEPS)
+    root = ROOT / "build" / "ckpts" / "4o"
+    out: dict = {}
+    # (c) the meta side first: a fake one-rank group, before NCCL's opens
+    shape = ShapeSpec("train_8x128", 128, 8, "train")
+    dcfg, dtcfg = cut, TrainConfig(microbatches=1)
+    t0 = time.perf_counter()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        meta = D.count_step(dcfg, shape, dtcfg, SP.cell_inputs(dcfg, shape, dtcfg),
+                            LM.make_host_mesh(model=1, device="cpu"))
+        meta["args_bytes"] = D.tree_bytes(D.input_tree(SP.cell_inputs(dcfg, shape, dtcfg)))
+    finally:
+        dist.destroy_process_group()
+    meta_s = time.perf_counter() - t0
+    want_reads = CB_PER_LAYER * cfg.n_layers * remat_factor(cfg) * MESH_TRAIN_STEPS
+    with LM.process_group("cuda"):
+        mesh = LM.make_host_mesh(model=1, data=1)
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        log(f"  mesh {LM.mesh_shape(mesh)} on {mesh.device_type}, backend {dist.get_backend()}; "
+            f"stablelm-3b at full width, {cfg.n_layers} of 32 layers, {cfg.analog.mode}, "
+            f"8 x 128")
+        # (a) the loop unsharded, then on the mesh: the same losses and reads;
+        # the unsharded state's next step is (b)'s yardstick (its checkpoint
+        # holds the same bits)
+        step_fn = make_train_step(cfg, tcfg)
+        batch = lm_batch(cfg, batch=8, seq=128, step=MESH_TRAIN_STEPS, device=dev)
+        state, plain = mesh_loop(cfg, tcfg, dev, root / "plain")
+        loss_plain = float(step_fn(state, batch)[1]["loss"])
+        del state
+        state, sharded = mesh_loop(cfg, tcfg, dev, root / "mesh", mesh=mesh)
+        del state
+        shutil.rmtree(root / "mesh", ignore_errors=True)
+        for tag, run in (("unsharded", plain), ("1 x 1", sharded)):
+            got = (run["launches"].get("crossbar_mac", 0),
+                   run["launches"].get("crossbar_prepass", 0))
+            if got != (want_reads, want_reads):
+                raise AssertionError(f"4o (a) {tag}: crossbar_mac launched {got} reads and "
+                                     f"prepasses, expected {want_reads} each")
+        if sharded["losses"] != plain["losses"]:
+            raise AssertionError(f"4o (a): 1 x 1 losses {sharded['losses']} against the "
+                                 f"unsharded {plain['losses']}")
+        log(f"  4o (a) loop.run(mesh=1 x 1): losses {sharded['losses']} = unsharded's, bit for "
+            f"bit; crossbar_mac {want_reads} reads + {want_reads} prepasses in each run "
+            f"({CB_PER_LAYER} x {cfg.n_layers} layers x {remat_factor(cfg)} x "
+            f"{MESH_TRAIN_STEPS} steps); step s {[round(x, 3) for x in sharded['step_s']]} "
+            f"against unsharded {[round(x, 3) for x in plain['step_s']]}; final save gather "
+            f"{sharded['saves'][-1]['gather_s']:.2f} s against {plain['saves'][-1]['gather_s']:.2f}")
+        out["loop"] = {"plain": plain, "mesh": sharded}
+        # (b) the unsharded checkpoint onto the mesh: the next step bit-equal
+        t1 = time.perf_counter()
+        like = init_train_state(0, cfg, tcfg, device=dev, mesh=mesh)
+        placed = load_checkpoint(str(root / "plain"), MESH_TRAIN_STEPS, like,
+                                 shardings=SH.state_shardings(like, mesh, cfg))
+        del like
+        _, m_mesh = step_fn(placed, batch)
+        loss_mesh = float(m_mesh["loss"])
+        del placed, m_mesh
+        shutil.rmtree(root, ignore_errors=True)
+        if loss_mesh != loss_plain:
+            raise AssertionError(f"4o (b): step {MESH_TRAIN_STEPS} from the checkpoint on the "
+                                 f"mesh {loss_mesh} against unsharded {loss_plain}")
+        log(f"  4o (b) the unsharded checkpoint at step {MESH_TRAIN_STEPS} loaded onto 1 x 1: "
+            f"the next step's loss {loss_mesh} = unsharded, bit for bit "
+            f"({time.perf_counter() - t1:.1f} s)")
+        out["ckpt"] = {"loss": loss_mesh}
+        torch.cuda.empty_cache()
+        # (c) the card side: the digital train step on the NCCL 1 x 1 mesh
+        r = D.measure_step(dcfg, shape, dtcfg, dev, iters=1, mesh=mesh)
+        card = r["card"]
+        err = {k: abs(meta[k] - card[k]) / card[k] for k in ("args_bytes", "temp_bytes")}
+        log(f"  4o (c) dry run at 1 x 1, stablelm-3b ({cfg.n_layers} layers) train 8 x 128 "
+            f"digital: args {meta['args_bytes']} B meta against {card['args_bytes']} allocated "
+            f"(err {err['args_bytes']:.6f}); temp {meta['temp_bytes']} B meta against "
+            f"{card['temp_bytes']} peak (err {err['temp_bytes']:.6f}); FLOPs "
+            f"{meta['flops']:.6e} meta, {card['flops']:.6e} on the card; collectives "
+            f"{meta['collectives']['count']}; step {r['ms']:.3f} ms; meta count {meta_s:.1f} s")
+        if max(err.values()) > DRYRUN_MEM_RTOL or meta["flops"] != card["flops"]:
+            raise AssertionError(f"4o (c): meta {meta} against the card {card}")
+        if meta["collectives"]["count"]:
+            raise AssertionError(f"4o (c): a 1 x 1 mesh sent {meta['collectives']}")
+        out["dryrun"] = {"meta": meta, "card": card, "rel_err": err, "ms": r["ms"]}
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    stdout, stderr = launcher.communicate(timeout=300)
+    shutil.rmtree(ck, ignore_errors=True)
+    text = stdout + stderr
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(("training mesh", "done"))]
+    log(f"  4o (d) train.py --sharded (rc {launcher.returncode}, waited {time.perf_counter() - t1:.1f}"
+        f" s after (a)-(c)): " + " | ".join(lines))
+    if launcher.returncode or "training mesh: {'data': 1, 'model': 1}" not in text \
+            or "done: steps=2" not in text:
+        raise AssertionError(f"4o train.py --sharded failed:\n{text[-4000:]}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 4o wall time {out['wall_s']:.1f} s")
+    return out
+
+
 def profile_train_step(step_fn, state, batch) -> dict:
     """Device time of one training step, split into the crossbar kernel,
     cuBLAS products (the STE backward's, and the digital logits and
@@ -7205,6 +7381,12 @@ def main() -> int:
         "4 x 2048, decode 8 x 4096), remat_policy on the card, the generic stoch_round and "
         "wta_counts_reference through the seam")
     mres = dryrun_phase(dev)
+    # after 4m, whose remat peaks differ by megabytes and so depend on the
+    # allocator's history
+    log("== 4o: training on a 1 x 1 DTensor mesh (a one-rank NCCL group): loop.run unsharded "
+        "and on the mesh, an unsharded checkpoint loaded onto it, the dry run's count at 1 x 1, "
+        "train.py --sharded")
+    ores = train_mesh_phase(dev)
     log("== small-input reference")
     reference_phase(dev)
     reference_wta(dev)
@@ -7384,6 +7566,12 @@ def main() -> int:
         rec = next(k for k in kernels if k["name"] == name)
         rec["launches_preempt"] = {run: pre[run]["launches"][key]
                                    for run in ("a", "b", "c", "d_same", "d_int8")}
+    # phase 4o: the unsharded and the 1 x 1 loop's reads, each reset just
+    # before it and read just after
+    for name in ("crossbar_mac", "crossbar_prepass"):
+        rec = next(k for k in kernels if k["name"] == name)
+        rec["launches_4o"] = {f"{tag} loop": ores["loop"][tag]["launches"].get(name, 0)
+                              for tag in ("plain", "mesh")}
     # phase 4n: the 1 x 1 mesh's serves, each reset just before it and
     # read just after
     mres4 = sres["mesh"]

@@ -26,8 +26,19 @@ device (or ``device``), in ``like``'s dtypes and with its
 ``requires_grad``, ints as Python ints, keys as key pairs.  A name
 ``like`` has and the checkpoint lacks raises ``KeyError``, as in the
 reference (so ``serve.py --ckpt-dir`` reads only params-only
-checkpoints in both packages).  Re-sharding at load waits for the
-port's sharding.
+checkpoints in both packages).
+
+On a mesh (a tree whose tensors are DTensors, ``train.step.place_state``)
+a save gathers every leaf whole with ``full_tensor()`` on the caller's
+thread, a collective every rank joins; rank 0 alone writes, and every
+rank waits for the write at a barrier (``CheckpointManager.wait``), so
+the format does not change and either package reads a sharded run's
+checkpoints.  A load with ``shardings`` (the port's ``{"params", "m",
+"v", "error"}`` of ``launch.sharding.state_shardings``, or a parameter
+tree's ``param_shardings``), or into a ``like`` of DTensors, has every
+rank read the arrays and keep its own blocks (``parallel.place``): the
+reference's elastic re-shard, so a checkpoint saved unsharded loads onto
+any mesh and the reverse.
 """
 
 from __future__ import annotations
@@ -43,6 +54,9 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch import parallel as PX
 
 
 def _is_key(leaf: Any) -> bool:
@@ -94,7 +108,15 @@ def _to_numpy(leaf: Any) -> tuple[np.ndarray, str]:
 
 
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Blocking atomic save; returns the checkpoint path."""
+    """Blocking atomic save; returns the checkpoint path.  A tree of
+    DTensors is gathered whole on every rank, rank 0 writes, and every
+    rank waits for it at a barrier."""
+    if _gathers(tree):
+        host = _map_with_names(lambda _n, leaf: _host_copy(leaf), tree)
+        if dist.get_rank() == 0:
+            save_checkpoint(directory, step, host)
+        dist.barrier()
+        return os.path.join(directory, f"step_{step:08d}")
     os.makedirs(directory, exist_ok=True)
     named = _flatten_with_names(tree)
     names = [n for n, _ in named]
@@ -140,8 +162,36 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def load_checkpoint(directory: str, step: int, like: Any, device=None) -> Any:
-    """Restore the checkpoint at ``step`` into the structure of ``like``."""
+# a TrainState's name segments that select a part of state_shardings' dict
+_STATE_PARTS = {".params": "params", ".m": "m", ".v": "v", ".error": "error"}
+
+
+def _sharding_at(shardings: Any, name: str) -> Optional[PX.Sharding]:
+    """The sharding ``shardings`` gives the leaf ``name``, or ``None``."""
+    node = shardings
+    for seg in name.split("/"):
+        if isinstance(node, PX.Sharding) or node is None:
+            break
+        if seg in (".opt", ".compress"):
+            continue
+        node = node.get(_STATE_PARTS.get(seg, seg)) if isinstance(node, dict) else None
+    return node if isinstance(node, PX.Sharding) else None
+
+
+def _gathers(tree: Any) -> bool:
+    """Whether ``tree`` holds a DTensor (a save every rank takes part in)."""
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(leaf, DTensor) for _, leaf in _flatten_with_names(tree))
+
+
+def load_checkpoint(directory: str, step: int, like: Any, device=None,
+                    shardings: Any = None) -> Any:
+    """Restore the checkpoint at ``step`` into the structure of ``like``;
+    a tensor leaf with a sharding (from ``shardings``, else a DTensor
+    leaf's own placements) comes back as that rank's block of it."""
+    from torch.distributed.tensor import DTensor
+
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -155,8 +205,13 @@ def load_checkpoint(directory: str, step: int, like: Any, device=None) -> Any:
             raise ValueError(f"checkpoint leaf {name} has shape {tuple(a.shape)}, the tree "
                              f"restored into has {tuple(leaf.shape)}")
         if isinstance(leaf, torch.Tensor):
+            sh = None if shardings is None else _sharding_at(shardings, name)
+            if sh is None and isinstance(leaf, DTensor):
+                sh = PX.Sharding(leaf.device_mesh, tuple(leaf.placements))
             t = torch.from_numpy(np.array(a)).to(
                 device=leaf.device if device is None else device, dtype=leaf.dtype)
+            if sh is not None:
+                t = PX.place_local(t[PX.local_slices(sh, t.shape)].clone(), sh, t.shape)
             return t.requires_grad_(leaf.requires_grad)
         if _is_key(leaf):
             return int(a[0]), int(a[1])
@@ -171,7 +226,7 @@ def _host_copy(leaf: Any) -> Any:
     """A tensor's copy on the host, finished before it returns (the caller
     goes on updating the original in place)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return PX.whole(leaf.detach()).to("cpu", copy=True)
     return leaf
 
 
@@ -180,13 +235,16 @@ class CheckpointManager:
 
     ``saves`` records each save: its step, the seconds of the host gather
     (on the caller's thread) and of the write (in the background), and the
-    checkpoint's bytes on disk."""
+    checkpoint's bytes on disk.  A tree of DTensors is gathered whole on
+    every rank; rank 0 alone writes, and :meth:`wait` holds every rank at
+    a barrier until that write is done."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
         self.saves: list[dict] = []
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False
 
     def save_async(self, step: int, tree: Any) -> None:
         self.wait()
@@ -197,6 +255,9 @@ class CheckpointManager:
         host_tree = _map_with_names(lambda _n, leaf: _host_copy(leaf), tree)
         record = {"step": step, "gather_s": time.perf_counter() - t0}
         self.saves.append(record)
+        self._barrier = _gathers(tree)
+        if self._barrier and dist.get_rank() != 0:
+            return
 
         def work():
             t1 = time.perf_counter()
@@ -212,6 +273,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self) -> None:
         for s in _steps(self.directory)[: -self.keep]:

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import parallel as PX
 from repro_torch.core.physics import BOLTZMANN_K, PROBIT_SCALE
 from . import backend as _backend
 from . import crossbar_mac as CB
@@ -351,7 +352,13 @@ def wta_trial_counts(
     reference's ``vmap`` of per-slot keys over ``normal(k, (T, C))``, ``(N·C,
     C)`` one key's ``normal(k, (T, N, C))``.  bf16 and f32 rows are read as
     they are (the reference's ``z.astype(f32)``); keys and words are uint32
-    values in int64 tensors on z's device."""
+    values in int64 tensors on z's device.  On a mesh it runs on whole
+    operands (``parallel.on_whole``)."""
+    return PX.on_whole(functools.partial(_wta_trial_counts, n_trials=n_trials, vth0=vth0,
+                                         sigma_z=sigma_z, layout=layout), z, keys, folds)
+
+
+def _wta_trial_counts(z, keys, folds, *, n_trials, vth0, sigma_z, layout):
     if z.dtype not in (torch.float32, torch.bfloat16):
         z = z.to(torch.float32)
     z = z.contiguous()
@@ -369,7 +376,13 @@ def sigmoid_sample(
     shape, 1 where jax's threefry ``uniform(key, acc.shape)`` (from the
     flat counter ``offset``) lies below ``sigmoid(β·(acc + bias))``.
     ``bias`` is (N,) or None; ``key`` a threefry key of Python ints.
-    Forward only: the straight-through backward is ``core.neurons``'."""
+    Forward only: the straight-through backward is ``core.neurons``'.  On a
+    mesh it runs on whole operands (``parallel.on_whole``)."""
+    return PX.on_whole(functools.partial(_sigmoid_sample, beta=beta, key=key, offset=offset),
+                       acc, bias)
+
+
+def _sigmoid_sample(acc, bias, *, beta, key, offset):
     n = acc.shape[-1]
     a2d = acc.reshape(-1, n).to(torch.float32).contiguous()
     if bias is not None:
@@ -484,8 +497,11 @@ class _CrossbarMAC(torch.autograd.Function):
 def crossbar_mac(x: torch.Tensor, w: torch.Tensor, key, cfg, binarize: bool = True) -> torch.Tensor:
     """Fused RACA matmul: x (..., K) f32, w (K, N) → (..., N) f32, under the
     threefry key ``key``, through the active device backend (a fault
-    backend perturbs the weights or the read first)."""
-    return _backend.get_backend().crossbar_mac(x, w, key, cfg, binarize)
+    backend perturbs the weights or the read first).  On a mesh it runs on
+    whole operands (``parallel.on_whole``): the range scale is the whole
+    weight's and the noise counter spans the whole output."""
+    return PX.on_whole(lambda x, w: _backend.get_backend().crossbar_mac(x, w, key, cfg, binarize),
+                       x, w)
 
 
 def crossbar_mac_sim(x: torch.Tensor, w: torch.Tensor, key, cfg, binarize: bool = True) -> torch.Tensor:

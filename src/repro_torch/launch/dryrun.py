@@ -1,56 +1,66 @@
 """The dry run on one H100 (``repro/launch/dryrun.py``): every (architecture
-× input shape) cell's step, run on the ``meta`` device under the
-reference's two logical meshes, with what each device would hold and do.
+× input shape) cell's step, run on the ``meta`` device as one rank of the
+reference's two production meshes, with what each device holds, does and
+sends.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
         --shape train_4k --mesh multi --out runs/dryrun.json
 
 The reference lowers each cell on a 256- or 512-chip TPU mesh and reads
-XLA's memory and cost analyses.  The port has no such compiler, so each
-cell's inputs are built on ``meta`` (``specs.input_specs``) and its step
-runs there: shapes and dtypes only, nothing allocated, nothing drawn.
-The meshes are the reference's, 16 × 16 (``data``, ``model``) and 2 × 16
-× 16 (``pod``, ``data``, ``model``): read them as 32 or 64 hosts of 8
-H100s.  Each record holds:
+XLA's memory and cost analyses.  The port has no such compiler.  It
+opens a fake process group (``FakeStore``, world 256 or 512, rank 0: no
+devices, every collective a shape-only no-op) and lays the reference's
+mesh over it, 16 × 16 (``data``, ``model``) or 2 × 16 × 16 (``pod``,
+``data``, ``model``): read them as 32 or 64 hosts of 8 H100s.  The cell's
+inputs are built on ``meta`` (``specs.input_specs``) and placed as
+DTensors under the sharding policy (``launch/sharding.py``), and its step
+runs there as rank 0 runs it under the reference's activation rules: the
+train step through ``train.step`` (its mesh path), prefill and decode
+under ``parallel.axis_rules``.  Shapes and dtypes only: nothing is
+allocated, nothing drawn.  Each record holds:
 
 * ``params``, ``active_params``;
 * ``args_bytes``: the step's inputs whole and, under the sharding
-  policy (``launch/sharding.py``), per device;
-* ``temp_bytes``: the step's own peak of live bytes at the per-device
-  batch (the global batch over the batch axes' product; the train step
-  with ``TrainConfig(microbatches=4)``, the reference's production pass),
-  counted by :class:`LiveBytes`.  The model axis stays unsplit until the
-  port runs on a DTensor mesh, so this is an upper bound;
-* ``cost``: ``flops``, ``FlopCounterMode`` over forward, backward and
-  optimizer (matrix products, convolutions and attention only; the
-  reference's XLA counts every op), and ``bytes accessed``, every op's
-  operand and result bytes, unfused (an upper bound); both of the step
-  at the per-device batch, split evenly over the model axis.  The
-  port's loop over units is unrolled by nature, so every unit is
-  counted (the reference's 1-unit / 2-unit extrapolation has no
-  counterpart);
-* ``collectives``: ``None``, not measured until DTensor;
+  policy, per device;
+* ``temp_bytes``: the step's own peak of live bytes on rank 0 (its local
+  storages: the model axis split as the placements and rules split it;
+  the train step with ``TrainConfig(microbatches=4)``, the reference's
+  production pass), counted by :class:`LiveBytes`;
+* ``cost``: ``flops``, rank 0's local ops under ``FlopCounterMode``
+  (matrix products, convolutions and attention only; the reference's XLA
+  counts every op), and ``bytes accessed``, its local ops' operand and
+  result bytes, unfused (an upper bound);
+* ``collectives``: what rank 0 sends, the reference's dict (bytes per
+  kind, ``count``, ``total_bytes``): ``CommDebugMode``'s count of the
+  ``_c10d_functional`` (and ``_dtensor``) collectives the step issues, and
+  :class:`Collectives`' bytes over the same ops by the reference's
+  formula (all-gather: the result; reduce-scatter: the operand;
+  all-reduce: 2 × the operand; all-to-all: the operand);
 * ``model_flops_global``, ``model_flops_per_chip`` and ``roofline``
   (``launch/roofline.py``, the H100's data-sheet peaks).
 
 Results accumulate into a JSON keyed ``arch|shape|mesh[|tag]`` (skipped
 cells ``arch|shape|skipped``); ``launch/report.py`` renders its tables.
 ``--override analog_mode=...`` runs the analog step, whose custom
-Functions give an empty output of the right shape on meta.  Nothing
+Functions give an empty output of the right shape on meta, on whole
+operands (``parallel.on_whole``: their weights gathered).  Nothing
 touches a device but :func:`measure_step` on one the caller names (the
 card check in ``chip_smoke.py`` holds a meta count against the card's
-allocator there).
+allocator there, unsharded and on a 1 × 1 mesh).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
+import sys
+import threading
 import time
 import traceback
 import weakref
@@ -60,6 +70,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch import parallel as PX
 from repro_torch.configs import SHAPES, ShapeSpec, cells, get_config, skip_shapes
 from repro_torch.launch import roofline as RL
 from repro_torch.launch import sharding as SH
@@ -76,14 +87,53 @@ MESHES = {
 MESH_NAMES = {"single": "single_pod_16x16", "multi": "multi_pod_2x16x16"}
 
 NOTES = {
-    "temp_bytes": "peak live bytes of the step at the per-device batch, model axis unsplit: "
-                  "an upper bound",
-    "flops": "FlopCounterMode: matrix products, convolutions and attention only",
-    "bytes accessed": "every op's operand and result bytes, unfused: an upper bound",
-    "per_device": "the step's counts at the per-device batch over the model axis's size "
-                  "(an even split, assumed until DTensor)",
-    "collectives": "not measured",
+    "temp_bytes": "peak live bytes of rank 0's local storages over the DTensor step",
+    "flops": "FlopCounterMode over rank 0's local ops: matrix products, convolutions and "
+             "attention only",
+    "bytes accessed": "rank 0's local ops' operand and result bytes, unfused: an upper bound",
+    "per_device": "rank 0 of the fake process group, the step on DTensors at the policy's "
+                  "placements",
+    "collectives": "CommDebugMode counts; bytes by the reference's formula over the same ops",
 }
+
+# the collectives a DTensor step issues, by the reference's kinds
+_COLLECTIVE_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-permute",
+}
+
+
+def _is_dtensor_op(types) -> bool:
+    """A DTensor op: a counting mode leaves it to DTensor, whose local ops
+    on the shards come back to the mode."""
+    from torch.distributed.tensor import DTensor
+
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _planning() -> bool:
+    """Whether ``torch.distributed`` code is on the call stack: DTensor
+    planning a redistribution or a shard's offsets, with host tensors."""
+    f = sys._getframe(2)
+    while f is not None:
+        if "torch/distributed/" in f.f_code.co_filename:
+            return True
+        f = f.f_back
+    return False
+
+
+def _propagating() -> bool:
+    """Inside DTensor's sharding propagation, which runs an op on fake
+    tensors of the global shape to learn its output's metadata: no rank's
+    work, so a counting mode runs it uncounted."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
 
 
 class LiveBytes(TorchDispatchMode):
@@ -91,28 +141,41 @@ class LiveBytes(TorchDispatchMode):
     freed: ``peak`` is the most bytes live at once.  Storages that exist
     when the mode starts (``held``: the step's inputs) and views into any
     counted storage add nothing.  ``accessed`` sums every op's operand and
-    result bytes, unfused (views and metadata ops move nothing)."""
+    result bytes, unfused (views and metadata ops move nothing).  With a
+    ``device``, an op whose tensors lie elsewhere counts unless
+    ``torch.distributed`` issued it (DTensor plans redistributions and
+    offsets with small host tensors: no device's work); the step's own
+    host scalars count, as without a mesh."""
 
-    def __init__(self, held=()):
+    def __init__(self, held=(), device=None):
         super().__init__()
         self.live = 0
         self.peak = 0
         self.accessed = 0
+        self.device = None if device is None else torch.device(device).type
         self._seen: dict[int, object] = {}
-        for t in _pytree_leaves(held):
+        for t in _pytree_leaves(PX.local(held)):
             if isinstance(t, torch.Tensor):
                 st = t.untyped_storage()
                 self._seen[id(st)] = st  # held alive: its id is never reused meanwhile
+
+    def _counts(self, t) -> bool:
+        return isinstance(t, torch.Tensor) and (self.device is None or t.device.type == self.device
+                                                or not _planning())
 
     def _freed(self, key: int, nbytes: int, _ref) -> None:
         self.live -= nbytes
         self._seen.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _is_dtensor_op(types):   # let DTensor run: its local ops come back here
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
-        outs = [t for t in _pytree_leaves(out) if isinstance(t, torch.Tensor)]
+        if _propagating():
+            return out
+        outs = [t for t in _pytree_leaves(out) if self._counts(t)]
         if not func.is_view:
-            ins = [t for t in _pytree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            ins = [t for t in _pytree_leaves((args, kwargs)) if self._counts(t)]
             self.accessed += sum(t.numel() * t.element_size() for t in ins + outs)
         for t in outs:
             st = t.untyped_storage()
@@ -124,6 +187,86 @@ class LiveBytes(TorchDispatchMode):
             self.live += n
             self.peak = max(self.peak, self.live)
         return out
+
+
+class Collectives(TorchDispatchMode):
+    """Bytes this rank sends, by the reference's formula
+    (``repro/launch/roofline.py:8-13``), over the collectives the step's
+    local ops issue: all-gather its result, reduce-scatter its operand,
+    all-reduce twice its operand, all-to-all its operand.  ``record()``
+    is the reference's dict (with ``count`` and ``total_bytes``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = {k: 0 for k in RL.COLLECTIVE_OPS}
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _is_dtensor_op(types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if _propagating():
+            return out
+        ns = getattr(func, "namespace", "")
+        kind = _COLLECTIVE_KINDS.get(func._opname) if ns in ("_c10d_functional", "_dtensor") else None
+        if kind is not None:
+            nbytes = tree_bytes(out if kind == "all-gather" else args[0])
+            self.bytes[kind] += 2 * nbytes if kind == "all-reduce" else nbytes
+            self.count += 1
+        return out
+
+    def record(self) -> dict:
+        return {**self.bytes, "count": self.count, "total_bytes": sum(self.bytes.values())}
+
+
+class LocalFlops(FlopCounterMode):
+    """``FlopCounterMode`` over a rank's local ops: a DTensor op is left to
+    DTensor, whose local ops on the shards are the ones counted."""
+
+    def __enter__(self):
+        from torch.utils.flop_counter import _FlopCounterMode
+
+        class _Local(_FlopCounterMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if _is_dtensor_op(types):
+                    return NotImplemented
+                if _propagating():
+                    return func(*args, **(kwargs or {}))
+                return super().__torch_dispatch__(func, types, args, kwargs)
+
+        self.flop_counts.clear()
+        self.mod_tracker.__enter__()
+        self.mode = _Local(self)
+        self.mode.__enter__()
+        return self
+
+
+def _alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's Shard → Shard all-to-all as it runs on a CUDA mesh; on a
+    CPU mesh DTensor falls back to an all-gather and a chunk (gloo has no
+    all-to-all), which would count as the wrong collective."""
+    import torch.distributed._functional_collectives as funcol
+
+    group = funcol._resolve_group((mesh, mesh_dim))
+    return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                 funcol._group_or_group_name(group))
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh: str):
+    """The production mesh ``mesh`` ("single" or "multi") over a fake
+    process group, as its rank 0; the group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch import mesh as LM
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(MESHES[mesh].values()))
+    try:
+        yield LM.make_production_mesh(multi_pod=mesh == "multi", device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def tree_bytes(tree) -> int:
@@ -199,17 +342,80 @@ def input_tree(ins: dict) -> dict:
     return {k: _state_tree(v) if k == "state" else v for k, v in ins.items()}
 
 
-def count_step(cfg, shape: ShapeSpec, tcfg: TrainConfig, ins: dict) -> dict:
+def place_inputs(cfg, shape: ShapeSpec, ins: dict, mesh) -> dict:
+    """A cell's inputs (whole, as every rank would hold them) placed on
+    ``mesh`` under the sharding policy: each rank keeps its blocks."""
+    from repro_torch.train.step import place_state
+
+    gb = shape.global_batch
+    out = {}
+    for k, v in ins.items():
+        if k == "state":
+            out[k] = place_state(v, mesh, cfg)
+            continue
+        if k == "params":
+            sh = SH.param_shardings(v, mesh, cfg)
+        elif k == "cache":
+            sh = SH.cache_shardings(v, mesh, cfg, gb)
+        elif k == "token":
+            sh = SH.batch_shardings({k: v}, mesh, gb)[k]
+        else:
+            sh = SH.batch_shardings(v, mesh, gb)
+        out[k] = _place(v, sh)
+    return out
+
+
+def _place(tree, sh):
+    if isinstance(tree, dict):
+        return {k: _place(v, sh[k]) for k, v in tree.items()}
+    return PX.place(tree, sh)
+
+
+@contextlib.contextmanager
+def mesh_rules(cfg, shape: ShapeSpec, mesh):
+    """A cell's step on ``mesh``: the reference's activation rules at the
+    cell's global batch, plain tensors taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with PX.axis_rules(mesh, SH.activation_rules(mesh, cfg, shape.global_batch)), \
+            implicit_replication():
+        yield
+
+
+def count_step(cfg, shape: ShapeSpec, tcfg: TrainConfig, ins: dict, mesh=None) -> dict:
     """Run the step once on ``ins`` under :class:`LiveBytes` and
-    ``FlopCounterMode``: {"temp_bytes", "flops", "bytes_accessed"}."""
+    ``FlopCounterMode``: {"temp_bytes", "flops", "bytes_accessed"}.  With
+    a ``mesh``, ``ins`` are placed on it (:func:`place_inputs`) and the
+    step runs on DTensors under the activation rules: the counts are this
+    rank's local ones, and ``collectives`` (:class:`Collectives`, with
+    ``CommDebugMode``'s count beside it as ``comm_debug_count``) is added."""
     step = make_step(cfg, shape, tcfg)
-    live = LiveBytes(held=input_tree(ins))
-    flops = FlopCounterMode(display=False)
-    with flops, live:
-        out = step(ins)
-        del out
+    dev = next(t for t in _pytree_leaves(input_tree(ins)) if isinstance(t, torch.Tensor)).device
+    if mesh is None:
+        live = LiveBytes(held=input_tree(ins), device=dev)
+        flops = FlopCounterMode(display=False)
+        with flops, live:
+            out = step(ins)
+            del out
+        return {"temp_bytes": live.peak, "flops": float(flops.get_total_flops()),
+                "bytes_accessed": float(live.accessed)}
+    from torch.distributed.tensor import placement_types as PT
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    ins = place_inputs(cfg, shape, ins, mesh)
+    live = LiveBytes(held=input_tree(ins), device=dev)
+    flops = LocalFlops(display=False)
+    colls, comm = Collectives(), CommDebugMode()
+    saved, PT.shard_dim_alltoall = PT.shard_dim_alltoall, _alltoall
+    try:
+        with comm, colls, flops, live, mesh_rules(cfg, shape, mesh):
+            out = step(ins)
+            del out
+    finally:
+        PT.shard_dim_alltoall = saved
     return {"temp_bytes": live.peak, "flops": float(flops.get_total_flops()),
-            "bytes_accessed": float(live.accessed)}
+            "bytes_accessed": float(live.accessed),
+            "collectives": {**colls.record(), "comm_debug_count": comm.get_total_counts()}}
 
 
 def _cfg_with(arch: str, overrides: dict | None):
@@ -260,15 +466,12 @@ def run_cell(arch: str, shape_name: str, mesh: str, cfg_overrides: dict | None =
     tree = input_tree(ins)
     rec["args_bytes"] = {"whole": tree_bytes(tree),
                          "per_device": SH.per_device_bytes(tree, specs, sizes)}
-    b = per_device_batch(shape, sizes)
-    rec["per_device_batch"] = b
-    local = dataclasses.replace(shape, global_batch=b)
-    counts = count_step(cfg, local, tcfg, SP.cell_inputs(cfg, local, tcfg))
-    m = sizes.get("model", 1)
+    rec["per_device_batch"] = per_device_batch(shape, sizes)
+    with fake_mesh(mesh) as dmesh:
+        counts = count_step(cfg, shape, tcfg, ins, dmesh)
     rec["temp_bytes"] = counts["temp_bytes"]
-    rec["cost"] = {"flops": counts["flops"] / m, "bytes accessed": counts["bytes_accessed"] / m}
-    rec["step_counts"] = counts
-    rec["collectives"] = None
+    rec["cost"] = {"flops": counts["flops"], "bytes accessed": counts["bytes_accessed"]}
+    rec["collectives"] = counts["collectives"]
     rec["model_flops_global"] = RL.model_flops(cfg, shape)
     rec["model_flops_per_chip"] = rec["model_flops_global"] / n_dev
     rec["roofline"] = RL.roofline_terms(rec)
@@ -276,45 +479,87 @@ def run_cell(arch: str, shape_name: str, mesh: str, cfg_overrides: dict | None =
     return rec
 
 
-def measure_step(cfg, shape: ShapeSpec, tcfg: TrainConfig, device, iters: int = 3) -> dict:
+def measure_step(cfg, shape: ShapeSpec, tcfg: TrainConfig, device, iters: int = 3,
+                 mesh=None) -> dict:
     """The card check of a meta count: the step on ``device`` on
     :func:`real_inputs`, beside the same step on meta.
     Returns the meta counts (``args_bytes``, ``temp_bytes``, ``flops``),
     the allocator's (``memory_allocated`` held by the inputs, the peak over
     the step less the allocation before it; the step runs once before, so
     one-time workspaces are not in it), ``FlopCounterMode`` on the card,
-    and the step's ms (CUDA events, the mean of ``iters`` runs)."""
+    and the step's ms (CUDA events, the mean of ``iters`` runs).  With a
+    ``mesh`` (on ``device``'s type) the inputs are placed on it and the
+    step runs on DTensors (:func:`mesh_rules`; rank 0's local FLOPs); the
+    meta side, which needs a fake group of its own, is the caller's
+    (:func:`count_step` with a mesh): ``meta`` is ``None``."""
     dev = torch.device(device)
-    meta_ins = SP.cell_inputs(cfg, shape, tcfg)
-    meta = count_step(cfg, shape, tcfg, meta_ins)
-    meta["args_bytes"] = tree_bytes(input_tree(meta_ins))
+    meta = None
+    if mesh is None:
+        meta_ins = SP.cell_inputs(cfg, shape, tcfg)
+        meta = count_step(cfg, shape, tcfg, meta_ins)
+        meta["args_bytes"] = tree_bytes(input_tree(meta_ins))
     step = make_step(cfg, shape, tcfg)
+    ctx = contextlib.nullcontext if mesh is None else lambda: mesh_rules(cfg, shape, mesh)
     gc.collect()
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     ins = real_inputs(cfg, shape, tcfg, dev)
+    if mesh is not None:
+        ins = place_inputs(cfg, shape, ins, mesh)
     torch.cuda.synchronize(dev)
     args = torch.cuda.memory_allocated(dev) - base
-    step(ins)  # warm-up: cuBLAS workspaces and first-use allocations
-    flops = FlopCounterMode(display=False)
+    with ctx():
+        step(ins)  # warm-up: cuBLAS workspaces and first-use allocations
+    flops = (FlopCounterMode if mesh is None else LocalFlops)(display=False)
     gc.collect()
     torch.cuda.synchronize(dev)
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    with flops:
+    with flops, ctx():
         out = step(ins)
     torch.cuda.synchronize(dev)
     temp = torch.cuda.max_memory_allocated(dev) - before
     del out
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        step(ins)
+    with ctx():
+        for _ in range(iters):
+            step(ins)
     end.record()
     torch.cuda.synchronize(dev)
     return {"meta": meta, "card": {"args_bytes": args, "temp_bytes": temp,
                                    "flops": float(flops.get_total_flops())},
             "ms": start.elapsed_time(end) / iters}
+
+
+# a train step on the three-axis mesh nests DTensor's dispatch, the
+# counting modes and the checkpointed backward deeper than a main thread's
+# 8 MiB C stack holds (CPython crashes there): each cell runs on a thread
+# with this stack
+CELL_STACK_BYTES = 1 << 30
+
+
+def on_big_stack(fn, *args):
+    """``fn(*args)`` on a thread with a CELL_STACK_BYTES stack; its
+    exception, if any, raised here."""
+    out: dict = {}
+
+    def work():
+        try:
+            out["value"] = fn(*args)
+        except BaseException as e:   # re-raised in the caller's thread
+            out["error"] = e
+
+    old = threading.stack_size(CELL_STACK_BYTES)
+    try:
+        t = threading.Thread(target=work)
+        t.start()
+        t.join()
+    finally:
+        threading.stack_size(old)
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
 
 
 def main(argv=None) -> None:
@@ -367,7 +612,8 @@ def main(argv=None) -> None:
                 continue
             print(f"[run] {key} ...", flush=True)
             try:
-                rec = run_cell(arch, shape, mesh, overrides or None, args.microbatches)
+                rec = on_big_stack(run_cell, arch, shape, mesh, overrides or None,
+                                   args.microbatches)
                 results[key] = rec
                 r = rec["roofline"]
                 print(f"  ok {rec['run_s']}s args/dev {rec['args_bytes']['per_device']:.4e} B "

@@ -4,12 +4,15 @@
 
 Three tables, rows in the reference's arch order: per cell and mesh the
 bytes a device holds (inputs under the sharding policy plus the step's
-own peak) against one H100's 80 GB; the single-pod roofline terms
-against the H100's data-sheet peaks, where the FLOPs are the matrix
-operations ``FlopCounterMode`` counts; and the collectives, not measured
-until the port runs on a DTensor mesh.  ``--compact`` prints one row a
-cell instead, both meshes side by side.  The counts come from a meta
-run, not from a card.
+own peak, rank 0's local storages on the DTensor mesh) against one
+H100's 80 GB; the single-pod roofline terms against the H100's
+data-sheet peaks, where the FLOPs are the matrix operations
+``FlopCounterMode`` counts over rank 0's local ops; and the bytes each
+kind of collective moves a device a step (measured on the fake process
+group; a record from before the mesh terms reads "not measured").
+``--compact`` prints one row a cell instead, both meshes side by side,
+with each mesh's collective term.  The counts come from a meta run, not
+from a card.
 """
 
 from __future__ import annotations
@@ -123,8 +126,8 @@ def compact_table(results: dict) -> str:
     single mesh's matrix FLOPs and roofline bound."""
     lines = [
         "| arch | shape | args/dev single · multi | temp single · multi | fits 80 GB | "
-        "FLOPs/dev (matrix ops only) | bound (dominant) |",
-        "|---|---|---|---|---|---|---|",
+        "FLOPs/dev (matrix ops only) | collective single · multi | bound (dominant) |",
+        "|---|---|---|---|---|---|---|---|",
     ]
     for arch in ASSIGNED_ARCHS:
         for shape in SHAPES:
@@ -135,11 +138,12 @@ def compact_table(results: dict) -> str:
             ro = RL.roofline_terms(s)
             fits = " · ".join("yes" if device_bytes(r) <= RL.HBM_PER_DEVICE else "no"
                               for r in rs)
+            coll = " · ".join(fmt_s(RL.roofline_terms(r)["collective_s"]) for r in rs)
             lines.append(
                 f"| {arch} | {shape} | {fmt_bytes(s['args_bytes']['per_device'])} · "
                 f"{fmt_bytes(m['args_bytes']['per_device'])} | {fmt_bytes(s['temp_bytes'])} "
                 f"· {fmt_bytes(m['temp_bytes'])} | {fits} | {s['cost']['flops']:.3e} | "
-                f"{fmt_s(ro['bound_s'])} ({ro['dominant']}) |")
+                f"{coll} | {fmt_s(ro['bound_s'])} ({ro['dominant']}) |")
     return "\n".join(lines)
 
 

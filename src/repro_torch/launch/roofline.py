@@ -5,14 +5,17 @@ against one H100's data-sheet peaks:
     memory     = bytes_per_device / HBM_BW
     collective = collective_bytes_per_device / LINK_BW
 
-The dry run counts FLOPs with ``torch.utils.flop_counter.FlopCounterMode``
-(matrix products, convolutions and attention only: the reference's XLA
-``cost_analysis`` counts every op) and bytes as every op's operands and
-results, unfused.  Collective bytes are not measured until the port runs
-on a DTensor mesh: a record whose ``collectives`` is ``None`` has no
-collective term, and its dominant term is chosen between compute and
-memory.  The reference's HLO parser (``parse_collectives``) has no
-counterpart: the port has no HLO.
+The dry run counts, on rank 0 of the DTensor mesh, FLOPs with
+``torch.utils.flop_counter.FlopCounterMode`` (matrix products,
+convolutions and attention only: the reference's XLA ``cost_analysis``
+counts every op), bytes as every op's operands and results, unfused, and
+collective bytes over the ``_c10d_functional`` ops the step issues, by the
+reference's formula (all-gather: the result; reduce-scatter: the
+operand; all-reduce: twice the operand; all-to-all and permute: the
+operand).  They replace the reference's HLO parser
+(``parse_collectives``): the port has no HLO.  A record from before the
+mesh terms has ``collectives`` ``None``: no collective term, and its
+dominant term is chosen between compute and memory.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ LINK_BW = 450e9
 # H100 SXM 80GB HBM3, data sheet, 700 W: HBM bytes
 HBM_PER_DEVICE = 80e9
 
-_COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                    "collective-permute")
 
 
@@ -92,6 +95,6 @@ def improvement_hint(record: dict, ro: dict) -> str:
                     "local-window caches / quantize KV to int8")
         return ("activation traffic dominates — chunk the f32 logits/CE, "
                 "save dots instead of recomputing (remat policy)")
-    big = max(_COLLECTIVE_OPS, key=lambda k: coll.get(k, 0))
+    big = max(COLLECTIVE_OPS, key=lambda k: coll.get(k, 0))
     return (f"{big} dominates — overlap it with compute, reduce its "
             "precision (int8/bf16), or reshard to keep it on-pod")

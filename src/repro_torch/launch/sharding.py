@@ -24,8 +24,9 @@ names, so the path rules apply unchanged.
 The placements (:func:`param_shardings`, :func:`state_shardings`,
 :func:`batch_shardings`, :func:`cache_shardings`) are those specs on a
 ``DeviceMesh``, through ``parallel.placements``: one
-``parallel.Sharding`` (mesh, a placement per mesh axis) per leaf.  So a
-leaf's local shard and :func:`per_device_bytes` cannot disagree.
+``parallel.Sharding`` (mesh, a placement per mesh axis; an axis of one
+rank replicates) per leaf.  So a leaf's local shard and
+:func:`per_device_bytes` cannot disagree.
 """
 
 from __future__ import annotations
@@ -259,7 +260,7 @@ def _shardings(specs: Any, mesh) -> Any:
         return {k: _shardings(v, mesh) for k, v in specs.items()}
     if specs is None:
         return None
-    return PX.Sharding(mesh, PX.placements(specs, mesh.mesh_dim_names))
+    return PX.Sharding(mesh, PX.placements(specs, mesh.mesh_dim_names, mesh.shape))
 
 
 def param_shardings(params: dict, mesh, cfg: ModelConfig) -> dict:

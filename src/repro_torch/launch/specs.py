@@ -492,6 +492,7 @@ def sample_tokens(
     fault backend), so a captured step keeps the point of its capture.
     The trials run in one kernel launch per read on the card
     (``ops.wta_trial_counts``), keys folded on the device."""
+    logits = PX.whole_dim(logits, -1)   # on a mesh: the vocab whole on every rank
     if not (cfg.wta_head and key is not None):
         return torch.argmax(logits, dim=-1).to(torch.int32)
     b, v = logits.shape

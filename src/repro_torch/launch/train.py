@@ -27,8 +27,18 @@ pixels of each image, as the reference's tests feed that config.
 ``--compress`` trains with int8 gradient compression (error feedback).
 Checkpoints go to ``--ckpt-dir`` (default ``ckpts/<config name>``) every
 ``max(steps // 4, 1)`` steps and at the end; a run that finds one there
-resumes from it.  Model parallelism is not ported: ``--model-par`` other
-than 1 is refused.
+resumes from it.
+
+``--model-par N`` (or ``--sharded``) trains on a ``(data, model)`` DTensor
+mesh (``launch/mesh.make_host_mesh(model=N)``) over the process group:
+``torchrun``'s ranks, or one rank over an in-memory store when run alone
+(a 1 × 1 mesh); NCCL on the card, gloo with ``--device cpu``.  The model
+axis must divide the group's ranks (``make_host_mesh``'s error
+otherwise); every other rank goes to the data axis.  Every rank feeds the
+same whole batch and keeps its blocks of it; rank 0 prints.
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch stablelm-3b --smoke --device cpu --model-par 2
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+
+import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.analog import AnalogConfig
@@ -63,11 +75,12 @@ def main(argv=None) -> None:
     ap.add_argument("--analog", action="store_true",
                     help="RACA analog-stochastic execution (QAT)")
     ap.add_argument("--model-par", type=int, default=1,
-                    help="model-parallel size (not ported: only 1)")
+                    help="model-axis size of the training mesh; above 1 implies --sharded")
+    ap.add_argument("--sharded", action="store_true",
+                    help="train on a (data, model) DTensor mesh of the process group's ranks "
+                         "(one rank when run alone)")
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
-    if args.model_par != 1:
-        ap.error("--model-par: model parallelism is not ported yet")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     dev = resolve_device(args.device)
@@ -101,7 +114,20 @@ def main(argv=None) -> None:
             return batch
         return lm_batch(cfg, batch=args.batch, seq=args.seq, step=step, device=dev)
 
-    state, stats = run(cfg, tcfg, lcfg, batch_fn, device=dev)
+    if not (args.sharded or args.model_par != 1):
+        return _report(run(cfg, tcfg, lcfg, batch_fn, device=dev), dev)
+    from repro_torch.launch import mesh as LM
+
+    with LM.process_group(dev):
+        mesh = LM.make_host_mesh(model=args.model_par, device=dev)
+        out = run(cfg, tcfg, lcfg, batch_fn, device=dev, mesh=mesh)
+        if torch.distributed.get_rank() == 0:
+            print(f"training mesh: {LM.mesh_shape(mesh)}")
+            _report(out, dev)
+
+
+def _report(out, dev) -> None:
+    state, stats = out
     losses = stats["losses"]
     if losses:
         print(

@@ -73,13 +73,15 @@ def _proj_cfg(cfg: ModelConfig) -> A.AnalogConfig:
 
 
 def qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None):
-    b, s, _ = x.shape
     acfg = _proj_cfg(cfg)
     keys = (None,) * 3 if key is None else R.split(key, 3)
-    q = A.analog_matmul(acfg, keys[0], x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = A.analog_matmul(acfg, keys[1], x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = A.analog_matmul(acfg, keys[2], x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    return q, k, v
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = PX.unflatten(A.analog_matmul(acfg, keys[0], x, p["wq"]), -1, (h, dh))
+    k = PX.unflatten(A.analog_matmul(acfg, keys[1], x, p["wk"]), -1, (hkv, dh))
+    v = PX.unflatten(A.analog_matmul(acfg, keys[2], x, p["wv"]), -1, (hkv, dh))
+    return (PX.shard(q, ("batch", "seq", "heads", None)),
+            PX.shard(k, ("batch", "seq", "kv_heads", None)),
+            PX.shard(v, ("batch", "seq", "kv_heads", None)))
 
 
 def _maybe_expand(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
@@ -92,7 +94,8 @@ def _maybe_expand(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelC
     identity on the real heads; the caller slices the padded ones away."""
     h, hkv = q.shape[2], k.shape[2]
     pad = cfg.attn_pad_heads - h if cfg.attn_pad_heads > h else 0
-    if (cfg.gqa_repeat_kv or pad) and hkv < h:
+    repeat = cfg.gqa_repeat_kv or pad
+    if repeat and hkv < h:
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
         hkv = h
@@ -101,7 +104,10 @@ def _maybe_expand(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelC
         if hkv == h:
             k = torch.nn.functional.pad(k, (0, 0, 0, pad))
             v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-    return q, k, v
+    if repeat:
+        k = PX.shard(k, ("batch", "seq", "heads", None))
+        v = PX.shard(v, ("batch", "seq", "heads", None))
+    return PX.shard(q, ("batch", "seq", "heads", None)), k, v
 
 
 def attend_full(
@@ -125,14 +131,17 @@ def attend_full(
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     pdt = getattr(torch, cfg.attn_probs_dtype)
-    qg = q.reshape(b, s, hkv, g, dh).to(pdt) * torch.tensor(dh**-0.5, dtype=pdt)
+    qg = PX.unflatten(q, 2, (hkv, g)).to(pdt) * torch.tensor(dh**-0.5, dtype=pdt)
     nchunks = max(t // cfg.attn_kv_chunk, 1)
     cs = t // nchunks
     if t % cs:
         raise ValueError(f"{t} keys do not split into chunks of {cs}")
-    m = torch.full((b, hkv, g, s), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hkv, g, s, dh), dtype=torch.float32, device=q.device)
+    # laid out as the queries (on a mesh: their batch and head split)
+    rows = qg.permute(0, 2, 3, 1, 4)
+    m = torch.full_like(rows[..., 0], NEG_INF, dtype=torch.float32,
+                        memory_format=torch.contiguous_format)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(rows, dtype=torch.float32, memory_format=torch.contiguous_format)
     for c in range(nchunks):
         kc = k[:, c * cs : (c + 1) * cs].to(pdt)
         vc = v[:, c * cs : (c + 1) * cs].to(pdt)
@@ -178,8 +187,8 @@ def self_attention(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     qpos = positions[0] if positions.dim() == 2 else positions
-    out = attend_full(q, k, v, qpos, qpos, kind, cfg).reshape(b, s, -1)
-    return A.analog_matmul(_proj_cfg(cfg), ko, out, p["wo"])
+    out = PX.same_grad_layout(attend_full(q, k, v, qpos, qpos, kind, cfg).reshape(b, s, -1))
+    return PX.shard(A.analog_matmul(_proj_cfg(cfg), ko, out, p["wo"]), ("batch", "seq", "embed"))
 
 
 def cross_attention(
@@ -196,15 +205,14 @@ def cross_attention(
     t = enc_out.shape[1]
     acfg = _proj_cfg(cfg)
     keys = (None,) * 4 if key is None else R.split(key, 4)
-    q = A.analog_matmul(acfg, keys[0], x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = A.analog_matmul(acfg, keys[1], enc_out, p["wk"]).reshape(b, t, cfg.n_kv_heads,
-                                                                 cfg.head_dim)
-    v = A.analog_matmul(acfg, keys[2], enc_out, p["wv"]).reshape(b, t, cfg.n_kv_heads,
-                                                                 cfg.head_dim)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = PX.unflatten(A.analog_matmul(acfg, keys[0], x, p["wq"]), -1, (h, dh))
+    k = PX.unflatten(A.analog_matmul(acfg, keys[1], enc_out, p["wk"]), -1, (hkv, dh))
+    v = PX.unflatten(A.analog_matmul(acfg, keys[2], enc_out, p["wv"]), -1, (hkv, dh))
     qpos = torch.arange(s, device=x.device)
     kpos = torch.arange(t, device=x.device)
-    out = attend_full(q, k, v, qpos, kpos, "none", cfg).reshape(b, s, -1)
-    return A.analog_matmul(acfg, keys[3], out, p["wo"])
+    out = PX.same_grad_layout(attend_full(q, k, v, qpos, kpos, "none", cfg).reshape(b, s, -1))
+    return PX.shard(A.analog_matmul(acfg, keys[3], out, p["wo"]), ("batch", "seq", "embed"))
 
 
 def _write_at(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -213,8 +221,7 @@ def _write_at(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
     past the window is clamped to its last row, as the reference's
     ``dynamic_update_slice`` clamps: an idle slot's ``pos`` keeps counting
     up, and its writes land where no live request reads."""
-    rows = torch.arange(buf.shape[0], device=buf.device)
-    buf.index_put_((rows, pos.long().clamp(0, buf.shape[1] - 1)), new[:, 0])
+    PX.write_at(buf, new, pos)
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -248,10 +255,11 @@ def attend_one_token(
     values is exact in f32.  Keys past ``pos`` (and, for ``local``, before
     the window) score NEG_INF and weigh exactly 0."""
     b, t = k_buf.shape[0], k_buf.shape[1]
-    hkv, dh = cfg.n_kv_heads, q.shape[-1]
+    hkv = cfg.n_kv_heads
     int8_cache = k_buf.dtype == torch.int8
     cdt = torch.bfloat16 if int8_cache else getattr(torch, cfg.attn_probs_dtype)
-    qg = q.reshape(b, 1, hkv, -1, dh).to(cdt) * torch.tensor(cfg.head_dim**-0.5, dtype=cdt)
+    scale = torch.tensor(cfg.head_dim**-0.5, dtype=cdt)
+    qg = PX.unflatten(q, 2, (hkv, q.shape[2] // hkv)).to(cdt) * scale
     sc = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_buf.to(cdt).float())
     if int8_cache:
         sc = sc * (k_scale.transpose(1, 2) / 127.0)[:, :, None, None, :]
@@ -304,7 +312,10 @@ def decode_self_attention(
         _write_at(v_cache, v, pos)
     out = attend_one_token(q, k_cache, v_cache, pos, cfg, kind,
                            k_scale=k_scale, v_scale=v_scale).to(x.dtype)
-    return A.analog_matmul(_proj_cfg(cfg), None, out, p["wo"])
+    # (B, H·Dh) @ w_o: the product a 3-D matmul folds to, which a DTensor's
+    # matmul (its size-1 row's stride) would expand into a batched one instead
+    o = A.analog_matmul(_proj_cfg(cfg), None, out[:, 0], p["wo"])[:, None]
+    return PX.shard(o, ("batch", "seq", "embed"))
 
 
 def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

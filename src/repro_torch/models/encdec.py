@@ -42,13 +42,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
 from repro_torch.device import resolve_device
 from . import attention as ATT
 from .config import ModelConfig
 from .layers import (dtype_of, init_embedding, init_generator, init_mlp, init_rmsnorm, mlp_apply,
                      randn, remat, rmsnorm)
-from .transformer import cross_entropy, unbind_units, unit_params
+from .transformer import cross_entropy, new_cache, unbind_units, unit_params
 
 
 def sinusoid_pos(s: int, d: int, device=None) -> torch.Tensor:
@@ -99,7 +100,8 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, key=None) -> to
     self-attention without RoPE; (B, S_enc, D) after ``enc_norm``."""
     b, s, d = frames.shape
     dt = dtype_of(cfg)
-    x = frames.to(dt) + sinusoid_pos(s, d, frames.device).to(dt)
+    x = PX.shard(frames.to(dt) + sinusoid_pos(s, d, frames.device).to(dt),
+                 ("batch", "seq", "embed"))
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     eps = cfg.norm_eps
     for li, lp in enumerate(unbind_units(params["enc"])):
@@ -126,7 +128,7 @@ def _dec_layer(x, lp: dict, positions, enc_out, cfg: ModelConfig, ki) -> torch.T
 
 def _embed_dec(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings plus the learned positions 0..S-1."""
-    x = params["embed"]["embedding"][tokens]
+    x = PX.take_rows(params["embed"]["embedding"], tokens)
     return x + params["dec_pos"][: tokens.shape[1]][None]
 
 
@@ -139,13 +141,14 @@ def decode_train(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor, cfg:
     """The decoder's full-sequence forward: logits (B, S_dec, V) for tokens
     (B, S_dec) over the encoder's output (B, S_enc, D)."""
     b, s = tokens.shape
-    x = _embed_dec(params, tokens)
+    x = PX.shard(_embed_dec(params, tokens), ("batch", "seq", "embed"))
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     eps = cfg.norm_eps
     for li, lp in enumerate(unbind_units(params["dec"])):
         ki = None if key is None else R.fold_in(key, li + 1000)
         x = remat("nothing", _dec_layer, x, lp, positions, enc_out, cfg, ki)
-    return _tied_head(params, rmsnorm(params["dec_norm"], x, eps))
+    logits = _tied_head(params, rmsnorm(params["dec_norm"], x, eps))
+    return PX.shard(logits, ("batch", "seq", "vocab"))
 
 
 def encdec_loss(params: dict, batch: dict, cfg: ModelConfig, key=None) -> tuple[torch.Tensor, dict]:
@@ -193,7 +196,8 @@ def encdec_prefill(params: dict, frames: torch.Tensor, tokens: torch.Tensor, cfg
     b, s = tokens.shape
     enc_out = encode(params, frames, cfg)
     t = enc_out.shape[1]
-    cache = init_encdec_cache(cfg, b, max_len, t, tokens.device)
+    cache = new_cache(lambda dev: init_encdec_cache(cfg, b, max_len, t, dev), cfg, b,
+                      tokens.device)
     kv = (cfg.n_kv_heads, cfg.head_dim)
     x = _embed_dec(params, tokens)
     positions = torch.arange(s, device=x.device)
@@ -201,15 +205,16 @@ def encdec_prefill(params: dict, frames: torch.Tensor, tokens: torch.Tensor, cfg
     for li in range(cfg.dec_layers):
         lp = unit_params(params["dec"], li)
         ca = lp["cross_attn"]
-        cache["ck"][li].copy_((enc_out @ ca["wk"].to(enc_out.dtype)).reshape((b, t) + kv))
-        cache["cv"][li].copy_((enc_out @ ca["wv"].to(enc_out.dtype)).reshape((b, t) + kv))
+        PX.write(cache["ck"][li], PX.unflatten(enc_out @ ca["wk"].to(enc_out.dtype), -1, kv))
+        PX.write(cache["cv"][li], PX.unflatten(enc_out @ ca["wv"].to(enc_out.dtype), -1, kv))
         q, k, v = ATT.qkv(lp["self_attn"], rmsnorm(lp["ln1"], x, eps), cfg)
         o = ATT.attend_full(q, k, v, positions, positions, "global", cfg)
-        x = x + o.reshape(b, s, -1) @ lp["self_attn"]["wo"].to(x.dtype)
+        emb = ("batch", "seq", "embed")
+        x = x + PX.shard(o.reshape(b, s, -1) @ lp["self_attn"]["wo"].to(x.dtype), emb)
         x = x + ATT.cross_attention(ca, rmsnorm(lp["ln_x"], x, eps), enc_out, cfg)
-        x = x + mlp_apply(lp["ffn"], rmsnorm(lp["ln2"], x, eps), cfg, None)
-        cache["k"][li, :, :s].copy_(k)
-        cache["v"][li, :, :s].copy_(v)
+        x = PX.shard(x + mlp_apply(lp["ffn"], rmsnorm(lp["ln2"], x, eps), cfg, None), emb)
+        PX.write(cache["k"][li], k, dim=1)
+        PX.write(cache["v"][li], v, dim=1)
     cache["pos"].fill_(s)
     logits = _tied_head(params, rmsnorm(params["dec_norm"], x[:, -1:, :], eps))
     return cache, logits[:, 0, :]
@@ -227,7 +232,7 @@ def encdec_decode_step(params: dict, cache: dict, token: torch.Tensor,
     are never read."""
     b = token.shape[0]
     pos = cache["pos"]
-    x = params["embed"]["embedding"][token[:, None]]
+    x = PX.take_rows(params["embed"]["embedding"], token[:, None])
     x = x + params["dec_pos"][pos.long().clamp(max=cfg.max_seq - 1)][:, None, :]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     eps = cfg.norm_eps
@@ -237,13 +242,16 @@ def encdec_decode_step(params: dict, cache: dict, token: torch.Tensor,
                                           cache["k"][li], cache["v"][li], pos, cfg,
                                           use_rope=False)
         hx = rmsnorm(lp["ln_x"], x, eps)
-        q = (hx @ lp["cross_attn"]["wq"].to(hx.dtype)).reshape(b, 1, h, dh)
+        q = PX.unflatten(hx @ lp["cross_attn"]["wq"].to(hx.dtype), -1, (h, dh))
         qg = q.reshape(b, 1, hkv, h // hkv, dh).float() * (dh ** -0.5)
         sc = torch.einsum("bskgd,btkd->bkgst", qg, cache["ck"][li].float())
         w = torch.softmax(sc, dim=-1)
         o = torch.einsum("bkgst,btkd->bskgd", w, cache["cv"][li].float())
-        x = x + o.reshape(b, 1, -1).to(x.dtype) @ lp["cross_attn"]["wo"].to(x.dtype)
-        x = x + mlp_apply(lp["ffn"], rmsnorm(lp["ln2"], x, eps), cfg, None)
+        emb = ("batch", "seq", "embed")
+        # the (B, H·Dh) product a 3-D matmul folds to (a DTensor's would batch it)
+        co = o.reshape(b, -1).to(x.dtype) @ lp["cross_attn"]["wo"].to(x.dtype)
+        x = x + PX.shard(co[:, None], emb)
+        x = PX.shard(x + mlp_apply(lp["ffn"], rmsnorm(lp["ln2"], x, eps), cfg, None), emb)
     logits = _tied_head(params, rmsnorm(params["dec_norm"], x, eps))
     pos.add_(1)
     return cache, logits[:, 0, :]

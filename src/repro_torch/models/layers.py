@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
 from repro_torch.core import analog as A
 from .config import ModelConfig
@@ -82,10 +83,10 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = p["embedding"][tokens]
+    x = PX.take_rows(p["embedding"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
-    return x
+    return PX.shard(x, ("batch", "seq", "embed"))
 
 
 def logits_out(
@@ -96,7 +97,7 @@ def logits_out(
     if cfg.logit_softcap > 0.0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
-    return logits
+    return PX.shard(logits, ("batch", "seq", "vocab"))
 
 
 def init_lm_head(gen: torch.Generator, d: int, vocab: int, dtype) -> dict:
@@ -183,20 +184,21 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None) -> torch.Ten
     if key is not None and acfg.mode != "digital":
         k1, k2 = R.split(key)
         k3 = R.fold_in(k2, 7)
-    up = A.analog_matmul(acfg, k1, x, p["w_up"])
+    up = PX.shard(A.analog_matmul(acfg, k1, x, p["w_up"]), ("batch", "seq", "ffn"))
     if acfg.mode == "analog_stochastic":
         h = up
         if "w_gate" in p:
-            h = h * A.analog_matmul(acfg, k2, x, p["w_gate"])
+            h = h * PX.shard(A.analog_matmul(acfg, k2, x, p["w_gate"]), ("batch", "seq", "ffn"))
         down_cfg = acfg.with_mode("analog_linear")
     else:
         act = _activation(cfg)
         if "w_gate" in p:
-            h = act(A.analog_matmul(acfg, k2, x, p["w_gate"])) * up
+            gate = PX.shard(A.analog_matmul(acfg, k2, x, p["w_gate"]), ("batch", "seq", "ffn"))
+            h = act(gate) * up
         else:
             h = act(up)
         down_cfg = acfg
-    return A.analog_matmul(down_cfg, k3, h, p["w_down"])
+    return PX.shard(A.analog_matmul(down_cfg, k3, h, p["w_down"]), ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
 from repro_torch.core import analog as A
 from .config import ModelConfig
@@ -182,7 +183,8 @@ def mamba_apply(p: dict, u: torch.Tensor, cfg: ModelConfig, key=None) -> torch.T
     conv_out = _causal_conv(torch.cat([x, bmat, cmat], dim=-1), p["conv_w"], p["conv_b"])
     xh, bmat, cmat, dtf, log_decay = _ssm_inputs(p, conv_out, dt, cfg)
     y, _ = ssd_chunked(xh * dtf[..., None], log_decay, bmat, cmat, cfg.ssm_chunk)
-    return A.analog_matmul(pcfg, k2, _gated_out(p, y, xh, z, cfg), p["out_proj"])
+    out = A.analog_matmul(pcfg, k2, _gated_out(p, y, xh, z, cfg), p["out_proj"])
+    return PX.shard(out, ("batch", "seq", "embed"))
 
 
 def mamba_prefill(p: dict, u: torch.Tensor, cfg: ModelConfig):

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import parallel as PX
 from repro_torch.core import analog as A
 from repro_torch.core import wta
 from .config import ModelConfig
@@ -124,8 +125,8 @@ def _experts(p: dict, xg: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Every expert's FFN over its slots, (E, B, C, D) -> (E, B, C, D):
     ``silu`` for swiglu, tanh-``gelu`` for geglu and for an ungated MLP."""
     e, b, c, d = xg.shape
-    xe = xg.reshape(e, b * c, d)
-    up = torch.bmm(xe, p["w_up"].to(xg.dtype))
+    xe = PX.shard(xg, ("experts", "batch", None, "embed")).reshape(e, b * c, d)
+    up = PX.shard(torch.bmm(xe, p["w_up"].to(xg.dtype)), ("experts", "batch", "ffn"))
     if "w_gate" in p:
         gt = torch.bmm(xe, p["w_gate"].to(xg.dtype))
         act = F.silu if cfg.mlp == "swiglu" else (lambda v: F.gelu(v, approximate="tanh"))
@@ -188,9 +189,14 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None,
     e = cfg.n_experts
     cap = _capacity(s, cfg)
     probs, gates, expert_ids = route(p, x, cfg, key)
-    disp = _dispatch_group(x, gates, expert_ids, cap, cfg, with_frac=with_aux)
+    # per sequence: on a mesh each rank dispatches and combines its own rows
+    disp = PX.batch_local(
+        lambda x, g, i: _dispatch_group(x, g, i, cap, cfg, with_frac=with_aux),
+        (x, gates, expert_ids), (0, 0, 0), Dispatch(1, 0, 0, 0 if with_aux else None, 0, 0))
     out_e = _experts(p, disp.xg, cfg)
-    y = _combine_group(out_e, disp.gate_slot, expert_ids, disp.pos, disp.kept)
+    y = PX.batch_local(_combine_group, (out_e, disp.gate_slot, expert_ids, disp.pos, disp.kept),
+                       (1, 0, 0, 0, 0), 0)
+    y = PX.shard(y, ("batch", "seq", "embed"))
     if not with_aux:
         return y, None
     aux = cfg.router_aux_coef * e * torch.sum(disp.frac.mean(0) * probs.mean((0, 1)))

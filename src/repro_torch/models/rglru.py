@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
 from repro_torch.core import analog as A
 from repro_torch.core import neurons
@@ -132,13 +133,14 @@ def _associative_scan(elems: tuple) -> tuple:
 def rglru_scan(x: torch.Tensor, log_a: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t·h_{t-1} + b_t over axis 1 for x, log_a (B, S, W) f32
-    (log_a < 0), from ``h0`` (B, W) or zero; returns every h (B, S, W)."""
+    (log_a < 0), from ``h0`` (B, W) or zero; returns every h (B, S, W).
+    On a mesh the scan runs on each rank's rows and width
+    (``parallel.along``)."""
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a.square(), 1e-12)) * x
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
-    _, h = _associative_scan((a, b))
-    return h
+    return PX.along(lambda a, b: _associative_scan((a, b))[1], 1, a, b)
 
 
 def _log_a_unit(p: dict) -> torch.Tensor:
@@ -163,7 +165,7 @@ def rglru_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None) -> t
     ks = (None,) * 4 if key is None else tuple(R.split(key, 4))
     main = A.analog_matmul(pcfg, ks[0], x, p["w_main"])
     gate_br = A.analog_matmul(pcfg, ks[1], x, p["w_gate_br"])
-    main = _conv(main, p["conv_w"], p["conv_b"])
+    main = PX.shard(_conv(main, p["conv_w"], p["conv_b"]), ("batch", "seq", "ffn"))
     mf = main.float()
     za, zx = _gate_logits(p, mf)
     if acfg.mode == "analog_stochastic" and ks[2] is not None:
@@ -174,7 +176,7 @@ def rglru_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, key=None) -> t
     log_a = _C_EXP * r * _log_a_unit(p)
     h = rglru_scan(i * mf, log_a)
     y = h.to(x.dtype) * F.gelu(gate_br, approximate="tanh")
-    return A.analog_matmul(pcfg, None, y, p["w_out"])
+    return PX.shard(A.analog_matmul(pcfg, None, y, p["w_out"]), ("batch", "seq", "embed"))
 
 
 def rglru_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig):

@@ -55,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
 from repro_torch.device import resolve_device
 from repro_torch.kernels.prng import MASK, mul32
@@ -242,10 +243,12 @@ def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConf
         ki = None if key is None else R.fold_in(key, i)
         if kind == "ssm":
             x = x + M2.mamba_apply(sub["mixer"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg, ki)
+            x = PX.shard(x, ("batch", "seq", "embed"))
             continue
         if kind == "rec":
             o = RG.rglru_block_apply(sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg, ki)
             x = _rec_block(sub, x, o, cfg, key=None if ki is None else R.fold_in(ki, 1))
+            x = PX.shard(x, ("batch", "seq", "embed"))
             continue
         a = ATT.self_attention(
             sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps), positions, cfg,
@@ -253,6 +256,7 @@ def _unit_fwd(x: torch.Tensor, up: dict, positions: torch.Tensor, cfg: ModelConf
         )
         x, aux_i = _attn_block(sub, x, a, cfg, key=None if ki is None else R.fold_in(ki, 1),
                                with_aux=True)
+        x = PX.shard(x, ("batch", "seq", "embed"))
         if aux_i is not None:
             aux = aux_i if aux is None else aux + aux_i
     return x, aux
@@ -304,7 +308,7 @@ def cross_entropy(
     lf = logits.float()
     m = lf.amax(dim=-1, keepdim=True).detach()
     lse = m[..., 0] + torch.log(torch.exp(lf - m).sum(dim=-1))
-    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    ll = PX.pick_last(lf, labels.long())
     per_tok = (lse - ll) + z_loss * lse.square()
     if mask is not None:
         w = mask.float()
@@ -358,6 +362,30 @@ def _state_cache_leaves(cfg: ModelConfig, batch: int, dev) -> dict:
         out["ssm_state"] = torch.zeros(
             lead + (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state), dtype=torch.float32,
             device=dev)
+    return out
+
+
+def new_cache(make, cfg: ModelConfig, batch: int, device) -> dict:
+    """``make(device)``, a cache initialiser's result; on a mesh (a
+    ``parallel`` context installed: the dry run's prefill) each leaf is
+    allocated as this rank's block of its placement under the cache rules
+    (``launch/sharding.cache_shardings``), the scale planes at one and
+    every other leaf at zero, as the initialisers make them."""
+    ctx = PX.current()
+    if ctx is None:
+        return make(device)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import sharding as SH
+
+    with FakeTensorMode():   # the leaves' shapes and dtypes, nothing allocated
+        shapes = make("meta")
+    sh = SH.cache_shardings(shapes, ctx[0], cfg, batch)
+    out = {}
+    for k, v in shapes.items():
+        fill = torch.ones if k.endswith("_scale") else torch.zeros
+        local = fill(sh[k].local_shape(v.shape), dtype=v.dtype, device=device)
+        out[k] = PX.place_local(local, sh[k], v.shape)
     return out
 
 
@@ -457,8 +485,8 @@ def _rec_decode(sub: dict, x: torch.Tensor, cache: dict, u: int, ir: int,
     conv, hst = cache["rec_conv"][u, ir], cache["rec_h"][u, ir]
     o, new_conv, new_h = RG.rglru_decode_step(
         sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), conv, hst, cfg)
-    conv.copy_(new_conv)
-    hst.copy_(new_h)
+    PX.write(conv, new_conv)
+    PX.write(hst, new_h)
     return _rec_block(sub, x, o, cfg)
 
 
@@ -469,8 +497,8 @@ def _ssm_decode(sub: dict, x: torch.Tensor, cache: dict, u: int, ism: int,
     conv, st = cache["ssm_conv"][u, ism], cache["ssm_state"][u, ism]
     o, new_conv, new_st = M2.mamba_decode_step(
         sub["mixer"], rmsnorm(sub["ln1"], x, cfg.norm_eps), conv, st, cfg)
-    conv.copy_(new_conv)
-    st.copy_(new_st)
+    PX.write(conv, new_conv)
+    PX.write(st, new_st)
     return x + o
 
 
@@ -524,11 +552,11 @@ def lm_decode_step(
         for i, kind in enumerate(cfg.layer_pattern):
             sub = up[f"l{i}"]
             if kind == "ssm":
-                x = _ssm_decode(sub, x, cache, u, ism, cfg)
+                x = PX.shard(_ssm_decode(sub, x, cache, u, ism, cfg), ("batch", "seq", "embed"))
                 ism += 1
                 continue
             if kind == "rec":
-                x = _rec_decode(sub, x, cache, u, ir, cfg)
+                x = PX.shard(_rec_decode(sub, x, cache, u, ir, cfg), ("batch", "seq", "embed"))
                 ir += 1
                 continue
             hin = rmsnorm(sub["ln1"], x, cfg.norm_eps)
@@ -546,7 +574,8 @@ def lm_decode_step(
                     sub["attn"], hin, cache["k_pages"][u, ia], cache["v_pages"][u, ia],
                     table, pos, cfg, kind=kind, write=kv_write, split_batch=split_batch, **kw,
                 )
-            x, _ = _attn_block(sub, x, a, cfg)
+            x, _ = _attn_block(sub, x, PX.shard(a, ("batch", "seq", "embed")), cfg)
+            x = PX.shard(x, ("batch", "seq", "embed"))
             ia += 1
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)
@@ -582,7 +611,8 @@ def lm_prefill(
     and ``pos`` is P + S."""
     _check_family(cfg)
     if cache is None:
-        cache = init_decode_cache(cfg, tokens.shape[0], max_len, tokens.device)
+        cache = new_cache(lambda dev: init_decode_cache(cfg, tokens.shape[0], max_len, dev), cfg,
+                          tokens.shape[0], tokens.device)
     x = _with_prefix(embed(params["embed"], tokens, cfg), prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -595,32 +625,34 @@ def lm_prefill(
             if kind == "ssm":
                 o, conv, st = M2.mamba_prefill(sub["mixer"], rmsnorm(sub["ln1"], x, cfg.norm_eps),
                                                cfg)
-                x = x + o
-                cache["ssm_conv"][u, ism].copy_(conv)
-                cache["ssm_state"][u, ism].copy_(st)
+                x = PX.shard(x + o, ("batch", "seq", "embed"))
+                PX.write(cache["ssm_conv"][u, ism], conv)
+                PX.write(cache["ssm_state"][u, ism], st)
                 ism += 1
                 continue
             if kind == "rec":
                 o, conv, h_last = RG.rglru_prefill(
                     sub["rec"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg)
-                x = _rec_block(sub, x, o, cfg)
-                cache["rec_conv"][u, ir].copy_(conv)
-                cache["rec_h"][u, ir].copy_(h_last)
+                x = PX.shard(_rec_block(sub, x, o, cfg), ("batch", "seq", "embed"))
+                PX.write(cache["rec_conv"][u, ir], conv)
+                PX.write(cache["rec_h"][u, ir], h_last)
                 ir += 1
                 continue
             q, k, v = ATT.qkv(sub["attn"], rmsnorm(sub["ln1"], x, cfg.norm_eps), cfg)
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
             o = ATT.attend_full(q, k, v, positions[0], positions[0], kind, cfg)
-            x, _ = _attn_block(sub, x, o.reshape(b, s, -1) @ sub["attn"]["wo"].to(x.dtype), cfg)
+            a = PX.shard(o.reshape(b, s, -1) @ sub["attn"]["wo"].to(x.dtype), ("batch", "seq", "embed"))
+            x, _ = _attn_block(sub, x, a, cfg)
+            x = PX.shard(x, ("batch", "seq", "embed"))
             for name, rows in (("k", k), ("v", v)):
                 padded = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, max_len - s))
                 if int8:
                     codes, scale = ATT.quantize_kv(padded)
-                    cache[name][u, ia].copy_(codes)
-                    cache[f"{name}_scale"][u, ia].copy_(scale)
+                    PX.write(cache[name][u, ia], codes)
+                    PX.write(cache[f"{name}_scale"][u, ia], scale)
                 else:
-                    cache[name][u, ia].copy_(padded)
+                    PX.write(cache[name][u, ia], padded)
             ia += 1
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = logits_out(params["embed"], params.get("head"), x, cfg)

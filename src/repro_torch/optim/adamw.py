@@ -9,6 +9,13 @@ keys (leaf ``i`` in jax's tree-flatten order draws under
 ``split(fold_in(rng, i))``), drawn by the port's threefry, so identical
 inputs round to identical bits.
 
+On a mesh, parameters, gradients and moments are DTensors of the
+parameters' placements, and each rank updates its own block (its local
+tensor, in place).  A block's rounding bits are the ones the whole draw
+has at the block's global flat indices (``parallel.flat_index``), so a
+sharded update rounds with the unsharded bits; :func:`global_norm` sums
+each leaf's squares once over the mesh.
+
 Memory: every leaf is updated in flat slices of ``CHUNK`` elements, and
 parameters and moments are overwritten in place (the reference builds new
 trees; the caller's state is consumed, as the reference's donated state
@@ -24,6 +31,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
 
 CHUNK = 1 << 25  # elements per slice of a leaf's update
@@ -84,15 +92,19 @@ def _slices(n: int):
         yield a, min(a + CHUNK, n)
 
 
-def _sround(x: torch.Tensor, dt: torch.dtype, key, start: int = 0) -> torch.Tensor:
+def _sround(x: torch.Tensor, dt: torch.dtype, key, start=0) -> torch.Tensor:
     """Unbiased stochastic rounding f32 → ``dt``: add uniform noise below
-    bf16's precision to the f32 bit pattern, then truncate.  ``x`` is the
-    flat slice ``[start, start + x.numel())`` of a leaf whose noise is drawn
-    under ``key``."""
+    bf16's precision to the f32 bit pattern, then truncate.  ``x`` sits at
+    the flat indices ``start`` of a leaf whose noise is drawn under
+    ``key``: an int, the first of ``x.numel()`` contiguous ones, or an int64
+    tensor of them (``parallel.flat_index``)."""
     if dt == torch.float32 or key is None:
         return x.to(dt)
     bits = x.to(torch.float32).view(torch.int32).to(torch.int64) & R.MASK
-    noise = R.randint(key, (), 0, 1 << 16, x.device, start=start, count=x.numel())
+    if isinstance(start, torch.Tensor):
+        noise = R.randint(key, (), 0, 1 << 16, x.device, index=start)
+    else:
+        noise = R.randint(key, (), 0, 1 << 16, x.device, start=start, count=x.numel())
     rounded = (bits + noise.reshape(x.shape)) & 0xFFFF0000
     signed = rounded - ((rounded >> 31) << 32)        # uint32 → int32 value
     return signed.to(torch.int32).view(torch.float32).to(dt)
@@ -100,11 +112,22 @@ def _sround(x: torch.Tensor, dt: torch.dtype, key, start: int = 0) -> torch.Tens
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum over leaves (tree-flatten order) of each leaf's f32
-    sum of squares."""
+    sum of squares.  A DTensor leaf's sum is its blocks' local sums added
+    over the mesh axes it is split on (one all-reduce per set of such
+    axes), so each leaf counts once; the result is a plain tensor."""
+    sums, groups = [], {}
+    for i, x in enumerate(tree_leaves(tree)):
+        flat = PX.local(x).reshape(-1)
+        sums.append(sum(flat[a:b].float().square().sum() for a, b in _slices(flat.numel())))
+        if PX.split(x):
+            groups.setdefault((id(x.device_mesh), tuple(map(str, x.placements))), []).append((i, x))
+    for members in groups.values():
+        vec = PX.reduce_over_shards(torch.stack([sums[i] for i, _ in members]), members[0][1])
+        for j, (i, _) in enumerate(members):
+            sums[i] = vec[j]
     total = 0
-    for x in tree_leaves(tree):
-        flat = x.reshape(-1)
-        total = total + sum(flat[a:b].float().square().sum() for a, b in _slices(flat.numel()))
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -119,7 +142,8 @@ def adamw_update(
 ) -> tuple[dict, AdamWState, dict]:
     """One AdamW step over the parameter tree, in place; returns (params,
     state, metrics).  ``grads`` has ``params``' structure (any float
-    dtype); ``lr_scale`` and the bias corrections are f32 host scalars."""
+    dtype; on a mesh, DTensors of the parameters' placements);
+    ``lr_scale`` and the bias corrections are f32 host scalars."""
     step = state.step + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12), max=1.0)
@@ -135,8 +159,10 @@ def adamw_update(
         k1 = k2 = None
         if use_sr:
             k1, k2 = R.split(R.fold_in(rng, i))
-        pv, gv, mv, vv = (t.view(-1) for t in (p, g, m, v))
+        blk = PX.block(p)
+        pv, gv, mv, vv = (PX.local(t).view(-1) for t in (p, g, m, v))
         for a, b in _slices(pv.numel()):
+            at = PX.flat_index(blk, a, b, pv.device)
             gf = gv[a:b].float() * clip
             mf = cfg.b1 * mv[a:b].float() + (1 - cfg.b1) * gf
             vf = cfg.b2 * vv[a:b].float() + (1 - cfg.b2) * gf.square()
@@ -145,7 +171,7 @@ def adamw_update(
             if p.dim() >= 2:  # decay matrices only
                 upd = upd + cfg.weight_decay * pf
             pv[a:b] = (pf - lr * upd).to(p.dtype)
-            mv[a:b] = _sround(mf, dt, k1, a)
-            vv[a:b] = _sround(vf, dt, k2, a)
+            mv[a:b] = _sround(mf, dt, k1, at)
+            vv[a:b] = _sround(vf, dt, k2, at)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(step=step, m=state.m, v=state.v), metrics

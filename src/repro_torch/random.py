@@ -20,7 +20,10 @@ jax's default PRNG is threefry2x32 with ``jax_threefry_partitionable``
 
 Because every counter is a flat index, a draw can be made in slices of
 its flat range with identical bits (``start`` / ``count`` below), which
-keeps large draws' temporaries bounded.
+keeps large draws' temporaries bounded, and at any set of flat indices
+(``index``): a rank's block of a sharded leaf, which is not contiguous in
+flat order, draws the bits the whole draw has there (jax's threefry is
+partitionable in the same way).
 
 Keys are tuples of two Python ints.  :func:`threefry2x32` is written with
 ``+ ^ << >> &`` only, so the same code hashes host ints (key derivation:
@@ -80,16 +83,21 @@ def split(key: Key, num: int = 2) -> list[Key]:
 
 
 def random_bits(
-    key: Key, shape: Sequence[int], device=None, *, start: int = 0, count: Optional[int] = None
+    key: Key, shape: Sequence[int], device=None, *, start: int = 0, count: Optional[int] = None,
+    index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values.  With
     ``count``, only the flat indices ``[start, start + count)`` of the draw,
-    flattened."""
-    n = math.prod(shape) if count is None else count
-    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    flattened; with ``index`` (an int64 tensor of flat indices), the draw's
+    values there, in ``index``'s shape."""
+    if index is None:
+        n = math.prod(shape) if count is None else count
+        idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    else:
+        idx = index
     b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK)
     bits = b1 ^ b2
-    return bits.reshape(tuple(shape)) if count is None else bits
+    return bits.reshape(tuple(shape)) if count is None and index is None else bits
 
 
 def uniform(
@@ -113,21 +121,22 @@ def uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch
 
 def randint(
     key: Key, shape: Sequence[int], minval: int, maxval: int, device=None,
-    *, start: int = 0, count: Optional[int] = None,
+    *, start: int = 0, count: Optional[int] = None, index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` for a 32-bit
     integer dtype (uint32 or int32: the same draw) as int64 values, for a
     span ``maxval - minval`` in ``[1, 2**16]``, where no product of jax's
     uint32 arithmetic wraps.  A power-of-two span draws only ``lo``.
-    ``start`` / ``count`` slice the flat range as in :func:`random_bits`."""
+    ``start`` / ``count`` / ``index`` select flat indices as in
+    :func:`random_bits`."""
     span = maxval - minval
     if not 0 < span <= 1 << 16:
         raise NotImplementedError(f"randint is ported for spans in [1, 2**16], got {span}")
     k1, k2 = split(key)
-    lo = random_bits(k2, shape, device, start=start, count=count)
+    lo = random_bits(k2, shape, device, start=start, count=count, index=index)
     if span & (span - 1) == 0:
         return (lo & (span - 1)) + minval
-    hi = random_bits(k1, shape, device, start=start, count=count)
+    hi = random_bits(k1, shape, device, start=start, count=count, index=index)
     mult = (1 << 16) % span
     mult = mult * mult % span
     return ((hi % span) * mult + lo % span) % span + minval

@@ -13,12 +13,18 @@
   step times is logged and counted.  A step's time runs to the host read
   of its loss, which waits for the card.
 
-Checkpoints are host-gathered and so restore on any device; re-sharding
-at load waits for the port's sharding.  Besides the reference's stats
-(``losses``, ``restarts``, ``stragglers``), :func:`run` records each
-step's seconds (``step_s``), each restart's (``restart_s``: the fresh
-state's init, the load, their sum) and each save's (``saves``, from
-:class:`CheckpointManager`).
+Checkpoints are host-gathered and so restore on any device and onto any
+mesh.  ``run(..., mesh=)`` is the counterpart of the reference's
+``state_shardings``: the port passes the ``(data, model)`` DeviceMesh and
+derives the placements (``launch/sharding.state_shardings``); a fresh
+state is seeded identically on every rank and placed, a resume or a
+restart loads each rank's blocks of the latest checkpoint, saves gather on
+every rank and write on rank 0.  Every rank runs the loop and keeps its
+own stats.  Besides the reference's stats (``losses``, ``restarts``,
+``stragglers``), :func:`run` records each step's seconds (``step_s``),
+each restart's (``restart_s``: the fresh state's init, the load, their
+sum), each save's (``saves``, from :class:`CheckpointManager`) and, on a
+mesh, the rank (``rank``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Callable, Optional
 
 from repro_torch.checkpoint import CheckpointManager, latest_step, load_checkpoint
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as SH
 from repro_torch.models import ModelConfig
 from repro_torch.testing import InjectedFault, StepFaultInjector, fault_step_from_env
 
@@ -80,16 +87,22 @@ def run(
     step_fn=None,
     state: Optional[TrainState] = None,
     device=None,
+    mesh=None,
 ) -> tuple[TrainState, dict]:
-    """Run (or resume) training on ``device`` (the card unless ``"cpu"``);
-    returns (final state, stats).  ``batch_fn(step)`` gives the step's
-    batch on that device."""
+    """Run (or resume) training on ``device`` (the card unless ``"cpu"``),
+    on ``mesh`` when one is given (the same device type); returns (final
+    state, stats).  ``batch_fn(step)`` gives the step's batch on that
+    device, whole on every rank."""
     dev = resolve_device(device)
     step_fn = step_fn or make_train_step(model_cfg, train_cfg)
     mgr = CheckpointManager(loop_cfg.ckpt_dir)
     monitor = StragglerMonitor(loop_cfg.straggler_factor)
     stats = {"losses": [], "restarts": 0, "stragglers": 0,
              "step_s": [], "restart_s": [], "saves": mgr.saves}
+    if mesh is not None:
+        import torch.distributed as dist
+
+        stats["rank"] = dist.get_rank()
 
     injector = StepFaultInjector(fault_step_from_env(loop_cfg.fault_inject_step))
 
@@ -99,11 +112,13 @@ def run(
             if state is None:
                 t0 = time.perf_counter()
                 last = latest_step(loop_cfg.ckpt_dir)
-                fresh = init_train_state(loop_cfg.seed, model_cfg, train_cfg, device=dev)
+                fresh = init_train_state(loop_cfg.seed, model_cfg, train_cfg, device=dev,
+                                         mesh=mesh)
                 t1 = time.perf_counter()
                 if last is not None:
                     log.info("resuming from checkpoint step %d", last)
-                    state = load_checkpoint(loop_cfg.ckpt_dir, last, fresh)
+                    state = load_checkpoint(loop_cfg.ckpt_dir, last, fresh, shardings=None if mesh is None
+                                            else SH.state_shardings(fresh, mesh, model_cfg))
                 else:
                     state = fresh
                 del fresh

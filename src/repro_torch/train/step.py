@@ -17,16 +17,34 @@ read linearly in every analog mode) and the paper's ``fcnn``.
 Parameters and moments are updated in
 place (the reference donates its state to the jitted step): pass each
 state to the step once.
+
+On a ``(data, model)`` DTensor mesh (``init_train_state(..., mesh=)`` or
+:func:`place_state`) the state's tensors are DTensors at the reference's
+placements (``launch/sharding.state_shardings``), seeded identically on
+every rank and each rank keeping its shard (no collective); the step
+finds the mesh on its parameters, places the batch under
+``batch_shardings`` and runs the loss under the reference's activation
+rules (``parallel.axis_rules``; the models' ``parallel.shard``
+annotations), with plain tensors taken as replicated.  Gradients are
+redistributed to their parameters' placements before compression and
+AdamW, which work on each rank's blocks.  A microbatch is rows ``[i·b,
+(i+1)·b)`` of the global batch, as unsharded (the batch's tokens are
+gathered once and each microbatch placed again), so a sharded step draws
+the unsharded noise.  ``step`` and ``rng`` stay host scalars; metrics come
+back as plain tensors, whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import parallel as PX
 from repro_torch import random as R
+from repro_torch.launch import sharding as SH
 from repro_torch.models import ModelConfig, get_model_fns
 from repro_torch.optim import (
     AdamWConfig,
@@ -60,19 +78,86 @@ class TrainState(NamedTuple):
     rng: R.Key
 
 
-def init_train_state(seed: int, model_cfg: ModelConfig, train_cfg: TrainConfig, device=None) -> TrainState:
+def init_train_state(seed: int, model_cfg: ModelConfig, train_cfg: TrainConfig, device=None,
+                     mesh=None) -> TrainState:
     """Seeded random parameters on ``device`` (an LM: the port's own init,
     not jax's; an FCNN: the reference's ``init_fcnn(PRNGKey(seed))``), zero
     moments, step 0 and the reference's ``rng = fold_in(PRNGKey(seed),
-    1)``; with ``compress_grads``, a zero error-feedback state."""
+    1)``; with ``compress_grads``, a zero error-feedback state.  With a
+    ``mesh``, placed on it (:func:`place_state`)."""
     params = get_model_fns(model_cfg).init(seed, model_cfg, device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return TrainState(
+    state = TrainState(
         params=params, opt=adamw_init(params, train_cfg.opt),
         compress=init_compress(params) if train_cfg.compress_grads else None,
         step=0, rng=R.fold_in(R.PRNGKey(seed), 1),
     )
+    return state if mesh is None else place_state(state, mesh, model_cfg)
+
+
+def _place_tree(tree: dict, shardings: dict) -> dict:
+    """Each leaf of a tree every rank holds whole as a DTensor of its
+    sharding: this rank's block (copied out where it is not the whole
+    leaf, so the whole one can be freed), ``requires_grad`` kept."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _place_tree(v, shardings[k])
+            continue
+        sh = shardings[k]
+        block = v.detach()[PX.local_slices(sh, v.shape)]
+        if block.numel() != v.numel():
+            block = block.clone()
+        out[k] = PX.place_local(block, sh, v.shape).requires_grad_(v.requires_grad)
+    return out
+
+
+def place_state(state: TrainState, mesh, model_cfg: ModelConfig) -> TrainState:
+    """A state every rank holds whole (the same seeded init, or a loaded
+    checkpoint), placed on ``mesh`` under ``SH.state_shardings``: each rank
+    keeps its blocks, no collective."""
+    sh = SH.state_shardings(state, mesh, model_cfg)
+    comp = state.compress
+    return state._replace(
+        params=_place_tree(state.params, sh["params"]),
+        opt=state.opt._replace(m=_place_tree(state.opt.m, sh["m"]),
+                               v=_place_tree(state.opt.v, sh["v"])),
+        compress=None if comp is None else comp._replace(
+            error=_place_tree(comp.error, sh["error"])),
+    )
+
+
+def mesh_of(params: dict):
+    """The DeviceMesh a parameter tree is placed on, or ``None``."""
+    from torch.distributed.tensor import DTensor
+
+    leaf = tree_leaves(params)[0]
+    return leaf.device_mesh if isinstance(leaf, DTensor) else None
+
+
+@contextlib.contextmanager
+def _on_mesh(mesh, model_cfg: ModelConfig, batch_size: int):
+    """The reference's activation rules for a batch of ``batch_size`` on
+    ``mesh``, plain tensors taken as replicated; nothing without a mesh."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with PX.axis_rules(mesh, SH.activation_rules(mesh, model_cfg, batch_size)), \
+            implicit_replication():
+        yield
+
+
+def _place_batch(batch: dict, mesh) -> dict:
+    """A batch every rank holds whole, as DTensors of ``batch_shardings``
+    (a DTensor leaf as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    b = next(iter(batch.values())).shape[0]
+    sh = SH.batch_shardings(batch, mesh, b)
+    return {k: v if isinstance(v, DTensor) else PX.place(v, sh[k]) for k, v in batch.items()}
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
@@ -84,14 +169,23 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
 
     def loss_and_grads(params: dict, batch: dict, key):
         leaves = tree_leaves(params)
-        loss, metrics = loss_fn(params, batch, model_cfg, key if needs_key else None)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), metrics, tree_unflatten(params, list(grads))
+        mesh = mesh_of(params)
+        if mesh is not None:
+            batch = _place_batch(batch, mesh)
+        with _on_mesh(mesh, model_cfg, next(iter(batch.values())).shape[0]):
+            loss, metrics = loss_fn(params, batch, model_cfg, key if needs_key else None)
+            grads = torch.autograd.grad(loss, leaves)
+        if mesh is not None:   # to the parameters' placements (reduce-scatters, all-reduces)
+            grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, leaves)]
+            metrics = {k: PX.whole(v) for k, v in metrics.items()}
+        return PX.whole(loss.detach()), metrics, tree_unflatten(params, list(grads))
 
     def train_step(state: TrainState, batch: dict):
         step_key = R.fold_in(state.rng, state.step)
         nmb = train_cfg.microbatches
         comp = state.compress
+        if mesh_of(state.params) is not None and nmb > 1:
+            batch = {k: PX.whole(v) for k, v in batch.items()}   # sliced globally below
         if nmb == 1:
             with torch.profiler.record_function("train/forward_backward"):
                 loss, metrics, grads = loss_and_grads(state.params, batch, step_key)

@@ -371,24 +371,30 @@ def test_dryrun_records_and_report(tmp_path, capsys):
                             "stablelm-3b|long_500k|skipped"}
     rec = results["mamba2-1.3b|long_500k|single"]
     cfg, shape = get_config("mamba2-1.3b"), SHAPES["long_500k"]
-    assert rec["per_device_batch"] == 1 and rec["collectives"] is None
+    coll = rec["collectives"]   # measured on the fake 16 x 16 group, rank 0
+    assert rec["per_device_batch"] == 1
+    assert coll["count"] == coll["comm_debug_count"] > 0
+    assert coll["total_bytes"] == sum(coll[k] for k in RL.COLLECTIVE_OPS) > 0
     assert rec["params"] == cfg.param_count()
     assert rec["model_flops_global"] == RL.model_flops(cfg, shape)
     assert rec["model_flops_per_chip"] == rec["model_flops_global"] / 256
     assert rec["args_bytes"]["per_device"] < rec["args_bytes"]["whole"]
-    assert rec["cost"]["flops"] == rec["step_counts"]["flops"] / 16
+    assert rec["cost"]["flops"] > 0 and "step_counts" not in rec   # rank 0's own counts
     assert rec["roofline"] == RL.roofline_terms(rec)
-    assert rec["roofline"]["collective_s"] is None
+    assert rec["roofline"]["collective_s"] == coll["total_bytes"] / RL.LINK_BW
     REP.main([str(out)])
     text = capsys.readouterr().out
     assert "## cells ok: 2; failed: 0" in text
     assert "| stablelm-3b | long_500k | - | SKIP |" in text
     assert "| mamba2-1.3b | long_500k | single |" in text and "fits 80 GB" in text
     assert "FLOPs (matrix ops only)" in text
-    assert "| mamba2-1.3b | long_500k | not measured | not measured |" in text
+    assert "not measured" not in text
+    crow = [ln for ln in text.splitlines() if ln.startswith("| mamba2-1.3b | long_500k | ")
+            and ln.endswith(f" | {coll['count']} |")]
+    assert crow and REP.fmt_bytes(coll["all-reduce"]) in crow[0]
     row = [ln for ln in text.splitlines() if ln.startswith("| mamba2-1.3b | long_500k | ")
            and "memory" in ln]
-    assert row and "| not measured |" in row[0]
+    assert row and f"| {REP.fmt_s(rec['roofline']['collective_s'])} |" in row[0]
     REP.main([str(out), "--compact"])
     rows = capsys.readouterr().out.splitlines()
     assert len(rows) == 3 and rows[2].startswith("| mamba2-1.3b | long_500k | ")

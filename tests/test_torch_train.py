@@ -256,8 +256,9 @@ def test_loss_decreases(mode):
 
 def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     """The launcher runs the checkpointing loop, with ``--compress``, and
-    resumes from its checkpoints; only ``--model-par`` other than 1 is
-    refused."""
+    resumes from its checkpoints, unsharded and on a 1 × 1 mesh
+    (``--sharded``, a one-rank gloo group); ``--model-par 2`` on a one-rank
+    group fails with ``make_host_mesh``'s message."""
     from repro_torch.checkpoint import latest_step
     from repro_torch.launch import train as LT
 
@@ -271,5 +272,14 @@ def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     LT.main([*base, "--steps", "5"])           # resumes at step 3
     out = capsys.readouterr().out
     assert "done: steps=5 first_loss=" in out and latest_step(str(tmp_path)) == 5
-    with pytest.raises(SystemExit):
-        LT.main(["--arch", "stablelm-3b", "--smoke", "--device", "cpu", "--model-par", "2"])
+    with pytest.raises(ValueError, match="model axis 2 does not divide the 1 local devices"):
+        LT.main(["--arch", "stablelm-3b", "--smoke", "--device", "cpu", "--model-par", "2",
+                 "--ckpt-dir", str(tmp_path / "refused")])
+    sharded = [*base[:-1], str(tmp_path / "sharded"), "--sharded"]
+    LT.main([*sharded, "--steps", "3"])
+    out = capsys.readouterr().out
+    assert "training mesh: {'data': 1, 'model': 1}" in out
+    assert "done: steps=3 first_loss=" in out and latest_step(str(tmp_path / "sharded")) == 3
+    LT.main([*sharded, "--steps", "5"])        # resumes at step 3, on the mesh
+    out = capsys.readouterr().out
+    assert "done: steps=5 first_loss=" in out and latest_step(str(tmp_path / "sharded")) == 5
